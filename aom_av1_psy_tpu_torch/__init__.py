@@ -1,0 +1,27 @@
+"""aom_av1_psy_tpu_torch — the PyTorch + CUDA port of the fused all-intra
+encoder of ``aom_av1_psy_tpu``.
+
+The JAX package stays the reference; this package mirrors its module paths
+(``encoder/tpu_intra.py``, ``encoder/tpu_intra_dir.py``,
+``encoder/tpu_frame.py``, ``ops/txfm.py``, ``ops/deblock_torch.py``) so
+each counterpart is easy to find. It imports ``torch`` and never ``jax``;
+the host layers it shares with the reference (``normative/``,
+``bitstream/``, ``ec/`` + the native range coder, ``decoder/``,
+``utils/``, ``encoder/frame.py``, ``encoder/psy.py``, the numpy constants
+of ``ops/txfm.py`` and ``ops/intra.py``) are JAX-free.
+
+Device work runs as plain torch ops plus three hand-written CUDA kernels
+(``csrc/``), each beside a plain PyTorch version of the same function:
+
+- KA ``intra_pred_sse`` (``ops/intra_pred.py``): all intra candidates of a
+  block (edge buffer, plain + directional predictions) and their SSE;
+- KB ``txq_recon_skip`` (``ops/txq.py``): forward transform, quantize,
+  dequantize, inverse transform + recon and the skip-RD decision;
+- KC ``lpf_ladder`` (``ops/deblock_torch.py``): the loop-filter level
+  ladder with an exact per-level SSE.
+
+A wrapper runs the plain version for CPU tensors and the kernel for CUDA
+tensors; there is no fallback from one to the other.
+"""
+
+__version__ = "0.1.0"

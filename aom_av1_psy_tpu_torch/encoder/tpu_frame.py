@@ -1,0 +1,443 @@
+"""The all-intra KEY-frame encoder on the port — torch counterpart of
+``aom_av1_psy_tpu/encoder/tpu_frame.py`` (``TpuFrameEncoder``).
+
+Pipeline (slice 1): the two-level 32 -> 16 partition plan on the device
+(``tpu_intra.plan_frame_part``), ONE native pack call over the plan
+(``native/ec.cpp ec_enc_pack_kf_part2`` through the shared
+``ec.native_coder``), then the device loop-filter ladder
+(``ops/deblock_torch.lpf_pick_and_filter``). The host code (headers, the
+rdmult grids, the pack's array marshalling, the smooth-64 fallback) is
+carried over from the reference module, which imports jax and therefore is
+never imported here.
+
+Configurations outside the slice raise ``NotImplementedError`` naming the
+later slice that ports them; they never route to the JAX package.
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from aom_av1_psy_tpu.bitstream.bitio import BitWriter, write_leb128
+from aom_av1_psy_tpu.decoder.obu import Av1Decoder
+from aom_av1_psy_tpu.bitstream.headers import (FrameHeader, SequenceHeader,
+                                               TileInfo, write_frame_header)
+from aom_av1_psy_tpu.ec.context import FrameContext
+from aom_av1_psy_tpu.ec.native_coder import (NativeEncoder, available,
+                                             native_pack_kf_part2)
+from aom_av1_psy_tpu.encoder.frame import EncoderConfig
+from aom_av1_psy_tpu.normative import tables
+from aom_av1_psy_tpu.normative.blocks import (EXT_TX_IND,
+                                              EXT_TX_SET_INDEX_INTRA,
+                                              INTRA_MODE_CONTEXT,
+                                              NUM_EXT_TX_SET,
+                                              PARTITION_CTX_ABOVE,
+                                              PARTITION_CTX_LEFT)
+from aom_av1_psy_tpu.normative.enums import BlockSize, TxSize
+from aom_av1_psy_tpu.normative.txsize import (TXSIZE_LOG2_MINUS4, TXSIZE_SQR,
+                                              txsize_entropy_ctx)
+from aom_av1_psy_tpu.utils.frame import Frame
+from .. import convert
+from ..device import resolve_device
+from ..ops import deblock_torch as DT
+from . import tpu_intra
+
+
+def _pad_plane(src: np.ndarray, h: int, w: int) -> np.ndarray:
+    """Edge-replicate src up to (h, w), int32."""
+    out = np.empty((h, w), np.int32)
+    sh, sw = src.shape
+    out[:sh, :sw] = src
+    if sw < w:
+        out[:sh, sw:] = out[:sh, sw - 1:sw]
+    if sh < h:
+        out[sh:, :] = out[sh - 1:sh, :]
+    return out
+
+
+class GpuFrameEncoder:
+    """Encodes one all-intra KEY frame through the device plan + native
+    pack + device loop filter. API mirror of ``TpuFrameEncoder``; after
+    ``encode()`` it holds ``plan``, ``seq``, ``fh``, ``saved_fc``,
+    ``ref_planes_dev`` (post-LPF planes on ``device``) and ``timings``
+    (``plan_s``, ``pack_s``)."""
+
+    def __init__(self, frame: Frame, cfg: EncoderConfig, device="cuda"):
+        if not available():
+            raise RuntimeError("the encoder requires the native EC library")
+        if cfg.lossless or cfg.base_q_idx == 0:
+            raise NotImplementedError("lossless uses FrameEncoder (WHT)")
+        if cfg.tune_vmaf:
+            raise NotImplementedError("tune_vmaf preprocessing is slice 6")
+        if cfg.search_cdef or cfg.cdef_fixed:
+            raise NotImplementedError("CDEF on the device is slice 2")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.src = frame
+        self.w, self.h = frame.width, frame.height
+        self.mi_cols = (self.w + 7) // 8 * 2
+        self.mi_rows = (self.h + 7) // 8 * 2
+        self.nplanes = 1 if frame.monochrome else 3
+        pw, ph = self.mi_cols * 4, self.mi_rows * 4
+
+        self.use_part = (
+            cfg.block_size >= int(BlockSize.BLOCK_16X16)
+            and tpu_intra.plan_part_supported(self.mi_rows, self.mi_cols))
+        if not self.use_part:
+            raise NotImplementedError(
+                "the uniform-grid plan (block_size < 16 or mi dims = 2 mod "
+                "8) is slice 5")
+        # blocks may overhang the mi area at the frame edge (legal: the
+        # decoder clips recon writes); pad source to 32 multiples
+        pw32 = (pw + 31) // 32 * 32
+        ph32 = (ph + 31) // 32 * 32
+        sb_cols = (self.mi_cols + 15) // 16
+        T = 1 << cfg.tile_cols_log2
+        if T > 1 and sb_cols % T == 0:
+            raise NotImplementedError("tile columns are slice 3")
+        self.R, self.C = ph32 // 16, pw32 // 16   # 16-px rdmult grid
+        planes = frame.planes()
+        self.srcp = [_pad_plane(planes[0].astype(np.int32), ph32, pw32)]
+        if self.nplanes > 1:
+            for p in (1, 2):
+                self.srcp.append(_pad_plane(planes[p].astype(np.int32),
+                                            ph32 // 2, pw32 // 2))
+
+        from aom_av1_psy_tpu.ec import costs as EC_costs
+        self.rdmult = EC_costs.compute_rd_mult(cfg.base_q_idx)
+        if cfg.tune_psy:
+            # per-block SSIM/psy rdmult grid (av1_set_ssim_rdmult,
+            # encodeframe_utils.c:20; factors encoder_utils.c:1281)
+            from aom_av1_psy_tpu.encoder import psy as psy_mod
+            f = psy_mod.ssim_rdmult_scaling_factors(planes[0])
+            self.rdmult = self._rdmult_grid(self.rdmult, f)
+        elif cfg.tune_butteraugli:
+            from aom_av1_psy_tpu.encoder import psy as psy_mod
+            f = psy_mod.butteraugli_lite_factors(planes[0])
+            self.rdmult = self._rdmult_grid(self.rdmult, f)
+
+    def _rdmult_grid(self, rdmult: int, factors: np.ndarray) -> np.ndarray:
+        """(R, C) per-16x16 lambda from per-16x16 SSIM factors."""
+        R, C = self.R, self.C
+        logs = np.log(factors)
+        out = np.full((R, C), np.log(1.0), np.float64)
+        rr, cc = min(R, logs.shape[0]), min(C, logs.shape[1])
+        out[:rr, :cc] = logs[:rr, :cc]
+        if rr < R:
+            out[rr:, :] = out[rr - 1:rr, :]
+        if cc < C:
+            out[:, cc:] = out[:, cc - 1:cc]
+        return (rdmult * np.exp(out)).astype(np.float32)
+
+    # -- headers (mirrors FrameEncoder.make_headers for this feature set) --
+    def make_headers(self) -> tuple[SequenceHeader, FrameHeader]:
+        seq = SequenceHeader(
+            max_frame_width=self.w, max_frame_height=self.h,
+            frame_width_bits=max(self.w - 1, 1).bit_length(),
+            frame_height_bits=max(self.h - 1, 1).bit_length(),
+            enable_filter_intra=False, enable_intra_edge_filter=True,
+            enable_cdef=False, enable_restoration=False,
+            monochrome=self.nplanes == 1)
+        fh = FrameHeader(width=self.w, height=self.h,
+                         render_width=self.w, render_height=self.h)
+        fh.quant.base_q_idx = self.cfg.base_q_idx
+        fh.tx_mode_select = False  # TX_MODE_LARGEST
+        fh.tiles = TileInfo()
+        # keyframe first-guess filter level (av1/encoder/picklpf.c:247)
+        q = tables.ac_quant(self.cfg.base_q_idx)
+        guess = (q * 17563 - 421574 + (1 << 17)) >> 18
+        lvl = int(np.clip(guess, 0, 63))
+        fh.lf.filter_level = (lvl, lvl)
+        fh.lf.filter_level_u = lvl
+        fh.lf.filter_level_v = lvl
+        return seq, fh
+
+    # ------------------------------------------------------------------
+    def encode(self, include_seq: bool = True) -> bytes:
+        seq, fh = self.make_headers()
+        self.seq, self.fh = seq, fh
+        fc = FrameContext(self.cfg.base_q_idx)
+
+        t0 = time.perf_counter()
+        plan = tpu_intra.plan_frame_part(
+            self.srcp, self.cfg.base_q_idx, fc, self.rdmult, self.mi_rows,
+            self.mi_cols, device=self.device)
+        t1 = time.perf_counter()
+        self.plan = plan
+        tile_data = self._pack2(plan, fc, fh)
+        # device LPF: pick per-plane levels on the device and keep the
+        # post-LPF recon there — it is the inter reference chain
+        self._lpf_device(fh)
+        self.timings = {"plan_s": t1 - t0, "pack_s": time.perf_counter() - t1}
+        # end-of-frame entropy state, counter-reset as the decoder's
+        # _update_ref_slots does (a following INTER frame forwards it)
+        fc.reset_counters()
+        self.saved_fc = fc
+
+        td = bytes([0x12, 0x00])
+        seq_obu = b""
+        if include_seq:
+            w = BitWriter()
+            seq.write(w)
+            w.trailing_bits()
+            payload = w.data()
+            seq_obu = bytes([0x0A]) + write_leb128(len(payload)) + payload
+        w = BitWriter()
+        write_frame_header(w, seq, fh)
+        w.byte_align()
+        frame_payload = w.data() + tile_data
+        frame_obu = bytes([0x32]) + write_leb128(len(frame_payload)) \
+            + frame_payload
+        pkt = td + seq_obu + frame_obu
+        self.picked_smooth64 = False
+        if self._smooth64_eligible():
+            pkt = self._pick_smooth64(pkt, include_seq)
+        return pkt
+
+    # ------------------------------------------------------------------
+    def _smooth64_eligible(self) -> bool:
+        """Cheap gate for the uniform-64 fallback: only frames whose
+        high-frequency energy is far below typical noise can win with
+        64x64 DC/SMOOTH coding."""
+        if not (self.cfg.try_smooth64 and min(self.w, self.h) >= 64):
+            return False
+        y = self.src.planes()[0].astype(np.float32)
+        p = np.pad(y, 1, mode="edge")
+        b = sum(p[r:r + y.shape[0], c:c + y.shape[1]]
+                for r in range(3) for c in range(3)) / 9.0
+        hf = float(np.mean((y - b) ** 2))
+        return hf < 10.0
+
+    def _pick_smooth64(self, pkt_fused: bytes, include_seq: bool) -> bytes:
+        """Frame-level RD pick between the fused 32/16 stream and a uniform
+        BLOCK_64X64 + TX_64X64 stream from the host ``FrameEncoder``. Both
+        are decoded with the in-repo decoder for the exact in-loop
+        distortion; the winner's recon/entropy/header state is kept."""
+        import dataclasses
+        from aom_av1_psy_tpu.encoder.frame import FrameEncoder
+
+        cfg64 = dataclasses.replace(
+            self.cfg, block_size=int(BlockSize.BLOCK_64X64),
+            adaptive_partition=False, search_cdef=False, cdef_fixed=False,
+            tile_cols_log2=0, try_smooth64=False, tune_vmaf=False)
+        host = FrameEncoder(self.src, cfg64)
+        pkt64 = host.encode(include_seq=include_seq)
+
+        def _dist(pkt, seq):
+            data = pkt
+            if not include_seq:
+                w = BitWriter()
+                seq.write(w)
+                w.trailing_bits()
+                payload = w.data()
+                data = pkt[:2] + bytes([0x0A]) \
+                    + write_leb128(len(payload)) + payload + pkt[2:]
+            rec = Av1Decoder().decode_packet(data)[0]
+            sse = 0.0
+            for a, b in zip(rec.planes()[: self.nplanes],
+                            self.src.planes()[: self.nplanes]):
+                d = a.astype(np.float64) - b.astype(np.float64)
+                sse += float((d * d).sum())
+            return sse, rec
+
+        sse_f, _ = _dist(pkt_fused, self.seq)
+        sse_6, rec_6 = _dist(pkt64, host.seq)
+        from aom_av1_psy_tpu.ec import costs as EC_costs
+        lam = float(EC_costs.compute_rd_mult(self.cfg.base_q_idx))
+        rd_f = 2048.0 * sse_f + lam / 512.0 * 8.0 * len(pkt_fused)
+        rd_6 = 2048.0 * sse_6 + lam / 512.0 * 8.0 * len(pkt64)
+        self.picked_smooth64 = bool(rd_6 < rd_f)
+        if not self.picked_smooth64:
+            return pkt_fused
+        self.seq, self.fh = host.seq, host.fh
+        host.fc.reset_counters()
+        self.saved_fc = host.fc
+        pads = []
+        for i, pl in enumerate(rec_6.planes()[: self.nplanes]):
+            th, tw = self.srcp[i].shape
+            a = np.asarray(pl, np.int32)
+            a = np.pad(a, ((0, th - a.shape[0]), (0, tw - a.shape[1])),
+                       mode="edge")
+            pads.append(convert.plane(a, self.device))
+        self.ref_planes_dev = pads
+        return pkt64
+
+    # ------------------------------------------------------------------
+    def _split16_frame(self) -> np.ndarray:
+        """(2R, 2C) per-16px-cell split map."""
+        sp = self.plan["split32"]
+        return np.repeat(np.repeat(sp.astype(bool), 2, 0), 2, 1)
+
+    def _recon_dev_frame(self):
+        """Frame recon planes on the device."""
+        return list(self.plan["recon_dev"])
+
+    def _lpf_device(self, fh: FrameHeader) -> None:
+        """Pick + apply the loop filter on the device. With
+        ``cfg.search_lpf`` a 6-rung ladder around the q-derived first guess
+        is evaluated per plane; otherwise the first guess is applied.
+        Sets ``fh.lf`` and ``self.ref_planes_dev`` (post-LPF recon)."""
+        dev = self.device
+        split16 = torch.as_tensor(self._split16_frame(), device=dev)
+        recs = self._recon_dev_frame()
+        w, h = self.mi_cols * 4, self.mi_rows * 4
+        if self.cfg.search_lpf:
+            g = fh.lf.filter_level[0]
+            cands = torch.tensor([0, g // 2, max(g - 2, 0), g,
+                                  min(g + 2, 63), min(g * 2, 63)],
+                                 dtype=torch.int32, device=dev)
+            srcs = tuple(convert.plane(p, dev)
+                         for p in self.srcp[: self.nplanes])
+            levels, outs = DT.lpf_pick_and_filter(
+                tuple(recs), srcs, split16, cands, w=w, h=h,
+                nplanes=self.nplanes)
+            lv = [int(x) for x in levels.cpu().numpy()]
+            fh.lf.filter_level = (lv[0], lv[0])
+            fh.lf.filter_level_u = lv[1]
+            fh.lf.filter_level_v = lv[2]
+        else:
+            lv = [fh.lf.filter_level[0], fh.lf.filter_level_u,
+                  fh.lf.filter_level_v]
+            outs = DT.lpf_apply(tuple(recs), split16,
+                                torch.tensor(lv, dtype=torch.int32,
+                                             device=dev),
+                                w=w, h=h, nplanes=self.nplanes)
+        self.ref_planes_dev = list(outs)
+
+    # ------------------------------------------------------------------
+    def _pack2(self, plan: dict, fc: FrameContext, fh: FrameHeader) -> bytes:
+        """Two-level partition pack: one native call over the 32/16 tree
+        (native/ec.cpp ec_enc_pack_kf_part2), single tile."""
+        plan_modes = np.asarray(tpu_intra.PLAN_MODES, np.int32)
+        R2, C2 = plan["y_mode16"].shape
+        Rc, Cc = R2 // 2, C2 // 2
+
+        def av1_modes(idx):
+            # chroma plans store extension-free PLAN indices; luma modes
+            # come out of the wavefront as AV1 ids already
+            return np.ascontiguousarray(plan_modes[idx], np.int32)
+
+        tx32, tx16, tx8 = (int(TxSize.TX_32X32), int(TxSize.TX_16X16),
+                           int(TxSize.TX_8X8))
+        e32, e16, e8 = (txsize_entropy_ctx(t) for t in (tx32, tx16, tx8))
+        # TX_16X16 luma tx-type coding (set 2, DCT symbol)
+        set_type = 2
+        eset = EXT_TX_SET_INDEX_INTRA[set_type]
+        ext_tx16 = np.ascontiguousarray(
+            fc.intra_ext_tx_cdf[eset][int(TXSIZE_SQR[tx16])])
+        fc.intra_ext_tx_cdf[eset][int(TXSIZE_SQR[tx16])] = ext_tx16
+
+        if self.nplanes > 1:
+            uv_mode16 = av1_modes(plan["uv_mode16"])
+            uv_mode8 = av1_modes(plan["uv_mode8"])
+            uv_lv16 = np.ascontiguousarray(plan["uv_levels16"], np.int32)
+            uv_lv8 = np.ascontiguousarray(plan["uv_levels8"], np.int32)
+            uv_eob16 = np.ascontiguousarray(plan["uv_eob16"], np.int32)
+            uv_eob8 = np.ascontiguousarray(plan["uv_eob8"], np.int32)
+        else:
+            uv_mode16 = np.zeros((Rc, Cc), np.int32)
+            uv_mode8 = np.zeros((R2, C2), np.int32)
+            uv_lv16 = np.zeros((2, Rc, Cc, 256), np.int32)
+            uv_lv8 = np.zeros((2, R2, C2, 64), np.int32)
+            uv_eob16 = np.zeros((2, Rc, Cc), np.int32)
+            uv_eob8 = np.zeros((2, R2, C2), np.int32)
+
+        # per-mi skip map (for filter searches / debug)
+        skip32 = (plan["y_eob32"] == 0) & (uv_eob16 == 0).all(0)
+        skip16 = (plan["y_eob16"] == 0) & (uv_eob8 == 0).all(0)
+        sp = plan["split32"].astype(bool)
+        skip_blk = np.where(np.repeat(np.repeat(sp, 2, 0), 2, 1), skip16,
+                            np.repeat(np.repeat(skip32, 2, 0), 2, 1))
+        self.mi_skip = np.repeat(
+            np.repeat(skip_blk.astype(np.int32), 4, 0),
+            4, 1)[: self.mi_rows, : self.mi_cols]
+
+        arrays = {
+            "split32": np.ascontiguousarray(plan["split32"], np.uint8),
+            "y_mode32": np.ascontiguousarray(plan["y_mode32"], np.int32),
+            "y_mode16": np.ascontiguousarray(plan["y_mode16"], np.int32),
+            "y_delta32": np.ascontiguousarray(plan["y_delta32"], np.int32),
+            "y_delta16": np.ascontiguousarray(plan["y_delta16"], np.int32),
+            "y_lv32": np.ascontiguousarray(plan["y_levels32"], np.int32),
+            "y_lv16": np.ascontiguousarray(plan["y_levels16"], np.int32),
+            "y_eob32": np.ascontiguousarray(plan["y_eob32"], np.int32),
+            "y_eob16": np.ascontiguousarray(plan["y_eob16"], np.int32),
+            "uv_mode16": uv_mode16, "uv_mode8": uv_mode8,
+            "uv_lv16": uv_lv16, "uv_lv8": uv_lv8,
+            "uv_eob16": uv_eob16, "uv_eob8": uv_eob8,
+            "scan32": np.ascontiguousarray(tables.scan_table(tx32, 0),
+                                           np.int32),
+            "scan16": np.ascontiguousarray(tables.scan_table(tx16, 0),
+                                           np.int32),
+            "scan8": np.ascontiguousarray(tables.scan_table(tx8, 0),
+                                          np.int32),
+            "nzoff32": np.ascontiguousarray(
+                tables.get(f"nz_map_ctx_offset_ts{tx32}"), np.int32),
+            "nzoff16": np.ascontiguousarray(
+                tables.get(f"nz_map_ctx_offset_ts{tx16}"), np.int32),
+            "nzoff8": np.ascontiguousarray(
+                tables.get(f"nz_map_ctx_offset_ts{tx8}"), np.int32),
+            "eob_group_start": np.ascontiguousarray(
+                tables.get("eob_group_start"), np.int32),
+            "eob_offset_bits": np.ascontiguousarray(
+                tables.get("eob_offset_bits"), np.int32),
+            "intra_mode_ctx": np.ascontiguousarray(INTRA_MODE_CONTEXT,
+                                                   np.int32),
+            "part_cdf": fc.partition_cdf, "skip_cdf": fc.skip_txfm_cdfs,
+            "kf_y_cdf": fc.kf_y_cdf, "angle_cdf": fc.angle_delta_cdf,
+            "uv_cdf": np.ascontiguousarray(fc.uv_mode_cdf[1]),
+            "ext_tx16": ext_tx16,
+            "txb_skip_y32": fc.txb_skip_cdf[e32],
+            "txb_skip_y16": fc.txb_skip_cdf[e16],
+            "txb_skip_uv16": fc.txb_skip_cdf[e16],
+            "txb_skip_uv8": fc.txb_skip_cdf[e8],
+            "eob_y32": fc.eob_flag_cdf1024[0][0],
+            "eob_y16": fc.eob_flag_cdf256[0][0],
+            "eob_uv16": fc.eob_flag_cdf256[1][0],
+            "eob_uv8": fc.eob_flag_cdf64[1][0],
+            "eobex_y32": fc.eob_extra_cdf[e32][0],
+            "eobex_y16": fc.eob_extra_cdf[e16][0],
+            "eobex_uv16": fc.eob_extra_cdf[e16][1],
+            "eobex_uv8": fc.eob_extra_cdf[e8][1],
+            "beob_y32": fc.coeff_base_eob_cdf[e32][0],
+            "beob_y16": fc.coeff_base_eob_cdf[e16][0],
+            "beob_uv16": fc.coeff_base_eob_cdf[e16][1],
+            "beob_uv8": fc.coeff_base_eob_cdf[e8][1],
+            "base_y32": fc.coeff_base_cdf[e32][0],
+            "base_y16": fc.coeff_base_cdf[e16][0],
+            "base_uv16": fc.coeff_base_cdf[e16][1],
+            "base_uv8": fc.coeff_base_cdf[e8][1],
+            "br_y32": fc.coeff_br_cdf[min(e32, 3)][0],
+            "br_y16": fc.coeff_br_cdf[min(e16, 3)][0],
+            "br_uv16": fc.coeff_br_cdf[min(e16, 3)][1],
+            "br_uv8": fc.coeff_br_cdf[min(e8, 3)][1],
+            "dcs_y": fc.dc_sign_cdf[0],
+            "dcs_uv": fc.dc_sign_cdf[1],
+        }
+        for k, v in arrays.items():
+            assert v.flags["C_CONTIGUOUS"], k
+        self._keepalive = arrays
+        bs32 = int(BlockSize.BLOCK_32X32)
+        bs16 = int(BlockSize.BLOCK_16X16)
+        scalars = {
+            "R": Rc, "C": Cc,
+            "mi_rows": self.mi_rows, "mi_cols": self.mi_cols,
+            "mi_col_off": 0, "mi_cols_frame": self.mi_cols,
+            "nplanes": self.nplanes,
+            "eobn_y32": 5 + int(TXSIZE_LOG2_MINUS4[tx32]),
+            "eobn_y16": 5 + int(TXSIZE_LOG2_MINUS4[tx16]),
+            "eobn_uv16": 5 + int(TXSIZE_LOG2_MINUS4[tx16]),
+            "eobn_uv8": 5 + int(TXSIZE_LOG2_MINUS4[tx8]),
+            "txt16_nsyms": int(NUM_EXT_TX_SET[set_type]),
+            "txt16_sym": int(EXT_TX_IND[set_type][0]),
+            "pctx_a32": int(PARTITION_CTX_ABOVE[bs32]),
+            "pctx_l32": int(PARTITION_CTX_LEFT[bs32]),
+            "pctx_a16": int(PARTITION_CTX_ABOVE[bs16]),
+            "pctx_l16": int(PARTITION_CTX_LEFT[bs16]),
+        }
+        enc = NativeEncoder()
+        enc.allow_update = not fh.disable_cdf_update
+        native_pack_kf_part2(enc, arrays, scalars)
+        return enc.done()
