@@ -56,3 +56,19 @@ def planes_from_jax(arrs: dict, device) -> dict:
         if k in out:
             out[k] = [plane(p, device) for p in out[k]]
     return out
+
+
+def chain_from_jax(enc, device) -> dict:
+    """The GOP state a JAX encoder (``TpuFrameEncoder`` or
+    ``TpuInterFrameEncoder``) leaves behind, as the inputs of the port's
+    ``GpuInterFrameEncoder``: ``seq``, ``prev_fc`` (its counter-reset
+    ``saved_fc``) and ``ref_planes`` (``ref_planes_out`` of an inter frame,
+    else ``ref_planes_dev``; jax arrays are read with ``np.asarray``) as
+    int32 tensors on ``device``. Use as
+    ``GpuInterFrameEncoder(frame, cfg, crop_w=..., crop_h=...,
+    **chain_from_jax(enc, device), device=device)``."""
+    planes = getattr(enc, "ref_planes_out", None)
+    if planes is None:
+        planes = enc.ref_planes_dev
+    return {"seq": enc.seq, "prev_fc": enc.saved_fc,
+            "ref_planes": [plane(np.asarray(p), device) for p in planes]}

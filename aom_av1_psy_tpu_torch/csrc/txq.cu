@@ -21,7 +21,8 @@
 // hard-coded butterflies. Products are int64 truncated to int32 so the
 // wraparound equals jnp's; the float32 skip-RD runs with --fmad=false in
 // the reference's order of operations; the per-level rate sum is exact in
-// half units; floor(log2) is the integer bit length.
+// half units; floor(log2) is the integer bit length, except on the golomb
+// tail, where golomb_floor_log2 repeats the reference's float32 mis-floors.
 #include "common.cuh"
 
 namespace {
@@ -46,6 +47,14 @@ struct KBArgs {
   float* sse;           // (B,)
   float* rate;          // (B,)
 };
+
+// The reference floors log2(big) of the golomb tail in float32
+// (tpu_intra.py:538-541); XLA's log2 of 8192.0 and 32768.0 lands just below
+// 13 and 15, so it charges one bit length less there (ops/txq.py
+// GOLOMB_MISFLOORS).
+__device__ __forceinline__ int golomb_floor_log2(int big) {  // big >= 1
+  return floor_log2(big) - (big == 8192 || big == 32768 ? 1 : 0);
+}
 
 // av1_round_shift_array: bit > 0 round-shifts down, bit < 0 scales up.
 __device__ __forceinline__ int round_shift_arr(int x, int bit) {
@@ -136,7 +145,7 @@ __global__ void kb_kernel(KBArgs a) {
       ++nnz;
       s2 += (long long)(a.lvl_tbl[al < 15 ? al : 15] * 2.0f);
     }
-    if (al >= 15) gol += (2 * floor_log2(max(al - 14, 1)) + 1) * 512;
+    if (al >= 15) gol += (2 * golomb_floor_log2(max(al - 14, 1)) + 1) * 512;
   }
   const int eob = block_max<int>(e_loc, red);
   nnz = block_sum<int>(nnz, red);

@@ -1,12 +1,14 @@
 """The all-intra KEY-frame encoder on the port — torch counterpart of
 ``aom_av1_psy_tpu/encoder/tpu_frame.py`` (``TpuFrameEncoder``).
 
-Pipeline (slice 1): the two-level 32 -> 16 partition plan on the device
+Pipeline: the two-level 32 -> 16 partition plan on the device
 (``tpu_intra.plan_frame_part``), ONE native pack call over the plan
 (``native/ec.cpp ec_enc_pack_kf_part2`` through the shared
-``ec.native_coder``), then the device loop-filter ladder
-(``ops/deblock_torch.lpf_pick_and_filter``). The host code (headers, the
-rdmult grids, the pack's array marshalling, the smooth-64 fallback) is
+``ec.native_coder``), the device loop-filter ladder
+(``ops/deblock_torch.lpf_pick_and_filter``) and, with ``cdef_fixed``, the
+quantizer-derived CDEF applied on the device (``apply_cdef_refs``, kernel
+KF). The host code (headers, the rdmult grids, the pack's array
+marshalling, the smooth-64 fallback, the CDEF strengths and gate) is
 carried over from the reference module, which imports jax and therefore is
 never imported here.
 
@@ -71,8 +73,10 @@ class GpuFrameEncoder:
             raise NotImplementedError("lossless uses FrameEncoder (WHT)")
         if cfg.tune_vmaf:
             raise NotImplementedError("tune_vmaf preprocessing is slice 6")
-        if cfg.search_cdef or cfg.cdef_fixed:
-            raise NotImplementedError("CDEF on the device is slice 2")
+        if cfg.search_cdef:
+            raise NotImplementedError(
+                "the KEY-frame CDEF strength search (_search_cdef_fused) "
+                "is ROADMAP queue 1")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.src = frame
@@ -133,16 +137,20 @@ class GpuFrameEncoder:
 
     # -- headers (mirrors FrameEncoder.make_headers for this feature set) --
     def make_headers(self) -> tuple[SequenceHeader, FrameHeader]:
+        use_cdef = bool(self.cfg.cdef_fixed)
         seq = SequenceHeader(
             max_frame_width=self.w, max_frame_height=self.h,
             frame_width_bits=max(self.w - 1, 1).bit_length(),
             frame_height_bits=max(self.h - 1, 1).bit_length(),
             enable_filter_intra=False, enable_intra_edge_filter=True,
-            enable_cdef=False, enable_restoration=False,
+            enable_cdef=use_cdef, enable_restoration=False,
             monochrome=self.nplanes == 1)
         fh = FrameHeader(width=self.w, height=self.h,
                          render_width=self.w, render_height=self.h)
         fh.quant.base_q_idx = self.cfg.base_q_idx
+        if use_cdef:
+            # damping derivation: av1/encoder/pickcdef.c:745
+            fh.cdef.damping = 3 + (self.cfg.base_q_idx >> 6)
         fh.tx_mode_select = False  # TX_MODE_LARGEST
         fh.tiles = TileInfo()
         # keyframe first-guess filter level (av1/encoder/picklpf.c:247)
@@ -171,6 +179,14 @@ class GpuFrameEncoder:
         # post-LPF recon there — it is the inter reference chain
         self._lpf_device(fh)
         self.timings = {"plan_s": t1 - t0, "pack_s": time.perf_counter() - t1}
+        if seq.enable_cdef:
+            # cdef_fixed: quantizer-derived strengths (header bits only),
+            # then the reference chain is made post-CDEF like the
+            # decoder's, with host-exact directions and the A/B gate
+            cdef_fixed_strengths(fh, self.cfg.base_q_idx)
+            self.ref_planes_dev = apply_cdef_refs(
+                self.ref_planes_dev, self.mi_skip, fh, self.mi_rows,
+                self.mi_cols, self.nplanes, srcs=self.srcp)
         # end-of-frame entropy state, counter-reset as the decoder's
         # _update_ref_slots does (a following INTER frame forwards it)
         fc.reset_counters()
@@ -441,3 +457,78 @@ class GpuFrameEncoder:
         enc.allow_update = not fh.disable_cdf_update
         native_pack_kf_part2(enc, arrays, scalars)
         return enc.done()
+
+
+def cdef_fixed_strengths(fh: FrameHeader, q: int) -> None:
+    """Quantizer-derived frame-level CDEF strengths (encoder heuristic;
+    any signalled strength conforms). Carried over from the reference
+    (``tpu_frame.py:883-893``)."""
+    c = fh.cdef
+    c.bits = 0
+    ypri = int(np.clip((q - 16) // 48, 0, 8))
+    ysec = 1 if q >= 80 else 0
+    c.y_pri, c.y_sec = [ypri], [ysec]
+    c.uv_pri, c.uv_sec = [max(ypri - 1, 0)], [ysec]
+    fh.cdef.damping = 3 + (q >> 6)
+
+
+def apply_cdef_refs(planes_dev, mi_skip, fh: FrameHeader, mi_rows: int,
+                    mi_cols: int, nplanes: int, srcs=None):
+    """Apply the frame's CDEF to the (post-LPF) reference planes on the
+    device (``ops/cdef_torch.cdef_apply_fused``, kernel KF), with the
+    NORMATIVE direction search on the host (``ops/cdef.find_dir_blocks``,
+    exact int64, after one device->host copy of luma). Returns new device
+    planes. Carried over from the reference (``tpu_frame.py:896-946``).
+
+    When ``srcs`` (source planes) are given, the strengths are A/B gated:
+    if the filtered frame's source error is not clearly lower, the
+    strengths are zeroed in ``fh`` and the input planes returned. The
+    reference sums each plane's squared error in float32; here each is
+    exact (int64), converted to float32, and the planes are added in the
+    reference's order before ``e1 < 0.98 * e0`` in float32."""
+    from aom_av1_psy_tpu.ops.cdef import find_dir_blocks
+    from ..ops import cdef_torch as CT
+    c = fh.cdef
+    ysec = c.y_sec[0] + (c.y_sec[0] == 3)
+    usec = c.uv_sec[0] + (c.uv_sec[0] == 3)
+    if c.y_pri[0] == 0 and ysec == 0 and c.uv_pri[0] == 0 and usec == 0:
+        return planes_dev
+    dev = planes_dev[0].device
+    mh, mw = mi_rows * 4, mi_cols * 4
+    nbr, nbc = mh // 8, mw // 8
+    y_host = planes_dev[0][:mh, :mw].cpu().numpy()
+    yb = y_host.reshape(nbr, 8, nbc, 8).transpose(0, 2, 1, 3) \
+        .reshape(-1, 8, 8)
+    dirs, var = find_dir_blocks(yb, 0)
+    sk = np.ones((nbr * 2, nbc * 2), np.int32)
+    sk[:mi_rows, :mi_cols] = mi_skip
+    skip8 = sk.reshape(nbr, 2, nbc, 2).all((1, 3))
+    outs = CT.cdef_apply_fused(
+        tuple(planes_dev[:nplanes]), torch.as_tensor(skip8, device=dev),
+        torch.as_tensor(dirs.astype(np.int32), device=dev),
+        torch.as_tensor(var.astype(np.int32), device=dev),
+        c.y_pri[0], ysec, c.uv_pri[0], usec, c.damping,
+        mi_rows=mi_rows, mi_cols=mi_cols, nplanes=nplanes)
+    if srcs is not None:
+        dims = [(mh, mw)] + [(mh // 2, mw // 2)] * (nplanes - 1)
+        src_d = [convert.plane(s[:sh, :sw], dev)
+                 for s, (sh, sw) in zip(srcs, dims)]
+
+        def sq_err(pl, src):
+            d = (pl[:src.shape[0], :src.shape[1]] - src).to(torch.int64)
+            return (d * d).sum()
+
+        errs = torch.stack([sq_err(p, s) for p, s in zip(planes_dev, src_d)]
+                           + [sq_err(p, s) for p, s in zip(outs, src_d)])
+        e = errs.cpu().numpy().astype(np.float32)
+        e0, e1 = e[0], e[nplanes]
+        for i in range(1, nplanes):
+            e0 = e0 + e[i]
+            e1 = e1 + e[nplanes + i]
+        # require a clear win: marginal filtering denoises the recon at
+        # the cost of re-coding that noise in every following frame
+        if not e1 < np.float32(0.98) * e0:
+            c.y_pri, c.y_sec = [0], [0]
+            c.uv_pri, c.uv_sec = [0], [0]
+            return planes_dev
+    return list(outs)

@@ -167,6 +167,26 @@ def plan_part_supported(mi_rows: int, mi_cols: int) -> bool:
     return mi_rows % 8 != 2 and mi_cols % 8 != 2
 
 
+def edge_cell_masks(R: int, C: int, mi_rows: int, mi_cols: int):
+    """(forced, no_split) (R, C) bool masks of the 32-px cells: splits the
+    decoder implies at the frame edge (has_rows/has_cols false), and cells
+    that must NOT split because a visited 16 sub-block would be partial
+    (no square leaf available there). Shared by the intra and inter
+    plans, as in the reference."""
+    rr = 8 * np.arange(R)[:, None]
+    cc = 8 * np.arange(C)[None, :]
+    forced = ((rr + 4 >= mi_rows) | (cc + 4 >= mi_cols))
+    no_split = np.zeros((R, C), bool)
+    for qr in (0, 1):
+        for qc in (0, 1):
+            sr, sc = rr + 4 * qr, cc + 4 * qc
+            visited = (sr < mi_rows) & (sc < mi_cols)
+            partial = visited & ((sr + 2 >= mi_rows) | (sc + 2 >= mi_cols))
+            no_split |= partial
+    assert not (forced & no_split).any(), "unsupported mi dims for part2"
+    return forced, no_split
+
+
 def part_inputs(R: int, C: int, q: int, fc, rdmult, mi_rows: int,
                 mi_cols: int) -> dict:
     """Host-side inputs of the two-level plan as numpy, built exactly as the
@@ -184,20 +204,7 @@ def part_inputs(R: int, C: int, q: int, fc, rdmult, mi_rows: int,
     rd32 = np.exp(np.log(rd16).reshape(R, 2, C, 2).mean((1, 3))) \
         .astype(np.float32)
 
-    # decoder-implied splits at the frame edge (has_rows/has_cols false),
-    # and cells that must NOT split because a visited 16 sub-block would be
-    # partial (no square leaf available there)
-    rr = 8 * np.arange(R)[:, None]
-    cc = 8 * np.arange(C)[None, :]
-    forced = ((rr + 4 >= mi_rows) | (cc + 4 >= mi_cols))
-    no_split = np.zeros((R, C), bool)
-    for qr in (0, 1):
-        for qc in (0, 1):
-            sr, sc = rr + 4 * qr, cc + 4 * qc
-            visited = (sr < mi_rows) & (sc < mi_cols)
-            partial = visited & ((sr + 2 >= mi_rows) | (sc + 2 >= mi_cols))
-            no_split |= partial
-    assert not (forced & no_split).any(), "unsupported mi dims for part2"
+    forced, no_split = edge_cell_masks(R, C, mi_rows, mi_cols)
     pr_none, pr_split = _part_rate_scalars(fc)
     rt = _rate_tables(fc)
     return {"R": R, "C": C, "dc_q": tables.dc_quant(q),

@@ -15,7 +15,9 @@ Exactness notes shared with the kernel:
 - the coefficient rate's per-level sum is taken exactly (the table values
   are half-integers: medians of integer costs), so it equals the
   reference's float32 sum whenever that sum is exact (below 2**23);
-- ``floor(log2(x))`` is the integer bit length, not a float log.
+- ``floor(log2(x))`` is the integer bit length, not a float log; on the
+  golomb tail it reproduces the reference's float32 mis-floors
+  (``golomb_floor_log2``).
 """
 from __future__ import annotations
 
@@ -84,6 +86,22 @@ def floor_log2(x):
     return torch.frexp(x.to(torch.float64))[1] - 1
 
 
+# The reference floors ``log2(big)`` of the golomb tail in float32
+# (tpu_intra.py:538-541), and XLA's float32 log2 of 8192.0 and 32768.0
+# comes out just below 13 and 15: there the reference charges one bit
+# length less. Every other integer up to 2**21 floors exactly.
+GOLOMB_MISFLOORS = (8192, 32768)
+
+
+def golomb_floor_log2(big):
+    """The reference's ``floor(log2(big))`` of the golomb tail (big >= 1):
+    the bit length - 1, one less at big in GOLOMB_MISFLOORS."""
+    fl = floor_log2(big)
+    for m in GOLOMB_MISFLOORS:
+        fl = fl - (big == m).to(fl.dtype)
+    return fl
+
+
 def coeff_rate_est(levels, eob, lvl_tbl, eob_tbl):
     """(B, n) levels + (B,) eob -> (B,) float32 estimated coefficient rate
     in 1/512-bit units (per-|level| base+br+sign cost, golomb tail, eob
@@ -97,7 +115,7 @@ def coeff_rate_est(levels, eob, lvl_tbl, eob_tbl):
     nnz = nz.sum(-1)
     # zeros before the scan eob each cost the base-0 symbol
     rate = rate + (eob - nnz).to(torch.float32) * lvl_tbl[0]
-    fl = floor_log2((al - 14).clamp(min=1))
+    fl = golomb_floor_log2((al - 14).clamp(min=1))
     gol = torch.where(al >= 15, (2 * fl + 1) * 512,
                       torch.zeros_like(fl)).sum(-1)
     rate = rate + gol.to(torch.float32)

@@ -146,7 +146,6 @@ def test_cuda_device_raises_without_cuda():
     (178, 130, dict()),                         # mi dims 2 mod 8: uniform
     (64, 64, dict(block_size=3)),               # BLOCK_8X8: uniform
     (64, 64, dict(search_cdef=True)),
-    (64, 64, dict(cdef_fixed=True)),
     (64, 64, dict(tune_vmaf=True)),
     (64, 64, dict(lossless=True)),
 ])

@@ -173,3 +173,32 @@ def test_floor_log2_is_integer_bit_length():
     got = TQ.floor_log2(_t(x)).numpy()
     np.testing.assert_array_equal(got, [int(v).bit_length() - 1 for v in x])
 
+
+
+def test_golomb_rate_matches_jax_at_every_level():
+    """One 32x32 block per |level| in 15..40000 with a single non-zero
+    coefficient: the port's rate equals the jitted reference's, including
+    |level| = 8206 and 32782, where the reference's float32 floor(log2)
+    of the golomb tail lands one below the bit length."""
+    import jax
+    fc = FrameContext(100)
+    lvl, eobt = TTI._rate_tables(fc)["y32"]
+    ref = jax.jit(JTI._coeff_rate_est)
+    n, chunk = 1024, 4000
+    mags = np.arange(15, 40001)
+    for i in range(0, len(mags), chunk):
+        m = mags[i:i + chunk]
+        pos = m % n                                # vary the position
+        levels = np.zeros((chunk, n), np.int32)
+        sign = np.where(m % 2 == 0, 1, -1)
+        levels[np.arange(len(m)), pos] = sign * m
+        eob = np.zeros(chunk, np.int32)
+        eob[:len(m)] = pos + 1
+        want = np.asarray(ref(jnp.asarray(levels), jnp.asarray(eob),
+                              jnp.asarray(lvl), jnp.asarray(eobt)))
+        got = TQ.coeff_rate_est(_t(levels), _t(eob), _t(lvl),
+                                _t(eobt)).numpy()
+        np.testing.assert_array_equal(got[:len(m)], want[:len(m)],
+                                      err_msg=f"levels {m[0]}..{m[-1]}")
+    fl = TQ.golomb_floor_log2(_t(np.array([8192, 8193, 32767, 32768])))
+    assert fl.tolist() == [12, 13, 14, 14]
