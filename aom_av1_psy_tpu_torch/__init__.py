@@ -1,6 +1,8 @@
 """aom_av1_psy_tpu_torch — the PyTorch + CUDA port of the fused encoder of
-``aom_av1_psy_tpu``: the all-intra KEY frame (``encoder/tpu_frame.py``)
-and the IPPP GOP (``encoder/tpu_interframe.encode_video``).
+``aom_av1_psy_tpu``: the all-intra KEY frame (``encoder/tpu_frame.py``:
+the two-level partition plan, tile columns batched on one GPU
+(``parallel/mesh.py``), the uniform-grid fallback, the CDEF strength
+search) and the IPPP GOP (``encoder/tpu_interframe.encode_video``).
 
 The JAX package stays the reference; this package mirrors its module paths
 (``encoder/tpu_intra.py``, ``encoder/tpu_intra_dir.py``,
@@ -19,7 +21,8 @@ Device work runs as plain torch ops plus six hand-written CUDA kernels
 - KA ``intra_pred_sse`` (``ops/intra_pred.py``): all intra candidates of a
   block (edge buffer, plain + directional predictions) and their SSE;
 - KB ``txq_recon_skip`` (``ops/txq.py``): forward transform, quantize,
-  dequantize, inverse transform + recon and the skip-RD decision;
+  dequantize, inverse transform + recon and the skip-RD decision (or, as
+  ``txq_recon``, no skip decision), 4x4 to 32x32;
 - KC ``lpf_ladder`` (``ops/deblock_torch.py``): the loop-filter level
   ladder with an exact per-level SSE;
 - KD ``mc_8tap`` (``ops/mc.py``): batched 8-tap motion compensation over a

@@ -1,7 +1,8 @@
 // Kernel KA: intra_pred_sse / intra_pred_one.
 //
 // Replaces the reference's batched intra prediction inside the two-level
-// wavefronts: tpu_intra._predict_all_modes (aom_av1_psy_tpu/encoder/
+// and the uniform-grid (tpu_intra.py:282-411) wavefronts:
+// tpu_intra._predict_all_modes (aom_av1_psy_tpu/encoder/
 // tpu_intra.py:64), the directional edge pipeline of tpu_intra_dir
 // (_filter_edge_b / build_edge_buffer / dir_predict, tpu_intra_dir.py:
 // 179-265) and the per-candidate SSE (tpu_intra.py:645, :710, :817, :859).
@@ -10,8 +11,12 @@
 // SMOOTH_V SMOOTH_H PAETH); k >= 7 are directional, read from the static
 // gather tables IDXa/IDXb/SH (2, nd, bs, bs) of tpu_intra_dir.tables.
 //
+// Block sizes 4 (the chroma of the 8x8 uniform grid), 8, 16 and 32; the
+// directional candidates exist at 16 and 32 only.
+//
 // What bounds it: tiny per-launch work (one anti-diagonal holds <= 34
-// cells) — launch latency and the serial wavefront, not bytes or FLOPs.
+// cells of the partition plan, <= 135 of the 8x8 uniform grid at 1080p) —
+// launch latency and the serial wavefront, not bytes or FLOPs.
 // A 32x32 block's 61 predictions are 62k pixels of integer blends.
 // Design: one CTA per (block, group of 8 candidates). The CTA builds the
 // block's effective edges and the whole 16-segment filtered edge buffer
@@ -171,10 +176,17 @@ __device__ __forceinline__ int predict(const KAArgs& a, const Smem<BS>& s,
   }
 }
 
+// Threads per CTA: one per pixel up to 256, and at least one full warp
+// (a 4x4 block runs 16 of its 32 threads) for the warp-shuffle reduction.
+template <int BS>
+__host__ __device__ constexpr int threads() {
+  return BS * BS < 32 ? 32 : (BS * BS < 256 ? BS * BS : 256);
+}
+
 template <int BS>
 __global__ void ka_sse_kernel(KAArgs a) {
-  constexpr int NT = BS * BS < 256 ? BS * BS : 256;
-  constexpr int PPT = BS * BS / NT;
+  constexpr int NT = threads<BS>();
+  constexpr int PPT = (BS * BS + NT - 1) / NT;
   __shared__ Smem<BS> s;
   const int b = blockIdx.x;
   const int k0 = blockIdx.y * kGroup;
@@ -184,13 +196,16 @@ __global__ void ka_sse_kernel(KAArgs a) {
   const int t = a.ef[b] ? 1 : 0;
   int src[PPT];
 #pragma unroll
-  for (int j = 0; j < PPT; ++j)
-    src[j] = a.src[b * BS * BS + threadIdx.x + j * NT];
+  for (int j = 0; j < PPT; ++j) {
+    const int p = threadIdx.x + j * NT;
+    src[j] = p < BS * BS ? a.src[b * BS * BS + p] : 0;
+  }
   for (int k = k0; k < k1; ++k) {
     int acc = 0;
 #pragma unroll
     for (int j = 0; j < PPT; ++j) {
       const int p = threadIdx.x + j * NT;
+      if (p >= BS * BS) break;
       const int d = predict<BS>(a, s, k, nd, t, p / BS, p % BS) - src[j];
       acc += d * d;
     }
@@ -201,7 +216,7 @@ __global__ void ka_sse_kernel(KAArgs a) {
 
 template <int BS>
 __global__ void ka_one_kernel(KAArgs a) {
-  constexpr int NT = BS * BS < 256 ? BS * BS : 256;
+  constexpr int NT = threads<BS>();
   __shared__ Smem<BS> s;
   const int b = blockIdx.x;
   const int k = a.cand[b];
@@ -214,7 +229,7 @@ __global__ void ka_one_kernel(KAArgs a) {
 
 template <int BS>
 int launch(const KAArgs& a, bool one, cudaStream_t st) {
-  constexpr int NT = BS * BS < 256 ? BS * BS : 256;
+  constexpr int NT = threads<BS>();
   if (one) {
     ka_one_kernel<BS><<<dim3(a.B), NT, 0, st>>>(a);
   } else {
@@ -228,6 +243,7 @@ int dispatch(const KAArgs& a, int bs, bool one, void* stream) {
   if (a.B <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   switch (bs) {
+    case 4: return launch<4>(a, one, st);
     case 8: return launch<8>(a, one, st);
     case 16: return launch<16>(a, one, st);
     case 32: return launch<32>(a, one, st);

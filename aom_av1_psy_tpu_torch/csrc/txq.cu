@@ -1,10 +1,13 @@
 // Kernel KB: txq_recon_skip.
 //
 // Replaces the reference's transform / quantize / recon / skip-RD chain
-// inside the two-level wavefronts: tpu_intra._quantize, _dequantize,
-// _tq_recon, _tq_recon_uv (aom_av1_psy_tpu/encoder/tpu_intra.py:129-250,
-// over the jnp stage interpreter ops/txfm._run_stages) and
-// _coeff_rate_est / _skip_rd (tpu_intra.py:525-567).
+// inside the wavefronts: tpu_intra._quantize, _dequantize, _tq_recon,
+// _tq_recon_uv (aom_av1_psy_tpu/encoder/tpu_intra.py:129-250, over the jnp
+// stage interpreter ops/txfm._run_stages and the sinpi-based
+// _fadst4/_iadst4, ops/txfm.py:129-182) and _coeff_rate_est / _skip_rd
+// (tpu_intra.py:525-567). With skip = 0 (the uniform-grid wavefronts,
+// tpu_intra.py:282-411, which never call _skip_rd) it stops after the
+// recon and returns _tq_recon's levels, eob and recon unchanged.
 //
 // Per block: residual -> forward 2-D transform (column then row pass) ->
 // zbin-dead-zone quantize -> eob over the scan -> dequantize -> inverse
@@ -18,11 +21,15 @@
 // shared memory (two 4 KB buffers at 32x32) and every stage is one
 // gather + multiply-add + round-shift per element, reading the normative
 // stage programs (ops/txfm._compiled_stages, uploaded as a table), not
-// hard-coded butterflies. Products are int64 truncated to int32 so the
-// wraparound equals jnp's; the float32 skip-RD runs with --fmad=false in
-// the reference's order of operations; the per-level rate sum is exact in
-// half units; floor(log2) is the integer bit length, except on the golomb
-// tail, where golomb_floor_log2 repeats the reference's float32 mis-floors.
+// hard-coded butterflies; only ADST4, which is not a stage program, is
+// written out from its four sinpi constants. Products are int64 truncated
+// to int32 so the wraparound equals jnp's; the float32 skip-RD runs with
+// --fmad=false in the reference's order of operations; the per-level rate
+// sum is exact in half units; floor(log2) is the integer bit length,
+// except on the golomb tail, where golomb_floor_log2 repeats the
+// reference's float32 mis-floors. A 4x4 block runs on one warp (32
+// threads, 16 of them with a pixel), so the warp-shuffle reductions see a
+// full warp.
 #include "common.cuh"
 
 namespace {
@@ -34,18 +41,19 @@ struct KBArgs {
   const bool* hadst;    // (B,) or null
   int dc_q, ac_q, shift;
   const int* scan;      // (bs*bs,)
+  int skip;             // 0: no skip decision (lvl_tbl .. rate unused)
   const float* lvl_tbl; // (16,) half-integer costs
   const float* eob_tbl; // (neob,)
   int neob;
   const float* rdm;     // (B,)
   const int* progs;     // (rows, 5): ia, ib, wa, wb, is_btf | clamp << 1
   const int* meta;      // 8 x (offset, n_stages, cos_bit, clamp_bit),
-                        // fwd shifts (3), inv shifts (2)
+                        // fwd shifts (3), inv shifts (2), 8 x 5 sinpi
   int* levels;          // (B, bs*bs)
   int* eob;             // (B,)
   int* recon;           // (B, bs, bs)
-  float* sse;           // (B,)
-  float* rate;          // (B,)
+  float* sse;           // (B,) or null without skip
+  float* rate;          // (B,) or null without skip
 };
 
 // The reference floors log2(big) of the golomb tail in float32
@@ -63,6 +71,43 @@ __device__ __forceinline__ int round_shift_arr(int x, int bit) {
   return x;
 }
 
+__device__ __forceinline__ int mul32(int a, int b) {
+  return wrap32((long long)a * b);
+}
+
+// av1_fadst4 / av1_iadst4 (ops/txfm.py:129-182) on one 4-vector, int32
+// wraparound throughout, no stage clamp (the reference applies none).
+__device__ void adst4(const int* x, int* o, const int* s, int cos_bit,
+                      bool inverse) {
+  const int rnd = 1 << (cos_bit - 1);
+  int t0, t1, t2, t3;
+  if (!inverse) {
+    t0 = wrap32((long long)mul32(s[1], x[0]) + mul32(s[2], x[1]));
+    t1 = mul32(s[3], wrap32((long long)x[0] + x[1] - x[3]));
+    t2 = wrap32((long long)mul32(s[4], x[0]) - mul32(s[1], x[1]));
+    t3 = mul32(s[3], x[2]);
+    t0 = wrap32((long long)t0 + mul32(s[4], x[3]));
+    t2 = wrap32((long long)t2 + mul32(s[2], x[3]));
+    o[0] = wrap32((long long)t0 + t3);
+    o[1] = t1;
+    o[2] = wrap32((long long)t2 - t3);
+    o[3] = wrap32((long long)t2 - t0 + t3);
+  } else {
+    t0 = wrap32((long long)mul32(s[1], x[0]) + mul32(s[4], x[2]));
+    t1 = wrap32((long long)mul32(s[2], x[0]) - mul32(s[1], x[2]));
+    t3 = mul32(s[3], x[1]);
+    t2 = mul32(s[3], wrap32((long long)x[0] - x[2] + x[3]));
+    t0 = wrap32((long long)t0 + mul32(s[2], x[3]));
+    t1 = wrap32((long long)t1 - mul32(s[4], x[3]));
+    o[0] = wrap32((long long)t0 + t3);
+    o[1] = wrap32((long long)t1 + t3);
+    o[2] = t2;
+    o[3] = wrap32((long long)t0 + t1 - t3);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) o[i] = wrap32((long long)o[i] + rnd) >> cos_bit;
+}
+
 // One 1-D pass over all BS vectors of the block held in X (row-major
 // r * BS + c). rows: vectors are rows (elements along c), else columns.
 // Returns the buffer that holds the result.
@@ -71,6 +116,21 @@ __device__ int* pass(int* X, int* Y, const KBArgs& a, int prog) {
   const int off = a.meta[4 * prog], nst = a.meta[4 * prog + 1];
   const int cos_bit = a.meta[4 * prog + 2], clamp_bit = a.meta[4 * prog + 3];
   const bool rows = (prog == 2 || prog == 3 || prog == 4 || prog == 5);
+  if (BS == 4 && nst < 0) {  // ADST4: one thread per vector
+    const int v = threadIdx.x;
+    if (v < 4) {
+      int x[4], o[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) x[i] = rows ? X[v * 4 + i] : X[i * 4 + v];
+      adst4(x, o, a.meta + 37 + 5 * prog, cos_bit, prog >= 4);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (rows) Y[v * 4 + i] = o[i]; else Y[i * 4 + v] = o[i];
+      }
+    }
+    __syncthreads();
+    return Y;
+  }
   const int rnd = 1 << (cos_bit - 1);
   const int lo = clamp_bit ? -(1 << (clamp_bit - 1)) : 0;
   const int hi = clamp_bit ? (1 << (clamp_bit - 1)) - 1 : 0;
@@ -93,8 +153,13 @@ __device__ int* pass(int* X, int* Y, const KBArgs& a, int prog) {
 }
 
 template <int BS>
+__host__ __device__ constexpr int threads() {
+  return BS * BS < 32 ? 32 : (BS * BS < 256 ? BS * BS : 256);
+}
+
+template <int BS>
 __global__ void kb_kernel(KBArgs a) {
-  constexpr int NT = BS * BS < 256 ? BS * BS : 256;
+  constexpr int NT = threads<BS>();
   constexpr int N = BS * BS;
   __shared__ int buf0[N], buf1[N], lev[N];
   __shared__ long long red64[32];
@@ -140,6 +205,7 @@ __global__ void kb_kernel(KBArgs a) {
   long long s2 = 0;
   for (int j = threadIdx.x; j < N; j += NT) {
     if (lev[a.scan[j]] != 0) e_loc = j + 1;
+    if (!a.skip) continue;
     const int al = abs(lev[j]);
     if (al > 0) {
       ++nnz;
@@ -148,9 +214,11 @@ __global__ void kb_kernel(KBArgs a) {
     if (al >= 15) gol += (2 * golomb_floor_log2(max(al - 14, 1)) + 1) * 512;
   }
   const int eob = block_max<int>(e_loc, red);
-  nnz = block_sum<int>(nnz, red);
-  gol = block_sum<int>(gol, red);
-  s2 = block_sum<long long>(s2, red64);
+  if (a.skip) {
+    nnz = block_sum<int>(nnz, red);
+    gol = block_sum<int>(gol, red);
+    s2 = block_sum<long long>(s2, red64);
+  }
 
   // dequantize into the inverse's layout: X[r * BS + c] = coeff(c * BS + r)
   for (int p = threadIdx.x; p < N; p += NT) {
@@ -177,6 +245,14 @@ __global__ void kb_kernel(KBArgs a) {
     const int dp = pred[p] - src[p], dc = rec - src[p];
     ssep += dp * dp;
     ssec += dc * dc;
+  }
+  if (!a.skip) {
+    if (threadIdx.x == 0) a.eob[b] = eob;
+    for (int p = threadIdx.x; p < N; p += NT) {
+      a.levels[b * N + p] = lev[p];
+      a.recon[b * N + p] = X[p];
+    }
+    return;
   }
   ssep = block_sum<int>(ssep, red);
   ssec = block_sum<int>(ssec, red);
@@ -212,21 +288,22 @@ __global__ void kb_kernel(KBArgs a) {
 AV1_EXPORT int txq_recon_skip(const int* src, const int* pred,
                               const bool* vadst, const bool* hadst, int B,
                               int bs, int dc_q, int ac_q, int shift,
-                              const int* scan, const float* lvl_tbl,
-                              const float* eob_tbl, int neob,
-                              const float* rdm, const int* progs,
+                              const int* scan, int skip,
+                              const float* lvl_tbl, const float* eob_tbl,
+                              int neob, const float* rdm, const int* progs,
                               const int* meta, int* levels, int* eob,
                               int* recon, float* sse, float* rate,
                               void* stream) {
   if (B <= 0) return 0;
-  KBArgs a{src,     pred,    vadst, hadst, dc_q,  ac_q,   shift, scan,
-           lvl_tbl, eob_tbl, neob,  rdm,   progs, meta,   levels, eob,
-           recon,   sse,     rate};
+  KBArgs a{src,     pred,    vadst, hadst, dc_q,  ac_q,  shift,  scan,
+           skip,    lvl_tbl, eob_tbl, neob, rdm,  progs, meta,   levels,
+           eob,     recon,   sse,   rate};
   cudaStream_t st = (cudaStream_t)stream;
   switch (bs) {
-    case 8: kb_kernel<8><<<B, 64, 0, st>>>(a); break;
-    case 16: kb_kernel<16><<<B, 256, 0, st>>>(a); break;
-    case 32: kb_kernel<32><<<B, 256, 0, st>>>(a); break;
+    case 4: kb_kernel<4><<<B, threads<4>(), 0, st>>>(a); break;
+    case 8: kb_kernel<8><<<B, threads<8>(), 0, st>>>(a); break;
+    case 16: kb_kernel<16><<<B, threads<16>(), 0, st>>>(a); break;
+    case 32: kb_kernel<32><<<B, threads<32>(), 0, st>>>(a); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

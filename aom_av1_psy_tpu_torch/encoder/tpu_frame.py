@@ -2,18 +2,24 @@
 ``aom_av1_psy_tpu/encoder/tpu_frame.py`` (``TpuFrameEncoder``).
 
 Pipeline: the two-level 32 -> 16 partition plan on the device
-(``tpu_intra.plan_frame_part``), ONE native pack call over the plan
-(``native/ec.cpp ec_enc_pack_kf_part2`` through the shared
-``ec.native_coder``), the device loop-filter ladder
-(``ops/deblock_torch.lpf_pick_and_filter``) and, with ``cdef_fixed``, the
-quantizer-derived CDEF applied on the device (``apply_cdef_refs``, kernel
-KF). The host code (headers, the rdmult grids, the pack's array
-marshalling, the smooth-64 fallback, the CDEF strengths and gate) is
-carried over from the reference module, which imports jax and therefore is
-never imported here.
+(``tpu_intra.plan_frame_part``; with tile columns, the T equal SB-aligned
+slabs batched through one wavefront, ``parallel/mesh.tile_plans_batched``),
+ONE native pack call over the plan (per tile: ``native/ec.cpp
+ec_enc_pack_kf_part2`` through the shared ``ec.native_coder``), the device
+loop-filter ladder (``ops/deblock_torch.lpf_pick_and_filter``) and, with
+``cdef_fixed``, the quantizer-derived CDEF applied on the device
+(``apply_cdef_refs``, kernel KF); with ``search_cdef``, the host strength
+search on the post-LPF recon. When the mi dims leave a partial leaf at the
+edge (mi = 2 mod 8) or ``block_size`` < 16, the uniform-grid fallback
+runs instead: ``tpu_intra.plan_frame`` and ONE ``ec_enc_pack_kf_uniform``
+call, with no device loop filter (the reference keeps the pre-LPF plan
+recon there). The host code (headers, the rdmult grids, the tile
+geometry, the packs' array marshalling, the smooth-64 fallback, the CDEF
+strengths, gate and search) is carried over from the reference module,
+which imports jax and therefore is never imported here.
 
-Configurations outside the slice raise ``NotImplementedError`` naming the
-later slice that ports them; they never route to the JAX package.
+Configurations outside the port (tune_vmaf, lossless) raise
+``NotImplementedError``; they never route to the JAX package.
 """
 from __future__ import annotations
 
@@ -28,7 +34,8 @@ from aom_av1_psy_tpu.bitstream.headers import (FrameHeader, SequenceHeader,
                                                TileInfo, write_frame_header)
 from aom_av1_psy_tpu.ec.context import FrameContext
 from aom_av1_psy_tpu.ec.native_coder import (NativeEncoder, available,
-                                             native_pack_kf_part2)
+                                             native_pack_kf_part2,
+                                             native_pack_kf_uniform)
 from aom_av1_psy_tpu.encoder.frame import EncoderConfig
 from aom_av1_psy_tpu.normative import tables
 from aom_av1_psy_tpu.normative.blocks import (EXT_TX_IND,
@@ -46,6 +53,11 @@ from ..device import resolve_device
 from ..ops import deblock_torch as DT
 from . import tpu_intra
 
+_BS_TO_BSIZE = {8: int(BlockSize.BLOCK_8X8), 16: int(BlockSize.BLOCK_16X16),
+                32: int(BlockSize.BLOCK_32X32)}
+_BS_TO_TX = {8: int(TxSize.TX_8X8), 16: int(TxSize.TX_16X16),
+             32: int(TxSize.TX_32X32)}
+
 
 def _pad_plane(src: np.ndarray, h: int, w: int) -> np.ndarray:
     """Edge-replicate src up to (h, w), int32."""
@@ -62,9 +74,10 @@ def _pad_plane(src: np.ndarray, h: int, w: int) -> np.ndarray:
 class GpuFrameEncoder:
     """Encodes one all-intra KEY frame through the device plan + native
     pack + device loop filter. API mirror of ``TpuFrameEncoder``; after
-    ``encode()`` it holds ``plan``, ``seq``, ``fh``, ``saved_fc``,
-    ``ref_planes_dev`` (post-LPF planes on ``device``) and ``timings``
-    (``plan_s``, ``pack_s``)."""
+    ``encode()`` it holds ``plan`` (the first tile's with tile columns;
+    ``tile_plans`` holds every tile's), ``seq``, ``fh``, ``saved_fc``,
+    ``mi_skip``, ``timings`` (``plan_s``, ``pack_s``) and, on the partition
+    path, ``ref_planes_dev`` (post-LPF planes on ``device``)."""
 
     def __init__(self, frame: Frame, cfg: EncoderConfig, device="cuda"):
         if not available():
@@ -72,11 +85,8 @@ class GpuFrameEncoder:
         if cfg.lossless or cfg.base_q_idx == 0:
             raise NotImplementedError("lossless uses FrameEncoder (WHT)")
         if cfg.tune_vmaf:
-            raise NotImplementedError("tune_vmaf preprocessing is slice 6")
-        if cfg.search_cdef:
             raise NotImplementedError(
-                "the KEY-frame CDEF strength search (_search_cdef_fused) "
-                "is ROADMAP queue 1")
+                "tune_vmaf preprocessing is not ported yet")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.src = frame
@@ -86,22 +96,41 @@ class GpuFrameEncoder:
         self.nplanes = 1 if frame.monochrome else 3
         pw, ph = self.mi_cols * 4, self.mi_rows * 4
 
+        # two-level partition plan (32 -> 16) unless the caller forces a
+        # small uniform grid or the mi dims leave a partial square leaf at
+        # the edge (tpu_intra.plan_part_supported)
         self.use_part = (
             cfg.block_size >= int(BlockSize.BLOCK_16X16)
             and tpu_intra.plan_part_supported(self.mi_rows, self.mi_cols))
-        if not self.use_part:
-            raise NotImplementedError(
-                "the uniform-grid plan (block_size < 16 or mi dims = 2 mod "
-                "8) is slice 5")
-        # blocks may overhang the mi area at the frame edge (legal: the
-        # decoder clips recon writes); pad source to 32 multiples
-        pw32 = (pw + 31) // 32 * 32
-        ph32 = (ph + 31) // 32 * 32
-        sb_cols = (self.mi_cols + 15) // 16
-        T = 1 << cfg.tile_cols_log2
-        if T > 1 and sb_cols % T == 0:
-            raise NotImplementedError("tile columns are slice 3")
-        self.R, self.C = ph32 // 16, pw32 // 16   # 16-px rdmult grid
+        self.tile_T = 1
+        if self.use_part:
+            # blocks may overhang the mi area at the frame edge (legal:
+            # the decoder clips recon writes); pad source to 32 multiples
+            pw32 = (pw + 31) // 32 * 32
+            ph32 = (ph + 31) // 32 * 32
+            sb_cols = (self.mi_cols + 15) // 16
+            T = 1 << cfg.tile_cols_log2
+            if T > 1 and sb_cols % T == 0:
+                # SB-aligned equal tile columns: pad width to whole SBs so
+                # every tile slab has the same (batchable) shape
+                self.tile_T = T
+                self.tile_sb = sb_cols // T
+                self.tile_mi = self.tile_sb * 16
+                self.tile_pw = self.tile_sb * 64
+                pw32 = self.tile_pw * T
+            self.bs = 16                     # rdmult-grid granularity
+            self.R, self.C = ph32 // 16, pw32 // 16
+        else:
+            want = {int(BlockSize.BLOCK_8X8): 8,
+                    int(BlockSize.BLOCK_16X16): 16,
+                    int(BlockSize.BLOCK_32X32): 32}.get(cfg.block_size, 16)
+            bs = want
+            while bs > 8 and (pw % bs or ph % bs):
+                bs //= 2
+            assert pw % bs == 0 and ph % bs == 0
+            self.bs = bs
+            self.R, self.C = ph // bs, pw // bs
+            pw32, ph32 = pw, ph
         planes = frame.planes()
         self.srcp = [_pad_plane(planes[0].astype(np.int32), ph32, pw32)]
         if self.nplanes > 1:
@@ -123,21 +152,75 @@ class GpuFrameEncoder:
             self.rdmult = self._rdmult_grid(self.rdmult, f)
 
     def _rdmult_grid(self, rdmult: int, factors: np.ndarray) -> np.ndarray:
-        """(R, C) per-16x16 lambda from per-16x16 SSIM factors."""
-        R, C = self.R, self.C
+        """(R, C) per-block lambda from per-16x16 SSIM factors: the 16
+        factors as they are, repeated 2x2 for 8x8 blocks, and their
+        geometric mean over each 2x2 for 32x32 blocks."""
+        R, C, bs = self.R, self.C, self.bs
+        fr, fc_ = factors.shape
         logs = np.log(factors)
+        if bs == 16:
+            g = logs
+        elif bs == 8:
+            g = np.repeat(np.repeat(logs, 2, 0), 2, 1)
+        else:  # bs == 32: geometric mean over the covered 2x2 cells
+            r2, c2 = (fr + 1) // 2 * 2, (fc_ + 1) // 2 * 2
+            pad = np.pad(logs, ((0, r2 - fr), (0, c2 - fc_)), mode="edge")
+            g = pad.reshape(r2 // 2, 2, c2 // 2, 2).mean((1, 3))
         out = np.full((R, C), np.log(1.0), np.float64)
-        rr, cc = min(R, logs.shape[0]), min(C, logs.shape[1])
-        out[:rr, :cc] = logs[:rr, :cc]
+        rr, cc = min(R, g.shape[0]), min(C, g.shape[1])
+        out[:rr, :cc] = g[:rr, :cc]
         if rr < R:
             out[rr:, :] = out[rr - 1:rr, :]
         if cc < C:
             out[:, cc:] = out[:, cc - 1:cc]
         return (rdmult * np.exp(out)).astype(np.float32)
 
+    def _tile_masks(self, t: int) -> int:
+        """Effective mi width of tile t for its edge-cell masks (interior
+        tiles have no column edge; the last tile sees the frame's right
+        edge)."""
+        col0 = t * self.tile_mi
+        if col0 + self.tile_mi < self.mi_cols:
+            return self.tile_pw // 32 * 8 + 8   # beyond any cell: no edge
+        return self.mi_cols - col0
+
+    def _tile_slabs(self) -> list:
+        """The T equal SB-aligned tile slabs with their lambda grids and
+        availability geometry, as the reference's ``_plan_tiles`` cuts
+        them."""
+        tpw = self.tile_pw
+        rd = self.rdmult
+        if np.ndim(rd) == 0:
+            rd = np.full((self.R, self.C), float(rd), np.float32)
+        slabs = []
+        for t in range(self.tile_T):
+            sl = {
+                "y": self.srcp[0][:, t * tpw:(t + 1) * tpw],
+                "rd": rd[:, t * (tpw // 16):(t + 1) * (tpw // 16)],
+                "mi_cols_eff": self._tile_masks(t),
+                # tiles are prediction-independent: top-right never
+                # crosses the tile's actual right edge; the last tile also
+                # sees the frame's visible edge
+                "tile_mi_w": self.tile_mi,
+                "vis_mi_w": min(self.tile_mi,
+                                self.mi_cols - t * self.tile_mi),
+            }
+            if self.nplanes > 1:
+                sl["u"] = self.srcp[1][:, t * tpw // 2:(t + 1) * tpw // 2]
+                sl["v"] = self.srcp[2][:, t * tpw // 2:(t + 1) * tpw // 2]
+            slabs.append(sl)
+        return slabs
+
+    def _plan_tiles(self) -> list:
+        """Per-tile partition plans: the slabs batched through one pair of
+        wavefronts on the device (``parallel/mesh.tile_plans_batched``)."""
+        from ..parallel.mesh import tile_plans_batched
+        return tile_plans_batched(self._tile_slabs(), self.cfg.base_q_idx,
+                                  self.mi_rows, device=self.device)
+
     # -- headers (mirrors FrameEncoder.make_headers for this feature set) --
     def make_headers(self) -> tuple[SequenceHeader, FrameHeader]:
-        use_cdef = bool(self.cfg.cdef_fixed)
+        use_cdef = bool(self.cfg.search_cdef or self.cfg.cdef_fixed)
         seq = SequenceHeader(
             max_frame_width=self.w, max_frame_height=self.h,
             frame_width_bits=max(self.w - 1, 1).bit_length(),
@@ -152,7 +235,11 @@ class GpuFrameEncoder:
             # damping derivation: av1/encoder/pickcdef.c:745
             fh.cdef.damping = 3 + (self.cfg.base_q_idx >> 6)
         fh.tx_mode_select = False  # TX_MODE_LARGEST
-        fh.tiles = TileInfo()
+        if self.tile_T > 1:
+            lg = self.tile_T.bit_length() - 1
+            fh.tiles = TileInfo(tile_cols_log2=lg, tile_cols=self.tile_T)
+        else:
+            fh.tiles = TileInfo()
         # keyframe first-guess filter level (av1/encoder/picklpf.c:247)
         q = tables.ac_quant(self.cfg.base_q_idx)
         guess = (q * 17563 - 421574 + (1 << 17)) >> 18
@@ -169,24 +256,47 @@ class GpuFrameEncoder:
         fc = FrameContext(self.cfg.base_q_idx)
 
         t0 = time.perf_counter()
-        plan = tpu_intra.plan_frame_part(
-            self.srcp, self.cfg.base_q_idx, fc, self.rdmult, self.mi_rows,
-            self.mi_cols, device=self.device)
-        t1 = time.perf_counter()
-        self.plan = plan
-        tile_data = self._pack2(plan, fc, fh)
-        # device LPF: pick per-plane levels on the device and keep the
-        # post-LPF recon there — it is the inter reference chain
-        self._lpf_device(fh)
+        if self.tile_T > 1:
+            plans = self._plan_tiles()
+            t1 = time.perf_counter()
+            self.plan = plans[0]
+            self.tile_plans = plans
+            fc, tile_data = self._pack_tiles(plans, fh)
+        elif self.use_part:
+            plan = tpu_intra.plan_frame_part(
+                self.srcp, self.cfg.base_q_idx, fc, self.rdmult,
+                self.mi_rows, self.mi_cols, device=self.device)
+            t1 = time.perf_counter()
+            self.plan = plan
+            tile_data = self._pack2(plan, fc, fh)
+        else:
+            plan = tpu_intra.plan_frame(self.srcp, self.cfg.base_q_idx,
+                                        self.bs, fc, self.rdmult,
+                                        device=self.device)
+            t1 = time.perf_counter()
+            self.plan = plan
+            tile_data = self._pack(plan, fc, fh)
+        if self.use_part:
+            # device LPF: pick per-plane levels on the device and keep the
+            # post-LPF recon there — it is the inter reference chain (the
+            # uniform grid keeps its pre-LPF plan recon, as the reference)
+            self._lpf_device(fh)
         self.timings = {"plan_s": t1 - t0, "pack_s": time.perf_counter() - t1}
         if seq.enable_cdef:
-            # cdef_fixed: quantizer-derived strengths (header bits only),
-            # then the reference chain is made post-CDEF like the
-            # decoder's, with host-exact directions and the A/B gate
-            cdef_fixed_strengths(fh, self.cfg.base_q_idx)
+            if self.cfg.search_cdef:
+                # frame-level strengths picked on the post-LPF recon
+                # (header bits only: cdef_bits = 0)
+                self._search_cdef_fused(fh)
+            else:
+                # cdef_fixed: quantizer-derived strengths
+                cdef_fixed_strengths(fh, self.cfg.base_q_idx)
+        if seq.enable_cdef and self.use_part:
+            # the reference chain is made post-CDEF like the decoder's,
+            # with host-exact directions (and the A/B gate for cdef_fixed)
             self.ref_planes_dev = apply_cdef_refs(
                 self.ref_planes_dev, self.mi_skip, fh, self.mi_rows,
-                self.mi_cols, self.nplanes, srcs=self.srcp)
+                self.mi_cols, self.nplanes,
+                srcs=None if self.cfg.search_cdef else self.srcp)
         # end-of-frame entropy state, counter-reset as the decoder's
         # _update_ref_slots does (a following INTER frame forwards it)
         fc.reset_counters()
@@ -217,7 +327,8 @@ class GpuFrameEncoder:
         """Cheap gate for the uniform-64 fallback: only frames whose
         high-frequency energy is far below typical noise can win with
         64x64 DC/SMOOTH coding."""
-        if not (self.cfg.try_smooth64 and min(self.w, self.h) >= 64):
+        if not (self.cfg.try_smooth64 and self.use_part
+                and self.tile_T == 1 and min(self.w, self.h) >= 64):
             return False
         y = self.src.planes()[0].astype(np.float32)
         p = np.pad(y, 1, mode="edge")
@@ -281,13 +392,77 @@ class GpuFrameEncoder:
         return pkt64
 
     # ------------------------------------------------------------------
+    def _pack_tiles(self, plans: list, fh: FrameHeader):
+        """One part2 pack per tile column, each from a fresh entropy state;
+        returns the frame-end state (``context_update_tile_id``'s) and the
+        tile group: the tile_start_and_end_present bit, then each tile but
+        the last prefixed by its tile_size_bytes size."""
+        datas, tile_fcs, tile_skips = [], [], []
+        for t, p in enumerate(plans):
+            col0 = t * self.tile_mi
+            vis = min(self.tile_mi, self.mi_cols - col0)
+            tfc = FrameContext(self.cfg.base_q_idx)
+            datas.append(self._pack2(p, tfc, fh, mi_col_off=col0,
+                                     mi_cols_vis=vis))
+            tile_fcs.append(tfc)
+            tile_skips.append(self._last_skip_blk)
+        # frame skip map stitched from the tile columns
+        skip_blk = np.concatenate(tile_skips, axis=1)
+        self.mi_skip = np.repeat(
+            np.repeat(skip_blk.astype(np.int32), 4, 0),
+            4, 1)[: self.mi_rows, : self.mi_cols]
+        nb = fh.tiles.tile_size_bytes
+        tile_data = b""
+        for t, d in enumerate(datas):
+            if t < len(datas) - 1:
+                tile_data += (len(d) - 1).to_bytes(nb, "little")
+            tile_data += d
+        # OBU_FRAME with > 1 tile: tile_start_and_end_present = 0 bit
+        bw = BitWriter()
+        bw.f(0, 1)
+        bw.byte_align()
+        return (tile_fcs[fh.tiles.context_update_tile_id],
+                bw.data() + tile_data)
+
+    def _cdef_grids(self):
+        """Per-mi (tx_size_y, bsize, tx_size_uv) grids from the plan, for
+        the host deblocker (av1_loopfilter.c set_lpf_parameters inputs)."""
+        if self.use_part:
+            sp = self._split16_frame()                 # per-16px cell
+            ytx = np.where(sp, int(TxSize.TX_16X16), int(TxSize.TX_32X32))
+            uvtx = np.where(sp, int(TxSize.TX_8X8), int(TxSize.TX_16X16))
+            bsz = np.where(sp, int(BlockSize.BLOCK_16X16),
+                           int(BlockSize.BLOCK_32X32))
+            f = 4
+        else:
+            R, C = self.R, self.C
+            ytx = np.full((R, C), _BS_TO_TX[self.bs], np.int32)
+            uvtx = np.full((R, C), _BS_TO_TX.get(self.bs // 2,
+                                                 int(TxSize.TX_4X4)),
+                           np.int32)
+            bsz = np.full((R, C), _BS_TO_BSIZE[self.bs], np.int32)
+            f = self.bs // 4
+
+        def up(a):
+            return np.repeat(np.repeat(a, f, 0), f,
+                             1)[: self.mi_rows, : self.mi_cols]
+
+        return up(ytx), up(bsz), up(uvtx)
+
     def _split16_frame(self) -> np.ndarray:
-        """(2R, 2C) per-16px-cell split map."""
-        sp = self.plan["split32"]
+        """(2R, 2C) per-16px-cell split map, stitched over tile columns."""
+        if self.tile_T > 1:
+            sp = np.concatenate([p["split32"] for p in self.tile_plans],
+                                axis=1)
+        else:
+            sp = self.plan["split32"]
         return np.repeat(np.repeat(sp.astype(bool), 2, 0), 2, 1)
 
     def _recon_dev_frame(self):
-        """Frame recon planes on the device."""
+        """Frame recon planes on the device (tile columns concatenated)."""
+        if self.tile_T > 1:
+            return [torch.cat([pl["recon_dev"][p] for pl in self.tile_plans],
+                              dim=1) for p in range(self.nplanes)]
         return list(self.plan["recon_dev"])
 
     def _lpf_device(self, fh: FrameHeader) -> None:
@@ -322,10 +497,201 @@ class GpuFrameEncoder:
                                 w=w, h=h, nplanes=self.nplanes)
         self.ref_planes_dev = list(outs)
 
+    def _host_lpf_planes(self, fh: FrameHeader, search: bool) -> list:
+        """The uniform grid's loop-filtered planes, made on the host as the
+        reference's legacy branch makes them (``ops/deblock`` over the plan
+        recon, ``tpu_frame.py:564-614``); with ``search``, the brute-force
+        level ladder around the q-derived first guess sets ``fh.lf`` first
+        (av1_pick_filter_level, av1/encoder/picklpf.c:247). These are the
+        planes the decoder shows before CDEF."""
+        from aom_av1_psy_tpu.ops import deblock
+        src, dims = self._crop_src()
+        mi_tx, mi_bsz, mi_uv = self._cdef_grids()
+        pre = [np.array(r.cpu().numpy()[:h, :w], np.int32)
+               for r, (h, w) in zip(self.plan["recon_dev"], dims)]
+        info = deblock.DeblockInfo(mi_tx, mi_bsz, self.mi_skip,
+                                   np.zeros_like(self.mi_skip),
+                                   self.mi_rows, self.mi_cols)
+
+        def filtered(p):
+            buf = pre[p].copy()
+            deblock.loop_filter_plane(buf, p, info, fh, self.seq,
+                                      uv_tx_grid=mi_uv)
+            return buf
+
+        if search:
+            lf = fh.lf
+            guess = lf.filter_level[0]
+            cands = sorted({0, guess // 2, max(guess - 2, 0), guess,
+                            min(guess + 2, 63), min(guess * 2, 63)})
+
+            def eval_plane(p, setter):
+                best = None
+                for lvl in cands:
+                    setter(lvl)
+                    d = filtered(p).astype(np.int64) - src[p]
+                    e = int((d * d).sum())
+                    if best is None or e < best[0]:
+                        best = (e, lvl)
+                setter(best[1])
+
+            eval_plane(0, lambda v: setattr(lf, "filter_level", (v, v)))
+            if self.nplanes > 1:
+                if lf.filter_level == (0, 0):
+                    # chroma only codable with a nonzero luma level
+                    lf.filter_level_u = lf.filter_level_v = 0
+                else:
+                    eval_plane(1, lambda v: setattr(lf, "filter_level_u", v))
+                    eval_plane(2, lambda v: setattr(lf, "filter_level_v", v))
+        return [filtered(p) for p in range(self.nplanes)]
+
+    def _crop_src(self):
+        """Source planes cropped to the mi area, and their (h, w)."""
+        mh, mw = self.mi_rows * 4, self.mi_cols * 4
+        dims = [(mh, mw)] + [(mh // 2, mw // 2)] * (self.nplanes - 1)
+        return [s[:h, :w] for s, (h, w) in zip(self.srcp, dims)], dims
+
+    def _search_cdef_fused(self, fh: FrameHeader) -> None:
+        """Frame-level CDEF strength pick (the reference's
+        ``_search_cdef_fused``, ``ops/cdef.search_strengths`` on the host).
+        Partition path: on the post-LPF recon, copied once from the device.
+        Uniform grid (no device LPF): on ``_host_lpf_planes``, whose ladder
+        also sets ``fh.lf`` with ``cfg.search_lpf``."""
+        from aom_av1_psy_tpu.ops import cdef as cdef_ops
+        src, dims = self._crop_src()
+        if self.use_part:
+            planes = [np.array(r.cpu().numpy()[:h, :w], np.int32)
+                      for r, (h, w) in zip(self.ref_planes_dev, dims)]
+        else:
+            planes = self._host_lpf_planes(fh, self.cfg.search_lpf)
+        yp, ys, up_, us = cdef_ops.search_strengths(
+            planes, src, self.mi_skip, self.mi_rows, self.mi_cols,
+            fh.cdef.damping)
+        c = fh.cdef
+        c.bits = 0
+        c.y_pri, c.y_sec = [yp], [min(ys, 3)]
+        c.uv_pri, c.uv_sec = [up_], [min(us, 3)]
+
     # ------------------------------------------------------------------
-    def _pack2(self, plan: dict, fc: FrameContext, fh: FrameHeader) -> bytes:
+    def _pack(self, plan: dict, fc: FrameContext, fh: FrameHeader) -> bytes:
+        """Uniform-grid pack: one native call over the whole tile
+        (native/ec.cpp ec_enc_pack_kf_uniform)."""
+        bs = self.bs
+        R, C = self.R, self.C
+        y_txs = _BS_TO_TX[bs]
+        y_ectx = txsize_entropy_ctx(y_txs)
+        y_ems = int(TXSIZE_LOG2_MINUS4[y_txs])
+        plan_modes = np.asarray(tpu_intra.PLAN_MODES, np.int32)
+
+        y_mode = np.ascontiguousarray(plan_modes[plan["y_mode"]], np.int32)
+        y_levels = np.ascontiguousarray(plan["y_levels"], np.int32)
+        y_eob = np.ascontiguousarray(plan["y_eob"], np.int32)
+        skip = (y_eob == 0)
+        uv_txs = _BS_TO_TX.get(bs // 2, int(TxSize.TX_4X4))
+        if self.nplanes > 1:
+            uv_mode = np.ascontiguousarray(plan_modes[plan["uv_mode"]],
+                                           np.int32)
+            uv_levels = np.ascontiguousarray(plan["uv_levels"], np.int32)
+            uv_eob = np.ascontiguousarray(plan["uv_eob"], np.int32)
+            skip = skip & (uv_eob[0] == 0) & (uv_eob[1] == 0)
+        else:
+            uv_mode, uv_levels, uv_eob = y_mode, y_levels, y_eob
+        uv_ectx = txsize_entropy_ctx(uv_txs)
+        uv_ems = int(TXSIZE_LOG2_MINUS4[uv_txs])
+        skip = np.ascontiguousarray(skip.astype(np.uint8))
+        self.mi_skip = np.repeat(np.repeat(skip.astype(np.int32), bs // 4, 0),
+                                 bs // 4, 1)[: self.mi_rows, : self.mi_cols]
+
+        # luma tx-type coding (FrameEncoder._write_tx_type): coded for
+        # TX_8X8/TX_16X16 (sqr_up < TX_32X32), DCT_DCT symbol
+        if bs <= 16:
+            set_type = 2 if int(TXSIZE_SQR[y_txs]) == int(TxSize.TX_16X16) \
+                else 3
+            eset = EXT_TX_SET_INDEX_INTRA[set_type]
+            ext_tx_cdf = np.ascontiguousarray(
+                fc.intra_ext_tx_cdf[eset][int(TXSIZE_SQR[y_txs])])
+            tx_type_nsyms = int(NUM_EXT_TX_SET[set_type])
+            tx_type_sym = int(EXT_TX_IND[set_type][0])
+            # writes adapt this slice in place
+            fc.intra_ext_tx_cdf[eset][int(TXSIZE_SQR[y_txs])] = ext_tx_cdf
+        else:
+            ext_tx_cdf = np.zeros((13, 17), np.uint16)
+            tx_type_nsyms = 0
+            tx_type_sym = 0
+
+        def eob_cdf(ems, pt):
+            return getattr(fc, f"eob_flag_cdf{16 << ems}")[pt][0], 5 + ems
+
+        y_eob_cdf, y_eob_nsyms = eob_cdf(y_ems, 0)
+        uv_eob_cdf, uv_eob_nsyms = eob_cdf(uv_ems, 1)
+
+        arrays = {
+            "y_mode": y_mode, "uv_mode": uv_mode, "skip": skip,
+            "y_levels": y_levels, "y_eob": y_eob,
+            "uv_levels": uv_levels, "uv_eob": uv_eob,
+            "y_scan": np.ascontiguousarray(tables.scan_table(y_txs, 0),
+                                           np.int32),
+            "uv_scan": np.ascontiguousarray(tables.scan_table(uv_txs, 0),
+                                            np.int32),
+            "y_nzoff": np.ascontiguousarray(
+                tables.get(f"nz_map_ctx_offset_ts{y_txs}"), np.int32),
+            "uv_nzoff": np.ascontiguousarray(
+                tables.get(f"nz_map_ctx_offset_ts{uv_txs}"), np.int32),
+            "eob_group_start": np.ascontiguousarray(
+                tables.get("eob_group_start"), np.int32),
+            "eob_offset_bits": np.ascontiguousarray(
+                tables.get("eob_offset_bits"), np.int32),
+            "intra_mode_ctx": np.ascontiguousarray(INTRA_MODE_CONTEXT,
+                                                   np.int32),
+            "part_cdf": fc.partition_cdf, "skip_cdf": fc.skip_txfm_cdfs,
+            "kf_y_cdf": fc.kf_y_cdf, "angle_cdf": fc.angle_delta_cdf,
+            "uv_cdf": np.ascontiguousarray(fc.uv_mode_cdf[1]),
+            "ext_tx_cdf": ext_tx_cdf,
+            "y_txb_skip": np.ascontiguousarray(fc.txb_skip_cdf[y_ectx]),
+            "uv_txb_skip": np.ascontiguousarray(fc.txb_skip_cdf[uv_ectx]),
+            "y_eob_cdf": np.ascontiguousarray(y_eob_cdf),
+            "uv_eob_cdf": np.ascontiguousarray(uv_eob_cdf),
+            "y_eob_extra": np.ascontiguousarray(fc.eob_extra_cdf[y_ectx][0]),
+            "uv_eob_extra": np.ascontiguousarray(
+                fc.eob_extra_cdf[uv_ectx][1]),
+            "y_base_eob": np.ascontiguousarray(
+                fc.coeff_base_eob_cdf[y_ectx][0]),
+            "uv_base_eob": np.ascontiguousarray(
+                fc.coeff_base_eob_cdf[uv_ectx][1]),
+            "y_base": np.ascontiguousarray(fc.coeff_base_cdf[y_ectx][0]),
+            "uv_base": np.ascontiguousarray(fc.coeff_base_cdf[uv_ectx][1]),
+            "y_br": np.ascontiguousarray(
+                fc.coeff_br_cdf[min(y_ectx, 3)][0]),
+            "uv_br": np.ascontiguousarray(
+                fc.coeff_br_cdf[min(uv_ectx, 3)][1]),
+            "y_dc_sign": np.ascontiguousarray(fc.dc_sign_cdf[0]),
+            "uv_dc_sign": np.ascontiguousarray(fc.dc_sign_cdf[1]),
+        }
+        self._keepalive = arrays  # numpy buffers must outlive the call
+        scalars = {
+            "R": R, "C": C, "bs": bs,
+            "mi_rows": self.mi_rows, "mi_cols": self.mi_cols,
+            "nplanes": self.nplanes,
+            "y_eob_nsyms": y_eob_nsyms, "uv_eob_nsyms": uv_eob_nsyms,
+            "tx_type_nsyms": tx_type_nsyms, "tx_type_sym": tx_type_sym,
+            "block_bsize": _BS_TO_BSIZE[bs],
+            "part_ctx_above": int(PARTITION_CTX_ABOVE[_BS_TO_BSIZE[bs]]),
+            "part_ctx_left": int(PARTITION_CTX_LEFT[_BS_TO_BSIZE[bs]]),
+        }
+        enc = NativeEncoder()
+        enc.allow_update = not fh.disable_cdf_update
+        native_pack_kf_uniform(enc, arrays, scalars)
+        return enc.done()
+
+    # ------------------------------------------------------------------
+    def _pack2(self, plan: dict, fc: FrameContext, fh: FrameHeader,
+               mi_col_off: int = 0, mi_cols_vis: int | None = None) -> bytes:
         """Two-level partition pack: one native call over the 32/16 tree
-        (native/ec.cpp ec_enc_pack_kf_part2), single tile."""
+        (native/ec.cpp ec_enc_pack_kf_part2). ``mi_col_off`` /
+        ``mi_cols_vis`` select a tile column (the visit bound is
+        tile-relative; frame-edge rules use absolute frame bounds)."""
+        if mi_cols_vis is None:
+            mi_cols_vis = self.mi_cols
         plan_modes = np.asarray(tpu_intra.PLAN_MODES, np.int32)
         R2, C2 = plan["y_mode16"].shape
         Rc, Cc = R2 // 2, C2 // 2
@@ -366,9 +732,11 @@ class GpuFrameEncoder:
         sp = plan["split32"].astype(bool)
         skip_blk = np.where(np.repeat(np.repeat(sp, 2, 0), 2, 1), skip16,
                             np.repeat(np.repeat(skip32, 2, 0), 2, 1))
-        self.mi_skip = np.repeat(
-            np.repeat(skip_blk.astype(np.int32), 4, 0),
-            4, 1)[: self.mi_rows, : self.mi_cols]
+        self._last_skip_blk = skip_blk  # per tile; stitched by encode()
+        if mi_col_off == 0 and mi_cols_vis == self.mi_cols:
+            self.mi_skip = np.repeat(
+                np.repeat(skip_blk.astype(np.int32), 4, 0),
+                4, 1)[: self.mi_rows, : self.mi_cols]
 
         arrays = {
             "split32": np.ascontiguousarray(plan["split32"], np.uint8),
@@ -439,8 +807,8 @@ class GpuFrameEncoder:
         bs16 = int(BlockSize.BLOCK_16X16)
         scalars = {
             "R": Rc, "C": Cc,
-            "mi_rows": self.mi_rows, "mi_cols": self.mi_cols,
-            "mi_col_off": 0, "mi_cols_frame": self.mi_cols,
+            "mi_rows": self.mi_rows, "mi_cols": mi_cols_vis,
+            "mi_col_off": mi_col_off, "mi_cols_frame": self.mi_cols,
             "nplanes": self.nplanes,
             "eobn_y32": 5 + int(TXSIZE_LOG2_MINUS4[tx32]),
             "eobn_y16": 5 + int(TXSIZE_LOG2_MINUS4[tx16]),

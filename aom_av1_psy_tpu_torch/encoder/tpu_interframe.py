@@ -17,8 +17,8 @@ imported here: the MV-class helpers and constants (``tpu_interframe.py:
 ``_mv_ops`` (``:165-671``, over the shared ``normative/mvref.find_mv_refs``
 and ``decoder/inter``), ``_ref_chain_planes`` and the GOP driver
 (``:673-740``). ``_warm_transfer`` is a TPU-platform workaround and is
-dropped. Configurations outside the slice raise ``NotImplementedError``
-naming the later slice that ports them.
+dropped. Configurations the port does not cover yet (tune_vmaf) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -103,7 +103,8 @@ class GpuInterFrameEncoder:
         if not available():
             raise RuntimeError("the encoder requires the native EC library")
         if cfg.tune_vmaf:
-            raise NotImplementedError("tune_vmaf preprocessing is slice 6")
+            raise NotImplementedError(
+                "tune_vmaf preprocessing is not ported yet")
         self.device = resolve_device(device)
         # CDF forwarding: code this frame against the previous frame's
         # counter-reset end-of-frame entropy state (primary_ref_frame)
@@ -676,10 +677,14 @@ class GpuInterFrameEncoder:
 
 def _ref_chain_planes(enc):
     """The post-LPF (post-CDEF) reference planes an encoded frame leaves
-    behind (== the decoder's reference buffer state for that frame)."""
+    behind (== the decoder's reference buffer state for that frame); a
+    uniform-grid KEY frame leaves its pre-LPF plan recon, as the
+    reference's does."""
     out = getattr(enc, "ref_planes_out", None)   # inter frames
     if out is None:
-        out = enc.ref_planes_dev                 # KEY frames
+        out = getattr(enc, "ref_planes_dev", None)  # KEY, partition path
+    if out is None:
+        out = enc.plan["recon_dev"]              # uniform-grid fallback
     return out
 
 

@@ -1,15 +1,20 @@
-"""Two-level (32 -> 16) all-intra partition plan — torch counterpart of
-``aom_av1_psy_tpu/encoder/tpu_intra.py``.
+"""All-intra plans — torch counterpart of
+``aom_av1_psy_tpu/encoder/tpu_intra.py``: the two-level (32 -> 16)
+partition plan (``plan_frame_part``; ``plan_tiles_part`` for T equal tile
+slabs at once) and the uniform-grid fallback (``plan_frame``).
 
 The reference runs each wavefront as one ``lax.scan`` over the
-anti-diagonals of the 32-px cell grid; here a host loop walks the R+C-1
+anti-diagonals of the block grid; here a host loop walks the R+C-1
 diagonals and every step is a handful of device ops: kernel KA
 (``ops/intra_pred.py``) scores all candidates of the diagonal's cells, the
 RD pick is torch ops on the device, KA re-predicts the winner, kernel KB
-(``ops/txq.py``) quantizes, reconstructs and makes the skip decision. The
-cells of a diagonal are known on the host, so only the valid cells are
-processed (the reference computes padding lanes and drops them) and the
-loop never waits for the device. The plan reaches the host in one copy.
+(``ops/txq.py``) quantizes, reconstructs and (on the partition plan) makes
+the skip decision. The cells of a diagonal are known on the host, so only
+the valid cells are processed (the reference computes padding lanes and
+drops them) and the loop never waits for the device. The partition
+wavefronts carry a leading tile axis: tiles are prediction-independent, so
+the cells of one diagonal in all T slabs form one batch (a frame without
+tile columns is T = 1). The plan reaches the host in one copy.
 
 The building blocks keep the reference's names: ``_predict_all_modes`` is
 KA's plain half (``ops/intra_pred.py``); ``_quantize``, ``_dequantize``,
@@ -187,15 +192,30 @@ def edge_cell_masks(R: int, C: int, mi_rows: int, mi_cols: int):
     return forced, no_split
 
 
-def part_inputs(R: int, C: int, q: int, fc, rdmult, mi_rows: int,
-                mi_cols: int) -> dict:
-    """Host-side inputs of the two-level plan as numpy, built exactly as the
-    reference's ``plan_frame_part`` builds them before its device calls:
-    cost and rate tables, candidate position masks, the 16/32 lambda grids
-    and the forced / no_split edge-cell masks."""
+def shared_inputs(R: int, C: int, q: int, fc) -> dict:
+    """The host inputs of the two-level plan that every tile shares: the
+    quantizers, mode cost tables, coefficient-rate tables and partition
+    rates."""
     kf_cost, angle_cost, uv_cost = _plan_cost_tables2(fc)
-    masks = DIR.position_masks(mi_rows, mi_cols, mi_cols, R, C)
+    pr_none, pr_split = _part_rate_scalars(fc)
+    return {"R": R, "C": C, "dc_q": tables.dc_quant(q),
+            "ac_q": tables.ac_quant(q), "kf_cost": kf_cost,
+            "angle_cost": angle_cost, "uv_cost": uv_cost,
+            "pr_none": pr_none, "pr_split": pr_split,
+            "rt": _rate_tables(fc)}
 
+
+def tile_inputs(R: int, C: int, rdmult, mi_rows: int, mi_cols: int,
+                tile_mi_w: int | None = None,
+                vis_mi_w: int | None = None) -> dict:
+    """The host inputs of the two-level plan that belong to one tile slab:
+    the 16/32 lambda grids, the candidate position masks (bounded by the
+    tile's actual mi width ``tile_mi_w`` and its visible mi width
+    ``vis_mi_w``, both ``mi_cols`` by default) and the forced / no_split
+    edge-cell masks (``mi_cols`` is the slab's effective mi width)."""
+    masks = DIR.position_masks(
+        mi_rows, tile_mi_w if tile_mi_w is not None else mi_cols,
+        vis_mi_w if vis_mi_w is not None else mi_cols, R, C)
     rd16 = np.asarray(rdmult, np.float32)
     if rd16.ndim == 0:
         rd16 = np.full((2 * R, 2 * C), float(rdmult), np.float32)
@@ -203,56 +223,78 @@ def part_inputs(R: int, C: int, q: int, fc, rdmult, mi_rows: int,
     # 32-lambda: geometric mean of the four covered 16 lambdas
     rd32 = np.exp(np.log(rd16).reshape(R, 2, C, 2).mean((1, 3))) \
         .astype(np.float32)
-
     forced, no_split = edge_cell_masks(R, C, mi_rows, mi_cols)
-    pr_none, pr_split = _part_rate_scalars(fc)
-    rt = _rate_tables(fc)
-    return {"R": R, "C": C, "dc_q": tables.dc_quant(q),
-            "ac_q": tables.ac_quant(q), "kf_cost": kf_cost,
-            "angle_cost": angle_cost, "uv_cost": uv_cost, "rd16": rd16,
-            "rd32": rd32, "forced": forced, "no_split": no_split,
-            "pr_none": pr_none, "pr_split": pr_split, "rt": rt,
-            "masks": masks}
+    return {"rd16": rd16, "rd32": rd32, "forced": forced,
+            "no_split": no_split, "masks": masks}
+
+
+def part_inputs(R: int, C: int, q: int, fc, rdmult, mi_rows: int,
+                mi_cols: int, tile_mi_w: int | None = None,
+                vis_mi_w: int | None = None) -> dict:
+    """Host-side inputs of the two-level plan as numpy, built exactly as the
+    reference's ``plan_frame_part`` builds them before its device calls:
+    cost and rate tables, candidate position masks, the 16/32 lambda grids
+    and the forced / no_split edge-cell masks."""
+    return {**shared_inputs(R, C, q, fc),
+            **tile_inputs(R, C, rdmult, mi_rows, mi_cols, tile_mi_w,
+                          vis_mi_w)}
+
+
+def stack_tiles(shared: dict, tiles: list) -> dict:
+    """One input dict for T equal tile slabs: each ``tile_inputs`` array
+    (lambda grids, edge-cell and position masks) gains a leading tile
+    axis; the ``shared_inputs`` pass through."""
+    out = dict(shared)
+    for k in ("rd16", "rd32", "forced", "no_split"):
+        out[k] = np.stack([d[k] for d in tiles])
+    out["masks"] = {k: np.stack([d["masks"][k] for d in tiles])
+                    for k in tiles[0]["masks"]}
+    return out
 
 
 # ----------------------------------------------------------------------
 # wavefronts
 # ----------------------------------------------------------------------
 @functools.cache
-def _diagonals(R: int, C: int):
-    """Cells of each anti-diagonal d = r + c of an (R, C) grid, in the
-    reference's lane order: flat row/col arrays and per-diagonal offsets."""
-    rows, cols, offs = [], [], [0]
+def _diagonals(R: int, C: int, T: int = 1):
+    """Cells of each anti-diagonal d = r + c of T (R, C) grids, each
+    tile's cells in the reference's lane order, tile after tile: flat
+    tile/row/col arrays and per-diagonal offsets."""
+    tiles, rows, cols, offs = [], [], [], [0]
     for d in range(R + C - 1):
         r = np.arange(max(0, d - (C - 1)), min(R - 1, d) + 1)
-        rows.append(r)
-        cols.append(d - r)
-        offs.append(offs[-1] + len(r))
-    return np.concatenate(rows), np.concatenate(cols), tuple(offs)
+        tiles.append(np.repeat(np.arange(T), len(r)))
+        rows.append(np.tile(r, T))
+        cols.append(np.tile(d - r, T))
+        offs.append(offs[-1] + T * len(r))
+    return (np.concatenate(tiles), np.concatenate(rows),
+            np.concatenate(cols), tuple(offs))
 
 
-def _walk(R: int, C: int, device):
-    """Yield (rc, cc) int64 device tensors per diagonal (one upload)."""
-    rows, cols, offs = _diagonals(R, C)
-    rc_all = torch.as_tensor(rows, device=device)
-    cc_all = torch.as_tensor(cols, device=device)
+def _walk(R: int, C: int, device, T: int = 1):
+    """Yield (tt, rc, cc) int64 device tensors per diagonal (one upload):
+    the tile, row and column of every cell of the diagonal in T grids."""
+    tiles, rows, cols, offs = _diagonals(R, C, T)
+    all_ = [torch.as_tensor(a, device=device) for a in (tiles, rows, cols)]
     for d in range(R + C - 1):
-        yield rc_all[offs[d]:offs[d + 1]], cc_all[offs[d]:offs[d + 1]]
+        yield tuple(a[offs[d]:offs[d + 1]] for a in all_)
 
 
-def _edges(buf, by, bx, bs: int):
-    """Above row, left column and corner of blocks at (by, bx) of a buffer
-    with a 1-px guard border ((by, bx) are block origins + 1)."""
+def _edges(buf, tt, by, bx, bs: int):
+    """Above row, left column and corner of blocks at (by, bx) of tile tt
+    of a (T, H, W) buffer with a 1-px guard border ((by, bx) are block
+    origins + 1)."""
     ar = torch.arange(bs, device=buf.device)
-    above = buf[(by - 1)[:, None], bx[:, None] + ar]
-    left = buf[by[:, None] + ar, (bx - 1)[:, None]]
-    tl = buf[by - 1, bx - 1]
+    t1 = tt[:, None]
+    above = buf[t1, (by - 1)[:, None], bx[:, None] + ar]
+    left = buf[t1, by[:, None] + ar, (bx - 1)[:, None]]
+    tl = buf[tt, by - 1, bx - 1]
     return above, left, tl
 
 
-def _block_index(by, bx, bs: int):
+def _block_index(tt, by, bx, bs: int):
     ar = torch.arange(bs, device=by.device)
-    return by[:, None, None] + ar[None, :, None], \
+    return tt[:, None, None], by[:, None, None] + ar[None, :, None], \
         bx[:, None, None] + ar[None, None, :]
 
 
@@ -262,13 +304,16 @@ def _smooth(m):
 
 def _luma_wavefront_part(src, t: dict):
     """Two-level luma wavefront over 32px cells with the full candidate set
-    (7 plain modes + the directional (mode, delta) pairs).
+    (7 plain modes + the directional (mode, delta) pairs), over T tile
+    slabs at once: tiles are prediction-independent, so every diagonal
+    step runs the cells of all T tiles as one batch.
 
-    src: (R*32, C*32) int32 on the device; ``t`` the plan inputs as
-    tensors (``convert.inputs_from_numpy``). Returns (split (R,C), m32
-    (AV1 mode), d32 (angle delta), lv32, eob32, m16, d16, lv16, eob16,
-    recon (R*32, C*32))."""
+    src: (T, R*32, C*32) int32 on the device; ``t`` the plan inputs as
+    tensors (``convert.inputs_from_numpy`` of ``stack_tiles``). Returns
+    (split (T,R,C), m32 (AV1 mode), d32 (angle delta), lv32, eob32, m16,
+    d16, lv16, eob16, recon (T, R*32, C*32))."""
     R, C = t["R"], t["C"]
+    T = src.shape[0]
     dev = src.device
     dc_q, ac_q = t["dc_q"], t["ac_q"]
     masks = t["masks"]
@@ -283,43 +328,43 @@ def _luma_wavefront_part(src, t: dict):
     rt32, rt16 = t["rt"]["y32"], t["rt"]["y16"]
     H, W = R * 32, C * 32
     i32 = dict(dtype=torch.int32, device=dev)
-    buf = torch.zeros((H + 2 + 32, W + 2 + 32), **i32)
-    mode16 = torch.zeros((2 * R, 2 * C), **i32)      # AV1 mode ctx map
-    split_out = torch.zeros((R, C), **i32)
-    m32o = torch.zeros((R, C), **i32)
-    d32o = torch.zeros((R, C), **i32)
-    lv32o = torch.zeros((R, C, 1024), **i32)
-    e32o = torch.zeros((R, C), **i32)
-    m16o = torch.zeros((2 * R, 2 * C), **i32)
-    d16o = torch.zeros((2 * R, 2 * C), **i32)
-    lv16o = torch.zeros((2 * R, 2 * C, 256), **i32)
-    e16o = torch.zeros((2 * R, 2 * C), **i32)
-    src4 = src.view(R, 32, C, 32)
+    buf = torch.zeros((T, H + 2 + 32, W + 2 + 32), **i32)
+    mode16 = torch.zeros((T, 2 * R, 2 * C), **i32)   # AV1 mode ctx map
+    split_out = torch.zeros((T, R, C), **i32)
+    m32o = torch.zeros((T, R, C), **i32)
+    d32o = torch.zeros((T, R, C), **i32)
+    lv32o = torch.zeros((T, R, C, 1024), **i32)
+    e32o = torch.zeros((T, R, C), **i32)
+    m16o = torch.zeros((T, 2 * R, 2 * C), **i32)
+    d16o = torch.zeros((T, 2 * R, 2 * C), **i32)
+    lv16o = torch.zeros((T, 2 * R, 2 * C, 256), **i32)
+    e16o = torch.zeros((T, 2 * R, 2 * C), **i32)
+    src4 = src.view(T, R, 32, C, 32)
     inf = torch.tensor(float("inf"), device=dev)
 
     def mode_rate(am, lm):
         # am/lm are AV1 mode ids of the neighbours -> (B, K)
         return mode_cost[imc[am.long()], imc[lm.long()]] + angle_cost[None, :]
 
-    for rc, cc in _walk(R, C, dev):
+    for tt, rc, cc in _walk(R, C, dev, T):
         by, bx = rc * 32 + 1, cc * 32 + 1
         have_a, have_l = rc > 0, cc > 0
-        above, left, tl = _edges(buf, by, bx, 32)
-        src32 = src4[rc, :, cc, :]                             # (B,32,32)
+        above, left, tl = _edges(buf, tt, by, bx, 32)
+        src32 = src4[tt, rc, :, cc, :]                         # (B,32,32)
         zero = torch.zeros_like(rc, dtype=torch.int32)
 
         # ---- 32 path ----
-        am = torch.where(have_a, mode16[2 * rc - 1, 2 * cc], zero)
-        lm = torch.where(have_l, mode16[2 * rc, (2 * cc - 1).clamp(min=0)],
-                         zero)
+        am = torch.where(have_a, mode16[tt, 2 * rc - 1, 2 * cc], zero)
+        lm = torch.where(have_l,
+                         mode16[tt, 2 * rc, (2 * cc - 1).clamp(min=0)], zero)
         ef = (_smooth(am) & have_a) | (_smooth(lm) & have_l)
         ssep = IP.intra_pred_sse(above, left, tl, have_a, have_l, src32, K,
                                  ef=ef)                         # (K,B)
-        allowed = DIR.allowed_mask(masks["ok1_32"][rc, cc],
-                                   masks["ok2_32"][rc, cc],
-                                   masks["ok3_32"][rc, cc], 32)
+        allowed = DIR.allowed_mask(masks["ok1_32"][tt, rc, cc],
+                                   masks["ok2_32"][tt, rc, cc],
+                                   masks["ok3_32"][tt, rc, cc], 32)
         rate32 = mode_rate(am, lm)                              # (B,K)
-        rdm32 = rd32[rc, cc]
+        rdm32 = rd32[tt, rc, cc]
         # disallowed candidates are masked in the RD domain: a candidate
         # whose edge model mismatches the decoder's must never win
         best32 = torch.where(allowed, _rd(ssep, rate32.T, rdm32),
@@ -351,12 +396,13 @@ def _luma_wavefront_part(src, t: dict):
             hl = have_l | (qc > 0)
             i16, j16 = 2 * rc + qr, 2 * cc + qc
             if qr == 0:
-                am = torch.where(have_a, mode16[2 * rc - 1, j16], zero)
+                am = torch.where(have_a, mode16[tt, 2 * rc - 1, j16], zero)
             else:
                 am = sub_modes[(0, qc)]
             if qc == 0:
-                lm = torch.where(have_l,
-                                 mode16[i16, (2 * cc - 1).clamp(min=0)], zero)
+                lm = torch.where(have_l, mode16[tt, i16,
+                                                (2 * cc - 1).clamp(min=0)],
+                                 zero)
             else:
                 lm = sub_modes[(qr, 0)]
             ef16 = (_smooth(am) & ha) | (_smooth(lm) & hl)
@@ -364,16 +410,16 @@ def _luma_wavefront_part(src, t: dict):
             # loc row qr*16 cols 17..32, bottom-left col = loc col 0/16
             aext = loc[:, qr * 16, 17:33]
             lext = loc[:, 17:33, qc * 16]
-            trr = masks["trreal_16"][i16, j16]
-            blr = masks["blreal_16"][i16, j16]
+            trr = masks["trreal_16"][tt, i16, j16]
+            blr = masks["blreal_16"][tt, i16, j16]
             s16 = src32[:, qr * 16:qr * 16 + 16, qc * 16:qc * 16 + 16]
             sp = IP.intra_pred_sse(a, l, tq, ha, hl, s16, K, trr, blr, aext,
                                    lext, ef16)
-            allowed16 = DIR.allowed_mask(masks["ok1_16"][i16, j16],
-                                         masks["ok2_16"][i16, j16],
-                                         masks["ok3_16"][i16, j16], 16)
+            allowed16 = DIR.allowed_mask(masks["ok1_16"][tt, i16, j16],
+                                         masks["ok2_16"][tt, i16, j16],
+                                         masks["ok3_16"][tt, i16, j16], 16)
             r16 = mode_rate(am, lm)
-            rdm16 = rd16[i16, j16]
+            rdm16 = rd16[tt, i16, j16]
             b16 = torch.where(allowed16, _rd(sp, r16.T, rdm16),
                               inf).argmin(0)
             ymode16 = tab16["MODE"][b16]
@@ -390,36 +436,39 @@ def _luma_wavefront_part(src, t: dict):
             subs.append((ymode16, ydelta16, lv, e))
         cost16 = cost16 + (rdm32 / 512.0) * pr_split
 
-        split = t["forced"][rc, cc] | ((cost16 < cost32)
-                                       & ~t["no_split"][rc, cc])
+        split = t["forced"][tt, rc, cc] | ((cost16 < cost32)
+                                           & ~t["no_split"][tt, rc, cc])
         recon = torch.where(split[:, None, None], loc[:, 1:33, 1:33], rec32)
-        buf[_block_index(by, bx, 32)] = recon
-        split_out[rc, cc] = split.to(torch.int32)
-        m32o[rc, cc] = ymode32
-        d32o[rc, cc] = ydelta32
-        lv32o[rc, cc] = lv32
-        e32o[rc, cc] = e32
+        buf[_block_index(tt, by, bx, 32)] = recon
+        split_out[tt, rc, cc] = split.to(torch.int32)
+        m32o[tt, rc, cc] = ymode32
+        d32o[tt, rc, cc] = ydelta32
+        lv32o[tt, rc, cc] = lv32
+        e32o[tt, rc, cc] = e32
         for (qr, qc), (ym16, yd16, lv, e) in zip(_QUADS, subs):
             rq, cq = 2 * rc + qr, 2 * cc + qc
-            m16o[rq, cq] = ym16
-            d16o[rq, cq] = yd16
-            lv16o[rq, cq] = lv
-            e16o[rq, cq] = e
+            m16o[tt, rq, cq] = ym16
+            d16o[tt, rq, cq] = yd16
+            lv16o[tt, rq, cq] = lv
+            e16o[tt, rq, cq] = e
             # ctx map: chosen sub mode where split else the 32 mode
-            mode16[rq, cq] = torch.where(split, ym16, ymode32)
+            mode16[tt, rq, cq] = torch.where(split, ym16, ymode32)
     return (split_out, m32o, d32o, lv32o, e32o, m16o, d16o, lv16o, e16o,
-            buf[1:1 + H, 1:1 + W])
+            buf[:, 1:1 + H, 1:1 + W])
 
 
 def _chroma_wavefront_part(src_u, src_v, t: dict, split32, y_m32, y_m16):
     """Two-level chroma wavefront over 16px chroma cells (4:2:0 mirror of
-    the luma 32/16 partition). The structure follows the luma split map;
-    both alternatives are reconstructed and selected by ``split32``. The U
-    and V blocks of a step run as one batch of 2B blocks.
+    the luma 32/16 partition) of T tile slabs at once. The structure
+    follows the luma split map; both alternatives are reconstructed and
+    selected by ``split32``. The U and V blocks of a step run as one batch
+    of 2B blocks.
 
-    Returns (uvm16 (R,C), uvlv16 (2,R,C,256), uveob16 (2,R,C),
-    uvm8 (2R,2C), uvlv8 (2,2R,2C,64), uveob8 (2,2R,2C), recon (2,H,W))."""
+    src_u/src_v: (T, R*16, C*16). Returns (uvm16 (T,R,C), uvlv16
+    (T,2,R,C,256), uveob16 (T,2,R,C), uvm8 (T,2R,2C), uvlv8 (T,2,2R,2C,64),
+    uveob8 (T,2,2R,2C), recon (2,T,H,W))."""
     R, C = t["R"], t["C"]
+    T = src_u.shape[0]
     dev = src_u.device
     dc_q, ac_q = t["dc_q"], t["ac_q"]
     uv_cost = t["uv_cost"]
@@ -429,31 +478,31 @@ def _chroma_wavefront_part(src_u, src_v, t: dict, split32, y_m32, y_m16):
     scan8 = _scan(BS_TO_TX[8], str(dev))
     H, W = R * 16, C * 16
     i32 = dict(dtype=torch.int32, device=dev)
-    bufs = torch.zeros((2, H + 2 + 16, W + 2 + 16), **i32)
+    bufs = torch.zeros((2, T, H + 2 + 16, W + 2 + 16), **i32)
     plan_modes = _const(PLAN_MODES, str(dev))
-    uvm16o = torch.zeros((R, C), **i32)
-    uvlv16o = torch.zeros((2, R, C, 256), **i32)
-    uve16o = torch.zeros((2, R, C), **i32)
-    uvm8o = torch.zeros((2 * R, 2 * C), **i32)
-    uvlv8o = torch.zeros((2, 2 * R, 2 * C, 64), **i32)
-    uve8o = torch.zeros((2, 2 * R, 2 * C), **i32)
-    srcs4 = (src_u.view(R, 16, C, 16), src_v.view(R, 16, C, 16))
+    uvm16o = torch.zeros((T, R, C), **i32)
+    uvlv16o = torch.zeros((T, 2, R, C, 256), **i32)
+    uve16o = torch.zeros((T, 2, R, C), **i32)
+    uvm8o = torch.zeros((T, 2 * R, 2 * C), **i32)
+    uvlv8o = torch.zeros((T, 2, 2 * R, 2 * C, 64), **i32)
+    uve8o = torch.zeros((T, 2, 2 * R, 2 * C), **i32)
+    srcs4 = (src_u.view(T, R, 16, C, 16), src_v.view(T, R, 16, C, 16))
 
     def both(x):
         return torch.cat([x, x])
 
-    for rc, cc in _walk(R, C, dev):
+    for tt, rc, cc in _walk(R, C, dev, T):
         B = rc.shape[0]
         by, bx = rc * 16 + 1, cc * 16 + 1
         have_a, have_l = both(rc > 0), both(cc > 0)
-        split = split32[rc, cc].bool()
-        rdm32 = rd32[rc, cc]
-        sb = torch.cat([s4[rc, :, cc, :] for s4 in srcs4])    # (2B,16,16)
-        edges = [_edges(bufs[p], by, bx, 16) for p in range(2)]
+        split = split32[tt, rc, cc].bool()
+        rdm32 = rd32[tt, rc, cc]
+        sb = torch.cat([s4[tt, rc, :, cc, :] for s4 in srcs4])  # (2B,16,16)
+        edges = [_edges(bufs[p], tt, by, bx, 16) for p in range(2)]
         a, l, tl = (torch.cat([e[i] for e in edges]) for i in range(3))
 
         # ---- 16 path (single chroma block per plane) ----
-        ym32 = y_m32[rc, cc]                        # AV1 mode ids
+        ym32 = y_m32[tt, rc, cc]                    # AV1 mode ids
         s2 = IP.intra_pred_sse(a, l, tl, have_a, have_l, sb, 7)
         sse16 = s2[:, :B] + s2[:, B:]
         best16 = _rd(sse16, uv_cost[ym32.long()].T, rdm32).argmin(0)
@@ -472,14 +521,14 @@ def _chroma_wavefront_part(src_u, src_v, t: dict, split32, y_m32, y_m16):
         for qr, qc in _QUADS:
             ha8 = have_a | (qr > 0)
             hl8 = have_l | (qc > 0)
-            ym = y_m16[2 * rc + qr, 2 * cc + qc]    # AV1 mode id
+            ym = y_m16[tt, 2 * rc + qr, 2 * cc + qc]    # AV1 mode id
             a8 = locs[:, qr * 8, 1 + qc * 8:9 + qc * 8]
             l8 = locs[:, 1 + qr * 8:9 + qr * 8, qc * 8]
             t8 = locs[:, qr * 8, qc * 8]
             sb8 = sb[:, qr * 8:qr * 8 + 8, qc * 8:qc * 8 + 8]
             s2 = IP.intra_pred_sse(a8, l8, t8, ha8, hl8, sb8, 7)
             sse8 = s2[:, :B] + s2[:, B:]
-            rdm16 = rd16[2 * rc + qr, 2 * cc + qc]
+            rdm16 = rd16[tt, 2 * rc + qr, 2 * cc + qc]
             b8 = _rd(sse8, uv_cost[ym.long()].T, rdm16).argmin(0)
             va, ha = _uv_adst(plan_modes[b8])
             pred = IP.intra_pred_one(a8, l8, t8, ha8, hl8, both(b8), 7)
@@ -492,20 +541,20 @@ def _chroma_wavefront_part(src_u, src_v, t: dict, split32, y_m32, y_m16):
         # ---- select & scatter ----
         rec = torch.where(both(split)[:, None, None], locs[:, 1:17, 1:17],
                           rec16)
-        yy, xx = _block_index(by, bx, 16)
+        idx = _block_index(tt, by, bx, 16)
         for p in range(2):
-            bufs[p][yy, xx] = rec[p * B:(p + 1) * B]
-            uvlv16o[p, rc, cc] = lv16[p * B:(p + 1) * B]
-            uve16o[p, rc, cc] = e16[p * B:(p + 1) * B]
-        uvm16o[rc, cc] = best16.to(torch.int32)
+            bufs[p][idx] = rec[p * B:(p + 1) * B]
+            uvlv16o[tt, p, rc, cc] = lv16[p * B:(p + 1) * B]
+            uve16o[tt, p, rc, cc] = e16[p * B:(p + 1) * B]
+        uvm16o[tt, rc, cc] = best16.to(torch.int32)
         for (qr, qc), (b8, lv, e) in zip(_QUADS, subs8):
             rq, cq = 2 * rc + qr, 2 * cc + qc
-            uvm8o[rq, cq] = b8.to(torch.int32)
+            uvm8o[tt, rq, cq] = b8.to(torch.int32)
             for p in range(2):
-                uvlv8o[p, rq, cq] = lv[p * B:(p + 1) * B]
-                uve8o[p, rq, cq] = e[p * B:(p + 1) * B]
+                uvlv8o[tt, p, rq, cq] = lv[p * B:(p + 1) * B]
+                uve8o[tt, p, rq, cq] = e[p * B:(p + 1) * B]
     return (uvm16o, uvlv16o, uve16o, uvm8o, uvlv8o, uve8o,
-            bufs[:, 1:1 + H, 1:1 + W])
+            bufs[:, :, 1:1 + H, 1:1 + W])
 
 
 _LUMA_KEYS = ("split32", "y_mode32", "y_delta32", "y_levels32", "y_eob32",
@@ -525,36 +574,196 @@ def _fetch(named: dict) -> dict:
         n = v.numel()
         out[k] = host[off:off + n].reshape(tuple(v.shape)).astype(np.int32)
         off += n
-    out["split32"] = out["split32"].astype(np.uint8)
+    if "split32" in out:
+        out["split32"] = out["split32"].astype(np.uint8)
     return out
 
 
+def plan_tiles_part(slabs: list, q: int, fc, mi_rows: int, device):
+    """Two-level plans of T equal tile slabs in one pair of wavefronts.
+
+    slabs: list of dicts with ``y`` (and ``u``/``v`` unless monochrome)
+    int32 numpy planes of one shape, an ``rd`` lambda (scalar or (2R, 2C)
+    grid), ``mi_cols_eff`` (the slab's effective mi width for the edge-cell
+    masks) and ``tile_mi_w`` / ``vis_mi_w`` (None: ``mi_cols_eff``). The
+    only place that stacks the plan inputs of the slabs. Returns T plan
+    dicts (the reference's keys and dtypes; ``recon_dev`` on ``device``)
+    from one device->host copy."""
+    y0 = slabs[0]["y"]
+    R, C = y0.shape[0] // 32, y0.shape[1] // 32
+    t = stack_tiles(shared_inputs(R, C, q, fc),
+                    [tile_inputs(R, C, s["rd"], mi_rows, s["mi_cols_eff"],
+                                 s.get("tile_mi_w"), s.get("vis_mi_w"))
+                     for s in slabs])
+    src_tiles = [np.stack([np.asarray(s[p], np.int32) for s in slabs])
+                 for p in (("y", "u", "v") if "u" in slabs[0] else ("y",))]
+    t = convert.inputs_from_numpy(t, device)
+    ys = torch.as_tensor(np.asarray(src_tiles[0], np.int32), device=device)
+    luma = _luma_wavefront_part(ys, t)
+    named = dict(zip(_LUMA_KEYS, luma[:9]))
+    recons = [luma[9]]
+    if len(src_tiles) > 1:
+        us, vs = (torch.as_tensor(np.asarray(p, np.int32), device=device)
+                  for p in src_tiles[1:])
+        chroma = _chroma_wavefront_part(us, vs, t, named["split32"],
+                                        named["y_mode32"], named["y_mode16"])
+        named.update(zip(_CHROMA_KEYS, chroma[:6]))
+        recons += [chroma[6][0], chroma[6][1]]
+    host = _fetch(named)
+    return [{"part": True, **{k: v[i] for k, v in host.items()},
+             "recon_dev": [r[i].contiguous() for r in recons]}
+            for i in range(ys.shape[0])]
+
+
 def plan_frame_part(src_planes, q, fc, rdmult, mi_rows, mi_cols,
-                    device="cuda", fetch_recon=False):
-    """Two-level (32 -> 16) partition plan over one frame.
+                    device="cuda", fetch_recon=False, tile_mi_w=None,
+                    vis_mi_w=None):
+    """Two-level (32 -> 16) partition plan over one frame (or one tile).
 
     src_planes: mi-aligned int32 numpy planes padded to multiples of 32
     (luma) / 16 (chroma). ``rdmult`` scalar or (2R, 2C) 16-granularity
-    grid. Returns the plan dict consumed by the native part2 pack (the
-    reference's keys and dtypes); ``recon_dev`` holds the recon planes as
-    tensors on ``device``."""
+    grid. ``tile_mi_w`` / ``vis_mi_w`` (tile columns): the tile's actual
+    and visible mi widths, both ``mi_cols`` by default. Returns the plan
+    dict consumed by the native part2 pack (the reference's keys and
+    dtypes); ``recon_dev`` holds the recon planes as tensors on
+    ``device``."""
     from ..device import resolve_device
     dev = resolve_device(device)
+    slab = {"rd": rdmult, "mi_cols_eff": mi_cols, "tile_mi_w": tile_mi_w,
+            "vis_mi_w": vis_mi_w, **dict(zip("yuv", src_planes))}
+    plan = plan_tiles_part([slab], q, fc, mi_rows, dev)[0]
+    if fetch_recon:
+        plan["recon"] = [r.cpu().numpy() for r in plan["recon_dev"]]
+    return plan
+
+
+# ----------------------------------------------------------------------
+# the uniform-grid fallback (7 plain modes, TX == block size, no skip)
+# ----------------------------------------------------------------------
+def _luma_wavefront(src, mode_cost, angle_cost, dc_q, ac_q, rdmult, bs: int,
+                    R: int, C: int):
+    """Uniform-grid luma wavefront (the reference's ``_luma_wavefront``):
+    per anti-diagonal, KA scores the 7 plain modes of every block, the RD
+    argmin runs in torch ops, KA predicts the winner again and KB (no skip
+    decision) quantizes and reconstructs it.
+
+    src: (R*bs, C*bs) int32; rdmult (R, C) float32. Returns (mode_idx
+    (R,C) PLAN index, levels (R,C,n), eob (R,C), recon (R*bs, C*bs))."""
+    dev = src.device
+    scan = _scan(BS_TO_TX[bs], str(dev))
+    imc = _const(_IMC, str(dev))
+    plan_modes = _const(PLAN_MODES, str(dev))
+    H, W = R * bs, C * bs
+    i32 = dict(dtype=torch.int32, device=dev)
+    buf = torch.zeros((1, H + 2 + bs, W + 2 + bs), **i32)
+    mode_grid = torch.zeros((R, C), **i32)            # chosen PLAN index
+    levels_out = torch.zeros((R, C, bs * bs), **i32)
+    eob_out = torch.zeros((R, C), **i32)
+    src4 = src.view(R, bs, C, bs)
+    for tt, rc, cc in _walk(R, C, dev):
+        by, bx = rc * bs + 1, cc * bs + 1
+        have_a, have_l = rc > 0, cc > 0
+        above, left, tl = _edges(buf, tt, by, bx, bs)
+        sb = src4[rc, :, cc, :]                                # (B,bs,bs)
+        sse = IP.intra_pred_sse(above, left, tl, have_a, have_l, sb,
+                                IP.N_PLAIN)                    # (7,B)
+        zero = torch.zeros_like(rc, dtype=torch.int32)
+        am = torch.where(have_a, mode_grid[rc - 1, cc], zero)
+        lm = torch.where(have_l, mode_grid[rc, (cc - 1).clamp(min=0)], zero)
+        actx = imc[plan_modes[am.long()].long()]
+        lctx = imc[plan_modes[lm.long()].long()]
+        rate = mode_cost[actx, lctx] + angle_cost[None, :]     # (B,7)
+        best = _rd(sse, rate.T, rdmult[rc, cc]).argmin(0)
+        pred = IP.intra_pred_one(above, left, tl, have_a, have_l, best,
+                                 IP.N_PLAIN)
+        levels, eob, recon = TQ.txq_recon(sb, pred, dc_q, ac_q, scan)
+        buf[_block_index(tt, by, bx, bs)] = recon
+        mode_grid[rc, cc] = best.to(torch.int32)
+        levels_out[rc, cc] = levels
+        eob_out[rc, cc] = eob
+    return mode_grid, levels_out, eob_out, buf[0, 1:1 + H, 1:1 + W]
+
+
+def _chroma_wavefront(src_u, src_v, uv_cost, dc_q, ac_q, rdmult, y_mode_idx,
+                      bs: int, R: int, C: int):
+    """Uniform-grid joint U/V wavefront (the reference's
+    ``_chroma_wavefront``): one mode per block from the summed U+V SSE,
+    the U and V blocks of a step as one batch of 2B, the chroma tx type
+    derived from the mode (ADST/DCT), no skip decision.
+
+    Returns (mode_idx (R,C), levels (2,R,C,n), eob (2,R,C),
+    recon (2, R*bs, C*bs))."""
+    dev = src_u.device
+    scan = _scan(BS_TO_TX[bs], str(dev))
+    plan_modes = _const(PLAN_MODES, str(dev))
+    H, W = R * bs, C * bs
+    i32 = dict(dtype=torch.int32, device=dev)
+    bufs = torch.zeros((2, 1, H + 2 + bs, W + 2 + bs), **i32)
+    mode_grid = torch.zeros((R, C), **i32)
+    levels_out = torch.zeros((2, R, C, bs * bs), **i32)
+    eob_out = torch.zeros((2, R, C), **i32)
+    srcs4 = (src_u.view(R, bs, C, bs), src_v.view(R, bs, C, bs))
+
+    def both(x):
+        return torch.cat([x, x])
+
+    for tt, rc, cc in _walk(R, C, dev):
+        B = rc.shape[0]
+        by, bx = rc * bs + 1, cc * bs + 1
+        have_a, have_l = both(rc > 0), both(cc > 0)
+        sb = torch.cat([s4[rc, :, cc, :] for s4 in srcs4])     # (2B,bs,bs)
+        edges = [_edges(bufs[p], tt, by, bx, bs) for p in range(2)]
+        a, l, tl = (torch.cat([e[i] for e in edges]) for i in range(3))
+        s2 = IP.intra_pred_sse(a, l, tl, have_a, have_l, sb, IP.N_PLAIN)
+        sse = s2[:, :B] + s2[:, B:]
+        ym = plan_modes[y_mode_idx[rc, cc].long()]
+        best = _rd(sse, uv_cost[ym.long()].T, rdmult[rc, cc]).argmin(0)
+        va, ha = _uv_adst(plan_modes[best])
+        pred = IP.intra_pred_one(a, l, tl, have_a, have_l, both(best),
+                                 IP.N_PLAIN)
+        levels, eob, recon = TQ.txq_recon(sb, pred, dc_q, ac_q, scan,
+                                          both(va), both(ha))
+        idx = _block_index(tt, by, bx, bs)
+        for p in range(2):
+            bufs[p][idx] = recon[p * B:(p + 1) * B]
+            levels_out[p, rc, cc] = levels[p * B:(p + 1) * B]
+            eob_out[p, rc, cc] = eob[p * B:(p + 1) * B]
+        mode_grid[rc, cc] = best.to(torch.int32)
+    return mode_grid, levels_out, eob_out, bufs[:, 0, 1:1 + H, 1:1 + W]
+
+
+def plan_frame(src_planes, q, bs, fc, rdmult, device="cuda",
+               fetch_recon=False):
+    """Uniform-grid plan over one frame (the reference's ``plan_frame``).
+
+    src_planes: mi-aligned int32 numpy planes (luma dims multiples of
+    ``bs``); ``rdmult`` a scalar or a per-block (R, C) grid. Returns the
+    plan dict consumed by the native uniform pack (the reference's keys and
+    dtypes) from one device->host copy; ``recon_dev`` holds the recon
+    planes on ``device``."""
+    from ..device import resolve_device
+    dev = resolve_device(device)
+    kf_cost, angle_cost, uv_cost = _plan_cost_tables(fc)
     y = src_planes[0]
-    R, C = y.shape[0] // 32, y.shape[1] // 32
-    t = convert.inputs_from_numpy(
-        part_inputs(R, C, q, fc, rdmult, mi_rows, mi_cols), dev)
-    luma = _luma_wavefront_part(convert.plane(y, dev), t)
-    named = dict(zip(_LUMA_KEYS, luma[:9]))
-    recon_dev = [luma[9].contiguous()]
+    R, C = y.shape[0] // bs, y.shape[1] // bs
+    dc_q, ac_q = tables.dc_quant(q), tables.ac_quant(q)
+    rdgrid = np.asarray(rdmult, np.float32)
+    if rdgrid.ndim == 0:
+        rdgrid = np.full((R, C), float(rdmult), np.float32)
+    assert rdgrid.shape == (R, C), (rdgrid.shape, R, C)
+    rdgrid = torch.as_tensor(rdgrid, device=dev)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)
+    ym, ylv, yeob, yrec = _luma_wavefront(
+        t(y), t(kf_cost), t(angle_cost), dc_q, ac_q, rdgrid, bs, R, C)
+    named = {"y_mode": ym, "y_levels": ylv, "y_eob": yeob}
+    recon_dev = [yrec.contiguous()]
     if len(src_planes) > 1:
-        chroma = _chroma_wavefront_part(
-            convert.plane(src_planes[1], dev),
-            convert.plane(src_planes[2], dev), t, named["split32"],
-            named["y_mode32"], named["y_mode16"])
-        named.update(zip(_CHROMA_KEYS, chroma[:6]))
-        recon_dev += [chroma[6][0].contiguous(), chroma[6][1].contiguous()]
-    plan = {"part": True, **_fetch(named), "recon_dev": recon_dev}
+        uvm, uvlv, uveob, uvrec = _chroma_wavefront(
+            t(src_planes[1]), t(src_planes[2]), t(uv_cost), dc_q, ac_q,
+            rdgrid, ym, bs // 2, R, C)
+        named.update(uv_mode=uvm, uv_levels=uvlv, uv_eob=uveob)
+        recon_dev += [uvrec[0].contiguous(), uvrec[1].contiguous()]
+    plan = {"bs": bs, **_fetch(named), "recon_dev": recon_dev}
     if fetch_recon:
         plan["recon"] = [r.cpu().numpy() for r in recon_dev]
     return plan

@@ -15,6 +15,7 @@ reference, never once as an FMA.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import os
 import shutil
@@ -47,12 +48,15 @@ class CudaKernel:
 
     ``entry_points`` maps each C function to its ctypes argument types (the
     stream is the last argument of every one). ``launches`` counts the
-    kernel launches made through :meth:`launch`."""
+    kernel launches made through :meth:`launch`; ``variants`` counts them
+    again by the label the wrapper passes (block size, mode), so a caller
+    can tell which instance of a kernel ran."""
 
     def __init__(self, name: str, entry_points: dict):
         self.name = name
         self.entry_points = entry_points
         self.launches = 0
+        self.variants = collections.Counter()
         self.build_log = ""
         self._lib = None
 
@@ -99,15 +103,20 @@ class CudaKernel:
             self._lib = lib
         return self._lib
 
-    def launch(self, fn: str, *args) -> None:
+    def reset(self) -> None:
+        self.launches = 0
+        self.variants.clear()
+
+    def launch(self, fn: str, *args, variant: str = "") -> None:
         """Call entry point ``fn`` on the current CUDA stream; raise on a
-        launch error."""
+        launch error. ``variant`` labels the launch in ``variants``."""
         import torch
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(self.lib(), fn)(*args, stream)
         if rc != 0:
             raise RuntimeError(f"{self.name}.{fn}: CUDA error {rc}")
         self.launches += 1
+        self.variants[variant or fn] += 1
 
 
 def build_all(kernels) -> None:

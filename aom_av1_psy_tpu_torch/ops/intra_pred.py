@@ -10,7 +10,8 @@ edge pipeline ``tpu_intra_dir._filter_edge_b`` / ``build_edge_buffer`` /
 
 Candidates: K = 61 at luma 32/16 (the 7 plain modes DC, V, H, SMOOTH,
 SMOOTH_V, SMOOTH_H, PAETH, then the 54 directional (mode, delta) pairs of
-``tpu_intra_dir.candidates``), K = 7 (plain only) at chroma 16/8.
+``tpu_intra_dir.candidates``), K = 7 (plain only) at chroma 16/8 and on
+the uniform grid (``tpu_intra.py:282-411``: luma 8/16/32, chroma 4/8/16).
 
 ``predict_all_modes`` here is the torch counterpart of the reference's
 ``_predict_all_modes``; ``intra_pred_sse_plain`` / ``intra_pred_one_plain``
@@ -141,9 +142,9 @@ def _cuda_args(above, left, tl, have_a, have_l, K, trreal, blreal, abext,
                lfext, ef, last, last_shape):
     """Validate the CUDA inputs; returns them contiguous, in C order."""
     B, bs = above.shape
-    if bs not in (8, 16, 32) or K not in (N_PLAIN, len(DIR.candidates())):
+    if bs not in (4, 8, 16, 32) or K not in (N_PLAIN, len(DIR.candidates())):
         raise ValueError(f"unsupported bs={bs} K={K}")
-    if K != N_PLAIN and bs == 8:
+    if K != N_PLAIN and bs not in (16, 32):
         raise ValueError("directional candidates exist at 16/32 only")
     tr, bl, ae, le, e = _defaults(above, trreal, blreal, abext, lfext, ef)
     spec = ((above, (B, bs), torch.int32), (left, (B, bs), torch.int32),
@@ -184,7 +185,8 @@ def intra_pred_sse(above, left, tl, have_a, have_l, src, K, trreal=None,
                               above.shape[1]))
     out = torch.empty((K, B), dtype=torch.int32, device=above.device)
     KA.launch("intra_pred_sse", *(a.data_ptr() for a in args),
-              *_table_ptrs(bs, K, above.device), B, bs, K, out.data_ptr())
+              *_table_ptrs(bs, K, above.device), B, bs, K, out.data_ptr(),
+              variant=f"bs{bs}")
     return out
 
 
@@ -202,5 +204,5 @@ def intra_pred_one(above, left, tl, have_a, have_l, cand, K, trreal=None,
     *edges, cand = args
     KA.launch("intra_pred_one", *(a.data_ptr() for a in edges),
               *_table_ptrs(bs, K, above.device), cand.data_ptr(), B, bs, K,
-              out.data_ptr())
+              out.data_ptr(), variant=f"bs{bs}")
     return out

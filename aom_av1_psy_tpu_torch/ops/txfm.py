@@ -1,12 +1,15 @@
 """Torch stage interpreter for the AV1 square 2-D transforms the intra plan
-uses: DCT 8/16/32 and ADST 8/16, forward and inverse.
+uses: DCT 4/8/16/32 and ADST 4/8/16, forward and inverse.
 
 Counterpart of ``aom_av1_psy_tpu/ops/txfm.py`` (``_run_stages`` :105,
-``fwd_txfm2d`` :227, ``inv_txfm2d_add`` :266). The normative stage tables,
-shifts and cos bits are the reference module's numpy data
+``_fadst4`` / ``_iadst4`` :129-182, ``fwd_txfm2d`` :227,
+``inv_txfm2d_add`` :266). The normative stage tables, shifts, cos bits and
+sinpi constants are the reference module's numpy data
 (``_compiled_stages``, ``FWD_SHIFT``, ``INV_SHIFT``, ``FWD_COS_BIT_*``,
-``INV_COS_BIT``); only numpy ever reaches that module (its ``_np_like``
-would import jax.numpy for any other array type).
+``INV_COS_BIT``, ``tables.sinpi``); only numpy ever reaches that module
+(its ``_np_like`` would import jax.numpy for any other array type). ADST4
+is not a stage program: it is the sinpi-based ``av1_fadst4`` /
+``av1_iadst4``, and like the reference it takes no stage clamp.
 
 Arithmetic is int32 with two's-complement wraparound, as jnp's int32 is:
 every stage is ``a*wa + b*wb`` (+ round-shift for butterflies) over a
@@ -20,6 +23,7 @@ import functools
 import numpy as np
 import torch
 
+from aom_av1_psy_tpu.normative import tables
 from aom_av1_psy_tpu.normative.enums import TxSize, TX_WIDTH
 from aom_av1_psy_tpu.ops.txfm import (FWD_COS_BIT_COL, FWD_COS_BIT_ROW,
                                       FWD_SHIFT, INV_COS_BIT, INV_SHIFT,
@@ -29,8 +33,8 @@ __all__ = ["FWD_COS_BIT_COL", "FWD_COS_BIT_ROW", "FWD_SHIFT", "INV_COS_BIT",
            "INV_SHIFT", "run_stages", "txfm_1d", "fwd_txfm2d",
            "inv_txfm2d_add", "fwd_sel", "inv_sel_add", "SQUARE_TX"]
 
-SQUARE_TX = {8: int(TxSize.TX_8X8), 16: int(TxSize.TX_16X16),
-             32: int(TxSize.TX_32X32)}
+SQUARE_TX = {4: int(TxSize.TX_4X4), 8: int(TxSize.TX_8X8),
+             16: int(TxSize.TX_16X16), 32: int(TxSize.TX_32X32)}
 # tx types the plan produces: (vertical ADST?, horizontal ADST?)
 _TX_TYPE_FLAGS = {0: (False, False), 1: (True, False), 2: (False, True),
                   3: (True, True)}
@@ -65,11 +69,49 @@ def run_stages(x: torch.Tensor, func: str, cos_bit: int,
     return x
 
 
+def _round_shift(v, bit: int):
+    return (v + (1 << (bit - 1))) >> bit
+
+
+def fadst4(x: torch.Tensor, cos_bit: int) -> torch.Tensor:
+    """av1_fadst4 (sinpi-based) over (N, 4) int32, in the reference's
+    order of int32 operations."""
+    s = [int(v) for v in tables.sinpi(cos_bit)]
+    x0, x1, x2, x3 = x.unbind(1)
+    t0 = s[1] * x0 + s[2] * x1
+    t1 = s[3] * ((x0 + x1) - x3)
+    t2 = s[4] * x0 - s[1] * x1
+    t3 = s[3] * x2
+    t0 = t0 + s[4] * x3
+    t2 = t2 + s[2] * x3
+    return torch.stack([_round_shift(t0 + t3, cos_bit),
+                        _round_shift(t1, cos_bit),
+                        _round_shift(t2 - t3, cos_bit),
+                        _round_shift((t2 - t0) + t3, cos_bit)], dim=1)
+
+
+def iadst4(x: torch.Tensor, cos_bit: int) -> torch.Tensor:
+    """av1_iadst4 (sinpi-based) over (N, 4) int32, in the reference's
+    order of int32 operations."""
+    s = [int(v) for v in tables.sinpi(cos_bit)]
+    x0, x1, x2, x3 = x.unbind(1)
+    t0 = s[1] * x0 + s[4] * x2
+    t1 = s[2] * x0 - s[1] * x2
+    t3 = s[3] * x1
+    t2 = s[3] * ((x0 - x2) + x3)
+    t0 = t0 + s[2] * x3
+    t1 = t1 - s[4] * x3
+    out = torch.stack([t0 + t3, t1 + t3, t2, (t0 + t1) - t3], dim=1)
+    return _round_shift(out, cos_bit)
+
+
 def txfm_1d(x, n: int, adst: bool, cos_bit: int, inverse: bool,
             clamp_bit: int | None):
-    kind = "adst" if adst else "dct"
+    if adst and n == 4:
+        return iadst4(x, cos_bit) if inverse else fadst4(x, cos_bit)
     if adst and n not in (8, 16):
         raise NotImplementedError(f"ADST{n} is not on the plan's path")
+    kind = "adst" if adst else "dct"
     return run_stages(x, f"av1_{'i' if inverse else 'f'}{kind}{n}", cos_bit,
                       clamp_bit)
 

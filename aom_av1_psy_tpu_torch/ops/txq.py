@@ -1,15 +1,18 @@
 """Kernel KB ``txq_recon_skip``: residual -> forward 2-D transform ->
 zbin-dead-zone quantize -> eob -> dequantize -> inverse transform + recon,
-then the skip-RD decision, for a batch of square blocks.
+then the skip-RD decision, for a batch of square blocks (4, 8, 16, 32).
 
 Replaces, inside the wavefronts, the reference's ``tpu_intra._quantize`` /
 ``_dequantize`` / ``_tq_recon`` / ``_tq_recon_uv`` (``tpu_intra.py:129-250``,
 with the jnp path of ``ops/txfm._run_stages``) and ``_coeff_rate_est`` /
-``_skip_rd`` (``tpu_intra.py:525-567``).
+``_skip_rd`` (``tpu_intra.py:525-567``). ``txq_recon`` is the same kernel
+with the skip decision off (the uniform-grid wavefronts never call
+``_skip_rd``): it returns ``_tq_recon``'s levels, eob and recon.
 
 Luma blocks are DCT_DCT; chroma blocks take the (vertical, horizontal)
 ADST choice derived from their uv mode (``INTRA_MODE_TO_TX_TYPE``), given
-per block as two bool vectors (``None`` = DCT).
+per block as two bool vectors (``None`` = DCT). ADST4 is the sinpi-based
+``av1_fadst4`` / ``av1_iadst4``, not a stage program.
 
 Exactness notes shared with the kernel:
 - the coefficient rate's per-level sum is taken exactly (the table values
@@ -26,6 +29,7 @@ import functools
 import numpy as np
 import torch
 
+from aom_av1_psy_tpu.normative import tables
 from aom_av1_psy_tpu.normative import txsize as TS
 from aom_av1_psy_tpu.ops.txfm import _compiled_stages
 from .txfm import (FWD_COS_BIT_COL, FWD_COS_BIT_ROW, FWD_SHIFT, INV_COS_BIT,
@@ -33,9 +37,10 @@ from .txfm import (FWD_COS_BIT_COL, FWD_COS_BIT_ROW, FWD_SHIFT, INV_COS_BIT,
 from ..kernels.build import CudaKernel, I, P
 
 KB = CudaKernel("txq", {
-    # src, pred, vadst, hadst, B, bs, dc_q, ac_q, shift, scan, lvl_tbl,
-    # eob_tbl, neob, rdm, progs, meta, levels, eob, recon, sse, rate
-    "txq_recon_skip": [P, P, P, P, I, I, I, I, I, P, P, P, I, P, P, P,
+    # src, pred, vadst, hadst, B, bs, dc_q, ac_q, shift, scan, skip,
+    # lvl_tbl, eob_tbl, neob, rdm, progs, meta, levels, eob, recon, sse,
+    # rate
+    "txq_recon_skip": [P, P, P, P, I, I, I, I, I, P, I, P, P, I, P, P, P,
                        P, P, P, P, P],
 })
 
@@ -166,20 +171,25 @@ def _programs(bs: int, device: str):
     """Stage programs of the 8 1-D passes as one int32 table.
 
     ``progs``: per stage entry (ia, ib, wa, wb, is_btf | clamp << 1).
-    ``meta``: 8 x (offset, n_stages or -1, cos_bit, clamp_bit), then the
-    forward shifts (3) and inverse shifts (2) of this tx size."""
+    ``meta``: 8 x (offset, n_stages, cos_bit, clamp_bit), then the forward
+    shifts (3) and inverse shifts (2) of this tx size, then 8 x 5 sinpi
+    constants. ``n_stages`` is -1 for ADST4, which the kernel computes
+    from its pass's sinpi constants, and for ADST32 (not coded)."""
     tx = SQUARE_TX[bs]
     lw = bs.bit_length() - 3
     cos = {("f", "col"): int(FWD_COS_BIT_COL[lw][lw]),
            ("f", "row"): int(FWD_COS_BIT_ROW[lw][lw]),
            ("i", "col"): INV_COS_BIT, ("i", "row"): INV_COS_BIT}
-    rows, meta = [], []
+    rows, meta, sinpi = [], [], []
     off = 0
     for d, kind, axis in _PROG_ORDER:
-        if kind == "adst" and bs not in (8, 16):
-            meta += [0, -1, 0, 0]
-            continue
         cb = cos[(d, axis)]
+        if kind == "adst" and bs not in (8, 16):
+            meta += [0, -1, cb, 0]
+            sinpi += [int(v) for v in tables.sinpi(cb)] if bs == 4 \
+                else [0] * 5
+            continue
+        sinpi += [0] * 5
         stages = _compiled_stages(f"av1_{d}{kind}{bs}", cb)
         meta += [off, len(stages), cb, 16 if d == "i" else 0]
         for ia, ib, wa, wb, is_btf, clamp in stages:
@@ -191,9 +201,58 @@ def _programs(bs: int, device: str):
             rows.append(ent.astype(np.int32))
             off += bs
     meta += [int(v) for v in FWD_SHIFT[tx]] + [int(v) for v in INV_SHIFT[tx]]
+    meta += sinpi
     progs = torch.as_tensor(np.concatenate(rows, 0), device=device)
     return progs.contiguous(), torch.as_tensor(np.asarray(meta, np.int32),
                                                device=device)
+
+
+def _launch_kb(src, pred, dc_q, ac_q, scan, vadst, hadst, rd=None):
+    """One KB launch; ``rd`` = (rdm, lvl_tbl, eob_tbl) turns the skip-RD
+    decision on. Returns (levels, eob, recon, sse, rate); sse and rate are
+    None without ``rd``."""
+    B, bs = src.shape[0], src.shape[-1]
+    if bs not in SQUARE_TX or (vadst is not None and bs == 32):
+        raise ValueError(f"KB: unsupported bs={bs} / ADST at 32")
+    n = bs * bs
+    spec = ((src, (B, bs, bs), torch.int32), (pred, (B, bs, bs), torch.int32),
+            (scan, (n,), torch.int32))
+    if vadst is not None:
+        spec += ((vadst, (B,), torch.bool), (hadst, (B,), torch.bool))
+    if rd is not None:
+        rdm, lvl_tbl, eob_tbl = rd
+        spec += ((rdm, (B,), torch.float32), (lvl_tbl, (16,), torch.float32),
+                 (eob_tbl, (eob_tbl.shape[0],), torch.float32))
+    args = []
+    for t, shape, dt in spec:
+        if t.device.type != "cuda" or t.dtype != dt or \
+                tuple(t.shape) != shape:
+            raise ValueError(f"KB input: want {dt} {shape} on cuda, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        args.append(t.contiguous())
+    src, pred, scan = args[:3]
+    va, ha = (args[3].data_ptr(), args[4].data_ptr()) if vadst is not None \
+        else (0, 0)
+    dev = src.device
+    progs, meta = _programs(bs, str(dev))
+    levels = torch.empty((B, n), dtype=torch.int32, device=dev)
+    eob = torch.empty((B,), dtype=torch.int32, device=dev)
+    recon = torch.empty((B, bs, bs), dtype=torch.int32, device=dev)
+    sse = rate = None
+    ptrs = (0, 0, 0, 0, 0, 0)          # lvl_tbl, eob_tbl, neob, rdm, sse, rate
+    if rd is not None:
+        rdm, lvl_tbl, eob_tbl = args[-3:]
+        sse = torch.empty((B,), dtype=torch.float32, device=dev)
+        rate = torch.empty((B,), dtype=torch.float32, device=dev)
+        ptrs = (lvl_tbl.data_ptr(), eob_tbl.data_ptr(), eob_tbl.shape[0],
+                rdm.data_ptr(), sse.data_ptr(), rate.data_ptr())
+    KB.launch("txq_recon_skip", src.data_ptr(), pred.data_ptr(), va, ha, B,
+              bs, dc_q, ac_q, TS.tx_scale(SQUARE_TX[bs]), scan.data_ptr(),
+              int(rd is not None), *ptrs[:4], progs.data_ptr(),
+              meta.data_ptr(), levels.data_ptr(), eob.data_ptr(),
+              recon.data_ptr(), *ptrs[4:],
+              variant=f"bs{bs}" + ("" if rd is not None else " no-skip"))
+    return levels, eob, recon, sse, rate
 
 
 def txq_recon_skip(src, pred, dc_q: int, ac_q: int, scan, rdm, lvl_tbl,
@@ -204,37 +263,15 @@ def txq_recon_skip(src, pred, dc_q: int, ac_q: int, scan, rdm, lvl_tbl,
     if src.device.type == "cpu":
         return txq_recon_skip_plain(src, pred, dc_q, ac_q, scan, rdm,
                                     lvl_tbl, eob_tbl, vadst, hadst)
-    B, bs = src.shape[0], src.shape[-1]
-    if bs not in SQUARE_TX or (vadst is not None and bs == 32):
-        raise ValueError(f"KB: unsupported bs={bs} / ADST at 32")
-    n = bs * bs
-    spec = ((src, (B, bs, bs), torch.int32), (pred, (B, bs, bs), torch.int32),
-            (scan, (n,), torch.int32), (rdm, (B,), torch.float32),
-            (lvl_tbl, (16,), torch.float32),
-            (eob_tbl, (eob_tbl.shape[0],), torch.float32))
-    if vadst is not None:
-        spec += ((vadst, (B,), torch.bool), (hadst, (B,), torch.bool))
-    args = []
-    for t, shape, dt in spec:
-        if t.device.type != "cuda" or t.dtype != dt or \
-                tuple(t.shape) != shape:
-            raise ValueError(f"KB input: want {dt} {shape} on cuda, got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
-        args.append(t.contiguous())
-    src, pred, scan, rdm, lvl_tbl, eob_tbl = args[:6]
-    va, ha = (args[6].data_ptr(), args[7].data_ptr()) if vadst is not None \
-        else (0, 0)
-    progs, meta = _programs(bs, str(src.device))
-    dev = src.device
-    levels = torch.empty((B, n), dtype=torch.int32, device=dev)
-    eob = torch.empty((B,), dtype=torch.int32, device=dev)
-    recon = torch.empty((B, bs, bs), dtype=torch.int32, device=dev)
-    sse = torch.empty((B,), dtype=torch.float32, device=dev)
-    rate = torch.empty((B,), dtype=torch.float32, device=dev)
-    KB.launch("txq_recon_skip", src.data_ptr(), pred.data_ptr(), va, ha, B,
-              bs, dc_q, ac_q, TS.tx_scale(SQUARE_TX[bs]), scan.data_ptr(),
-              lvl_tbl.data_ptr(), eob_tbl.data_ptr(), eob_tbl.shape[0],
-              rdm.data_ptr(), progs.data_ptr(), meta.data_ptr(),
-              levels.data_ptr(), eob.data_ptr(), recon.data_ptr(),
-              sse.data_ptr(), rate.data_ptr())
-    return levels, eob, recon, sse, rate
+    return _launch_kb(src, pred, dc_q, ac_q, scan, vadst, hadst,
+                      (rdm, lvl_tbl, eob_tbl))
+
+
+def txq_recon(src, pred, dc_q: int, ac_q: int, scan, vadst=None,
+              hadst=None):
+    """(levels (B,n) int32, eob (B,) int32, recon (B,bs,bs) int32) as
+    ``tq_recon`` returns them: KB with the skip decision off. CPU tensors:
+    plain version (``tq_recon``); CUDA tensors: kernel KB."""
+    if src.device.type == "cpu":
+        return tq_recon(src, pred, dc_q, ac_q, scan, vadst, hadst)
+    return _launch_kb(src, pred, dc_q, ac_q, scan, vadst, hadst)[:3]

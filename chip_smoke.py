@@ -18,12 +18,22 @@ exit code is not 0):
 3b. KD / KE / KF, and KB at the P-frame's batch sizes, against their plain
    versions at the 1080p P-frame's shapes, for exact equality, with both
    times;
+3c. KA and KB at 4x4 (KB with the sinpi ADST4 and the skip decision off)
+   and KB with the skip off at 8x8, at the uniform grid's shapes (640x360:
+   chroma B = 2 x 45; 1080p BLOCK_8X8: luma B = 135, chroma B = 270), for
+   exact equality, with both times;
 4. closed loop at CIF (352x288), KEY frame: the CUDA stream equals the
    port's CPU (plain-path) stream byte for byte, and the in-repo decoder
    reconstructs the port's post-loop-filter planes exactly;
 4b. closed loop at CIF, a 4-frame IPPP GOP (``encode_video``, CDEF on): the
    CUDA packets equal the CPU plain-path packets and every frame decodes to
    the port's post-LPF, post-CDEF reference chain;
+4c. closed loop at CIF with two tile columns (``tile_cols_log2=1``, two
+   3-SB tiles): CUDA stream == CPU plain stream, decoder == post-LPF recon;
+4d. closed loop at 640x360 with the default config, which takes the
+   uniform grid (mi rows = 2 mod 8, 8x8 blocks, chroma at 4x4): CUDA stream
+   == CPU plain stream, decoder == the plan recon after the host
+   deblocker (the uniform path runs no device loop filter);
 5. the KEY path: ``GpuFrameEncoder.encode()`` of ``bench.make_frame(1920,
    1080)`` at ``base_q_idx=100`` — a first frame and 3 steady frames — with
    the launch counts read around that run;
@@ -33,14 +43,30 @@ exit code is not 0):
    bytes, times and filter strengths; each P-frame re-encoded alone from
    the GOP's chain for its wall time; the whole GOP on the CPU plain path
    must give the same packets;
+5c. the tiled KEY path: ``bench.make_frame(1920, 1080)`` with
+   ``tile_cols_log2=1`` (two 15-SB tiles batched through one wavefront of
+   63 diagonals) — a first frame and 3 steady frames with the launch counts
+   read around them, the untiled steady median of phase 5 beside it; CUDA
+   == CPU plain stream;
+5d. the uniform grid at full width: 1080p with ``block_size=BLOCK_8X8``
+   (R = 135, C = 240: 374 diagonals per plane) — a first frame and 3
+   steady frames with the counts read around them, CUDA == CPU plain
+   stream; then 640x360 (the default config's uniform grid), 3 steady;
+5e. 1080p with ``search_cdef=True``: the searched strengths and the time;
+   at CIF, CUDA == CPU plain stream;
 6. / 6b. a profiler window over one steady 1080p KEY frame and one steady
    1080p P-frame (device busy time by kernel).
 
-``--only-kernels`` stops after phase 3b. The second-to-last line is
-``{"kernels": [...]}`` (``launches`` from the GOP of phase 5b), the last
-line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
-without the package beside this script, it exits non-zero and prints no
-result.
+``--only-kernels`` stops after phase 3c. The second-to-last line is
+``{"kernels": [...]}``: ``launches`` from the GOP of phase 5b (for the
+4x4 / no-skip entries, from the uniform KEY frames of phase 5d), with the
+counts of the KEY frames of phases 5, 5c and 5d beside it. KA's and KB's
+entries count only their own instances (``intra_pred_sse`` bs 8/16/32,
+``intra_pred_sse bs4``; ``txq_recon_skip`` bs 8/16/32 with the skip
+decision, ``txq_recon bs4 / bs8 no-skip``), read from the per-variant
+counts the wrappers keep; the last line
+is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
+the package beside this script, it exits non-zero and prints no result.
 """
 import json
 import os
@@ -209,6 +235,304 @@ def check_kernels(dev):
     return results
 
 
+def check_uniform_kernels(dev):
+    """Phase 3c: KA at 4x4 (K=7), KB at 4x4 (DCT/ADST mix, skip off) and KB
+    at 8x8 with the skip off, at the uniform grid's shapes."""
+    import numpy as np
+    import torch
+    from aom_av1_psy_tpu_torch.encoder import tpu_intra as TI
+    from aom_av1_psy_tpu_torch.encoder.tpu_frame import tables
+    from aom_av1_psy_tpu_torch.ops import intra_pred as IP
+    from aom_av1_psy_tpu_torch.ops import txq as TQ
+
+    rng = np.random.default_rng(SEED + 2)
+
+    def t(a, dtype=torch.int32):
+        return torch.as_tensor(np.asarray(a), device=dev).to(dtype)
+
+    results = []
+    # ---- KA bs 4, K=7: 640x360 chroma (B=90), 1080p BLOCK_8X8 (B=270) ----
+    err, times = 0.0, None
+    for B in (90, 270):
+        args = (t(rng.integers(0, 256, (B, 4))),
+                t(rng.integers(0, 256, (B, 4))), t(rng.integers(0, 256, B)),
+                t(rng.random(B) < .8, torch.bool),
+                t(rng.random(B) < .8, torch.bool))
+        src = t(rng.integers(0, 256, (B, 4, 4)))
+        cand = t(rng.integers(0, 7, B))
+        err = max(err, compare(f"KA sse bs4 B={B}",
+                               IP.intra_pred_sse(*args, src, 7),
+                               IP.intra_pred_sse_plain(*args, src, 7)))
+        err = max(err, compare(f"KA one bs4 B={B}",
+                               IP.intra_pred_one(*args, cand, 7),
+                               IP.intra_pred_one_plain(*args, cand, 7)))
+        if B == 270:
+            times = (cuda_time(lambda: IP.intra_pred_sse(*args, src, 7), 50),
+                     cuda_time(lambda: IP.intra_pred_sse_plain(*args, src, 7),
+                               20))
+    results.append({"name": "intra_pred_sse bs4", "route": "cuda",
+                    "source": "aom_av1_psy_tpu_torch/csrc/intra_pred.cu",
+                    "replaces": "aom_av1_psy_tpu/encoder/tpu_intra.py:64",
+                    "max_abs_err": err, "ms": times[0], "plain_ms": times[1],
+                    "timed_at": "bs4 B=270 K=7 (1080p BLOCK_8X8 chroma)"})
+    log(f"[3c] KA intra_pred_sse exact at bs4 K=7, B=90 and 270; B=270: "
+        f"kernel {times[0]:.4f} ms, plain {times[1]:.4f} ms")
+
+    # ---- KB, skip off: bs 4 ADST mix (B=90, 270), bs 8 DCT (B=135) ----
+    dc_q, ac_q = tables.dc_quant(100), tables.ac_quant(100)
+    for bs, Bs, adst, name, replaces in (
+            (4, (90, 270), True, "txq_recon bs4 no-skip",
+             "aom_av1_psy_tpu/encoder/tpu_intra.py:195"),
+            (8, (135,), False, "txq_recon bs8 no-skip",
+             "aom_av1_psy_tpu/encoder/tpu_intra.py:157")):
+        err, times = 0.0, None
+        for B in Bs:
+            src = t(rng.integers(0, 256, (B, bs, bs)))
+            pred = t(np.clip(np.asarray(src.cpu()) + rng.integers(
+                -60, 61, (B, bs, bs)), 0, 255))
+            pred[: B // 4] = t(rng.integers(0, 256, (B // 4, bs, bs)))
+            flags = {}
+            if adst:
+                flags = dict(vadst=t(rng.random(B) < .5, torch.bool),
+                             hadst=t(rng.random(B) < .5, torch.bool))
+            a = (src, pred, dc_q, ac_q, TI._scan(TI.BS_TO_TX[bs], str(dev)))
+            err = max(err, compare(f"KB no-skip bs{bs} B={B}",
+                                   TQ.txq_recon(*a, **flags),
+                                   TQ.tq_recon(*a, **flags)))
+            times = (cuda_time(lambda: TQ.txq_recon(*a, **flags), 50),
+                     cuda_time(lambda: TQ.tq_recon(*a, **flags), 20))
+        results.append({"name": name, "route": "cuda",
+                        "source": "aom_av1_psy_tpu_torch/csrc/txq.cu",
+                        "replaces": replaces, "max_abs_err": err,
+                        "ms": times[0], "plain_ms": times[1],
+                        "timed_at": f"bs{bs} B={Bs[-1]}"
+                                    + (" DCT/ADST mix" if adst else " DCT")})
+        log(f"[3c] KB {name} exact at B={Bs}; B={Bs[-1]}: kernel "
+            f"{times[0]:.4f} ms, plain {times[1]:.4f} ms")
+    return results
+
+
+def closed_loop_tiles_cif(dev):
+    """Phase 4c: CIF with two tile columns; CUDA == CPU plain, decoder ==
+    post-LPF recon."""
+    import numpy as np
+    import bench
+    from aom_av1_psy_tpu_torch.encoder.tpu_frame import (Av1Decoder,
+                                                         EncoderConfig,
+                                                         GpuFrameEncoder)
+    frame = bench.make_frame(352, 288, seed=SEED)
+    cfg = EncoderConfig(base_q_idx=100, tile_cols_log2=1)
+    gpu = GpuFrameEncoder(frame, cfg, device=dev)
+    pkt = gpu.encode()
+    if gpu.tile_T != 2 or gpu.fh.tiles.tile_cols != 2:
+        raise AssertionError(f"CIF tiles: tile_T {gpu.tile_T}")
+    if GpuFrameEncoder(frame, cfg, device="cpu").encode() != pkt:
+        raise AssertionError("CIF tiles: CUDA stream differs from the plain "
+                             "CPU stream")
+    dec = Av1Decoder().decode_packet(pkt)[0]
+    for name, d, r in zip("yuv", dec.planes(), gpu.ref_planes_dev):
+        if not np.array_equal(d.astype(np.int32),
+                              r.cpu().numpy()[: d.shape[0], : d.shape[1]]):
+            raise AssertionError(f"CIF tiles: decoded {name} differs from "
+                                 "the post-LPF recon")
+    log(f"[4c] CIF 352x288 q100, 2 tiles of {gpu.tile_sb} SBs: {len(pkt)} "
+        f"bytes, CUDA == CPU plain stream, decoder == post-LPF recon")
+
+
+def closed_loop_uniform(dev):
+    """Phase 4d: 640x360 default config (the uniform grid); CUDA == CPU
+    plain, decoder == plan recon after the host deblocker."""
+    import numpy as np
+    import bench
+    from aom_av1_psy_tpu_torch.encoder.tpu_frame import (Av1Decoder,
+                                                         EncoderConfig,
+                                                         GpuFrameEncoder)
+    frame = bench.make_frame(640, 360, seed=SEED)
+    cfg = EncoderConfig(base_q_idx=100)
+    gpu = GpuFrameEncoder(frame, cfg, device=dev)
+    pkt = gpu.encode()
+    if gpu.use_part or gpu.bs != 8:
+        raise AssertionError(f"640x360: use_part {gpu.use_part} bs {gpu.bs}")
+    t0 = time.perf_counter()
+    if GpuFrameEncoder(frame, cfg, device="cpu").encode() != pkt:
+        raise AssertionError("640x360: CUDA stream differs from the plain "
+                             "CPU stream")
+    cpu_s = time.perf_counter() - t0
+    dec = Av1Decoder().decode_packet(pkt)[0]
+    for name, d, r in zip("yuv", dec.planes(),
+                          gpu._host_lpf_planes(gpu.fh, search=False)):
+        if not np.array_equal(d.astype(np.int32),
+                              r[: d.shape[0], : d.shape[1]]):
+            raise AssertionError(f"640x360: decoded {name} differs from the "
+                                 "host-deblocked plan recon")
+    log(f"[4d] 640x360 q100, uniform grid bs {gpu.bs} ({gpu.R}x{gpu.C} "
+        f"blocks): {len(pkt)} bytes, CUDA == CPU plain stream (CPU encode "
+        f"{cpu_s:.2f} s), decoder == host-deblocked plan recon, lf "
+        f"{gpu.fh.lf.filter_level}")
+
+
+def _steady(dev, frame, cfg, kernels, n=3):
+    """A first encode, then ``n`` steady ones with the launch counts set to
+    0 just before them and read just after. Returns (packet, encoder,
+    first_s, steady times, plan_s, pack_s, counts)."""
+    import torch
+    from aom_av1_psy_tpu_torch.encoder.tpu_frame import GpuFrameEncoder
+    t0 = time.perf_counter()
+    pkt = GpuFrameEncoder(frame, cfg, device=dev).encode()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    _reset(kernels)
+    times, plans, packs = [], [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        enc = GpuFrameEncoder(frame, cfg, device=dev)
+        p = enc.encode()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        plans.append(enc.timings["plan_s"])
+        packs.append(enc.timings["pack_s"])
+        if p != pkt:
+            raise AssertionError("steady frame differs from the first")
+    counts = _counts(kernels)
+    return pkt, enc, first_s, times, plans, packs, counts
+
+
+def _cpu_equal(tag, frame, cfg, pkt):
+    from aom_av1_psy_tpu_torch.encoder.tpu_frame import GpuFrameEncoder
+    t0 = time.perf_counter()
+    if GpuFrameEncoder(frame, cfg, device="cpu").encode() != pkt:
+        raise AssertionError(f"{tag}: CUDA stream differs from the plain CPU "
+                             "stream")
+    return time.perf_counter() - t0
+
+
+def _reset(kernels):
+    for k in kernels:
+        k.reset()
+
+
+def _counts(kernels):
+    """Launches since the last ``_reset``: each kernel's total under its
+    name, and each variant's under "<name> <variant>" (KA "intra_pred bs4",
+    KB "txq bs8 no-skip", ...)."""
+    counts = {k.name: k.launches for k in kernels}
+    for k in kernels:
+        counts.update({f"{k.name} {v}": n for v, n in k.variants.items()})
+    return counts
+
+
+def _need(tag, counts, names):
+    for name in names:
+        if counts.get(name, 0) <= 0:
+            raise AssertionError(f"{tag}: kernel {name} never launched")
+
+
+def tiled_key_path(dev, kernels, untiled_med):
+    """Phase 5c: the 1080p KEY frame with two tile columns."""
+    import dataclasses
+    import torch
+    import bench
+    from aom_av1_psy_tpu_torch.encoder.tpu_frame import (EncoderConfig,
+                                                         GpuFrameEncoder)
+    frame = bench.make_frame(1920, 1080)
+    cfg = EncoderConfig(base_q_idx=100, tile_cols_log2=1)
+    pkt, enc, first_s, times, plans, packs, counts = _steady(
+        dev, frame, cfg, kernels)
+    if enc.tile_T != 2:
+        raise AssertionError(f"1080p tiles: tile_T {enc.tile_T}")
+    _need("1080p tiles", counts, ("intra_pred bs32", "intra_pred bs16",
+                                  "intra_pred bs8", "txq bs32", "txq bs16",
+                                  "txq bs8", "deblock"))
+    cpu_s = _cpu_equal("1080p tiles", frame, cfg, pkt)
+    # untiled and tiled in turns (U T T U, twice): the plan times of the
+    # two, compared on the same card and host state
+    turns = {0: [], 1: []}
+    for lg in (0, 1, 1, 0, 0, 1, 1, 0):
+        enc_t = GpuFrameEncoder(frame, dataclasses.replace(
+            cfg, tile_cols_log2=lg), device=dev)
+        enc_t.encode()
+        torch.cuda.synchronize()
+        turns[lg].append(enc_t.timings["plan_s"])
+    ratio = statistics.median(turns[1]) / statistics.median(turns[0])
+    log(f"[5c] plan in turns (U T T U x2): untiled "
+        f"{[round(x, 4) for x in turns[0]]} s, tiled "
+        f"{[round(x, 4) for x in turns[1]]} s; tiled/untiled median plan "
+        f"{ratio:.3f} (63/93 = {63 / 93:.3f})")
+    med = statistics.median(times)
+    log(f"[5c] 1080p q100, 2 tiles ({enc.R // 2 + enc.tile_pw // 32 - 1} "
+        f"diagonals): {len(pkt)} bytes, first frame {first_s:.3f} s, steady "
+        f"median {med:.4f} s/frame (min {min(times):.4f}, max "
+        f"{max(times):.4f}), plan {statistics.median(plans):.4f} s, "
+        f"pack+lpf {statistics.median(packs):.4f} s; untiled steady median "
+        f"(phase 5) {untiled_med:.4f} s, tiled/untiled "
+        f"{med / untiled_med:.3f}; CUDA == CPU plain stream (CPU encode "
+        f"{cpu_s:.1f} s)")
+    log(f"[5c] launches over the 3 steady tiled frames: {json.dumps(counts)}")
+    return counts
+
+
+def uniform_key_path(dev, kernels):
+    """Phase 5d: the uniform grid at 1080p BLOCK_8X8, then 640x360."""
+    import bench
+    from aom_av1_psy_tpu_torch.encoder.tpu_frame import EncoderConfig
+    frame = bench.make_frame(1920, 1080)
+    cfg = EncoderConfig(base_q_idx=100, block_size=3)
+    pkt, enc, first_s, times, plans, packs, counts = _steady(
+        dev, frame, cfg, kernels)
+    if enc.use_part or (enc.bs, enc.R, enc.C) != (8, 135, 240):
+        raise AssertionError(f"1080p bs8: bs {enc.bs} grid {enc.R}x{enc.C}")
+    _need("1080p bs8", counts, ("intra_pred bs8", "intra_pred bs4",
+                                "txq bs8 no-skip", "txq bs4 no-skip"))
+    cpu_s = _cpu_equal("1080p bs8", frame, cfg, pkt)
+    med = statistics.median(times)
+    log(f"[5d] 1080p q100 BLOCK_8X8 uniform grid ({enc.R}x{enc.C} blocks, "
+        f"{enc.R + enc.C - 1} diagonals per plane): {len(pkt)} bytes, first "
+        f"frame {first_s:.3f} s, steady median {med:.4f} s/frame (min "
+        f"{min(times):.4f}, max {max(times):.4f}), plan "
+        f"{statistics.median(plans):.4f} s, pack "
+        f"{statistics.median(packs):.4f} s; CUDA == CPU plain stream (CPU "
+        f"encode {cpu_s:.1f} s)")
+    log(f"[5d] launches over the 3 steady 1080p bs8 frames: "
+        f"{json.dumps(counts)}")
+    small = bench.make_frame(640, 360)
+    _, enc, _, t360, p360, k360, _ = _steady(dev, small, EncoderConfig(
+        base_q_idx=100), kernels)
+    log(f"[5d] 640x360 q100 (uniform bs {enc.bs}): steady median "
+        f"{statistics.median(t360):.4f} s/frame (min {min(t360):.4f}, max "
+        f"{max(t360):.4f}), plan {statistics.median(p360):.4f} s, pack "
+        f"{statistics.median(k360):.4f} s")
+    return counts
+
+
+def search_cdef_path(dev):
+    """Phase 5e: 1080p with the KEY-frame CDEF strength search; CIF CUDA ==
+    CPU plain."""
+    import torch
+    import bench
+    from aom_av1_psy_tpu_torch.encoder.tpu_frame import (EncoderConfig,
+                                                         GpuFrameEncoder)
+    cfg = EncoderConfig(base_q_idx=100, search_cdef=True)
+    frame = bench.make_frame(1920, 1080)
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        enc = GpuFrameEncoder(frame, cfg, device=dev)
+        pkt = enc.encode()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    c = enc.fh.cdef
+    rest = walls[-1] - enc.timings["plan_s"] - enc.timings["pack_s"]
+    cif = bench.make_frame(352, 288, seed=SEED)
+    small = GpuFrameEncoder(cif, cfg, device=dev).encode()
+    _cpu_equal("CIF search_cdef", cif, cfg, small)
+    log(f"[5e] 1080p q100 search_cdef: {len(pkt)} bytes, strengths y "
+        f"{c.y_pri[0]}/{c.y_sec[0]} uv {c.uv_pri[0]}/{c.uv_sec[0]} damping "
+        f"{c.damping}; frame {walls[-1]:.4f} s (first {walls[0]:.4f} s), "
+        f"plan {enc.timings['plan_s']:.4f} s, pack+lpf "
+        f"{enc.timings['pack_s']:.4f} s, search + CDEF apply {rest:.4f} s; "
+        f"CIF: CUDA == CPU plain stream ({len(small)} bytes)")
+
+
 def closed_loop_cif(dev):
     """Phase 4: CUDA stream == CPU plain-path stream; decoder == recon."""
     import numpy as np
@@ -241,33 +565,12 @@ def main_path(dev, kernels):
     import numpy as np
     import torch
     import bench
-    from aom_av1_psy_tpu_torch.encoder.tpu_frame import (EncoderConfig,
-                                                         GpuFrameEncoder)
+    from aom_av1_psy_tpu_torch.encoder.tpu_frame import EncoderConfig
     frame = bench.make_frame(1920, 1080)
     cfg = EncoderConfig(base_q_idx=100)
-    for k in kernels:
-        k.launches = 0
-    t0 = time.perf_counter()
-    enc = GpuFrameEncoder(frame, cfg, device=dev)
-    pkt = enc.encode()
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    times, plans, packs = [], [], []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        enc = GpuFrameEncoder(frame, cfg, device=dev)
-        p = enc.encode()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        plans.append(enc.timings["plan_s"])
-        packs.append(enc.timings["pack_s"])
-        if p != pkt:
-            raise AssertionError("1080p: steady frame differs from the first")
-    counts = {k.name: k.launches for k in kernels}
-    for name, n in counts.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} never launched on the main "
-                                 "path")
+    pkt, enc, first_s, times, plans, packs, counts = _steady(
+        dev, frame, cfg, kernels)
+    _need("1080p", counts, counts)
     for pl, want in zip(enc.ref_planes_dev, ((1088, 1920), (544, 960),
                                              (544, 960))):
         if tuple(pl.shape) != want or pl.dtype != torch.int32:
@@ -281,11 +584,7 @@ def main_path(dev, kernels):
     psnr = 10 * np.log10(255 ** 2 / max(mse, 1e-9))
     if not (pkt[:2] == bytes([0x12, 0x00]) and psnr > 30):
         raise AssertionError(f"1080p: bad stream or recon (PSNR {psnr:.2f})")
-    t0 = time.perf_counter()
-    if GpuFrameEncoder(frame, cfg, device="cpu").encode() != pkt:
-        raise AssertionError("1080p: CUDA stream differs from the plain CPU "
-                             "stream")
-    cpu_s = time.perf_counter() - t0
+    cpu_s = _cpu_equal("1080p", frame, cfg, pkt)
     med = statistics.median(times)
     log(f"[5] 1080p q100: {len(pkt)} bytes, luma PSNR {psnr:.3f} dB, first "
         f"frame {first_s:.3f} s, steady median {med:.4f} s/frame "
@@ -294,8 +593,8 @@ def main_path(dev, kernels):
         f"{statistics.median(packs):.4f} s, lf {enc.fh.lf.filter_level} "
         f"{enc.fh.lf.filter_level_u} {enc.fh.lf.filter_level_v}; CUDA == "
         f"CPU plain stream (CPU encode {cpu_s:.1f} s)")
-    log(f"[5] launches on the main path: {json.dumps(counts)}")
-    return counts, frame, cfg
+    log(f"[5] launches over the 3 steady frames: {json.dumps(counts)}")
+    return counts, frame, cfg, med
 
 
 def _device_rows(tag, prof, wall, extra=""):
@@ -533,13 +832,12 @@ def gop_main_path(dev, kernels):
     warm, _ = encode_video(frames, cfg, device=dev)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    for k in kernels:
-        k.launches = 0
+    _reset(kernels)
     t0 = time.perf_counter()
     pk, encs = encode_video(frames, cfg, device=dev)
     torch.cuda.synchronize()
     gop_s = time.perf_counter() - t0
-    counts = {k.name: k.launches for k in kernels}
+    counts = _counts(kernels)
     for name, n in counts.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} never launched in the GOP")
@@ -671,21 +969,48 @@ def main() -> int:
 
     results = phase("3", check_kernels, dev)
     results += phase("3b", check_inter_kernels, dev)
+    uniform_results = phase("3c", check_uniform_kernels, dev)
     if "--only-kernels" in sys.argv[1:]:
         return 0
     phase("4", closed_loop_cif, dev)
     phase("4b", closed_loop_gop_cif, dev)
-    key_counts, frame, cfg = phase("5", main_path, dev, kernels[:3])
+    phase("4c", closed_loop_tiles_cif, dev)
+    phase("4d", closed_loop_uniform, dev)
+    key_counts, frame, cfg, key_med = phase("5", main_path, dev, kernels[:3])
     counts, frames, encs = phase("5b", gop_main_path, dev, kernels)
+    tiled_counts = phase("5c", tiled_key_path, dev, kernels, key_med)
+    uniform_counts = phase("5d", uniform_key_path, dev, kernels)
+    phase("5e", search_cdef_path, dev)
     phase("6", profile_frame, dev, frame, cfg)
     phase("6b", profile_p_frame, dev, frames, encs)
 
-    names = {"intra_pred_sse": KA, "txq_recon_skip": KB, "lpf_ladder": KC,
-             "mc_8tap": KD, "fullpel_ssd": KE, "cdef_filter": KF}
+    # each entry's own launches: the kernel's total, or for KA and KB the
+    # variants that the entry's check covered
+    own = {"intra_pred_sse": ("intra_pred bs8", "intra_pred bs16",
+                              "intra_pred bs32"),
+           "txq_recon_skip": ("txq bs8", "txq bs16", "txq bs32"),
+           "intra_pred_sse bs4": ("intra_pred bs4",),
+           "txq_recon bs4 no-skip": ("txq bs4 no-skip",),
+           "txq_recon bs8 no-skip": ("txq bs8 no-skip",)}
+    total = {"lpf_ladder": KC, "mc_8tap": KD, "fullpel_ssd": KE,
+             "cdef_filter": KF}
+
+    def n(name, c):
+        if name in total:
+            return c.get(total[name].name, 0)
+        return sum(c.get(v, 0) for v in own[name])
+
     for r in results:
-        k = names[r["name"]].name
-        r["launches"] = counts[k]
-        r["launches_key_frame"] = key_counts.get(k, 0)
+        r["launches"] = n(r["name"], counts)
+        r["launches_from"] = "5b: the 1080p IPPP GOP"
+    for r in uniform_results:
+        r["launches"] = n(r["name"], uniform_counts)
+        r["launches_from"] = "5d: 3 steady 1080p BLOCK_8X8 KEY frames"
+    results += uniform_results
+    for r in results:
+        r["launches_key_frame"] = n(r["name"], key_counts)
+        r["launches_tiled_key_frames"] = n(r["name"], tiled_counts)
+        r["launches_uniform_key_frames"] = n(r["name"], uniform_counts)
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

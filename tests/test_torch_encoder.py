@@ -4,8 +4,11 @@
 port's post-loop-filter planes from it. This file holds the 96x64 shape
 (one JAX compile): the q60 case of test_tpu_encoder.py and a smooth frame
 on which both encoders pick the 64x64 fallback; test_torch_encoder_cells.py
-holds the other part-path shapes. Also: a port encode never imports jax,
-and configurations outside the slice raise."""
+holds the other part-path shapes, test_torch_tiles*.py,
+test_torch_uniform*.py and test_torch_search_cdef.py the tile-column,
+uniform-grid and CDEF-search configurations. Also: a port encode never
+imports jax, and configurations outside the port (tune_vmaf, lossless)
+raise."""
 import dataclasses
 import os
 import subprocess
@@ -142,10 +145,6 @@ def test_cuda_device_raises_without_cuda():
 
 
 @pytest.mark.parametrize("w,h,change", [
-    (128, 64, dict(tile_cols_log2=1)),          # two SB-aligned tiles
-    (178, 130, dict()),                         # mi dims 2 mod 8: uniform
-    (64, 64, dict(block_size=3)),               # BLOCK_8X8: uniform
-    (64, 64, dict(search_cdef=True)),
     (64, 64, dict(tune_vmaf=True)),
     (64, 64, dict(lossless=True)),
 ])

@@ -4,10 +4,11 @@
 mid-GOP KEY), every frame decodes through the in-repo decoder to the port's
 post-LPF, post-CDEF reference chain, each P-frame's plan equals the
 reference's key for key, a port P-frame started from a JAX-made chain
-(``convert.chain_from_jax``) gives the reference's packet, and the KEY
-frame with ``cdef_fixed`` equals ``TpuFrameEncoder``'s. This file holds
-the 96x64 shape (one JAX compile of each plan); test_torch_inter_plan*.py
-hold the others. Also: a port GOP encode never imports jax.
+(``convert.chain_from_jax``) gives the reference's packet, the KEY
+frame with ``cdef_fixed`` equals ``TpuFrameEncoder``'s, and a GOP with the
+KEY-frame CDEF search (``search_cdef``) equals ``encode_video_tpu``'s.
+This file holds the 96x64 shape (one JAX compile of each plan);
+test_torch_inter_plan*.py hold the others. Also: a port GOP encode never imports jax.
 Tolerance: exact equality (bytes, integer plans, planes)."""
 import dataclasses
 import os
@@ -241,8 +242,19 @@ def test_outside_the_slice_raises_for_inter_frames():
     with pytest.raises(NotImplementedError):
         GpuInterFrameEncoder(frames[1], cfg, None, [], 64, 64, device="cpu")
     with pytest.raises(NotImplementedError):
-        encode_video(frames, EncoderConfig(base_q_idx=60, search_cdef=True),
-                     device="cpu")
+        encode_video(frames, cfg, device="cpu")
+
+
+def test_gop_search_cdef_matches_jax(pan96):
+    """CDEF strengths searched on the KEY frame (P-frames keep the
+    quantizer-derived ones): the packets equal encode_video_tpu's."""
+    frames = pan96[0]
+    pj, ej, pt, et = encode_both(frames, EncoderConfig(base_q_idx=80,
+                                                       search_cdef=True))
+    assert pt == pj
+    assert et[0].seq.enable_cdef and not et[0].cfg.cdef_fixed
+    assert_same_frames(ej, et)
+    assert_decodes_to_chain(pt, et)
 
 
 def test_tune_psy_gop_matches_jax(pan96):

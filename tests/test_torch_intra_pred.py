@@ -30,7 +30,7 @@ def _t(a):
     return torch.as_tensor(np.asarray(a))
 
 
-@pytest.mark.parametrize("bs", [8, 16, 32])
+@pytest.mark.parametrize("bs", [4, 8, 16, 32])
 def test_predict_all_modes_matches_jax(bs):
     rng = np.random.default_rng(bs)
     above, left, tl = _edges(rng, bs, 16)
@@ -103,7 +103,8 @@ def _jax_preds(above, left, tl, ha, hl, tr, bl, abext, lfext, eft, bs, K):
         [p, JDIR.dir_predict(E, jnp.asarray(eft), bs)], axis=0))
 
 
-@pytest.mark.parametrize("bs,K", [(32, 61), (16, 61), (16, 7), (8, 7)])
+@pytest.mark.parametrize("bs,K", [(32, 61), (16, 61), (16, 7), (8, 7),
+                                  (4, 7)])
 def test_intra_pred_sse_plain_matches_jax(bs, K):
     rng = np.random.default_rng(bs + K)
     n = 16

@@ -1,7 +1,9 @@
 """Kernels KA / KB / KC of ``aom_av1_psy_tpu_torch`` against their plain
 PyTorch versions on a CUDA device, at the shapes of one 1080p anti-diagonal
-step. Tolerance: exact equality (integer outputs; the float32 skip-RD
-outputs are computed in the same order).
+step (KA and KB at 4x4 too, and KB with the skip decision off, as the
+uniform grid runs them), and whole KEY frames on the card against the CPU
+plain path. Tolerance: exact equality (integer outputs; the float32
+skip-RD outputs are computed in the same order).
 
 Every test needs the card: it carries the ``gpu`` marker and skips where
 ``torch.cuda.is_available()`` is false. The file imports no jax, so on the
@@ -43,7 +45,8 @@ def _on(dev):
     return c
 
 
-@pytest.mark.parametrize("bs,K", [(32, 61), (16, 61), (16, 7), (8, 7)])
+@pytest.mark.parametrize("bs,K", [(32, 61), (16, 61), (16, 7), (8, 7),
+                                  (4, 7)])
 def test_intra_pred_kernel_matches_plain(dev, bs, K):
     c = _on(dev)
     rng = np.random.default_rng(bs + K)
@@ -88,6 +91,30 @@ def test_txq_kernel_matches_plain(dev, bs, key, adst):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("bs,adst", [(4, True), (4, False), (8, False),
+                                     (8, True), (16, False), (32, False)])
+def test_txq_no_skip_kernel_matches_plain(dev, bs, adst):
+    """KB with the skip decision off (the uniform grid's ``txq_recon``),
+    4x4 with the sinpi ADST4 included."""
+    c = _on(dev)
+    rng = np.random.default_rng(40 + bs)
+    n = 135
+    src = rng.integers(0, 256, (n, bs, bs)).astype(np.int32)
+    pred = np.clip(src + rng.integers(-60, 61, src.shape), 0,
+                   255).astype(np.int32)
+    pred[:20] = rng.integers(0, 256, (20, bs, bs))
+    flags = {}
+    if adst:
+        flags = dict(vadst=c(rng.random(n) < .5), hadst=c(rng.random(n) < .5))
+    a = (c(src), c(pred), tables.dc_quant(60), tables.ac_quant(60),
+         c(tables.scan_table(TTI.BS_TO_TX[bs], 0).astype(np.int32)))
+    got = TQ.txq_recon(*a, **flags)
+    want = TQ.tq_recon(*a, **flags)
+    assert len(got) == 3
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("luma", [True, False])
 def test_lpf_ladder_kernel_matches_plain(dev, luma):
     c = _on(dev)
@@ -127,6 +154,20 @@ def test_lpf_apply_kernel_matches_plain(dev):
                                       (176, 144, 200, {}),
                                       (128, 88, 80, {"tune_psy": True})])
 def test_encode_on_cuda_matches_cpu_plain_path(dev, w, h, q, kw):
+    check_cuda_equals_cpu(dev, w, h, q, kw)
+
+
+@pytest.mark.parametrize("w,h,q,kw", [(256, 128, 90, {"tile_cols_log2": 1}),
+                                      (178, 130, 60, {}),
+                                      (64, 64, 100, {"block_size": 3}),
+                                      (96, 64, 160, {"search_cdef": True})])
+def test_new_configs_on_cuda_match_cpu_plain_path(dev, w, h, q, kw):
+    """Tile columns, the uniform grid (mi = 2 mod 8; BLOCK_8X8) and the
+    CDEF search on the card."""
+    check_cuda_equals_cpu(dev, w, h, q, kw)
+
+
+def check_cuda_equals_cpu(dev, w, h, q, kw):
     rng = np.random.default_rng(w + q)
     yy, xx = np.mgrid[0:h, 0:w]
     y = (120 + 60 * np.sin(xx / 13) * np.cos(yy / 9)
@@ -137,7 +178,7 @@ def test_encode_on_cuda_matches_cpu_plain_path(dev, w, h, q, kw):
     f, cfg = Frame(y, u, v), EncoderConfig(base_q_idx=q, **kw)
     gpu = GpuFrameEncoder(f, cfg, device=dev)
     assert gpu.encode() == GpuFrameEncoder(f, cfg, device="cpu").encode()
-    assert gpu.ref_planes_dev[0].is_cuda
+    assert gpu.plan["recon_dev"][0].is_cuda
 
 
 def _sync_count(fn):
@@ -165,11 +206,13 @@ def test_wavefront_loop_never_waits_for_the_device(dev):
         uv = [rng.integers(0, 256, (16 * R, 16 * C)).astype(np.int32)
               for _ in range(2)]
 
+        d = TTI.stack_tiles(d, [d])
+
         def run():
             t = convert.inputs_from_numpy(d, dev)
-            out = TTI._luma_wavefront_part(convert.plane(y, dev), t)
-            TTI._chroma_wavefront_part(convert.plane(uv[0], dev),
-                                       convert.plane(uv[1], dev), t,
+            out = TTI._luma_wavefront_part(convert.plane(y, dev)[None], t)
+            TTI._chroma_wavefront_part(convert.plane(uv[0], dev)[None],
+                                       convert.plane(uv[1], dev)[None], t,
                                        out[0], out[1], out[5])
         run()                                   # warm the table caches
         counts.append(_sync_count(run))

@@ -1,5 +1,6 @@
-"""Port parity: the torch transform stage interpreter, quantize/dequantize,
-TQ+recon and the skip-RD helpers of ``aom_av1_psy_tpu_torch`` against the
+"""Port parity: the torch transform stage interpreter and the sinpi ADST4,
+quantize/dequantize, TQ+recon (4x4 to 32x32; with and without the skip
+decision) and the skip-RD helpers of ``aom_av1_psy_tpu_torch`` against the
 JAX reference on the same seeded inputs. Tolerance: exact equality (every
 output is an integer, or a float32 computed in the reference's order)."""
 import numpy as np
@@ -16,8 +17,9 @@ from aom_av1_psy_tpu_torch.encoder import tpu_intra as TTI
 from aom_av1_psy_tpu_torch.ops import txfm as TTX
 from aom_av1_psy_tpu_torch.ops import txq as TQ
 
-TX = {8: 1, 16: 2, 32: 3}          # TX_8X8, TX_16X16, TX_32X32
-TYPES = [(8, t) for t in range(4)] + [(16, t) for t in range(4)] + [(32, 0)]
+TX = {4: 0, 8: 1, 16: 2, 32: 3}    # TX_4X4, TX_8X8, TX_16X16, TX_32X32
+TYPES = [(8, t) for t in range(4)] + [(16, t) for t in range(4)] + [(32, 0)] \
+    + [(4, t) for t in range(4)]
 
 
 def _residuals(rng, n, bs):
@@ -71,7 +73,8 @@ def test_quantize_dequantize_match_jax(q):
             np.asarray(JTI._dequantize(lv, dc_q, ac_q, shift)))
 
 
-@pytest.mark.parametrize("bs,q", [(8, 60), (16, 100), (32, 30), (32, 200)])
+@pytest.mark.parametrize("bs,q", [(8, 60), (16, 100), (32, 30), (32, 200),
+                                  (4, 100)])
 def test_tq_recon_matches_jax(bs, q):
     rng = np.random.default_rng(bs + q)
     src = rng.integers(0, 256, (10, bs, bs)).astype(np.int32)
@@ -86,9 +89,15 @@ def test_tq_recon_matches_jax(bs, q):
                         _t(scan.astype(np.int32)))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    # KB's no-skip wrapper (the uniform grid's) returns the same three
+    got = TQ.txq_recon(_t(src), _t(pred), dc_q, ac_q,
+                       _t(scan.astype(np.int32)))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
-@pytest.mark.parametrize("bs,q", [(8, 60), (16, 100), (8, 200)])
+@pytest.mark.parametrize("bs,q", [(8, 60), (16, 100), (8, 200), (4, 60),
+                                  (4, 200)])
 def test_tq_recon_uv_matches_jax(bs, q):
     rng = np.random.default_rng(7 * bs + q)
     n = 26
@@ -104,6 +113,26 @@ def test_tq_recon_uv_matches_jax(bs, q):
                            _t(scan.astype(np.int32)), _t(uv_mode))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    va, ha = TTI._uv_adst(_t(uv_mode))
+    got = TQ.txq_recon(_t(src), _t(pred), dc_q, ac_q,
+                       _t(scan.astype(np.int32)), va, ha)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_adst4_wraps_like_jax_at_full_range():
+    """The sinpi ADST4, forward and inverse, on int32 inputs far past the
+    transform's range: every product and sum wraps as jnp's int32 does."""
+    rng = np.random.default_rng(4)
+    x = rng.integers(-2**31, 2**31, (64, 4)).astype(np.int32)
+    x[:8] = rng.integers(-2**15, 2**15, (8, 4))
+    for cb in (12, 13):
+        np.testing.assert_array_equal(TTX.fadst4(_t(x), cb).numpy(),
+                                      np.asarray(JTX._fadst4(jnp.asarray(x),
+                                                             cb)))
+        np.testing.assert_array_equal(TTX.iadst4(_t(x), cb).numpy(),
+                                      np.asarray(JTX._iadst4(jnp.asarray(x),
+                                                             cb)))
 
 
 def _rate_inputs(rng, n, bs):
