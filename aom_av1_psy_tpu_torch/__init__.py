@@ -2,20 +2,25 @@
 ``aom_av1_psy_tpu``: the all-intra KEY frame (``encoder/tpu_frame.py``:
 the two-level partition plan, tile columns batched on one GPU
 (``parallel/mesh.py``), the uniform-grid fallback, the CDEF strength
-search) and the IPPP GOP (``encoder/tpu_interframe.encode_video``).
+search, ``tune_vmaf``) and the IPPP GOP
+(``encoder/tpu_interframe.encode_video``).
 
 The JAX package stays the reference; this package mirrors its module paths
 (``encoder/tpu_intra.py``, ``encoder/tpu_intra_dir.py``,
 ``encoder/tpu_frame.py``, ``encoder/tpu_inter.py``,
 ``encoder/tpu_interframe.py``, ``ops/txfm.py``, ``ops/deblock_torch.py``,
-``ops/cdef_torch.py``) so each counterpart is easy to find. It imports
-``torch`` and never ``jax``; the host layers it shares with the reference
-(``normative/``, ``bitstream/``, ``ec/`` + the native range coder,
-``decoder/``, ``utils/``, ``encoder/frame.py``, ``encoder/psy.py``,
-``encoder/temporal_filter.py``, ``ops/cdef.py``, ``ops/convolve.py``, the
-numpy constants of ``ops/txfm.py`` and ``ops/intra.py``) are JAX-free.
+``ops/cdef_torch.py``, ``encoder/tune_vmaf.py``) so each counterpart is
+easy to find. It imports ``torch`` and nothing of ``jax`` or of the
+reference package: it has its own copies of the host layers, at the
+reference's relative paths (``normative/`` with its data, ``bitstream/``,
+``ec/``, ``native/ec.cpp`` — built with g++ into
+``build/aom_av1_psy_tpu_torch/`` at first use —, ``decoder/``, ``utils/``,
+``errors.py``, ``encoder/frame.py``, ``encoder/psy.py``,
+``encoder/temporal_filter.py``, the numpy ``ops/`` modules; the host half of
+the reference's ``ops/txfm.py`` is ``ops/txfm_host.py``), numpy only.
+``convert.py`` carries the reference's objects into the port's classes.
 
-Device work runs as plain torch ops plus six hand-written CUDA kernels
+Device work runs as plain torch ops plus nine hand-written CUDA kernels
 (``csrc/``), each beside a plain PyTorch version of the same function:
 
 - KA ``intra_pred_sse`` (``ops/intra_pred.py``): all intra candidates of a
@@ -29,7 +34,10 @@ Device work runs as plain torch ops plus six hand-written CUDA kernels
   candidate axis, with per-block SAD / SSE;
 - KE ``fullpel_ssd`` (``ops/fullpel.py``): the exhaustive +/-16 full-pel
   search with the reference's first-index ties;
-- KF ``cdef_filter`` (``ops/cdef_torch.py``): the frame CDEF apply.
+- KF ``cdef_filter`` (``ops/cdef_torch.py``): the frame CDEF apply;
+- KG ``gauss_blur``, KH ``unsharp_apply``, KI ``vif_scale`` / ``vif_down2``
+  (``encoder/tune_vmaf.py``): the tune_vmaf blur (with exact moment sums),
+  the unsharp mask and the VIF pyramid.
 
 A wrapper runs the plain version for CPU tensors and the kernel for CUDA
 tensors; there is no fallback from one to the other.

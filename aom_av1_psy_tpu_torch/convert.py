@@ -2,15 +2,23 @@
 
 The encoder has no weights: its "parameters" are the tables derived from
 the ``FrameContext`` and the normative data, plus the reference chain. Both
-packages build the tables on the host as numpy; these functions move them
-(and planes made by the JAX encoder) onto the port's tensors, so a test can
-run both packages on identical inputs and a later slice can start the port
-from a JAX-made reference.
+packages build the tables on the host as numpy, each from its own copy of
+the host layers; these functions carry the reference's objects (configs,
+frames, headers, entropy contexts) into the port's own classes and move
+planes made by the JAX encoder onto the port's tensors, so a test can run
+both packages on identical inputs and hand the port only the port's own
+objects, and a later slice can start the port from a JAX-made reference.
 """
 from __future__ import annotations
 
+import enum
+import functools
+import importlib
+
 import numpy as np
 import torch
+
+_REF = "aom_av1_psy_tpu."
 
 
 def plane(arr, device) -> torch.Tensor:
@@ -58,17 +66,60 @@ def planes_from_jax(arrs: dict, device) -> dict:
     return out
 
 
+def _port_class(cls):
+    """The port's class of the same module path and name as the reference
+    class ``cls``: ``aom_av1_psy_tpu.X.C`` -> ``aom_av1_psy_tpu_torch.X.C``."""
+    mod = importlib.import_module("aom_av1_psy_tpu_torch."
+                                  + cls.__module__[len(_REF):])
+    return functools.reduce(getattr, cls.__qualname__.split("."), mod)
+
+
+def _state(obj) -> dict:
+    out = dict(getattr(obj, "__dict__", {}))
+    for c in type(obj).__mro__:
+        for k in getattr(c, "__slots__", ()):
+            if hasattr(obj, k):
+                out[k] = getattr(obj, k)
+    return out
+
+
+def from_jax(obj):
+    """A deep copy of a reference object (a header, a ``FrameContext``, an
+    ``EncoderConfig``, a ``Frame``, ...) as the port's object of the same
+    class: instances of reference classes become instances of the port's
+    copies, attribute for attribute; numpy arrays are copied; lists, tuples
+    and dicts are walked; anything else is kept. The reference package is
+    never imported: classes are matched by module path and name."""
+    if isinstance(obj, np.ndarray):
+        return obj.copy()
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(from_jax(x) for x in obj)
+    if isinstance(obj, dict):
+        return {k: from_jax(v) for k, v in obj.items()}
+    cls = type(obj)
+    if not cls.__module__.startswith(_REF):
+        return obj
+    port = _port_class(cls)
+    if isinstance(obj, enum.Enum):
+        return port(obj.value)
+    out = port.__new__(port)
+    for k, v in _state(obj).items():
+        setattr(out, k, from_jax(v))
+    return out
+
+
 def chain_from_jax(enc, device) -> dict:
     """The GOP state a JAX encoder (``TpuFrameEncoder`` or
     ``TpuInterFrameEncoder``) leaves behind, as the inputs of the port's
-    ``GpuInterFrameEncoder``: ``seq``, ``prev_fc`` (its counter-reset
-    ``saved_fc``) and ``ref_planes`` (``ref_planes_out`` of an inter frame,
-    else ``ref_planes_dev``; jax arrays are read with ``np.asarray``) as
-    int32 tensors on ``device``. Use as
+    ``GpuInterFrameEncoder``: ``seq`` and ``prev_fc`` (its counter-reset
+    ``saved_fc``) as the port's objects (:func:`from_jax`), and
+    ``ref_planes`` (``ref_planes_out`` of an inter frame, else
+    ``ref_planes_dev``; jax arrays are read with ``np.asarray``) as int32
+    tensors on ``device``. Use as
     ``GpuInterFrameEncoder(frame, cfg, crop_w=..., crop_h=...,
     **chain_from_jax(enc, device), device=device)``."""
     planes = getattr(enc, "ref_planes_out", None)
     if planes is None:
         planes = enc.ref_planes_dev
-    return {"seq": enc.seq, "prev_fc": enc.saved_fc,
+    return {"seq": from_jax(enc.seq), "prev_fc": from_jax(enc.saved_fc),
             "ref_planes": [plane(np.asarray(p), device) for p in planes]}

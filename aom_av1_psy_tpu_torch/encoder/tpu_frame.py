@@ -5,7 +5,7 @@ Pipeline: the two-level 32 -> 16 partition plan on the device
 (``tpu_intra.plan_frame_part``; with tile columns, the T equal SB-aligned
 slabs batched through one wavefront, ``parallel/mesh.tile_plans_batched``),
 ONE native pack call over the plan (per tile: ``native/ec.cpp
-ec_enc_pack_kf_part2`` through the shared ``ec.native_coder``), the device
+ec_enc_pack_kf_part2`` through ``ec.native_coder``), the device
 loop-filter ladder (``ops/deblock_torch.lpf_pick_and_filter``) and, with
 ``cdef_fixed``, the quantizer-derived CDEF applied on the device
 (``apply_cdef_refs``, kernel KF); with ``search_cdef``, the host strength
@@ -15,11 +15,13 @@ runs instead: ``tpu_intra.plan_frame`` and ONE ``ec_enc_pack_kf_uniform``
 call, with no device loop filter (the reference keeps the pre-LPF plan
 recon there). The host code (headers, the rdmult grids, the tile
 geometry, the packs' array marshalling, the smooth-64 fallback, the CDEF
-strengths, gate and search) is carried over from the reference module,
-which imports jax and therefore is never imported here.
+strengths, gate and search) is carried over from the reference module;
+the host layers it stands on (headers, the range coder, the decoder, the
+normative tables) are the port's own copies.
 
-Configurations outside the port (tune_vmaf, lossless) raise
-``NotImplementedError``; they never route to the JAX package.
+With ``tune_vmaf`` the source luma is first unsharpened on the device
+(``tune_vmaf.preprocess_frame``: kernels KG and KH), as the reference's
+encoder does. Lossless, outside the port, raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -28,30 +30,26 @@ import time
 import numpy as np
 import torch
 
-from aom_av1_psy_tpu.bitstream.bitio import BitWriter, write_leb128
-from aom_av1_psy_tpu.decoder.obu import Av1Decoder
-from aom_av1_psy_tpu.bitstream.headers import (FrameHeader, SequenceHeader,
-                                               TileInfo, write_frame_header)
-from aom_av1_psy_tpu.ec.context import FrameContext
-from aom_av1_psy_tpu.ec.native_coder import (NativeEncoder, available,
-                                             native_pack_kf_part2,
-                                             native_pack_kf_uniform)
-from aom_av1_psy_tpu.encoder.frame import EncoderConfig
-from aom_av1_psy_tpu.normative import tables
-from aom_av1_psy_tpu.normative.blocks import (EXT_TX_IND,
-                                              EXT_TX_SET_INDEX_INTRA,
-                                              INTRA_MODE_CONTEXT,
-                                              NUM_EXT_TX_SET,
-                                              PARTITION_CTX_ABOVE,
-                                              PARTITION_CTX_LEFT)
-from aom_av1_psy_tpu.normative.enums import BlockSize, TxSize
-from aom_av1_psy_tpu.normative.txsize import (TXSIZE_LOG2_MINUS4, TXSIZE_SQR,
-                                              txsize_entropy_ctx)
-from aom_av1_psy_tpu.utils.frame import Frame
+from ..bitstream.bitio import BitWriter, write_leb128
+from ..decoder.obu import Av1Decoder
+from ..bitstream.headers import (FrameHeader, SequenceHeader, TileInfo,
+                                 write_frame_header)
+from ..ec.context import FrameContext
+from ..ec.native_coder import (NativeEncoder, available, native_pack_kf_part2,
+                               native_pack_kf_uniform)
+from .frame import EncoderConfig
+from ..normative import tables
+from ..normative.blocks import (EXT_TX_IND, EXT_TX_SET_INDEX_INTRA,
+                                INTRA_MODE_CONTEXT, NUM_EXT_TX_SET,
+                                PARTITION_CTX_ABOVE, PARTITION_CTX_LEFT)
+from ..normative.enums import BlockSize, TxSize
+from ..normative.txsize import (TXSIZE_LOG2_MINUS4, TXSIZE_SQR,
+                                txsize_entropy_ctx)
+from ..utils.frame import Frame
 from .. import convert
 from ..device import resolve_device
 from ..ops import deblock_torch as DT
-from . import tpu_intra
+from . import tpu_intra, tune_vmaf
 
 _BS_TO_BSIZE = {8: int(BlockSize.BLOCK_8X8), 16: int(BlockSize.BLOCK_16X16),
                 32: int(BlockSize.BLOCK_32X32)}
@@ -77,18 +75,24 @@ class GpuFrameEncoder:
     ``encode()`` it holds ``plan`` (the first tile's with tile columns;
     ``tile_plans`` holds every tile's), ``seq``, ``fh``, ``saved_fc``,
     ``mi_skip``, ``timings`` (``plan_s``, ``pack_s``) and, on the partition
-    path, ``ref_planes_dev`` (post-LPF planes on ``device``)."""
+    path, ``ref_planes_dev`` (post-LPF planes on ``device``); with
+    ``tune_vmaf``, ``vmaf_unsharp_amount`` and ``vmaf_s`` (the
+    preprocessing's seconds) from construction on."""
 
     def __init__(self, frame: Frame, cfg: EncoderConfig, device="cuda"):
         if not available():
             raise RuntimeError("the encoder requires the native EC library")
         if cfg.lossless or cfg.base_q_idx == 0:
             raise NotImplementedError("lossless uses FrameEncoder (WHT)")
-        if cfg.tune_vmaf:
-            raise NotImplementedError(
-                "tune_vmaf preprocessing is not ported yet")
         self.device = resolve_device(device)
         self.cfg = cfg
+        if cfg.tune_vmaf:
+            # av1_vmaf_frame_preprocessing analogue: encode the unsharpened
+            # source (kernels KG/KH); vmaf_s is its host-clock time
+            t0 = time.perf_counter()
+            self.vmaf_unsharp_amount, frame = tune_vmaf.preprocess_frame(
+                frame, self.device)
+            self.vmaf_s = time.perf_counter() - t0
         self.src = frame
         self.w, self.h = frame.width, frame.height
         self.mi_cols = (self.w + 7) // 8 * 2
@@ -138,16 +142,16 @@ class GpuFrameEncoder:
                 self.srcp.append(_pad_plane(planes[p].astype(np.int32),
                                             ph32 // 2, pw32 // 2))
 
-        from aom_av1_psy_tpu.ec import costs as EC_costs
+        from ..ec import costs as EC_costs
         self.rdmult = EC_costs.compute_rd_mult(cfg.base_q_idx)
         if cfg.tune_psy:
             # per-block SSIM/psy rdmult grid (av1_set_ssim_rdmult,
             # encodeframe_utils.c:20; factors encoder_utils.c:1281)
-            from aom_av1_psy_tpu.encoder import psy as psy_mod
+            from . import psy as psy_mod
             f = psy_mod.ssim_rdmult_scaling_factors(planes[0])
             self.rdmult = self._rdmult_grid(self.rdmult, f)
         elif cfg.tune_butteraugli:
-            from aom_av1_psy_tpu.encoder import psy as psy_mod
+            from . import psy as psy_mod
             f = psy_mod.butteraugli_lite_factors(planes[0])
             self.rdmult = self._rdmult_grid(self.rdmult, f)
 
@@ -343,7 +347,7 @@ class GpuFrameEncoder:
         are decoded with the in-repo decoder for the exact in-loop
         distortion; the winner's recon/entropy/header state is kept."""
         import dataclasses
-        from aom_av1_psy_tpu.encoder.frame import FrameEncoder
+        from .frame import FrameEncoder
 
         cfg64 = dataclasses.replace(
             self.cfg, block_size=int(BlockSize.BLOCK_64X64),
@@ -371,7 +375,7 @@ class GpuFrameEncoder:
 
         sse_f, _ = _dist(pkt_fused, self.seq)
         sse_6, rec_6 = _dist(pkt64, host.seq)
-        from aom_av1_psy_tpu.ec import costs as EC_costs
+        from ..ec import costs as EC_costs
         lam = float(EC_costs.compute_rd_mult(self.cfg.base_q_idx))
         rd_f = 2048.0 * sse_f + lam / 512.0 * 8.0 * len(pkt_fused)
         rd_6 = 2048.0 * sse_6 + lam / 512.0 * 8.0 * len(pkt64)
@@ -504,7 +508,7 @@ class GpuFrameEncoder:
         level ladder around the q-derived first guess sets ``fh.lf`` first
         (av1_pick_filter_level, av1/encoder/picklpf.c:247). These are the
         planes the decoder shows before CDEF."""
-        from aom_av1_psy_tpu.ops import deblock
+        from ..ops import deblock
         src, dims = self._crop_src()
         mi_tx, mi_bsz, mi_uv = self._cdef_grids()
         pre = [np.array(r.cpu().numpy()[:h, :w], np.int32)
@@ -557,7 +561,7 @@ class GpuFrameEncoder:
         Partition path: on the post-LPF recon, copied once from the device.
         Uniform grid (no device LPF): on ``_host_lpf_planes``, whose ladder
         also sets ``fh.lf`` with ``cfg.search_lpf``."""
-        from aom_av1_psy_tpu.ops import cdef as cdef_ops
+        from ..ops import cdef as cdef_ops
         src, dims = self._crop_src()
         if self.use_part:
             planes = [np.array(r.cpu().numpy()[:h, :w], np.int32)
@@ -854,7 +858,7 @@ def apply_cdef_refs(planes_dev, mi_skip, fh: FrameHeader, mi_rows: int,
     reference sums each plane's squared error in float32; here each is
     exact (int64), converted to float32, and the planes are added in the
     reference's order before ``e1 < 0.98 * e0`` in float32."""
-    from aom_av1_psy_tpu.ops.cdef import find_dir_blocks
+    from ..ops.cdef import find_dir_blocks
     from ..ops import cdef_torch as CT
     c = fh.cdef
     ysec = c.y_sec[0] + (c.y_sec[0] == 3)

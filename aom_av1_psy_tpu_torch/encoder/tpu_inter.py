@@ -25,8 +25,7 @@ Exactness notes (JAX on the CPU is the oracle):
 
 The host pieces (``SEARCH_RAD``, ``RATE_ZEROMV``, ``_edge_grids``; the
 forced / no_split masks are ``tpu_intra.edge_cell_masks``) are carried over
-from the reference, which imports jax and therefore is never imported
-here.
+from the reference; the port imports nothing of it.
 """
 from __future__ import annotations
 
@@ -35,9 +34,9 @@ import functools
 import numpy as np
 import torch
 
-from aom_av1_psy_tpu.ec.context import FrameContext
-from aom_av1_psy_tpu.normative import tables
-from aom_av1_psy_tpu.ops import convolve as CONV
+from ..ec.context import FrameContext
+from ..normative import tables
+from ..ops import convolve as CONV
 from ..device import resolve_device
 from ..ops import fullpel as FP
 from ..ops import mc as MC

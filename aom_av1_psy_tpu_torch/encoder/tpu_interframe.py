@@ -7,18 +7,22 @@ Per P-frame: the batched inter plan on the device
 loop-filter ladder around the inter first guess (``ops/deblock_torch``,
 kernel KC), the device CDEF on the reference chain (``tpu_frame.
 apply_cdef_refs``, kernel KF), then the symbol-script pack executed by the
-shared native range coder. The reference chain (``ref_planes_out``) stays
+native range coder. The reference chain (``ref_planes_out``) stays
 on the device, post-LPF and post-CDEF like the decoder's.
 
-The host code is carried over from the reference module, which imports
-jax (through ``tpu_inter`` and ``tpu_frame``) and therefore is never
-imported here: the MV-class helpers and constants (``tpu_interframe.py:
+With ``tune_vmaf`` the source luma is first unsharpened on the device
+(``tune_vmaf.preprocess_frame``: kernels KG and KH), as the reference's
+encoder does; in the GOP the KEY frame is temporally filtered first, then
+unsharpened.
+
+The host code is carried over from the reference module: the MV-class
+helpers and constants (``tpu_interframe.py:
 38-68``), ``make_headers``, ``_mi_skip_map``, ``_pack_script`` and
-``_mv_ops`` (``:165-671``, over the shared ``normative/mvref.find_mv_refs``
-and ``decoder/inter``), ``_ref_chain_planes`` and the GOP driver
+``_mv_ops`` (``:165-671``, over ``normative/mvref.find_mv_refs`` and
+``decoder/inter``), ``_ref_chain_planes`` and the GOP loop
 (``:673-740``). ``_warm_transfer`` is a TPU-platform workaround and is
-dropped. Configurations the port does not cover yet (tune_vmaf) raise
-``NotImplementedError``.
+dropped. The host layers under it (headers, the range coder, the
+decoder's inter prediction, ``normative/mvref``) are the port's own copies.
 """
 from __future__ import annotations
 
@@ -28,29 +32,26 @@ import time
 import numpy as np
 import torch
 
-from aom_av1_psy_tpu.bitstream.bitio import BitWriter, write_leb128
-from aom_av1_psy_tpu.bitstream.headers import (FrameHeader, TileInfo,
-                                               write_frame_header)
-from aom_av1_psy_tpu.decoder import inter as IT
-from aom_av1_psy_tpu.ec.context import FrameContext
-from aom_av1_psy_tpu.ec.native_coder import (NativeEncoder, available,
-                                             make_bundle, native_run_script)
-from aom_av1_psy_tpu.encoder.frame import EncoderConfig
-from aom_av1_psy_tpu.normative import mvref as MR
-from aom_av1_psy_tpu.normative import tables
-from aom_av1_psy_tpu.normative.blocks import (EXT_TX_IND,
-                                              EXT_TX_SET_INDEX_INTER,
-                                              NUM_EXT_TX_SET,
-                                              PARTITION_CTX_ABOVE,
-                                              PARTITION_CTX_LEFT)
-from aom_av1_psy_tpu.normative.enums import BlockSize, TxSize
-from aom_av1_psy_tpu.normative.txsize import (TXSIZE_LOG2_MINUS4, TXSIZE_SQR,
-                                              txsize_entropy_ctx)
-from aom_av1_psy_tpu.utils.frame import Frame
+from ..bitstream.bitio import BitWriter, write_leb128
+from ..bitstream.headers import FrameHeader, TileInfo, write_frame_header
+from ..decoder import inter as IT
+from ..ec.context import FrameContext
+from ..ec.native_coder import (NativeEncoder, available, make_bundle,
+                               native_run_script)
+from .frame import EncoderConfig
+from ..normative import mvref as MR
+from ..normative import tables
+from ..normative.blocks import (EXT_TX_IND, EXT_TX_SET_INDEX_INTER,
+                                NUM_EXT_TX_SET, PARTITION_CTX_ABOVE,
+                                PARTITION_CTX_LEFT)
+from ..normative.enums import BlockSize, TxSize
+from ..normative.txsize import (TXSIZE_LOG2_MINUS4, TXSIZE_SQR,
+                                txsize_entropy_ctx)
+from ..utils.frame import Frame
 from .. import convert
 from ..device import resolve_device
 from ..ops import deblock_torch as DT
-from . import tpu_inter
+from . import tpu_inter, tune_vmaf
 from .tpu_frame import (GpuFrameEncoder, _pad_plane, apply_cdef_refs,
                         cdef_fixed_strengths)
 
@@ -102,9 +103,6 @@ class GpuInterFrameEncoder:
                  show: bool = True, primary_ref: int = 0, device="cuda"):
         if not available():
             raise RuntimeError("the encoder requires the native EC library")
-        if cfg.tune_vmaf:
-            raise NotImplementedError(
-                "tune_vmaf preprocessing is not ported yet")
         self.device = resolve_device(device)
         # CDF forwarding: code this frame against the previous frame's
         # counter-reset end-of-frame entropy state (primary_ref_frame)
@@ -112,6 +110,11 @@ class GpuInterFrameEncoder:
         # zero_lpf=True: legacy pre-LPF chain with lf = 0 (no CDEF either)
         self.zero_lpf = zero_lpf
         self.cfg = cfg
+        if cfg.tune_vmaf:
+            t0 = time.perf_counter()
+            self.vmaf_unsharp_amount, frame = tune_vmaf.preprocess_frame(
+                frame, self.device)
+            self.vmaf_s = time.perf_counter() - t0
         self.src = frame
         self._seq = seq
         self.w, self.h = frame.width, frame.height
@@ -134,11 +137,11 @@ class GpuInterFrameEncoder:
         self.refresh_flags = refresh_flags
         self.show = show
         self.primary_ref = primary_ref
-        from aom_av1_psy_tpu.ec import costs as EC_costs
+        from ..ec import costs as EC_costs
         self.rdmult = EC_costs.compute_rd_mult(cfg.base_q_idx,
                                                frame_type_kf=False)
         if cfg.tune_psy or cfg.tune_butteraugli:
-            from aom_av1_psy_tpu.encoder import psy as psy_mod
+            from . import psy as psy_mod
             f = (psy_mod.ssim_rdmult_scaling_factors(frame.planes()[0])
                  if cfg.tune_psy else
                  psy_mod.butteraugli_lite_factors(frame.planes()[0]))
@@ -697,11 +700,11 @@ def encode_video(frames, cfg: EncoderConfig, path: str | None = None,
     (default), every inter frame inherits the previous frame's
     end-of-frame entropy state via primary_ref_frame. KEY frames encode at
     base_q_idx - ``kf_q_offset`` (floor 8) and, with ``tf_key``, from the
-    temporally filtered source (shared ``encoder/temporal_filter``).
+    temporally filtered source (``encoder/temporal_filter``).
     ``key_interval`` > 0 places a KEY frame every that many frames.
     ``cdef`` turns on the quantizer-derived CDEF on every frame (the
     reference chain carries it). Returns (packets, encs)."""
-    from aom_av1_psy_tpu.bitstream.containers import write_ivf
+    from ..bitstream.containers import write_ivf
     packets = []
     encs = []
     ref_planes = None
@@ -717,7 +720,7 @@ def encode_video(frames, cfg: EncoderConfig, path: str | None = None,
         if is_key:
             if tf_key and len(frames) > 1:
                 # multi-frame KEY denoise (temporal_filter.c:833-841)
-                from aom_av1_psy_tpu.encoder import temporal_filter as TF
+                from . import temporal_filter as TF
                 frame = TF.filter_key_frame(frames, i, kf_cfg.base_q_idx)
             enc = GpuFrameEncoder(frame, kf_cfg, device=device)
             packets.append(enc.encode(include_seq=(i == 0)))

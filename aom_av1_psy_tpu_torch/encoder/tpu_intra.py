@@ -21,7 +21,7 @@ KA's plain half (``ops/intra_pred.py``); ``_quantize``, ``_dequantize``,
 ``_coeff_rate_est`` and ``_skip_rd`` are KB's (``ops/txq.py``). The host
 cost tables (``_plan_cost_tables*``, ``_rate_tables``,
 ``_part_rate_scalars``, ``plan_part_supported``) are carried over from the
-reference, which cannot be imported here (it imports jax at top level).
+reference; the port imports nothing of it.
 """
 from __future__ import annotations
 
@@ -30,10 +30,9 @@ import functools
 import numpy as np
 import torch
 
-from aom_av1_psy_tpu.normative import tables
-from aom_av1_psy_tpu.normative.blocks import (INTRA_MODE_CONTEXT,
-                                              INTRA_MODE_TO_TX_TYPE)
-from aom_av1_psy_tpu.normative.enums import TxSize
+from ..normative import tables
+from ..normative.blocks import INTRA_MODE_CONTEXT, INTRA_MODE_TO_TX_TYPE
+from ..normative.enums import TxSize
 from .. import convert
 from ..ops import intra_pred as IP
 from ..ops import txq as TQ
@@ -97,7 +96,7 @@ def _scan(tx_size: int, device: str):
 # host-side cost tables (carried over from the reference)
 # ----------------------------------------------------------------------
 def _plan_cost_tables(fc):
-    from aom_av1_psy_tpu.ec.costs import cdf_cost_table
+    from ..ec.costs import cdf_cost_table
     m = len(PLAN_MODES)
     kf = np.zeros((5, 5, m), np.int32)
     for a in range(5):
@@ -122,7 +121,7 @@ def _plan_cost_tables(fc):
 def _plan_cost_tables2(fc):
     """kf (5, 5, K) luma mode cost per neighbour ctx, angle (K,) the
     angle-delta symbol cost (0 for non-directional), uv (13, 7)."""
-    from aom_av1_psy_tpu.ec.costs import cdf_cost_table
+    from ..ec.costs import cdf_cost_table
     cands = DIR.candidates()
     K = len(cands)
     modes = [m for m, _, _ in cands]
@@ -144,7 +143,7 @@ def _rate_tables(fc):
     """Coefficient-rate tables per (tx size, plane) as numpy pairs
     (ec/costs.coeff_rate_tables). The level costs must be half-integers:
     the device sums them exactly in half units."""
-    from aom_av1_psy_tpu.ec.costs import coeff_rate_tables
+    from ..ec.costs import coeff_rate_tables
 
     def pair(tx, pl):
         lvl, eob = coeff_rate_tables(fc, tx, pl)
@@ -161,7 +160,7 @@ def _rate_tables(fc):
 def _part_rate_scalars(fc):
     """Default-CDF costs of PARTITION_NONE / PARTITION_SPLIT at the
     32x32 bsize (ctx: bsl=2, no-split neighbours) — decision-only."""
-    from aom_av1_psy_tpu.ec.costs import cdf_cost_table
+    from ..ec.costs import cdf_cost_table
     t = cdf_cost_table(fc.partition_cdf[8], 10)
     return float(t[0]), float(t[3])
 

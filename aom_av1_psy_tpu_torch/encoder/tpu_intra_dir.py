@@ -2,8 +2,8 @@
 ``aom_av1_psy_tpu/encoder/tpu_intra_dir.py``.
 
 The host half (candidate list, static gather tables, availability masks) is
-numpy and is carried over from that module (``:45-176``, ``:280-354``),
-which cannot be imported here because it imports jax at top level. The
+numpy and is carried over from that module (``:45-176``, ``:280-354``);
+the port imports nothing of the reference. The
 device half (``_filter_edge_b``, ``build_edge_buffer``, ``dir_predict``,
 ``allowed_mask``, ``:179-274``) is written in torch; it is the plain
 version that kernel KA (``ops/intra_pred.py``) is held against.
@@ -21,8 +21,8 @@ import functools
 import numpy as np
 import torch
 
-from aom_av1_psy_tpu.ops import intra as intra_ops
-from aom_av1_psy_tpu.normative.enums import PredictionMode, MODE_TO_ANGLE
+from ..ops import intra as intra_ops
+from ..normative.enums import PredictionMode, MODE_TO_ANGLE
 
 # class ids
 PLAIN, Z1, Z2, Z3 = 0, 1, 2, 3
@@ -267,8 +267,8 @@ def position_masks(mi_rows: int, tile_mi_w: int, vis_mi_w: int,
     right_avail); vis_mi_w: visible mi width in this tile. Returns dict of
     bool grids: ok1_32/ok2_32/ok3_32 (R, C); ok1_16/ok2_16/ok3_16/
     trreal_16/blreal_16 (2R, 2C)."""
-    from aom_av1_psy_tpu.normative import intra_avail as IA
-    from aom_av1_psy_tpu.normative.enums import BlockSize, TxSize
+    from ..normative import intra_avail as IA
+    from ..normative.enums import BlockSize, TxSize
     NONE = 0  # PARTITION_NONE (leaf blocks of the two-level plan)
     b32, t32 = int(BlockSize.BLOCK_32X32), int(TxSize.TX_32X32)
     b16, t16 = int(BlockSize.BLOCK_16X16), int(TxSize.TX_16X16)

@@ -5,7 +5,7 @@
 
 Every tap reads pre-CDEF pixels, so a plane filters as a pure function of
 one copy padded by 2 with ``CDEF_VERY_LARGE`` outside the mi area. The
-direction search stays the shared host ``ops/cdef.find_dir_blocks`` (it is
+direction search stays on the host, ``ops/cdef.find_dir_blocks`` (it is
 normative and needs exact 64-bit costs); ``dirs``/``var`` come in per 8x8
 block in raster order.
 
@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from aom_av1_psy_tpu.ops.cdef import CDEF_VERY_LARGE, DIRS, PRI_TAPS, SEC_TAPS
+from .cdef import CDEF_VERY_LARGE, DIRS, PRI_TAPS, SEC_TAPS
 from ..kernels.build import CudaKernel, I, P
 from .txq import floor_log2
 

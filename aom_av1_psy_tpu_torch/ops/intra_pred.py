@@ -24,7 +24,7 @@ import functools
 
 import torch
 
-from aom_av1_psy_tpu.ops import intra as intra_ops
+from . import intra as intra_ops
 from ..encoder import tpu_intra_dir as DIR
 from ..kernels.build import CudaKernel, I, P
 

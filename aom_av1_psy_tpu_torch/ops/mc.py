@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from aom_av1_psy_tpu.ops import convolve as CONV
+from . import convolve as CONV
 from ..kernels.build import CudaKernel, I, P
 
 KD = CudaKernel("mc", {

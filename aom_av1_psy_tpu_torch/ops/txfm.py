@@ -4,10 +4,10 @@ uses: DCT 4/8/16/32 and ADST 4/8/16, forward and inverse.
 Counterpart of ``aom_av1_psy_tpu/ops/txfm.py`` (``_run_stages`` :105,
 ``_fadst4`` / ``_iadst4`` :129-182, ``fwd_txfm2d`` :227,
 ``inv_txfm2d_add`` :266). The normative stage tables, shifts, cos bits and
-sinpi constants are the reference module's numpy data
-(``_compiled_stages``, ``FWD_SHIFT``, ``INV_SHIFT``, ``FWD_COS_BIT_*``,
-``INV_COS_BIT``, ``tables.sinpi``); only numpy ever reaches that module
-(its ``_np_like`` would import jax.numpy for any other array type). ADST4
+sinpi constants are numpy data of the port's host transforms
+(``ops/txfm_host.py``, the port's copy of the reference module:
+``_compiled_stages``, ``FWD_SHIFT``, ``INV_SHIFT``, ``FWD_COS_BIT_*``,
+``INV_COS_BIT``, ``tables.sinpi``). ADST4
 is not a stage program: it is the sinpi-based ``av1_fadst4`` /
 ``av1_iadst4``, and like the reference it takes no stage clamp.
 
@@ -23,11 +23,10 @@ import functools
 import numpy as np
 import torch
 
-from aom_av1_psy_tpu.normative import tables
-from aom_av1_psy_tpu.normative.enums import TxSize, TX_WIDTH
-from aom_av1_psy_tpu.ops.txfm import (FWD_COS_BIT_COL, FWD_COS_BIT_ROW,
-                                      FWD_SHIFT, INV_COS_BIT, INV_SHIFT,
-                                      _compiled_stages)
+from ..normative import tables
+from ..normative.enums import TxSize, TX_WIDTH
+from .txfm_host import (FWD_COS_BIT_COL, FWD_COS_BIT_ROW, FWD_SHIFT,
+                         INV_COS_BIT, INV_SHIFT, _compiled_stages)
 
 __all__ = ["FWD_COS_BIT_COL", "FWD_COS_BIT_ROW", "FWD_SHIFT", "INV_COS_BIT",
            "INV_SHIFT", "run_stages", "txfm_1d", "fwd_txfm2d",

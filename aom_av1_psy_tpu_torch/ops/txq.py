@@ -29,9 +29,9 @@ import functools
 import numpy as np
 import torch
 
-from aom_av1_psy_tpu.normative import tables
-from aom_av1_psy_tpu.normative import txsize as TS
-from aom_av1_psy_tpu.ops.txfm import _compiled_stages
+from ..normative import tables
+from ..normative import txsize as TS
+from .txfm_host import _compiled_stages
 from .txfm import (FWD_COS_BIT_COL, FWD_COS_BIT_ROW, FWD_SHIFT, INV_COS_BIT,
                    INV_SHIFT, SQUARE_TX, fwd_sel, inv_sel_add)
 from ..kernels.build import CudaKernel, I, P

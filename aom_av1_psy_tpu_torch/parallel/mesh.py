@@ -14,7 +14,7 @@ with T = 2 that is 63 diagonal steps where the untiled frame walks 93.
 """
 from __future__ import annotations
 
-from aom_av1_psy_tpu.ec.context import FrameContext
+from ..ec.context import FrameContext
 from ..device import resolve_device
 from ..encoder import tpu_intra as TI
 

@@ -10,8 +10,9 @@ Phases (each prints a line with its seconds; any failure raises and the
 exit code is not 0):
 
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
-2. build the six hand-written kernels from ``csrc/`` with nvcc (sm_90a), one
-   nvcc process per source, all started together;
+2. build the hand-written kernels from ``csrc/`` with nvcc (sm_90a), one
+   nvcc process per source, all started together (KA-KF, and KG/KH/KI in
+   ``tune_vmaf.cu``), and the native range coder (``native/ec.cpp``, g++);
 3. KA / KB / KC against their plain PyTorch versions on the card, at the
    shapes the 1080p KEY frame gives them, for exact equality, with both
    times (CUDA events);
@@ -22,6 +23,10 @@ exit code is not 0):
    and KB with the skip off at 8x8, at the uniform grid's shapes (640x360:
    chroma B = 2 x 45; 1080p BLOCK_8X8: luma B = 135, chroma B = 270), for
    exact equality, with both times;
+3d. KG (with and without the moments), KH and KI (the four VIF scales, and
+   its ``vif_down2`` entry) against their plain versions at the 1080p
+   shapes: KG, KH and down2 exact, KI within a relative 1e-4; kernel,
+   plain and (KI, down2) library-call times;
 4. closed loop at CIF (352x288), KEY frame: the CUDA stream equals the
    port's CPU (plain-path) stream byte for byte, and the in-repo decoder
    reconstructs the port's post-loop-filter planes exactly;
@@ -34,37 +39,52 @@ exit code is not 0):
    uniform grid (mi rows = 2 mod 8, 8x8 blocks, chroma at 4x4): CUDA stream
    == CPU plain stream, decoder == the plan recon after the host
    deblocker (the uniform path runs no device loop filter);
-5. the KEY path: ``GpuFrameEncoder.encode()`` of ``bench.make_frame(1920,
-   1080)`` at ``base_q_idx=100`` — a first frame and 3 steady frames — with
-   the launch counts read around that run;
-5b. the main path of the slice: ``encode_video(bench.make_gop(1920, 1080,
-   5), EncoderConfig(base_q_idx=100))`` twice (the first run warms up), the
+4e. closed loop at CIF with ``tune_vmaf=True``: a KEY frame and a 4-frame
+   GOP, CUDA == CPU plain (packets and amounts), decoder == recon / chain;
+5. the KEY path: ``GpuFrameEncoder.encode()`` of the 1920x1080 test
+   frame (``utils/testframes.make_frame``, the arrays of ``bench.py``'s) at
+   ``base_q_idx=100`` — a first frame and 3 steady frames — with the launch
+   counts read around that run;
+5b. the main path of slice 2: ``encode_video(make_gop(1920, 1080, 5),
+   EncoderConfig(base_q_idx=100))`` twice (the first run warms up), the
    counts set to 0 just before the second and read just after; per-frame
    bytes, times and filter strengths; each P-frame re-encoded alone from
    the GOP's chain for its wall time; the whole GOP on the CPU plain path
    must give the same packets;
-5c. the tiled KEY path: ``bench.make_frame(1920, 1080)`` with
-   ``tile_cols_log2=1`` (two 15-SB tiles batched through one wavefront of
-   63 diagonals) — a first frame and 3 steady frames with the launch counts
-   read around them, the untiled steady median of phase 5 beside it; CUDA
-   == CPU plain stream;
+5c. the tiled KEY path: the phase-5 frame with ``tile_cols_log2=1`` (two
+   15-SB tiles batched through one wavefront of 63 diagonals) — a first
+   frame and 3 steady frames with the launch counts read around them, the
+   untiled steady median of phase 5 beside it; CUDA == CPU plain stream;
 5d. the uniform grid at full width: 1080p with ``block_size=BLOCK_8X8``
    (R = 135, C = 240: 374 diagonals per plane) — a first frame and 3
    steady frames with the counts read around them, CUDA == CPU plain
    stream; then 640x360 (the default config's uniform grid), 3 steady;
 5e. 1080p with ``search_cdef=True``: the searched strengths and the time;
    at CIF, CUDA == CPU plain stream;
+5f. the main path of slice 4: the phase-5 frame with ``tune_vmaf=True`` —
+   a first frame and 3 steady frames (preprocessing time beside plan and
+   pack), the counts set to 0 before them and read after ``vif_lite``
+   (source vs decoded) of this frame and of phase 5's; CUDA == CPU plain
+   stream; a 3-frame 1080p ``encode_video`` with ``tune_vmaf``, timed,
+   with the per-frame amounts and the counts set to 0 just before it and
+   read just after;
 6. / 6b. a profiler window over one steady 1080p KEY frame and one steady
    1080p P-frame (device busy time by kernel).
 
-``--only-kernels`` stops after phase 3c. The second-to-last line is
+``--only-kernels`` stops after phase 3d. The second-to-last line is
 ``{"kernels": [...]}``: ``launches`` from the GOP of phase 5b (for the
-4x4 / no-skip entries, from the uniform KEY frames of phase 5d), with the
-counts of the KEY frames of phases 5, 5c and 5d beside it. KA's and KB's
-entries count only their own instances (``intra_pred_sse`` bs 8/16/32,
-``intra_pred_sse bs4``; ``txq_recon_skip`` bs 8/16/32 with the skip
-decision, ``txq_recon bs4 / bs8 no-skip``), read from the per-variant
-counts the wrappers keep; the last line
+4x4 / no-skip entries, from the uniform KEY frames of phase 5d; for KG,
+KH, KI and ``vif_down2``, from phase 5f), with the counts of the KEY frames
+of phases 5, 5c, 5d and 5f and of phase 5f's tune_vmaf GOP beside it. KA's and KB's entries count only
+their own instances (``intra_pred_sse`` bs 8/16/32, ``intra_pred_sse
+bs4``; ``txq_recon_skip`` bs 8/16/32 with the skip decision, ``txq_recon
+bs4 / bs8 no-skip``), read from the per-variant counts the wrappers keep.
+Each entry's ``bound_ms`` is the larger of its bytes (inputs read once,
+outputs written once, from the timed call's tensors) over 3.35 TB/s and its
+operations (estimated per kernel from the shapes, in the comments beside
+each) over 67 T/s; ``library_ms`` times one PyTorch call where one
+computes the function (KI's box moments and ``vif_down2``: ``conv2d``),
+else null. The last line
 is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
 the package beside this script, it exits non-zero and prints no result.
 """
@@ -98,6 +118,35 @@ def cuda_time(fn, iters):
     return t0.elapsed_time(t1) / iters
 
 
+# NVIDIA H100 SXM (data sheet): HBM3 bytes/s, and the float32 rate outside
+# the tensor cores, against which integer operations are counted too
+HBM_BYTES_PER_S = 3.35e12
+CUDA_CORE_OPS_PER_S = 67e12
+
+
+def nbytes(*xs):
+    """Bytes of the tensors in xs (nested tuples, lists and dicts walked)."""
+    import torch
+    total = 0
+    for x in xs:
+        if isinstance(x, dict):
+            total += nbytes(*x.values())
+        elif isinstance(x, (tuple, list)):
+            total += nbytes(*x)
+        elif torch.is_tensor(x):
+            total += x.numel() * x.element_size()
+    return total
+
+
+def bound(n_bytes, ops):
+    """The least time the card could take: the larger of the bytes moved
+    (each input read once, each output written once) over the memory rate
+    and the operations over the CUDA-core rate."""
+    tb, to = n_bytes / HBM_BYTES_PER_S, ops / CUDA_CORE_OPS_PER_S
+    return {"bound_ms": 1e3 * max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations"}
+
+
 def max_abs_err(a, b):
     import torch
     return float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
@@ -117,6 +166,13 @@ def compare(name, got, want):
         raise AssertionError(f"{name}: kernel differs from plain, max abs "
                              f"err {err}")
     return err
+
+
+def _txq_ops(B, bs):
+    """Operations of B square transform blocks of size bs: forward and
+    inverse 2-D transforms (~8 bs^2 log2(bs) butterfly operations) and
+    ~20 per coefficient for quantize, dequantize, recon and the rate."""
+    return B * bs * bs * (8 * (bs.bit_length() - 1) + 20)
 
 
 def check_kernels(dev):
@@ -166,10 +222,14 @@ def check_kernels(dev):
                                50),
                      cuda_time(lambda: IP.intra_pred_sse_plain(
                          *args, src, k, **ext), 10))
+            # ~4 operations per predicted pixel, 3 for its squared error
+            bnd = bound(nbytes(args, src, ext, IP.intra_pred_sse(
+                *args, src, k, **ext)), 7 * k * B * bs * bs)
     results.append({"name": "intra_pred_sse", "route": "cuda",
                     "source": "aom_av1_psy_tpu_torch/csrc/intra_pred.cu",
                     "replaces": "aom_av1_psy_tpu/encoder/tpu_intra_dir.py:241",
                     "max_abs_err": err, "ms": times[0], "plain_ms": times[1],
+                    **bnd, "library_ms": None,
                     "timed_at": "bs32 B=34 K=61 (SSE of all candidates)"})
     log(f"[3] KA intra_pred_sse exact at bs 32/16 (K=61) and 16/8 (K=7); "
         f"bs32 B=34: kernel {times[0]:.4f} ms, plain {times[1]:.4f} ms")
@@ -198,17 +258,19 @@ def check_kernels(dev):
         if bs == 32:
             times = (cuda_time(lambda: TQ.txq_recon_skip(*a), 50),
                      cuda_time(lambda: TQ.txq_recon_skip_plain(*a), 10))
+            bnd = bound(nbytes(a, TQ.txq_recon_skip(*a)), _txq_ops(B, bs))
     results.append({"name": "txq_recon_skip", "route": "cuda",
                     "source": "aom_av1_psy_tpu_torch/csrc/txq.cu",
                     "replaces": "aom_av1_psy_tpu/encoder/tpu_intra.py:157",
                     "max_abs_err": err, "ms": times[0], "plain_ms": times[1],
+                    **bnd, "library_ms": None,
                     "timed_at": "bs32 B=34 DCT"})
     log(f"[3] KB txq_recon_skip exact at 32/16 (DCT) and 16/8 (ADST mix); "
         f"bs32 B=34: kernel {times[0]:.4f} ms, plain {times[1]:.4f} ms")
 
     # ---- KC: 1080p luma 1088x1920 and chroma 544x960, 6 levels ----
-    import bench
-    frame = bench.make_frame(1920, 1080, seed=SEED)
+    from aom_av1_psy_tpu_torch.utils import testframes
+    frame = testframes.make_frame(1920, 1080, seed=SEED)
     g = 14
     cands = t([0, g // 2, g - 2, g, g + 2, 2 * g])
     split16 = t(rng.random((68, 120)) < .5, torch.bool)
@@ -225,10 +287,15 @@ def check_kernels(dev):
         if luma:
             times = (cuda_time(lambda: DT.lpf_ladder(*a), 20),
                      cuda_time(lambda: DT.lpf_ladder_plain(*a), 3))
+            # ~20 operations per pixel and level (edge masks, filters, the
+            # squared error)
+            bnd = bound(nbytes(a, DT.lpf_ladder(*a)),
+                        20 * len(cands) * hb * wb)
     results.append({"name": "lpf_ladder", "route": "cuda",
                     "source": "aom_av1_psy_tpu_torch/csrc/deblock.cu",
                     "replaces": "aom_av1_psy_tpu/ops/deblock_jax.py:183",
                     "max_abs_err": err, "ms": times[0], "plain_ms": times[1],
+                    **bnd, "library_ms": None,
                     "timed_at": "luma 1088x1920, 6 levels"})
     log(f"[3] KC lpf_ladder exact at 1088x1920 luma and 544x960 chroma, 6 "
         f"levels; luma: kernel {times[0]:.4f} ms, plain {times[1]:.4f} ms")
@@ -270,10 +337,13 @@ def check_uniform_kernels(dev):
             times = (cuda_time(lambda: IP.intra_pred_sse(*args, src, 7), 50),
                      cuda_time(lambda: IP.intra_pred_sse_plain(*args, src, 7),
                                20))
+            bnd = bound(nbytes(args, src, IP.intra_pred_sse(*args, src, 7)),
+                        7 * 7 * B * 16)
     results.append({"name": "intra_pred_sse bs4", "route": "cuda",
                     "source": "aom_av1_psy_tpu_torch/csrc/intra_pred.cu",
                     "replaces": "aom_av1_psy_tpu/encoder/tpu_intra.py:64",
                     "max_abs_err": err, "ms": times[0], "plain_ms": times[1],
+                    **bnd, "library_ms": None,
                     "timed_at": "bs4 B=270 K=7 (1080p BLOCK_8X8 chroma)"})
     log(f"[3c] KA intra_pred_sse exact at bs4 K=7, B=90 and 270; B=270: "
         f"kernel {times[0]:.4f} ms, plain {times[1]:.4f} ms")
@@ -301,26 +371,262 @@ def check_uniform_kernels(dev):
                                    TQ.tq_recon(*a, **flags)))
             times = (cuda_time(lambda: TQ.txq_recon(*a, **flags), 50),
                      cuda_time(lambda: TQ.tq_recon(*a, **flags), 20))
+            bnd = bound(nbytes(a, flags, TQ.txq_recon(*a, **flags)),
+                        _txq_ops(B, bs))
         results.append({"name": name, "route": "cuda",
                         "source": "aom_av1_psy_tpu_torch/csrc/txq.cu",
                         "replaces": replaces, "max_abs_err": err,
                         "ms": times[0], "plain_ms": times[1],
+                        **bnd, "library_ms": None,
                         "timed_at": f"bs{bs} B={Bs[-1]}"
                                     + (" DCT/ADST mix" if adst else " DCT")})
         log(f"[3c] KB {name} exact at B={Bs}; B={Bs[-1]}: kernel "
             f"{times[0]:.4f} ms, plain {times[1]:.4f} ms")
     return results
 
+VIF_RTOL = 1e-4
+
+
+def check_tune_vmaf_kernels(dev):
+    """Phase 3d: KG (with and without the moments), KH, and KI with its
+    down2 entry against their plain versions at the 1080p tune_vmaf and VIF
+    shapes: KG, KH and down2 exact, KI's two sums within VIF_RTOL."""
+    import torch
+    import torch.nn.functional as F
+    from aom_av1_psy_tpu_torch.encoder import tune_vmaf as TV
+    from aom_av1_psy_tpu_torch.utils import testframes
+    y = torch.as_tensor(testframes.make_frame(1920, 1080, seed=SEED)
+                        .planes()[0], device=dev)
+    H, W = y.shape
+    src = "aom_av1_psy_tpu_torch/csrc/tune_vmaf.cu"
+    ref = "aom_av1_psy_tpu/encoder/tune_vmaf.py"
+    results = []
+
+    # ---- KG: uint8 and int32 input, with and without the moments ----
+    want = TV.gaussian_blur_plain(y)
+    got, mom = TV.gaussian_blur(y, moments=True)
+    err = max(compare("KG blur", TV.gaussian_blur(y), want),
+              compare("KG blur int32", TV.gaussian_blur(y.to(torch.int32)),
+                      want),
+              compare("KG blur + moments", (got, mom),
+                      (want, TV.blur_moments_plain(y, want))))
+    times = (cuda_time(lambda: TV.gaussian_blur(y, moments=True), 50),
+             cuda_time(lambda: TV.blur_moments_plain(
+                 y, TV.gaussian_blur_plain(y)), 5))
+    plain_blur = cuda_time(lambda: TV.gaussian_blur(y), 50)
+    # 2 x 8 taps of 2 operations, rounding and clip, 6 for the moments
+    results.append({"name": "gauss_blur", "route": "cuda", "source": src,
+                    "replaces": f"{ref}:49", "max_abs_err": err,
+                    "ms": times[0], "plain_ms": times[1],
+                    **bound(nbytes(y, got, mom), 48 * H * W),
+                    "library_ms": None,
+                    "timed_at": "1080x1920 uint8 with the moments (the "
+                                "encoder's call)"})
+    log(f"[3d] KG gauss_blur exact (uint8, int32; blur and moments) at "
+        f"1080x1920: with moments kernel {times[0]:.4f} ms, plain "
+        f"{times[1]:.4f} ms; blur alone {plain_blur:.4f} ms")
+
+    # ---- KH: the reference's 1080p amount and the ceiling ----
+    err = 0.0
+    for a in (0.18498, 0.3, 0.04742):
+        out = TV.unsharp(y, want, a)
+        err = max(err, compare(f"KH a={a}", out, TV.unsharp_plain(y, want,
+                                                                  a)))
+    times = (cuda_time(lambda: TV.unsharp(y, want, 0.18498), 50),
+             cuda_time(lambda: TV.unsharp_plain(y, want, 0.18498), 10))
+    results.append({"name": "unsharp_apply", "route": "cuda", "source": src,
+                    "replaces": f"{ref}:74", "max_abs_err": err,
+                    "ms": times[0], "plain_ms": times[1],
+                    **bound(nbytes(y, want, out), 8 * H * W),
+                    "library_ms": None, "timed_at": "1080x1920, a = 0.18498"})
+    log(f"[3d] KH unsharp_apply exact at 1080x1920 (a = 0.18498, 0.3, "
+        f"0.04742): kernel {times[0]:.4f} ms, plain {times[1]:.4f} ms")
+
+    # ---- KI: the four scales of vif_lite(source, blur), and down2 ----
+    r, d = y.to(torch.float32), want.to(torch.float32)
+    err, rel, k_err = 0.0, 0.0, 0.0
+    k3 = torch.tensor([[1, 2, 1], [2, 4, 2], [1, 2, 1]], dtype=torch.float32,
+                      device=dev)[None, None] / 16.0
+    for s in range(4):
+        got, ref_sums = TV.vif_scale_sums(r, d), TV.vif_scale_plain(r, d)
+        rel = max(rel, float(((got - ref_sums).abs()
+                              / ref_sums.abs().clamp(min=1e-30)).max()))
+        err = max(err, max_abs_err(got, ref_sums))
+        if s == 0:
+            Ho, Wo = r.shape[0] - 8, r.shape[1] - 8
+            # what the function needs per output pixel: the three products,
+            # five separable 9x9 box means (8 + 8 adds and a scale each)
+            # and ~30 for the variances, g, sv and the two log2 terms
+            ki_bnd = bound(nbytes(r, d, got), (3 + 5 * 17 + 30) * Ho * Wo)
+            ki_t = (cuda_time(lambda: TV.vif_scale_sums(r, d), 20),
+                    cuda_time(lambda: TV.vif_scale_plain(r, d), 5))
+            x5 = torch.stack([r, d, r * r, d * d, r * d])[:, None]
+            box = torch.full((1, 1, 9, 9), 1.0 / 81.0, device=dev)
+            ki_lib = cuda_time(lambda: F.conv2d(x5, box), 10)
+        nr = TV.down2(r)
+        k_err = max(k_err, compare(f"down2 scale {s}", nr,
+                                   TV.down2_plain(r)))
+        if s == 0:
+            lib_err = max_abs_err(nr, F.conv2d(r[None, None], k3, stride=2,
+                                               padding=1)[0, 0])
+            d2_t = (cuda_time(lambda: TV.down2(r), 50),
+                    cuda_time(lambda: TV.down2_plain(r), 20),
+                    cuda_time(lambda: F.conv2d(r[None, None], k3, stride=2,
+                                               padding=1), 50))
+            d2_bnd = bound(nbytes(r, nr), 18 * nr.numel())
+        r, d = nr, TV.down2(d)
+    if rel > VIF_RTOL:
+        raise AssertionError(f"KI: relative error {rel:.3g} above "
+                             f"{VIF_RTOL}")
+    results.append({"name": "vif_scale", "route": "cuda", "source": src,
+                    "replaces": f"{ref}:94", "max_abs_err": err,
+                    "max_rel_err": rel, "ms": ki_t[0], "plain_ms": ki_t[1],
+                    **ki_bnd, "library_ms": ki_lib,
+                    "library_call": "conv2d of the five box moments (9x9, "
+                                    "TF32 off)",
+                    "timed_at": "scale 0, 1080x1920 float32"})
+    results.append({"name": "vif_down2", "route": "cuda", "source": src,
+                    "replaces": f"{ref}:111", "max_abs_err": k_err,
+                    "ms": d2_t[0], "plain_ms": d2_t[1], **d2_bnd,
+                    "library_ms": d2_t[2],
+                    "library_call": "conv2d 3x3, stride 2, padding 1",
+                    "timed_at": "1080x1920 -> 540x960 float32"})
+    log(f"[3d] KI vif_scale within {VIF_RTOL} at the four scales "
+        f"(max relative {rel:.3g}, max abs {err:.4g}): scale 0 kernel "
+        f"{ki_t[0]:.4f} ms, plain {ki_t[1]:.4f} ms, box-moment conv2d "
+        f"{ki_lib:.4f} ms; vif_down2 exact: kernel {d2_t[0]:.4f} ms, plain "
+        f"{d2_t[1]:.4f} ms, strided conv2d {d2_t[2]:.4f} ms (max abs "
+        f"difference from the kernel {lib_err:.3g})")
+    return results
+
+
+def closed_loop_tune_vmaf_cif(dev):
+    """Phase 4e: CIF with tune_vmaf, a KEY frame and a 4-frame GOP: CUDA ==
+    CPU plain (packets and amounts); decoder == the port's recon / chain."""
+    import numpy as np
+    from aom_av1_psy_tpu_torch.encoder.tpu_frame import (Av1Decoder,
+                                                         EncoderConfig,
+                                                         GpuFrameEncoder)
+    from aom_av1_psy_tpu_torch.encoder.tpu_interframe import encode_video
+    from aom_av1_psy_tpu_torch.utils import testframes
+    frame = testframes.make_frame(352, 288, seed=SEED)
+    cfg = EncoderConfig(base_q_idx=100, tune_vmaf=True)
+    gpu = GpuFrameEncoder(frame, cfg, device=dev)
+    pkt = gpu.encode()
+    cpu = GpuFrameEncoder(frame, cfg, device="cpu")
+    if cpu.encode() != pkt or \
+            cpu.vmaf_unsharp_amount != gpu.vmaf_unsharp_amount:
+        raise AssertionError("CIF tune_vmaf: CUDA stream or amount differs "
+                             "from the plain CPU path")
+    dec = Av1Decoder().decode_packet(pkt)[0]
+    for name, d, r in zip("yuv", dec.planes(), gpu.ref_planes_dev):
+        if not np.array_equal(d.astype(np.int32),
+                              r.cpu().numpy()[: d.shape[0], : d.shape[1]]):
+            raise AssertionError(f"CIF tune_vmaf: decoded {name} differs "
+                                 "from the post-LPF recon")
+    frames = testframes.make_gop(352, 288, 4)
+    pk, encs = encode_video(frames, cfg, device=dev)
+    cpu_pk, cpu_encs = encode_video(frames, cfg, device="cpu")
+    amounts = [e.vmaf_unsharp_amount for e in encs]
+    if pk != cpu_pk or amounts != [e.vmaf_unsharp_amount for e in cpu_encs]:
+        raise AssertionError("CIF tune_vmaf GOP: CUDA packets or amounts "
+                             "differ from the plain CPU path")
+    _decodes_to_chain("CIF tune_vmaf GOP", pk, encs)
+    log(f"[4e] CIF 352x288 q100 tune_vmaf: KEY {len(pkt)} bytes, amount "
+        f"{gpu.vmaf_unsharp_amount:.6f}; GOP of 4 bytes "
+        f"{[len(p) for p in pk]}, amounts {[round(a, 6) for a in amounts]}; "
+        f"CUDA == CPU plain, decoder == recon / chain")
+
+
+def tune_vmaf_path(dev, kernels, plain_pkt, plain_enc):
+    """Phase 5f: the 1080p KEY frame with tune_vmaf (a first frame, then 3
+    steady ones with the launch counts set to 0 just before them and read
+    after vif_lite of this frame and of the phase-5 frame), CUDA == CPU
+    plain for one frame, and a 3-frame 1080p GOP. The VIF compares the
+    source with each frame's post-LPF recon on the device, which is what
+    the decoder shows (no CDEF here; phases 4 / 4e close that loop)."""
+    import torch
+    from aom_av1_psy_tpu_torch.encoder import tune_vmaf as TV
+    from aom_av1_psy_tpu_torch.encoder.tpu_frame import (EncoderConfig,
+                                                         GpuFrameEncoder)
+    from aom_av1_psy_tpu_torch.encoder.tpu_interframe import encode_video
+    from aom_av1_psy_tpu_torch.utils import testframes
+    frame = testframes.make_frame(1920, 1080)
+    cfg = EncoderConfig(base_q_idx=100, tune_vmaf=True)
+    t0 = time.perf_counter()
+    pkt = GpuFrameEncoder(frame, cfg, device=dev).encode()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    _reset(kernels)
+    times, vmafs, plans, packs = [], [], [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        enc = GpuFrameEncoder(frame, cfg, device=dev)
+        p = enc.encode()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        vmafs.append(enc.vmaf_s)
+        plans.append(enc.timings["plan_s"])
+        packs.append(enc.timings["pack_s"])
+        if p != pkt:
+            raise AssertionError("tune_vmaf steady frame differs from the "
+                                 "first")
+    y = torch.as_tensor(frame.planes()[0], device=dev)
+    t0 = time.perf_counter()
+    vif = [TV.vif_lite(y, e.ref_planes_dev[0][:1080, :1920])
+           for e in (enc, plain_enc)]
+    vif_s = time.perf_counter() - t0
+    counts = _counts(kernels)
+    _need("1080p tune_vmaf", counts, (
+        "tune_vmaf gauss_blur moments", "tune_vmaf unsharp_apply",
+        "tune_vmaf vif_scale", "tune_vmaf vif_down2", "intra_pred bs32",
+        "txq bs32", "deblock"))
+    if not (0.0 < enc.vmaf_unsharp_amount <= TV.MAX_AMOUNT
+            and 0.0 < vif[0] <= 1.0 and 0.0 < vif[1] <= 1.0):
+        raise AssertionError(f"1080p tune_vmaf: amount "
+                             f"{enc.vmaf_unsharp_amount}, VIF {vif}")
+    cpu_s = _cpu_equal("1080p tune_vmaf", frame, cfg, pkt)
+    med = statistics.median(times)
+    log(f"[5f] 1080p q100 tune_vmaf: {len(pkt)} bytes (phase 5 without: "
+        f"{len(plain_pkt)}), amount {enc.vmaf_unsharp_amount:.6f}, first "
+        f"frame {first_s:.3f} s, steady median {med:.4f} s/frame (min "
+        f"{min(times):.4f}, max {max(times):.4f}), preprocessing "
+        f"{statistics.median(vmafs):.4f} s, plan "
+        f"{statistics.median(plans):.4f} s, pack+lpf "
+        f"{statistics.median(packs):.4f} s; CUDA == CPU plain stream (CPU "
+        f"encode {cpu_s:.1f} s)")
+    log(f"[5f] vif_lite(source, decoded luma): tune_vmaf {vif[0]:.6f}, "
+        f"without (phase 5) {vif[1]:.6f} ({vif_s:.3f} s for both)")
+    log(f"[5f] launches over the 3 steady tune_vmaf frames and the two "
+        f"vif_lite: {json.dumps(counts)}")
+    frames = testframes.make_gop(1920, 1080, 3)
+    _reset(kernels)
+    t0 = time.perf_counter()
+    pk, encs = encode_video(frames, cfg, device=dev)
+    torch.cuda.synchronize()
+    gop_s = time.perf_counter() - t0
+    gop_counts = _counts(kernels)
+    _need("1080p tune_vmaf GOP", gop_counts, (
+        "tune_vmaf gauss_blur moments", "tune_vmaf unsharp_apply",
+        "mc", "fullpel"))
+    log(f"[5f] 1080p tune_vmaf GOP of 3: {gop_s:.3f} s, bytes "
+        f"{[len(q) for q in pk]}, amounts "
+        f"{[round(e.vmaf_unsharp_amount, 6) for e in encs]}, preprocessing "
+        f"{[round(e.vmaf_s, 4) for e in encs]} s")
+    log(f"[5f] launches over the tune_vmaf GOP of 3 (KEY + 2 P): "
+        f"{json.dumps(gop_counts)}")
+    return counts, gop_counts
+
 
 def closed_loop_tiles_cif(dev):
     """Phase 4c: CIF with two tile columns; CUDA == CPU plain, decoder ==
     post-LPF recon."""
     import numpy as np
-    import bench
+    from aom_av1_psy_tpu_torch.utils import testframes
     from aom_av1_psy_tpu_torch.encoder.tpu_frame import (Av1Decoder,
                                                          EncoderConfig,
                                                          GpuFrameEncoder)
-    frame = bench.make_frame(352, 288, seed=SEED)
+    frame = testframes.make_frame(352, 288, seed=SEED)
     cfg = EncoderConfig(base_q_idx=100, tile_cols_log2=1)
     gpu = GpuFrameEncoder(frame, cfg, device=dev)
     pkt = gpu.encode()
@@ -343,11 +649,11 @@ def closed_loop_uniform(dev):
     """Phase 4d: 640x360 default config (the uniform grid); CUDA == CPU
     plain, decoder == plan recon after the host deblocker."""
     import numpy as np
-    import bench
+    from aom_av1_psy_tpu_torch.utils import testframes
     from aom_av1_psy_tpu_torch.encoder.tpu_frame import (Av1Decoder,
                                                          EncoderConfig,
                                                          GpuFrameEncoder)
-    frame = bench.make_frame(640, 360, seed=SEED)
+    frame = testframes.make_frame(640, 360, seed=SEED)
     cfg = EncoderConfig(base_q_idx=100)
     gpu = GpuFrameEncoder(frame, cfg, device=dev)
     pkt = gpu.encode()
@@ -431,10 +737,10 @@ def tiled_key_path(dev, kernels, untiled_med):
     """Phase 5c: the 1080p KEY frame with two tile columns."""
     import dataclasses
     import torch
-    import bench
+    from aom_av1_psy_tpu_torch.utils import testframes
     from aom_av1_psy_tpu_torch.encoder.tpu_frame import (EncoderConfig,
                                                          GpuFrameEncoder)
-    frame = bench.make_frame(1920, 1080)
+    frame = testframes.make_frame(1920, 1080)
     cfg = EncoderConfig(base_q_idx=100, tile_cols_log2=1)
     pkt, enc, first_s, times, plans, packs, counts = _steady(
         dev, frame, cfg, kernels)
@@ -473,9 +779,9 @@ def tiled_key_path(dev, kernels, untiled_med):
 
 def uniform_key_path(dev, kernels):
     """Phase 5d: the uniform grid at 1080p BLOCK_8X8, then 640x360."""
-    import bench
+    from aom_av1_psy_tpu_torch.utils import testframes
     from aom_av1_psy_tpu_torch.encoder.tpu_frame import EncoderConfig
-    frame = bench.make_frame(1920, 1080)
+    frame = testframes.make_frame(1920, 1080)
     cfg = EncoderConfig(base_q_idx=100, block_size=3)
     pkt, enc, first_s, times, plans, packs, counts = _steady(
         dev, frame, cfg, kernels)
@@ -494,7 +800,7 @@ def uniform_key_path(dev, kernels):
         f"encode {cpu_s:.1f} s)")
     log(f"[5d] launches over the 3 steady 1080p bs8 frames: "
         f"{json.dumps(counts)}")
-    small = bench.make_frame(640, 360)
+    small = testframes.make_frame(640, 360)
     _, enc, _, t360, p360, k360, _ = _steady(dev, small, EncoderConfig(
         base_q_idx=100), kernels)
     log(f"[5d] 640x360 q100 (uniform bs {enc.bs}): steady median "
@@ -508,11 +814,11 @@ def search_cdef_path(dev):
     """Phase 5e: 1080p with the KEY-frame CDEF strength search; CIF CUDA ==
     CPU plain."""
     import torch
-    import bench
+    from aom_av1_psy_tpu_torch.utils import testframes
     from aom_av1_psy_tpu_torch.encoder.tpu_frame import (EncoderConfig,
                                                          GpuFrameEncoder)
     cfg = EncoderConfig(base_q_idx=100, search_cdef=True)
-    frame = bench.make_frame(1920, 1080)
+    frame = testframes.make_frame(1920, 1080)
     walls = []
     for _ in range(2):
         t0 = time.perf_counter()
@@ -522,7 +828,7 @@ def search_cdef_path(dev):
         walls.append(time.perf_counter() - t0)
     c = enc.fh.cdef
     rest = walls[-1] - enc.timings["plan_s"] - enc.timings["pack_s"]
-    cif = bench.make_frame(352, 288, seed=SEED)
+    cif = testframes.make_frame(352, 288, seed=SEED)
     small = GpuFrameEncoder(cif, cfg, device=dev).encode()
     _cpu_equal("CIF search_cdef", cif, cfg, small)
     log(f"[5e] 1080p q100 search_cdef: {len(pkt)} bytes, strengths y "
@@ -536,11 +842,11 @@ def search_cdef_path(dev):
 def closed_loop_cif(dev):
     """Phase 4: CUDA stream == CPU plain-path stream; decoder == recon."""
     import numpy as np
-    import bench
+    from aom_av1_psy_tpu_torch.utils import testframes
     from aom_av1_psy_tpu_torch.encoder.tpu_frame import (Av1Decoder,
                                                          EncoderConfig,
                                                          GpuFrameEncoder)
-    frame = bench.make_frame(352, 288, seed=SEED)
+    frame = testframes.make_frame(352, 288, seed=SEED)
     cfg = EncoderConfig(base_q_idx=100)
     gpu = GpuFrameEncoder(frame, cfg, device=dev)
     pkt = gpu.encode()
@@ -564,9 +870,9 @@ def main_path(dev, kernels):
     """Phase 5: the 1080p KEY encode; launch counts around it."""
     import numpy as np
     import torch
-    import bench
+    from aom_av1_psy_tpu_torch.utils import testframes
     from aom_av1_psy_tpu_torch.encoder.tpu_frame import EncoderConfig
-    frame = bench.make_frame(1920, 1080)
+    frame = testframes.make_frame(1920, 1080)
     cfg = EncoderConfig(base_q_idx=100)
     pkt, enc, first_s, times, plans, packs, counts = _steady(
         dev, frame, cfg, kernels)
@@ -594,7 +900,7 @@ def main_path(dev, kernels):
         f"{enc.fh.lf.filter_level_u} {enc.fh.lf.filter_level_v}; CUDA == "
         f"CPU plain stream (CPU encode {cpu_s:.1f} s)")
     log(f"[5] launches over the 3 steady frames: {json.dumps(counts)}")
-    return counts, frame, cfg, med
+    return counts, frame, cfg, med, pkt, enc
 
 
 def _device_rows(tag, prof, wall, extra=""):
@@ -643,14 +949,14 @@ def check_inter_kernels(dev):
     from aom_av1_psy_tpu_torch.ops import fullpel as FP
     from aom_av1_psy_tpu_torch.ops import mc as MC
     from aom_av1_psy_tpu_torch.ops import txq as TQ
-    import bench
+    from aom_av1_psy_tpu_torch.utils import testframes
 
     rng = np.random.default_rng(SEED + 1)
 
     def t(a, dtype=torch.int32):
         return torch.as_tensor(np.asarray(a), device=dev).to(dtype)
 
-    frame = bench.make_gop(1920, 1080, 2, seed=SEED)[1]
+    frame = testframes.make_gop(1920, 1080, 2, seed=SEED)[1]
     y = np.zeros((1088, 1920), np.int32)
     y[:1080] = frame.planes()[0]
     y[1080:] = y[1079]
@@ -687,10 +993,17 @@ def check_inter_kernels(dev):
             times = (cuda_time(lambda: MC.mc_8tap(*a, src=src,
                                                   want_pred=False), 20),
                      cuda_time(lambda: MC.mc_8tap_plain(*a, src=src), 3))
+            # the block's (bw+7)^2 window per candidate, read once (the
+            # plane itself is far larger than what the blocks touch); 8 + 8
+            # taps of 2 operations and 3 for the SAD per pixel
+            bnd = bound(nbytes(a[1:5], src, MC.mc_8tap(
+                *a, src=src, want_pred=False)[1]) + K * B * (bw + 7) ** 2 * 4,
+                35 * K * B * bw * bw)
     results.append({"name": "mc_8tap", "route": "cuda",
                     "source": "aom_av1_psy_tpu_torch/csrc/mc.cu",
                     "replaces": "aom_av1_psy_tpu/encoder/tpu_inter.py:78",
                     "max_abs_err": err, "ms": times[0], "plain_ms": times[1],
+                    **bnd, "library_ms": None,
                     "timed_at": "luma bw16 K=9 B=8160, SAD only (subpel "
                                 "step)"})
     log(f"[3b] KD mc_8tap exact at luma bw16 K=9 / bw32 K=5 and chroma "
@@ -716,17 +1029,22 @@ def check_inter_kernels(dev):
         if cen:
             times = (cuda_time(lambda: FP.fullpel_search(*a, **kw), 10),
                      cuda_time(lambda: FP.fullpel_search_plain(*a, **kw), 2))
+            # 33 x 33 offsets, 3 operations per pixel of each SSD
+            n = 2 * FP.SEARCH_RAD + 1
+            bnd = bound(nbytes(a, kw, FP.fullpel_search(*a, **kw)),
+                        3 * n * n * B * bw * bw)
     results.append({"name": "fullpel_ssd", "route": "cuda",
                     "source": "aom_av1_psy_tpu_torch/csrc/fullpel.cu",
                     "replaces": "aom_av1_psy_tpu/encoder/tpu_inter.py:106",
                     "max_abs_err": err, "ms": times[0], "plain_ms": times[1],
+                    **bnd, "library_ms": None,
                     "timed_at": "bw16 B=8160 with centres, 1088x1920"})
     log(f"[3b] KE fullpel_ssd exact at bw8 B=8160 (544x960) and bw16 "
         f"B=8160 with centres (flat region: ties); bw16: kernel "
         f"{times[0]:.4f} ms, plain {times[1]:.4f} ms")
 
     # ---- KF: 1088x1920 luma, 544x960 chroma, pri = 0 / sec = 0 mixes ----
-    from aom_av1_psy_tpu.ops.cdef import find_dir_blocks
+    from aom_av1_psy_tpu_torch.ops.cdef import find_dir_blocks
     mh, mw = 1080, 1920
     yb = y[:mh, :mw].reshape(135, 8, 240, 8).transpose(0, 2, 1, 3) \
         .reshape(-1, 8, 8)
@@ -744,10 +1062,13 @@ def check_inter_kernels(dev):
             if bs == 8 and pri == 4:
                 times = (cuda_time(lambda: CT.cdef_filter(*a), 20),
                          cuda_time(lambda: CT.cdef_filter_plain(*a), 3))
+                # 12 taps of ~8 operations (constrain, min/max) per pixel
+                bnd = bound(nbytes(a, CT.cdef_filter(*a)), 100 * ph * pw)
     results.append({"name": "cdef_filter", "route": "cuda",
                     "source": "aom_av1_psy_tpu_torch/csrc/cdef.cu",
                     "replaces": "aom_av1_psy_tpu/ops/cdef_jax.py:144",
                     "max_abs_err": err, "ms": times[0], "plain_ms": times[1],
+                    **bnd, "library_ms": None,
                     "timed_at": "luma 1088x1920 (1080x1920 filtered), pri 4 "
                                 "sec 2"})
     log(f"[3b] KF cdef_filter exact on 1088x1920 / 544x960 with (pri, sec) "
@@ -777,7 +1098,7 @@ def check_inter_kernels(dev):
 
 def _decodes_to_chain(tag, packets, encs):
     import numpy as np
-    from aom_av1_psy_tpu.decoder.obu import Av1Decoder
+    from aom_av1_psy_tpu_torch.decoder.obu import Av1Decoder
     from aom_av1_psy_tpu_torch.encoder.tpu_interframe import \
         _ref_chain_planes
     dec, out = Av1Decoder(), []
@@ -796,10 +1117,10 @@ def _decodes_to_chain(tag, packets, encs):
 def closed_loop_gop_cif(dev):
     """Phase 4b: CIF GOP, CUDA packets == CPU plain packets; decodes to
     the chain."""
-    import bench
+    from aom_av1_psy_tpu_torch.utils import testframes
     from aom_av1_psy_tpu_torch.encoder.tpu_frame import EncoderConfig
     from aom_av1_psy_tpu_torch.encoder.tpu_interframe import encode_video
-    frames = bench.make_gop(352, 288, 4)
+    frames = testframes.make_gop(352, 288, 4)
     cfg = EncoderConfig(base_q_idx=100)
     pk, encs = encode_video(frames, cfg, device=dev)
     t0 = time.perf_counter()
@@ -822,11 +1143,11 @@ def gop_main_path(dev, kernels):
     launch counts around the second run."""
     import numpy as np
     import torch
-    import bench
+    from aom_av1_psy_tpu_torch.utils import testframes
     from aom_av1_psy_tpu_torch.encoder.tpu_frame import EncoderConfig
     from aom_av1_psy_tpu_torch.encoder.tpu_interframe import (
         GpuInterFrameEncoder, _ref_chain_planes, encode_video)
-    frames = bench.make_gop(1920, 1080, 5)
+    frames = testframes.make_gop(1920, 1080, 5)
     cfg = EncoderConfig(base_q_idx=100)
     t0 = time.perf_counter()
     warm, _ = encode_video(frames, cfg, device=dev)
@@ -857,8 +1178,8 @@ def gop_main_path(dev, kernels):
                                         1e-9))
     if not (rec.min() >= 0 and rec.max() <= 255 and psnr > 30):
         raise AssertionError(f"1080p GOP: bad last recon (PSNR {psnr:.2f})")
-    # the KEY frame's temporal filter (shared numpy host code) alone
-    from aom_av1_psy_tpu.encoder import temporal_filter as TF
+    # the KEY frame's temporal filter (numpy host code) alone
+    from aom_av1_psy_tpu_torch.encoder import temporal_filter as TF
     t0 = time.perf_counter()
     TF.filter_key_frame(frames, 0, max(8, cfg.base_q_idx - 60))
     tf_s = time.perf_counter() - t0
@@ -951,12 +1272,20 @@ def main() -> int:
     from aom_av1_psy_tpu_torch.ops.intra_pred import KA
     from aom_av1_psy_tpu_torch.ops.mc import KD
     from aom_av1_psy_tpu_torch.ops.txq import KB
+    from aom_av1_psy_tpu_torch.encoder.tune_vmaf import TV
+    from aom_av1_psy_tpu_torch.native import LIB_PATH, get_lib
     kernels = (KA, KB, KC, KD, KE, KF)
     t0 = time.perf_counter()
-    build_all(kernels)
-    log(f"[2] built {', '.join(k.name for k in kernels)} with nvcc sm_90a "
-        f"in {time.perf_counter() - t0:.2f} s")
-    for k in kernels:
+    build_all(kernels + (TV,))
+    log(f"[2] built {', '.join(k.name for k in kernels + (TV,))} with nvcc "
+        f"sm_90a in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    if get_lib() is None:
+        raise RuntimeError("the native range coder (native/ec.cpp) did not "
+                           "build")
+    log(f"[2] native range coder {os.path.relpath(LIB_PATH, REPO)} ready in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for k in kernels + (TV,):
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[2]   {k.name}: {line.strip()}")
@@ -970,17 +1299,22 @@ def main() -> int:
     results = phase("3", check_kernels, dev)
     results += phase("3b", check_inter_kernels, dev)
     uniform_results = phase("3c", check_uniform_kernels, dev)
+    vmaf_results = phase("3d", check_tune_vmaf_kernels, dev)
     if "--only-kernels" in sys.argv[1:]:
         return 0
     phase("4", closed_loop_cif, dev)
     phase("4b", closed_loop_gop_cif, dev)
     phase("4c", closed_loop_tiles_cif, dev)
     phase("4d", closed_loop_uniform, dev)
-    key_counts, frame, cfg, key_med = phase("5", main_path, dev, kernels[:3])
+    phase("4e", closed_loop_tune_vmaf_cif, dev)
+    key_counts, frame, cfg, key_med, key_pkt, key_enc = phase(
+        "5", main_path, dev, kernels[:3])
     counts, frames, encs = phase("5b", gop_main_path, dev, kernels)
     tiled_counts = phase("5c", tiled_key_path, dev, kernels, key_med)
     uniform_counts = phase("5d", uniform_key_path, dev, kernels)
     phase("5e", search_cdef_path, dev)
+    vmaf_counts, vmaf_gop_counts = phase("5f", tune_vmaf_path, dev,
+                                         kernels + (TV,), key_pkt, key_enc)
     phase("6", profile_frame, dev, frame, cfg)
     phase("6b", profile_p_frame, dev, frames, encs)
 
@@ -991,7 +1325,12 @@ def main() -> int:
            "txq_recon_skip": ("txq bs8", "txq bs16", "txq bs32"),
            "intra_pred_sse bs4": ("intra_pred bs4",),
            "txq_recon bs4 no-skip": ("txq bs4 no-skip",),
-           "txq_recon bs8 no-skip": ("txq bs8 no-skip",)}
+           "txq_recon bs8 no-skip": ("txq bs8 no-skip",),
+           "gauss_blur": ("tune_vmaf gauss_blur",
+                          "tune_vmaf gauss_blur moments"),
+           "unsharp_apply": ("tune_vmaf unsharp_apply",),
+           "vif_scale": ("tune_vmaf vif_scale",),
+           "vif_down2": ("tune_vmaf vif_down2",)}
     total = {"lpf_ladder": KC, "mc_8tap": KD, "fullpel_ssd": KE,
              "cdef_filter": KF}
 
@@ -1006,11 +1345,17 @@ def main() -> int:
     for r in uniform_results:
         r["launches"] = n(r["name"], uniform_counts)
         r["launches_from"] = "5d: 3 steady 1080p BLOCK_8X8 KEY frames"
-    results += uniform_results
+    for r in vmaf_results:
+        r["launches"] = n(r["name"], vmaf_counts)
+        r["launches_from"] = ("5f: 3 steady 1080p tune_vmaf KEY frames and "
+                              "two vif_lite")
+    results += uniform_results + vmaf_results
     for r in results:
         r["launches_key_frame"] = n(r["name"], key_counts)
         r["launches_tiled_key_frames"] = n(r["name"], tiled_counts)
         r["launches_uniform_key_frames"] = n(r["name"], uniform_counts)
+        r["launches_tune_vmaf_key_frames"] = n(r["name"], vmaf_counts)
+        r["launches_tune_vmaf_gop"] = n(r["name"], vmaf_gop_counts)
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

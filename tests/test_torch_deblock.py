@@ -13,9 +13,9 @@ import torch
 
 import jax.numpy as jnp
 
-from aom_av1_psy_tpu.encoder.frame import EncoderConfig
 from aom_av1_psy_tpu.ops import deblock_jax as DJ
 from aom_av1_psy_tpu_torch import convert
+from aom_av1_psy_tpu_torch.encoder.frame import EncoderConfig
 from aom_av1_psy_tpu_torch.encoder.tpu_frame import GpuFrameEncoder
 from aom_av1_psy_tpu_torch.ops import deblock_torch as DT
 from test_tpu_encoder import make_frame
@@ -25,7 +25,7 @@ CASES = [(96, 64, 60, 6), (128, 128, 100, 9), (176, 144, 200, 6)]
 
 @functools.cache
 def _plan(w, h, q, bsz):
-    enc = GpuFrameEncoder(make_frame(w, h, seed=w + q),
+    enc = GpuFrameEncoder(convert.from_jax(make_frame(w, h, seed=w + q)),
                           EncoderConfig(base_q_idx=q, block_size=bsz),
                           device="cpu")
     enc.encode()

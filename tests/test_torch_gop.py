@@ -8,12 +8,9 @@ reference's key for key, a port P-frame started from a JAX-made chain
 frame with ``cdef_fixed`` equals ``TpuFrameEncoder``'s, and a GOP with the
 KEY-frame CDEF search (``search_cdef``) equals ``encode_video_tpu``'s.
 This file holds the 96x64 shape (one JAX compile of each plan);
-test_torch_inter_plan*.py hold the others. Also: a port GOP encode never imports jax.
+test_torch_inter_plan*.py hold the others.
 Tolerance: exact equality (bytes, integer plans, planes)."""
 import dataclasses
-import os
-import subprocess
-import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -34,7 +31,6 @@ from aom_av1_psy_tpu_torch.encoder.tpu_interframe import (
     GpuInterFrameEncoder, _ref_chain_planes, encode_video)
 from test_tpu_inter import panning
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PLAN_KEYS = ("split32", "mv8", "y_levels32", "y_levels16", "y_eob32",
              "y_eob16", "uv_levels16", "uv_levels8", "uv_eob16", "uv_eob8")
 
@@ -58,7 +54,8 @@ def edges(w, h, n, seed=0):
 
 def encode_both(frames, cfg, **kw):
     pj, ej = encode_video_tpu(frames, cfg, **kw)
-    pt, et = encode_video(frames, cfg, device="cpu", **kw)
+    pt, et = encode_video([convert.from_jax(f) for f in frames],
+                          convert.from_jax(cfg), device="cpu", **kw)
     return pj, ej, pt, et
 
 
@@ -102,8 +99,9 @@ def plans_from_jax_key(frames, q, device="cpu"):
         cfg, base_q_idx=max(8, q - 60)))
     key.encode()
     w, h = frames[0].width, frames[0].height
-    enc = GpuInterFrameEncoder(frames[1], cfg, crop_w=w, crop_h=h,
-                               **convert.chain_from_jax(key, device),
+    enc = GpuInterFrameEncoder(convert.from_jax(frames[1]),
+                               convert.from_jax(cfg), crop_w=w,
+                               crop_h=h, **convert.chain_from_jax(key, device),
                                device=device)
     args = (enc.srcp, q, enc.rdmult, enc.mi_rows, enc.mi_cols, w, h)
     want = JI.plan_inter_frame(args[0], [jnp.asarray(p) for p in
@@ -181,8 +179,9 @@ def test_chain_from_jax_starts_port_p_frames(pan96):
     for i in (1, 2):
         chain = convert.chain_from_jax(ej[i - 1], "cpu")
         assert all(p.dtype == torch.int32 for p in chain["ref_planes"])
-        enc = GpuInterFrameEncoder(frames[i], cfg, crop_w=96, crop_h=64,
-                                   **chain, device="cpu")
+        enc = GpuInterFrameEncoder(convert.from_jax(frames[i]),
+                                   convert.from_jax(cfg), crop_w=96,
+                                   crop_h=64, **chain, device="cpu")
         assert enc.encode() == pj[i]
         ref = TpuInterFrameEncoder(frames[i], cfg, ej[i - 1].seq,
                                    _ref_chain_planes(ej[i - 1]), 96, 64,
@@ -196,7 +195,8 @@ def test_key_frame_cdef_fixed_matches_jax(q):
     cfg = EncoderConfig(base_q_idx=q, cdef_fixed=True)
     ref = TpuFrameEncoder(frame, cfg)
     want = ref.encode()
-    enc = GpuFrameEncoder(frame, cfg, device="cpu")
+    enc = GpuFrameEncoder(convert.from_jax(frame),
+                          convert.from_jax(cfg), device="cpu")
     assert enc.encode() == want
     assert enc.seq.enable_cdef and enc.fh.cdef.y_pri[0] > 0
     for a, b in zip(enc.ref_planes_dev, ref.ref_planes_dev):
@@ -204,43 +204,10 @@ def test_key_frame_cdef_fixed_matches_jax(q):
     assert_decodes_to_chain([want], [enc])
 
 
-def test_gop_encode_never_imports_jax():
-    """A fresh interpreter encodes a GOP through the port and must not
-    have imported jax or any jax-importing module of the reference."""
-    code = (
-        "import sys, numpy as np\n"
-        "from aom_av1_psy_tpu.utils.frame import Frame\n"
-        "from aom_av1_psy_tpu.encoder.frame import EncoderConfig\n"
-        "from aom_av1_psy_tpu_torch.encoder.tpu_interframe import "
-        "encode_video\n"
-        "rng = np.random.default_rng(0)\n"
-        "bg = rng.integers(0, 256, (80, 112)).astype(np.uint8)\n"
-        "u = np.full((32, 48), 120, np.uint8)\n"
-        "fr = [Frame(bg[i:i + 64, 2 * i:2 * i + 96].copy(), u, u.copy())\n"
-        "      for i in range(3)]\n"
-        "pk, _ = encode_video(fr, EncoderConfig(base_q_idx=150),\n"
-        "                     device='cpu')\n"
-        "bad = [m for m in sys.modules if m == 'jax'\n"
-        "       or m.startswith('jax.')\n"
-        "       or m in ('aom_av1_psy_tpu.encoder.tpu_inter',\n"
-        "                'aom_av1_psy_tpu.encoder.tpu_interframe',\n"
-        "                'aom_av1_psy_tpu.encoder.tpu_frame',\n"
-        "                'aom_av1_psy_tpu.ops.cdef_jax')]\n"
-        "print(sum(map(len, pk)), bad)\n")
-    env = dict(os.environ, PYTHONPATH=REPO)
-    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                       capture_output=True, text=True, timeout=120)
-    assert r.returncode == 0, r.stderr
-    n, bad = r.stdout.split(maxsplit=1)
-    assert int(n) > 0
-    assert bad.strip() == "[]", bad
-
-
 def test_outside_the_slice_raises_for_inter_frames():
-    frames = panning(64, 64, 2)
-    cfg = EncoderConfig(base_q_idx=60, tune_vmaf=True)
-    with pytest.raises(NotImplementedError):
-        GpuInterFrameEncoder(frames[1], cfg, None, [], 64, 64, device="cpu")
+    """A lossless GOP stops at its KEY frame, as the reference's does."""
+    frames = [convert.from_jax(f) for f in panning(64, 64, 2)]
+    cfg = convert.from_jax(EncoderConfig(lossless=True))
     with pytest.raises(NotImplementedError):
         encode_video(frames, cfg, device="cpu")
 

@@ -3,7 +3,8 @@ PyTorch versions on a CUDA device, and the P-frame path on CUDA against the
 CPU plain path. Tolerance: exact equality (integer outputs only).
 
 Every test needs the card: it carries the ``gpu`` marker and skips where
-``torch.cuda.is_available()`` is false. The file imports no jax::
+``torch.cuda.is_available()`` is false. The file imports nothing of jax
+or of the reference package::
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu \\
         tests/test_torch_inter_kernels_gpu.py
@@ -12,15 +13,15 @@ import numpy as np
 import pytest
 import torch
 
-from aom_av1_psy_tpu.encoder.frame import EncoderConfig
-from aom_av1_psy_tpu.ops import convolve as CONV
-from aom_av1_psy_tpu.ops.cdef import find_dir_blocks
-from aom_av1_psy_tpu.utils.frame import Frame
 from aom_av1_psy_tpu_torch.encoder import tpu_inter as TI
+from aom_av1_psy_tpu_torch.encoder.frame import EncoderConfig
 from aom_av1_psy_tpu_torch.encoder.tpu_interframe import encode_video
 from aom_av1_psy_tpu_torch.ops import cdef_torch as CT
+from aom_av1_psy_tpu_torch.ops import convolve as CONV
 from aom_av1_psy_tpu_torch.ops import fullpel as FP
 from aom_av1_psy_tpu_torch.ops import mc as MC
+from aom_av1_psy_tpu_torch.ops.cdef import find_dir_blocks
+from aom_av1_psy_tpu_torch.utils.frame import Frame
 from test_torch_kernels_gpu import _sync_count
 
 pytestmark = pytest.mark.gpu

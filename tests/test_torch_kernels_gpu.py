@@ -6,8 +6,9 @@ plain path. Tolerance: exact equality (integer outputs; the float32
 skip-RD outputs are computed in the same order).
 
 Every test needs the card: it carries the ``gpu`` marker and skips where
-``torch.cuda.is_available()`` is false. The file imports no jax, so on the
-card it runs without the repository's JAX test configuration::
+``torch.cuda.is_available()`` is false. The file imports nothing of jax
+or of the reference package, so on the card it runs without the
+repository's JAX test configuration::
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu \\
         tests/test_torch_kernels_gpu.py
@@ -18,16 +19,16 @@ import numpy as np
 import pytest
 import torch
 
-from aom_av1_psy_tpu.ec.context import FrameContext
-from aom_av1_psy_tpu.encoder.frame import EncoderConfig
-from aom_av1_psy_tpu.normative import tables
-from aom_av1_psy_tpu.utils.frame import Frame
 from aom_av1_psy_tpu_torch import convert
+from aom_av1_psy_tpu_torch.ec.context import FrameContext
 from aom_av1_psy_tpu_torch.encoder import tpu_intra as TTI
+from aom_av1_psy_tpu_torch.encoder.frame import EncoderConfig
 from aom_av1_psy_tpu_torch.encoder.tpu_frame import GpuFrameEncoder
+from aom_av1_psy_tpu_torch.normative import tables
 from aom_av1_psy_tpu_torch.ops import deblock_torch as DT
 from aom_av1_psy_tpu_torch.ops import intra_pred as IP
 from aom_av1_psy_tpu_torch.ops import txq as TQ
+from aom_av1_psy_tpu_torch.utils.frame import Frame
 
 pytestmark = pytest.mark.gpu
 

@@ -1,0 +1,182 @@
+"""The port stands alone: no module of ``aom_av1_psy_tpu_torch`` and not
+``chip_smoke.py`` imports jax, the reference package ``aom_av1_psy_tpu``
+(or a submodule) or ``bench``; a fresh interpreter that encodes a KEY
+frame, a 3-frame GOP and a tune_vmaf frame through the port has loaded
+none of them (one interpreter, a case per stage); the port's test content
+equals ``bench``'s; its own range coder build lives beside the reference's
+in one process; and ``convert`` carries the reference's objects into the
+port's classes.
+Tolerance: exact equality."""
+import ast
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import bench
+from aom_av1_psy_tpu.ec.context import FrameContext
+from aom_av1_psy_tpu.ec.native_coder import NativeEncoder as RefEncoder
+from aom_av1_psy_tpu.encoder.frame import EncoderConfig, FrameEncoder
+from aom_av1_psy_tpu.native import get_lib as ref_lib
+from aom_av1_psy_tpu_torch import convert
+from aom_av1_psy_tpu_torch.ec.native_coder import NativeEncoder
+from aom_av1_psy_tpu_torch.native import LIB_PATH, get_lib
+from aom_av1_psy_tpu_torch.utils import testframes
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "aom_av1_psy_tpu_torch")
+FORBIDDEN = ("jax", "aom_av1_psy_tpu", "bench")
+
+
+def _sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PORT):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported(path):
+    """Top-level names of every absolute import in the file."""
+    names = []
+    for node in ast.walk(ast.parse(open(path).read(), path)):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    return [n.split(".")[0] for n in names]
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_import_of_jax_reference_or_bench(path):
+    bad = [n for n in _imported(path) if n in FORBIDDEN]
+    assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
+# one fresh interpreter encodes through the port alone: after each stage it
+# prints the stage, its bytes and the loaded modules of jax, the reference
+# package and bench (a KEY frame with flat chroma, a 3-frame GOP, a
+# tune_vmaf frame)
+_STAGES = ("key", "gop", "tune_vmaf")
+_ENCODES = """
+import dataclasses, json, sys
+import numpy as np
+from aom_av1_psy_tpu_torch.encoder.frame import EncoderConfig
+from aom_av1_psy_tpu_torch.encoder.tpu_frame import GpuFrameEncoder
+from aom_av1_psy_tpu_torch.encoder.tpu_interframe import encode_video
+from aom_av1_psy_tpu_torch.utils.frame import Frame
+from aom_av1_psy_tpu_torch.utils.testframes import make_frame, make_gop
+
+def report(stage, n):
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "aom_av1_psy_tpu", "bench"))
+    print(json.dumps([stage, n, bad]), flush=True)
+
+y = np.random.default_rng(0).integers(0, 256, (64, 96)).astype(np.uint8)
+u = np.full((32, 48), 120, np.uint8)
+report("key", len(GpuFrameEncoder(Frame(y, u, u.copy()), EncoderConfig(90),
+                                  device="cpu").encode()))
+pk, _ = encode_video(make_gop(64, 64, 3), EncoderConfig(base_q_idx=150),
+                     device="cpu")
+report("gop", sum(map(len, pk)))
+enc = GpuFrameEncoder(make_frame(96, 64, seed=3),
+                      EncoderConfig(base_q_idx=120, tune_vmaf=True),
+                      device="cpu")
+n = len(enc.encode())
+report("tune_vmaf", n if enc.vmaf_unsharp_amount > 0 else 0)
+"""
+
+
+@pytest.fixture(scope="module")
+def port_alone():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", _ENCODES], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    return {stage: (n, bad) for stage, n, bad in
+            map(json.loads, r.stdout.splitlines())}
+
+
+@pytest.mark.parametrize("stage", _STAGES)
+def test_port_encodes_without_loading_the_reference(port_alone, stage):
+    n, bad = port_alone[stage]
+    assert n > 0
+    assert bad == []
+
+
+@pytest.mark.parametrize("w,h", [(96, 64), (352, 288)])
+def test_test_frames_equal_bench(w, h):
+    for got, want in zip([testframes.make_frame(w, h, seed=5)]
+                         + testframes.make_gop(w, h, 3),
+                         [bench.make_frame(w, h, seed=5)]
+                         + bench.make_gop(w, h, 3)):
+        assert type(got).__module__ == "aom_av1_psy_tpu_torch.utils.frame"
+        for a, b in zip(got.planes(), want.planes(), strict=True):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+
+
+def test_two_range_coder_builds_in_one_process():
+    """The port's ``ec.cpp`` build and the reference's both loaded
+    (``RTLD_LOCAL``): separate libraries, and the same bytes from the same
+    symbols."""
+    lib, rlib = get_lib(), ref_lib()
+    assert lib is not None and rlib is not None
+    assert os.path.realpath(lib._name) == os.path.realpath(LIB_PATH)
+    assert os.path.realpath(lib._name) != os.path.realpath(rlib._name)
+    assert lib._handle != rlib._handle
+    rng = np.random.default_rng(0)
+    syms = rng.integers(0, 4, 500)
+    outs = []
+    for cls in (NativeEncoder, RefEncoder):
+        cdf = np.array([24000, 16000, 8000, 0, 0], np.uint16)
+        e = cls()
+        for s in syms:
+            e.encode_symbol(int(s), cdf, 4)
+        outs.append((e.done(), cdf.tolist()))
+    assert outs[0] == outs[1]
+
+
+def test_convert_gives_the_port_its_own_objects():
+    cfg = EncoderConfig(base_q_idx=77, tune_vmaf=True, tile_cols_log2=1)
+    pc = convert.from_jax(cfg)
+    assert type(pc).__module__ == "aom_av1_psy_tpu_torch.encoder.frame"
+    assert dataclasses.asdict(pc) == dataclasses.asdict(cfg)
+    f = bench.make_frame(64, 64)
+    pf = convert.from_jax(f)
+    assert type(pf).__module__ == "aom_av1_psy_tpu_torch.utils.frame"
+    for a, b in zip(pf.planes(), f.planes(), strict=True):
+        assert a is not b
+        np.testing.assert_array_equal(a, b)
+    enc = FrameEncoder(f, EncoderConfig(base_q_idx=90))
+    enc.encode()
+    seq = convert.from_jax(enc.seq)
+    assert type(seq).__module__ == "aom_av1_psy_tpu_torch.bitstream.headers"
+    assert dataclasses.asdict(seq) == dataclasses.asdict(enc.seq)
+    fc = FrameContext(90)
+    pfc = convert.from_jax(fc)
+    assert type(pfc).__module__ == "aom_av1_psy_tpu_torch.ec.context"
+    for k, v in vars(fc).items():
+        if isinstance(v, np.ndarray):
+            np.testing.assert_array_equal(getattr(pfc, k), v, err_msg=k)
+
+
+def test_device_encoders_raise_without_the_range_coder(monkeypatch):
+    """Without the native range coder (no toolchain to build it) the device
+    encoders raise, as the reference's do: nothing falls back to the
+    Python coder on the encoder path."""
+    from aom_av1_psy_tpu_torch.ec import native_coder
+    from aom_av1_psy_tpu_torch.encoder.frame import EncoderConfig as PortCfg
+    from aom_av1_psy_tpu_torch.encoder.tpu_frame import GpuFrameEncoder
+    from aom_av1_psy_tpu_torch.encoder.tpu_interframe import \
+        GpuInterFrameEncoder
+    monkeypatch.setattr(native_coder, "get_lib", lambda: None)
+    f, cfg = testframes.make_frame(64, 64), PortCfg()
+    with pytest.raises(RuntimeError, match="native EC library"):
+        GpuFrameEncoder(f, cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="native EC library"):
+        GpuInterFrameEncoder(f, cfg, None, [], 64, 64, device="cpu")

@@ -14,9 +14,9 @@ Tolerance: exact equality."""
 import numpy as np
 import pytest
 
-from aom_av1_psy_tpu.ec.context import FrameContext
 from aom_av1_psy_tpu.encoder.frame import EncoderConfig
 from aom_av1_psy_tpu.utils.frame import Frame
+from aom_av1_psy_tpu_torch.ec.context import FrameContext
 from aom_av1_psy_tpu_torch.encoder import tpu_intra as TTI
 from aom_av1_psy_tpu_torch.parallel.mesh import tile_plans_batched
 from test_multichip import _frame

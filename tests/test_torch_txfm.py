@@ -13,6 +13,7 @@ from aom_av1_psy_tpu.ec.context import FrameContext
 from aom_av1_psy_tpu.encoder import tpu_intra as JTI
 from aom_av1_psy_tpu.normative import tables
 from aom_av1_psy_tpu.ops import txfm as JTX
+from aom_av1_psy_tpu_torch import convert
 from aom_av1_psy_tpu_torch.encoder import tpu_intra as TTI
 from aom_av1_psy_tpu_torch.ops import txfm as TTX
 from aom_av1_psy_tpu_torch.ops import txq as TQ
@@ -150,7 +151,7 @@ def _rate_inputs(rng, n, bs):
                                     ("uv8", 8)])
 def test_coeff_rate_est_matches_jax(key, bs):
     fc = FrameContext(100)
-    lvl, eobt = TTI._rate_tables(fc)[key]
+    lvl, eobt = TTI._rate_tables(convert.from_jax(fc))[key]
     jl, je = JTI._rate_tables(fc)[key]
     np.testing.assert_array_equal(lvl, np.asarray(jl))
     np.testing.assert_array_equal(eobt, np.asarray(je))
@@ -172,7 +173,7 @@ def test_skip_rd_matches_jax(bs, q):
     n = 12
     fc = FrameContext(q)
     key = {32: "y32", 16: "y16", 8: "uv8"}[bs]
-    lvl, eobt = TTI._rate_tables(fc)[key]
+    lvl, eobt = TTI._rate_tables(convert.from_jax(fc))[key]
     src = rng.integers(0, 256, (n, bs, bs)).astype(np.int32)
     pred = np.clip(src + rng.integers(-12, 13, src.shape), 0,
                    255).astype(np.int32)
@@ -211,7 +212,7 @@ def test_golomb_rate_matches_jax_at_every_level():
     of the golomb tail lands one below the bit length."""
     import jax
     fc = FrameContext(100)
-    lvl, eobt = TTI._rate_tables(fc)["y32"]
+    lvl, eobt = TTI._rate_tables(convert.from_jax(fc))["y32"]
     ref = jax.jit(JTI._coeff_rate_est)
     n, chunk = 1024, 4000
     mags = np.arange(15, 40001)

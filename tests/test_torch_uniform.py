@@ -14,6 +14,8 @@ from aom_av1_psy_tpu.encoder import tpu_intra as JTI
 from aom_av1_psy_tpu.encoder.frame import EncoderConfig
 from aom_av1_psy_tpu.encoder.tpu_frame import TpuFrameEncoder
 from aom_av1_psy_tpu.utils.frame import Frame
+from aom_av1_psy_tpu_torch import convert
+from aom_av1_psy_tpu_torch.ec.context import FrameContext as TFC
 from aom_av1_psy_tpu_torch.encoder import tpu_intra as TTI
 from aom_av1_psy_tpu_torch.encoder.tpu_frame import GpuFrameEncoder, \
     _pad_plane
@@ -33,7 +35,7 @@ def padded(f, h, w):
 def plans(srcp, q, bs, rdmult):
     pj = JTI.plan_frame(srcp, q, bs, FrameContext(q), rdmult,
                         fetch_recon=True)
-    pt = TTI.plan_frame(srcp, q, bs, FrameContext(q), rdmult, device="cpu",
+    pt = TTI.plan_frame(srcp, q, bs, TFC(q), rdmult, device="cpu",
                         fetch_recon=True)
     assert pj.pop("bs") == pt.pop("bs") == bs
     return pj, pt
@@ -73,7 +75,9 @@ def test_rdmult_grid_matches_jax(bs, fshape):
     partition path)."""
     f = make_frame(178, 130, seed=2)
     cfg = EncoderConfig(base_q_idx=80, block_size=3)
-    ref, enc = TpuFrameEncoder(f, cfg), GpuFrameEncoder(f, cfg, device="cpu")
+    ref = TpuFrameEncoder(f, cfg)
+    enc = GpuFrameEncoder(convert.from_jax(f),
+                          convert.from_jax(cfg), device="cpu")
     R, C = (136 + bs - 1) // bs, (184 + bs - 1) // bs
     for e in (ref, enc):
         e.bs, e.R, e.C = bs, R, C

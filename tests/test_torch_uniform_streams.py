@@ -16,6 +16,7 @@ from aom_av1_psy_tpu.decoder.obu import Av1Decoder
 from aom_av1_psy_tpu.encoder.frame import EncoderConfig
 from aom_av1_psy_tpu.encoder.tpu_interframe import encode_video_tpu
 from aom_av1_psy_tpu.utils.frame import Frame
+from aom_av1_psy_tpu_torch import convert
 from aom_av1_psy_tpu_torch.encoder.tpu_interframe import (_ref_chain_planes,
                                                           encode_video)
 from test_tpu_encoder import make_frame
@@ -82,9 +83,11 @@ def test_uniform_gop_fails_like_jax():
     with pytest.raises(AssertionError):
         encode_video_tpu(frames, cfg)
     with pytest.raises(AssertionError):
-        encode_video(frames, cfg, device="cpu")
+        encode_video([convert.from_jax(f) for f in frames],
+                     convert.from_jax(cfg), device="cpu")
     # the KEY frame alone codes, like the reference's
     one = dataclasses.replace(cfg, base_q_idx=120)
     pj, _ = encode_video_tpu(frames[:1], one)
-    pt, et = encode_video(frames[:1], one, device="cpu")
+    pt, et = encode_video([convert.from_jax(frames[0])],
+                          convert.from_jax(one), device="cpu")
     assert pt == pj and not et[0].use_part

@@ -16,6 +16,7 @@ from aom_av1_psy_tpu.encoder import tpu_intra_dir as JDIR
 from aom_av1_psy_tpu.encoder.frame import EncoderConfig
 from aom_av1_psy_tpu.encoder.tpu_frame import TpuFrameEncoder
 from aom_av1_psy_tpu_torch import convert
+from aom_av1_psy_tpu_torch.ec.context import FrameContext as TFC
 from aom_av1_psy_tpu_torch.encoder import tpu_intra as TTI
 from aom_av1_psy_tpu_torch.encoder.tpu_frame import GpuFrameEncoder
 from test_tpu_encoder import make_frame
@@ -26,16 +27,18 @@ def plans(w, h, q, bsz, **cfg_kw):
     f = make_frame(w, h, seed=w + q)
     cfg = EncoderConfig(base_q_idx=q, block_size=bsz, **cfg_kw)
     ref = TpuFrameEncoder(f, cfg)
-    enc = GpuFrameEncoder(f, cfg, device="cpu")
+    enc = GpuFrameEncoder(convert.from_jax(f),
+                          convert.from_jax(cfg), device="cpu")
     assert ref.use_part
     for a, b in zip(ref.srcp, enc.srcp):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(np.asarray(ref.rdmult),
                                   np.asarray(enc.rdmult))
-    args = (enc.srcp, q, FrameContext(q), enc.rdmult, enc.mi_rows,
-            enc.mi_cols)
-    pj = JTI.plan_frame_part(*args, fetch_recon=True)
-    pt = TTI.plan_frame_part(*args, device="cpu", fetch_recon=True)
+    args = (enc.rdmult, enc.mi_rows, enc.mi_cols)
+    pj = JTI.plan_frame_part(enc.srcp, q, FrameContext(q), *args,
+                             fetch_recon=True)
+    pt = TTI.plan_frame_part(enc.srcp, q, TFC(q), *args, device="cpu",
+                             fetch_recon=True)
     return pj, pt, enc
 
 
@@ -84,7 +87,7 @@ def test_plan_96x64_tune_psy_grid():
 
 def test_plan_176x144_q200_forced_edges(case_176x144):
     pj, pt, enc = case_176x144
-    d = TTI.part_inputs(enc.R // 2, enc.C // 2, 200, FrameContext(200),
+    d = TTI.part_inputs(enc.R // 2, enc.C // 2, 200, TFC(200),
                         enc.rdmult, enc.mi_rows, enc.mi_cols)
     assert d["forced"].any(), "edge cells must be decoder-forced splits"
     assert pt["split32"][d["forced"]].all()
@@ -97,7 +100,8 @@ def test_part_inputs_carried_over(q):
     convert.inputs_from_numpy moves them without change."""
     fc = FrameContext(q)
     R, C, mi_rows, mi_cols = 5, 6, 36, 44
-    d = TTI.part_inputs(R, C, q, fc, 30000.0, mi_rows, mi_cols)
+    d = TTI.part_inputs(R, C, q, convert.from_jax(fc), 30000.0, mi_rows,
+                        mi_cols)
     for got, want in zip((d["kf_cost"], d["angle_cost"], d["uv_cost"]),
                          JTI._plan_cost_tables2(fc)):
         np.testing.assert_array_equal(got, want)

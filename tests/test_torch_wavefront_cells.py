@@ -4,8 +4,8 @@ and a 128x88 frame whose bottom cells must NOT split (a visited 16 would be
 partial). Tolerance: exact equality."""
 import pytest
 
+from aom_av1_psy_tpu_torch.ec.context import FrameContext
 from aom_av1_psy_tpu_torch.encoder import tpu_intra as TTI
-from aom_av1_psy_tpu.ec.context import FrameContext
 from test_torch_wavefront import assert_plans_equal, plans
 
 
