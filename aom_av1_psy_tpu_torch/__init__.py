@@ -2,8 +2,12 @@
 ``aom_av1_psy_tpu``: the all-intra KEY frame (``encoder/tpu_frame.py``:
 the two-level partition plan, tile columns batched on one GPU
 (``parallel/mesh.py``), the uniform-grid fallback, the CDEF strength
-search, ``tune_vmaf``) and the IPPP GOP
-(``encoder/tpu_interframe.encode_video``).
+search, ``tune_vmaf``) and the GOP encoders of
+``encoder/tpu_interframe.py``: the IPPP GOP (``encode_video``), the ARF
+star group (``encode_video_arf``) and the rate-controlled CBR and RC GOPs
+(``encode_video_cbr``, ``encode_video_rc``), with the temporal filter of
+the KEY frame and of each ARF on the device
+(``encoder/temporal_filter.py``).
 
 The JAX package stays the reference; this package mirrors its module paths
 (``encoder/tpu_intra.py``, ``encoder/tpu_intra_dir.py``,
@@ -15,12 +19,12 @@ reference package: it has its own copies of the host layers, at the
 reference's relative paths (``normative/`` with its data, ``bitstream/``,
 ``ec/``, ``native/ec.cpp`` — built with g++ into
 ``build/aom_av1_psy_tpu_torch/`` at first use —, ``decoder/``, ``utils/``,
-``errors.py``, ``encoder/frame.py``, ``encoder/psy.py``,
-``encoder/temporal_filter.py``, the numpy ``ops/`` modules; the host half of
+``errors.py``, ``encoder/frame.py``, ``encoder/psy.py``, the numpy
+``ops/`` modules; the host half of
 the reference's ``ops/txfm.py`` is ``ops/txfm_host.py``), numpy only.
 ``convert.py`` carries the reference's objects into the port's classes.
 
-Device work runs as plain torch ops plus nine hand-written CUDA kernels
+Device work runs as plain torch ops plus eleven hand-written CUDA kernels
 (``csrc/``), each beside a plain PyTorch version of the same function:
 
 - KA ``intra_pred_sse`` (``ops/intra_pred.py``): all intra candidates of a
@@ -37,7 +41,13 @@ Device work runs as plain torch ops plus nine hand-written CUDA kernels
 - KF ``cdef_filter`` (``ops/cdef_torch.py``): the frame CDEF apply;
 - KG ``gauss_blur``, KH ``unsharp_apply``, KI ``vif_scale`` / ``vif_down2``
   (``encoder/tune_vmaf.py``): the tune_vmaf blur (with exact moment sums),
-  the unsharp mask and the VIF pyramid.
+  the unsharp mask and the VIF pyramid;
+- KJ ``fullpel_sad`` (``ops/mvsearch.py``): the dense full-pel SAD search
+  over the caller's windows (and the strided coarse level of
+  ``full_pel_hierarchical``), first-index argmin;
+- KK ``tf_weight_accum`` (``encoder/temporal_filter.py``): the temporal
+  filter's block-local 5x5 windowed error, float64 weight and int64
+  accumulation over every block of a frame.
 
 A wrapper runs the plain version for CPU tensors and the kernel for CUDA
 tensors; there is no fallback from one to the other.

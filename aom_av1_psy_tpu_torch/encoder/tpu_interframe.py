@@ -1,6 +1,8 @@
-"""Inter frames and the IPPP GOP on the port — torch counterpart of
+"""Inter frames and the GOP encodes on the port — torch counterpart of
 ``aom_av1_psy_tpu/encoder/tpu_interframe.py`` (``TpuInterFrameEncoder``,
-``encode_video_tpu``).
+and ``encode_video_tpu`` / ``_arf`` / ``_cbr`` / ``_rc`` as
+``encode_video`` / ``encode_video_arf`` / ``encode_video_cbr`` /
+``encode_video_rc``).
 
 Per P-frame: the batched inter plan on the device
 (``tpu_inter.plan_inter_frame``: kernels KE, KD, KB), the device
@@ -19,8 +21,10 @@ The host code is carried over from the reference module: the MV-class
 helpers and constants (``tpu_interframe.py:
 38-68``), ``make_headers``, ``_mi_skip_map``, ``_pack_script`` and
 ``_mv_ops`` (``:165-671``, over ``normative/mvref.find_mv_refs`` and
-``decoder/inter``), ``_ref_chain_planes`` and the GOP loop
-(``:673-740``). ``_warm_transfer`` is a TPU-platform workaround and is
+``decoder/inter``), ``_ref_chain_planes``, the GOP loops and the rate
+control arithmetic (``:673-1044``). The temporal filters of the KEY frame
+and of each ARF run on the device (``encoder/temporal_filter``: kernels KJ
+and KK). ``_warm_transfer`` is a TPU-platform workaround and is
 dropped. The host layers under it (headers, the range coder, the
 decoder's inter prediction, ``normative/mvref``) are the port's own copies.
 """
@@ -51,6 +55,7 @@ from ..utils.frame import Frame
 from .. import convert
 from ..device import resolve_device
 from ..ops import deblock_torch as DT
+from . import temporal_filter as TF
 from . import tpu_inter, tune_vmaf
 from .tpu_frame import (GpuFrameEncoder, _pad_plane, apply_cdef_refs,
                         cdef_fixed_strengths)
@@ -94,8 +99,8 @@ class GpuInterFrameEncoder:
     ``encode()`` it holds ``plan``, ``seq``, ``fh``, ``saved_fc``,
     ``ref_planes_out`` (post-LPF, post-CDEF planes on ``device``) and
     ``timings`` (``plan_s``, ``pack_s``). The ARF slot plumbing
-    (``ref_slot``, ``refresh_flags``, ``show``, ``primary_ref``) is kept
-    for the GOP drivers of a later slice."""
+    (``ref_slot``, ``refresh_flags``, ``show``, ``primary_ref``) serves
+    ``encode_video_arf``."""
 
     def __init__(self, frame: Frame, cfg: EncoderConfig, seq, ref_planes,
                  crop_w: int, crop_h: int, zero_lpf: bool = False,
@@ -691,6 +696,22 @@ def _ref_chain_planes(enc):
     return out
 
 
+def displayed_encoders(encs):
+    """The encoder whose reference chain each displayed frame shows, in
+    display order, for the ``encs`` of a GOP encode: a non-shown ARF
+    shows nothing; the show_existing packet after its group (``None`` in
+    ``encs``) shows that ARF."""
+    out, arf = [], None
+    for e in encs:
+        if e is None:
+            out.append(arf)
+        elif getattr(e, "show", True):
+            out.append(e)
+        else:
+            arf = e
+    return out
+
+
 def encode_video(frames, cfg: EncoderConfig, path: str | None = None,
                  key_interval: int = 0, forward_cdf: bool = True,
                  kf_q_offset: int = 60, tf_key: bool = True,
@@ -703,7 +724,9 @@ def encode_video(frames, cfg: EncoderConfig, path: str | None = None,
     temporally filtered source (``encoder/temporal_filter``).
     ``key_interval`` > 0 places a KEY frame every that many frames.
     ``cdef`` turns on the quantizer-derived CDEF on every frame (the
-    reference chain carries it). Returns (packets, encs)."""
+    reference chain carries it). Returns (packets, encs); a KEY encoder
+    carries the filter's host-clock seconds as ``tf_s`` (None when
+    unfiltered)."""
     from ..bitstream.containers import write_ivf
     packets = []
     encs = []
@@ -718,11 +741,15 @@ def encode_video(frames, cfg: EncoderConfig, path: str | None = None,
     for i, frame in enumerate(frames):
         is_key = i == 0 or (key_interval > 0 and i % key_interval == 0)
         if is_key:
+            tf_s = None
             if tf_key and len(frames) > 1:
                 # multi-frame KEY denoise (temporal_filter.c:833-841)
-                from . import temporal_filter as TF
-                frame = TF.filter_key_frame(frames, i, kf_cfg.base_q_idx)
+                t0 = time.perf_counter()
+                frame = TF.filter_key_frame(frames, i, kf_cfg.base_q_idx,
+                                            device=device)
+                tf_s = time.perf_counter() - t0
             enc = GpuFrameEncoder(frame, kf_cfg, device=device)
+            enc.tf_s = tf_s
             packets.append(enc.encode(include_seq=(i == 0)))
             seq = enc.seq
         else:
@@ -736,3 +763,302 @@ def encode_video(frames, cfg: EncoderConfig, path: str | None = None,
     if path is not None:
         write_ivf(path, packets, frames[0].width, frames[0].height)
     return packets, encs
+
+
+def encode_video_arf(frames, cfg: EncoderConfig, path: str | None = None,
+                     group: int = 4, kf_q_offset: int = 60,
+                     arf_q_offset: int = 48, tf_strength: int = 2,
+                     forward_cdf: bool = True, device="cuda"):
+    """ARF star-group GOP (``encode_video_tpu_arf``; depth-1 pyramid,
+    av1/encoder/gop_structure.c + encode_strategy.c:718 analogue).
+
+    Per group of ``group`` display frames: the LAST frame of the group is
+    temporally filtered on the device (``encoder/temporal_filter``, the psy
+    strength-2 rule of temporal_filter.c:815-831), coded as a non-shown
+    showable ALTREF at base_q_idx - arf_q_offset, and every middle frame
+    references the ARF (a star: drift-free, mutually independent). The
+    ARF's display position is a show_existing_frame header. The KEY frame
+    is temporally filtered when there is more than one frame. Returns
+    (packets, encs) — ``encs`` has one entry per PACKET (None for
+    show_existing packets); the KEY and ARF encoders carry the filter's
+    host-clock seconds as ``tf_s`` (None when unfiltered).
+    """
+    from ..bitstream.containers import write_ivf
+
+    T = len(frames)
+    kf_cfg = dataclasses.replace(
+        cfg, base_q_idx=max(8, cfg.base_q_idx - kf_q_offset))
+    arf_cfg = dataclasses.replace(
+        cfg, base_q_idx=max(8, cfg.base_q_idx - arf_q_offset))
+    packets, encs = [], []
+
+    # KEY
+    if not cfg.search_cdef:
+        cfg = dataclasses.replace(cfg, cdef_fixed=True)
+        kf_cfg = dataclasses.replace(kf_cfg, cdef_fixed=True)
+        arf_cfg = dataclasses.replace(arf_cfg, cdef_fixed=True)
+    t0 = time.perf_counter()
+    key_src = TF.filter_key_frame(frames, 0, kf_cfg.base_q_idx,
+                                  device=device) if T > 1 else frames[0]
+    tf_s = time.perf_counter() - t0 if T > 1 else None
+    key = GpuFrameEncoder(key_src, kf_cfg, device=device)
+    key.tf_s = tf_s
+    packets.append(key.encode(include_seq=True))
+    encs.append(key)
+    seq = key.seq
+    cur_slot = 0                       # slot holding the last DISPLAYED recon
+    slot_planes = {0: _ref_chain_planes(key), 1: _ref_chain_planes(key)}
+    slot_fc = {0: key.saved_fc, 1: key.saved_fc}
+
+    w0, h0 = frames[0].width, frames[0].height
+    s_idx = 1
+    while s_idx < T:
+        e_idx = min(s_idx + group, T)
+        arf_slot = 1 - cur_slot
+
+        # ---- ARF: temporally filtered group-end frame, non-shown ----
+        center = e_idx - 1
+        span = frames[max(s_idx, center - 2) : min(T, center + 3)]
+        c_rel = center - max(s_idx, center - 2)
+        tf_s = None
+        if len(span) >= 2:
+            t0 = time.perf_counter()
+            planes_list = TF.upload([f.planes() for f in span], device)
+            noise = [max(TF.estimate_noise_level(pl), 0.0)
+                     for pl in planes_list[c_rel]]
+            # q_factor at the GROUP's quality level (av1_get_q analogue):
+            # the boosted ARF q would put q_decay near zero and disable
+            # the filter entirely
+            qf = max(1, tables.ac_quant(max(cfg.base_q_idx, 1)) // 4)
+            y, u, v = TF.temporal_filter_frames(
+                planes_list, c_rel, qf, tf_strength,
+                noise_levels=tuple(noise), device=device)
+            arf_src = Frame(y, u, v)
+            tf_s = time.perf_counter() - t0
+        else:
+            arf_src = frames[center]
+        enc_arf = GpuInterFrameEncoder(
+            arf_src, arf_cfg, seq, slot_planes[cur_slot], w0, h0,
+            prev_fc=slot_fc[cur_slot] if forward_cdf else None,
+            ref_slot=cur_slot, refresh_flags=1 << arf_slot, show=False,
+            device=device)
+        enc_arf.tf_s = tf_s
+        packets.append(enc_arf.encode())
+        encs.append(enc_arf)
+        slot_planes[arf_slot] = _ref_chain_planes(enc_arf)
+        slot_fc[arf_slot] = enc_arf.saved_fc
+
+        # ---- middles: star-reference the ARF, refresh nothing ----
+        for i in range(s_idx, e_idx - 1):
+            enc_p = GpuInterFrameEncoder(
+                frames[i], cfg, seq, slot_planes[arf_slot], w0, h0,
+                prev_fc=slot_fc[arf_slot] if forward_cdf else None,
+                ref_slot=arf_slot, refresh_flags=0, show=True, device=device)
+            packets.append(enc_p.encode())
+            encs.append(enc_p)
+
+        # ---- ARF display position: show_existing_frame ----
+        fh_se = FrameHeader(width=w0, height=h0)
+        fh_se.show_existing_frame = True
+        fh_se.frame_to_show_map_idx = arf_slot
+        w = BitWriter()
+        write_frame_header(w, seq, fh_se)
+        w.trailing_bits()
+        payload = w.data()
+        pkt = bytes([0x12, 0x00]) + bytes([0x1A]) \
+            + write_leb128(len(payload)) + payload
+        packets.append(pkt)
+        encs.append(None)
+
+        cur_slot = arf_slot
+        s_idx = e_idx
+    if path is not None:
+        write_ivf(path, packets, w0, h0)
+    return packets, encs
+
+
+# ----------------------------------------------------------------------
+# Rate control v1 — one-pass VBR-lite (CQ/VBR subset of
+# av1/encoder/ratectrl.c: av1_rc_regulate_q / update-after-encode model).
+# The arithmetic is the reference's host numpy, line for line: equal
+# packets give equal q.
+# ----------------------------------------------------------------------
+def _qindex_for_qstep(qstep: float, bd: int = 8) -> int:
+    """Smallest qindex whose AC quant step is >= qstep (bisection over the
+    monotone ac_quant table — av1_rc_bits_per_mb's inverse role)."""
+    lo, hi = 1, 255
+    if qstep <= tables.ac_quant(1):
+        return 1
+    if qstep >= tables.ac_quant(255):
+        return 255
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if tables.ac_quant(mid) < qstep:
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def encode_video_cbr(frames, target_bps: float, fps: float = 30.0,
+                     buffer_ms: int = 1000, initial_ms: int = 500,
+                     optimal_pct: int = 60, start_q: int = 120,
+                     min_q: int = 8, max_q: int = 250,
+                     max_step: int = 40, kf_q_offset: int = 40,
+                     path: str | None = None, device="cuda"):
+    """One-pass CBR with a leaky-bucket buffer model
+    (``encode_video_tpu_cbr``; av1/encoder/ratectrl.c one-pass CBR:
+    av1_calc_pframe_target_size_one_pass_cbr's buffer-deviation target +
+    update_buffer_level).
+
+    The decoder buffer fills at target_bps and drains by each coded
+    frame; the per-frame bit target is the per-frame bandwidth corrected
+    by the deviation from the optimal buffer fullness, and the quantizer
+    follows the same online power-law rate model as ``encode_video_rc``,
+    with per-frame q clamps. Returns (packets, encs, qs, buffer_trace).
+    """
+    from ..bitstream.containers import write_ivf
+    avg_bits = target_bps / fps
+    buffer_sz = target_bps * buffer_ms / 1000.0
+    optimal = buffer_sz * optimal_pct / 100.0
+    level = target_bps * initial_ms / 1000.0
+    obs = {}
+    packets, encs, qs, trace = [], [], [], []
+
+    def want_q(ftype, tgt):
+        pts = obs.get(ftype)
+        if not pts:
+            return None
+        lq1, lb1 = pts[-1]
+        beta = 1.2
+        if len(pts) == 2 and abs(pts[0][0] - lq1) > 1e-3:
+            beta = float(np.clip((pts[0][1] - lb1) / (lq1 - pts[0][0]),
+                                 0.4, 3.0))
+        lqw = lq1 + (lb1 - np.log(max(tgt, 1.0))) / beta
+        return _qindex_for_qstep(float(np.exp(lqw)))
+
+    ref_planes = None
+    seq = None
+    prev_fc = None
+    q = int(np.clip(start_q, min_q, max_q))
+    for i, frame in enumerate(frames):
+        is_key = i == 0
+        ftype = "key" if is_key else "inter"
+        # target: per-frame bandwidth corrected toward the optimal
+        # fullness over ~one buffer's worth of frames (the reference's
+        # buffer-deviation term); KEY frames get a bounded boost
+        correction = (level - optimal) / max(fps, 1.0)
+        tgt = max(avg_bits * 0.25, avg_bits + correction)
+        if is_key:
+            tgt = min(4.0 * avg_bits, buffer_sz * 0.5)
+        want = want_q(ftype, tgt)
+        if want is None:
+            want = max(8, q - kf_q_offset) if is_key else q
+        step = int(np.clip(want - q, -max_step, max_step))
+        q_frame = int(np.clip(q + step, min_q, max_q))
+        if not is_key:
+            q = q_frame
+        cfg_i = EncoderConfig(base_q_idx=q_frame, cdef_fixed=True)
+        if is_key:
+            enc = GpuFrameEncoder(frame, cfg_i, device=device)
+            pkt = enc.encode(include_seq=(i == 0))
+            seq = enc.seq
+        else:
+            enc = GpuInterFrameEncoder(frame, cfg_i, seq, ref_planes,
+                                       frames[0].width, frames[0].height,
+                                       prev_fc=prev_fc, device=device)
+            pkt = enc.encode()
+        bits = len(pkt) * 8
+        # leaky bucket: fill at the channel rate, drain by coded bits
+        level = float(np.clip(level + avg_bits - bits, 0.0, buffer_sz))
+        pt = (float(np.log(tables.ac_quant(q_frame))),
+              float(np.log(max(bits, 1))))
+        obs[ftype] = (obs.get(ftype, []) + [pt])[-2:]
+        packets.append(pkt)
+        encs.append(enc)
+        qs.append(q_frame)
+        trace.append(level)
+        ref_planes = _ref_chain_planes(enc)
+        prev_fc = enc.saved_fc
+    if path is not None:
+        write_ivf(path, packets, frames[0].width, frames[0].height)
+    return packets, encs, qs, trace
+
+
+def encode_video_rc(frames, target_bps: float, fps: float = 30.0,
+                    key_interval: int = 0, start_q: int = 120,
+                    min_q: int = 8, max_q: int = 250,
+                    max_step: int = 32, path: str | None = None,
+                    device="cuda"):
+    """One-pass target-bitrate GOP encode (``encode_video_tpu_rc``).
+
+    A local power-law rate model ``bits ~ c * qstep**-beta`` (the family
+    behind av1_rc_bits_per_mb, av1/encoder/ratectrl.c:1741) is fitted
+    online per frame type from coded sizes: the elasticity ``beta`` comes
+    from a secant through the last two (log qstep, log bits) observations.
+    The next frame's qindex is the one whose AC step meets its share of the
+    remaining budget; per-frame q moves are clamped to ``max_step``. CDF
+    forwarding stays on. Returns (packets, encs, qs).
+    """
+    from ..bitstream.containers import write_ivf
+    n = len(frames)
+    budget = target_bps * n / fps
+    spent = 0.0
+    obs = {}              # frame-type -> last two (log qstep, log bits)
+    packets, encs, qs = [], [], []
+
+    def _want_q(ftype, tgt, cur_q):
+        pts = obs.get(ftype)
+        if not pts:
+            return None
+        lq1, lb1 = pts[-1]
+        beta = 1.2
+        if len(pts) == 2 and abs(pts[0][0] - lq1) > 1e-3:
+            beta = (pts[0][1] - lb1) / (lq1 - pts[0][0])
+            beta = float(np.clip(beta, 0.4, 3.0))
+        lqw = lq1 + (lb1 - np.log(tgt)) / beta
+        return _qindex_for_qstep(float(np.exp(lqw)))
+    ref_planes = None
+    seq = None
+    prev_fc = None
+    q = int(np.clip(start_q, min_q, max_q))
+    # KEY frames are budgeted at kf_boost x the per-frame average
+    # (gop-level allocation, av1/encoder/pass2_strategy.c's kf share)
+    kf_boost = 4.0
+    for i, frame in enumerate(frames):
+        is_key = i == 0 or (key_interval > 0 and i % key_interval == 0)
+        ftype = "key" if is_key else "inter"
+        weight = kf_boost if is_key else 1.0
+        frames_left_w = sum(
+            (kf_boost if (j == 0 or (key_interval > 0
+                                     and j % key_interval == 0)) else 1.0)
+            for j in range(i, n))
+        tgt = max(64.0, (budget - spent) * weight / frames_left_w)
+        # no same-type observation yet -> hold q
+        want = _want_q(ftype, tgt, q)
+        if want is None:
+            want = q
+        step = int(np.clip(want - q, -max_step, max_step))
+        q = int(np.clip(q + step, min_q, max_q))
+        cfg_i = EncoderConfig(base_q_idx=q, cdef_fixed=True)
+        if is_key:
+            enc = GpuFrameEncoder(frame, cfg_i, device=device)
+            pkt = enc.encode(include_seq=(i == 0))
+            seq = enc.seq
+        else:
+            enc = GpuInterFrameEncoder(frame, cfg_i, seq, ref_planes,
+                                       frames[0].width, frames[0].height,
+                                       prev_fc=prev_fc, device=device)
+            pkt = enc.encode()
+        bits = len(pkt) * 8
+        spent += bits
+        pt = (float(np.log(tables.ac_quant(q))), float(np.log(max(bits, 1))))
+        obs[ftype] = (obs.get(ftype, []) + [pt])[-2:]
+        packets.append(pkt)
+        encs.append(enc)
+        qs.append(q)
+        ref_planes = _ref_chain_planes(enc)
+        prev_fc = enc.saved_fc
+    if path is not None:
+        write_ivf(path, packets, frames[0].width, frames[0].height)
+    return packets, encs, qs

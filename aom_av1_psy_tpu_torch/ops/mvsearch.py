@@ -1,30 +1,52 @@
-"""Motion search — TPU-native dense grid scan + subpel refinement.
+"""Motion search — dense full-pel grid scan (kernel KJ) + subpel refinement.
 
 The reference's motion search (av1/encoder/mcomp.c) walks sequential
 diamond/hex/NSTEP patterns with early exits — a latency-bound scalar
-program. On TPU we invert the structure: evaluate EVERY candidate in a
-(2R+1)^2 full-pel window for a whole batch of blocks at once as one
-dense SAD tensor contraction (MXU/VPU-friendly, no data-dependent
-control flow), then argmin. Subpel refinement evaluates all 8 half/
-quarter-pel neighbours in one shot through the normative convolve
-kernels (ops/convolve.py) instead of iterative FIRST_LEVEL/SECOND_LEVEL
-checks (mcomp.c:av1_find_best_sub_pixel_tree).
+program. Here, as in the JAX package, EVERY candidate in a (2R+1)^2
+full-pel window is scored for a whole batch of blocks at once, then the
+argmin is taken. Subpel refinement evaluates all 8 half/quarter-pel
+neighbours in one shot through the normative convolve kernels
+(ops/convolve.py) instead of iterative FIRST_LEVEL/SECOND_LEVEL checks
+(mcomp.c:av1_find_best_sub_pixel_tree).
+
+Kernel KJ ``fullpel_sad`` (``csrc/mvsearch.cu``) replaces the jnp branch of
+``aom_av1_psy_tpu/ops/mvsearch.py:48-134`` (``full_pel_grid_search`` and
+``full_pel_hierarchical``: the (B, n, n, h, w) candidate gather, the SAD
+and the first-index argmin). The windows are the caller's, whatever they
+hold outside the frame (the temporal filter fills them with 128): KJ does
+not clamp. CPU tensors go to the plain version, CUDA tensors to KJ; there
+is no fallback from one to the other.
 
 Cost model mirrors av1_mv_bit_cost (mcomp.c:96): mvcost[] lookups are
 replaced round-1 by the standard log2-based approximation
-``mv_err_cost`` with sad_per_bit weighting (mvsad_err_cost analogue).
+``mv_err_cost`` with sad_per_bit weighting (mvsad_err_cost analogue). The
+cost grid is made on the host (numpy float32, as the reference's numpy
+branch; its jnp branch gives the same grids at radius 3-32, weights 1-13)
+and added to the SAD as an int32 table.
+
+``subpel_refine`` and ``batched_subpel_refine`` stay numpy: they run the
+convolve's numpy branch, whose device counterpart is a later slice.
 """
 from __future__ import annotations
 
-import functools
-
 import numpy as np
+import torch
 
 from . import convolve as C
+from ..kernels.build import CudaKernel, I, P
+
+KJ = CudaKernel("mvsearch", {
+    # src, win, B, h, w, wh, ww, m, stride, cost, best_idx, best_sad
+    "fullpel_sad": [P, P, I, I, I, I, I, I, I, P, P, P],
+})
+
+# blocks per chunk of the plain version: (chunk, h, m, w) int32 per row
+# offset, 138 MB at 1024 blocks of 32x32 and m = 33
+_CHUNK = 1024
 
 
 def _xp(x):
-    """numpy, the only array type of the host kernels."""
+    """numpy, the only array type of the host subpel helpers."""
     if isinstance(x, np.ndarray):
         return np
     raise TypeError(f"numpy array expected, got {type(x).__name__}")
@@ -38,11 +60,83 @@ def mv_cost_bits(dr, dc, weight: int = 0):
     """Approximate rate cost of an MV residual, in SAD-comparable units
     (analogue of mvsad_err_cost, mcomp.c:115: the exact table-driven
     cost is joint-class + component bits; round-1 uses the dominant
-    magnitude term 2*log2(1+|d|) bits per component)."""
+    magnitude term 2*log2(1+|d|) bits per component). Host numpy."""
     xp = _xp(dr) if not isinstance(dr, (int, float)) else np
     bits = 2.0 * (xp.log2(1.0 + xp.abs(dr)) + xp.log2(1.0 + xp.abs(dc)))
     return (bits * weight).astype(xp.int32) if weight else \
         xp.zeros_like(bits, dtype=xp.int32)
+
+
+def _cost_grid(radius: int, sad_per_bit: int):
+    """The (n, n) int32 cost added to every SAD (n = 2 * radius + 1)."""
+    dr = np.arange(2 * radius + 1) - radius
+    return mv_cost_bits(dr[:, None].astype(np.float32),
+                        dr[None, :].astype(np.float32), sad_per_bit)
+
+
+def sad_argmin_plain(src, win, m: int, stride: int = 1, cost=None):
+    """Plain version of KJ. src (B, h, w), win (B, h + (m-1)*stride + e,
+    w + ...): the candidate at grid point (ky, kx) is the window's (h, w)
+    patch at (ky * stride, kx * stride). ``cost`` (m*m,) int32 or None is
+    added to each SAD. Returns (flat index (B,) int64, dy-major, first
+    index on ties; SAD + cost (B,) int32)."""
+    B, h, w = src.shape
+    s32 = src.to(torch.int32)
+    w32 = win.to(torch.int32)
+    idx, best = [], []
+    for i in range(0, B, _CHUNK):
+        s = s32[i:i + _CHUNK, :, None, :]                    # (b, h, 1, w)
+        sad = []
+        for ky in range(m):
+            rows = w32[i:i + _CHUNK, ky * stride:ky * stride + h, :]
+            cand = rows.unfold(2, w, stride)[:, :, :m]       # (b, h, m, w)
+            sad.append((cand - s).abs().sum((1, 3)))         # (b, m) int64
+        flat = torch.stack(sad, 1).reshape(-1, m * m)
+        if cost is not None:
+            flat = flat + cost.to(flat.device, torch.int64)[None]
+        k = flat.argmin(1)
+        idx.append(k)
+        best.append(flat.gather(1, k[:, None])[:, 0])
+    return torch.cat(idx), torch.cat(best).to(torch.int32)
+
+
+def sad_argmin(src, win, m: int, stride: int = 1, cost=None):
+    """``sad_argmin_plain``'s (flat index, SAD). CPU tensors: plain
+    version; CUDA tensors: kernel KJ (int32 inputs, made contiguous)."""
+    if src.device.type == "cpu":
+        return sad_argmin_plain(src, win, m, stride, cost)
+    B, h, w = src.shape
+    wh, ww = win.shape[1:]
+    if win.shape[0] != B or wh < h + (m - 1) * stride or \
+            ww < w + (m - 1) * stride:
+        raise ValueError(f"KJ: windows {tuple(win.shape)} too small for "
+                         f"blocks {tuple(src.shape)}, m={m}, stride={stride}")
+    for t in (src, win):
+        if t.device.type != "cuda" or t.dtype != torch.int32:
+            raise ValueError(f"KJ input: want int32 on cuda, got {t.dtype} "
+                             f"on {t.device}")
+    src, win = src.contiguous(), win.contiguous()
+    cptr = 0
+    if cost is not None:
+        cost = cost.to(win.device, torch.int32).contiguous()
+        if cost.numel() != m * m:
+            raise ValueError(f"KJ: cost has {cost.numel()} entries, want "
+                             f"{m * m}")
+        cptr = cost.data_ptr()
+    idx = torch.empty((B,), dtype=torch.int32, device=src.device)
+    sad = torch.empty((B,), dtype=torch.int32, device=src.device)
+    KJ.launch("fullpel_sad", src.data_ptr(), win.data_ptr(), B, h, w, wh, ww,
+              m, stride, cptr, idx.data_ptr(), sad.data_ptr(),
+              variant="dense" if stride == 1 else "coarse")
+    return idx.long(), sad
+
+
+def full_pel_grid_search_plain(src_blocks, ref_windows, radius: int,
+                               sad_per_bit: int = 0):
+    """``full_pel_grid_search`` through the plain version, whatever the
+    tensors' device."""
+    return _grid_search(sad_argmin_plain, src_blocks, ref_windows, radius,
+                        sad_per_bit)
 
 
 def full_pel_grid_search(src_blocks, ref_windows, radius: int,
@@ -57,68 +151,56 @@ def full_pel_grid_search(src_blocks, ref_windows, radius: int,
 
     Replaces av1_full_pixel_search / exhaustive_mesh_search
     (mcomp.c:2015): a mesh search with step 1, evaluated as one dense
-    tensor op instead of nested scalar loops.
+    batched scan (KJ on the card) instead of nested scalar loops.
     """
-    xp = _xp(src_blocks)
-    B, h, w = src_blocks.shape
+    return _grid_search(sad_argmin, src_blocks, ref_windows, radius,
+                        sad_per_bit)
+
+
+def _grid_search(scan, src_blocks, ref_windows, radius, sad_per_bit):
     n = 2 * radius + 1
-    src = src_blocks.astype(xp.int32)[:, None, None]          # (B,1,1,h,w)
-
-    # Gather all candidate windows: (B, n, n, h, w) as strided views.
-    from numpy.lib.stride_tricks import sliding_window_view
-    rw = ref_windows.astype(xp.int32)
-    cand = sliding_window_view(rw, (h, w), axis=(1, 2))       # (B,n,n,h,w)
-
-    sad = xp.abs(cand - src).sum(axis=(-1, -2))               # (B, n, n)
+    cost = None
     if sad_per_bit:
-        dr = xp.arange(n) - radius
-        cost = mv_cost_bits(dr[:, None].astype(xp.float32),
-                            dr[None, :].astype(xp.float32), sad_per_bit)
-        sad = sad + cost[None]
-    flat = sad.reshape(B, n * n)
-    best = xp.argmin(flat, axis=1)
-    best_sad = xp.take_along_axis(flat, best[:, None], axis=1)[:, 0]
-    mvs = xp.stack([best // n - radius, best % n - radius], axis=1)
-    return mvs.astype(xp.int32), best_sad.astype(xp.int32)
+        cost = torch.as_tensor(_cost_grid(radius, sad_per_bit).reshape(-1),
+                               device=src_blocks.device)
+    best, best_sad = scan(src_blocks, ref_windows, n, 1, cost)
+    mvs = torch.stack([best // n - radius, best % n - radius], 1)
+    return mvs.to(torch.int32), best_sad
 
 
 def full_pel_hierarchical(src_blocks, ref_windows, radius: int,
                           step: int = 4, sad_per_bit: int = 0):
     """Two-level grid search for big windows: coarse grid at `step`,
     then a dense refine of +/-(step-1) around the coarse winner.
-    Keeps the candidate tensor small while covering the full window
-    (the TPU equivalent of NSTEP's shrinking diamonds, mcomp.c:1672)."""
-    xp = _xp(src_blocks)
+    Keeps the candidate set small while covering the full window
+    (the equivalent of NSTEP's shrinking diamonds, mcomp.c:1672).
+
+    Two scans (KJ on the card): the coarse one with a candidate stride of
+    ``step`` and no MV cost, then the dense one on the sub-window cut out
+    by a torch gather (the reference's ``vmap`` + ``dynamic_slice``)."""
     B, h, w = src_blocks.shape
-    # Coarse: subsample candidate offsets by `step`.
     n = 2 * radius + 1
-    offs = xp.arange(0, n, step)
-    src = src_blocks.astype(xp.int32)[:, None, None]
-    rw = ref_windows.astype(xp.int32)
-    from numpy.lib.stride_tricks import sliding_window_view
-    cand = sliding_window_view(rw, (h, w), axis=(1, 2))[:, ::step, ::step]
-    sad = xp.abs(cand - src).sum(axis=(-1, -2))
-    m = sad.shape[1]
-    flat = sad.reshape(B, m * m)
-    best = xp.argmin(flat, axis=1)
-    cr = offs[best // m]
-    cc = offs[best % m]
-    # Fine: dense (2*step-1)^2 window around coarse winner.
+    m = len(range(0, n, step))
+    best, _ = sad_argmin(src_blocks, ref_windows, m, step)
+    cr = best // m * step
+    cc = best % m * step
     fine_r = step - 1
-    fr0 = xp.clip(cr - fine_r, 0, n - 1 - 2 * fine_r)
-    fc0 = xp.clip(cc - fine_r, 0, n - 1 - 2 * fine_r)
-    fh, fw = h + 2 * fine_r, w + 2 * fine_r
-    sub = np.stack([rw[b, fr0[b] : fr0[b] + fh, fc0[b] : fc0[b] + fw]
-                    for b in range(B)])
+    fr0 = (cr - fine_r).clamp(0, n - 1 - 2 * fine_r)
+    fc0 = (cc - fine_r).clamp(0, n - 1 - 2 * fine_r)
+    dev = src_blocks.device
+    rows = fr0[:, None] + torch.arange(h + 2 * fine_r, device=dev)[None]
+    cols = fc0[:, None] + torch.arange(w + 2 * fine_r, device=dev)[None]
+    sub = ref_windows[torch.arange(B, device=dev)[:, None, None],
+                      rows[:, :, None], cols[:, None, :]]
     mv_f, best_sad = full_pel_grid_search(src_blocks, sub, fine_r,
                                           sad_per_bit)
-    mvs = xp.stack([mv_f[:, 0] + fr0 + fine_r - radius,
-                    mv_f[:, 1] + fc0 + fine_r - radius], axis=1)
-    return mvs.astype(xp.int32), best_sad
+    mvs = torch.stack([mv_f[:, 0] + fr0 + fine_r - radius,
+                       mv_f[:, 1] + fc0 + fine_r - radius], 1)
+    return mvs.to(torch.int32), best_sad
 
 
 # ---------------------------------------------------------------------------
-# Subpel refinement
+# Subpel refinement (host numpy)
 # ---------------------------------------------------------------------------
 
 _NEIGH8 = np.array([(-1, -1), (-1, 0), (-1, 1),

@@ -11,8 +11,9 @@ exit code is not 0):
 
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
 2. build the hand-written kernels from ``csrc/`` with nvcc (sm_90a), one
-   nvcc process per source, all started together (KA-KF, and KG/KH/KI in
-   ``tune_vmaf.cu``), and the native range coder (``native/ec.cpp``, g++);
+   nvcc process per source, all started together (KA-KF, KG/KH/KI in
+   ``tune_vmaf.cu``, KJ ``mvsearch.cu``, KK ``temporal_filter.cu``), and the
+   native range coder (``native/ec.cpp``, g++);
 3. KA / KB / KC against their plain PyTorch versions on the card, at the
    shapes the 1080p KEY frame gives them, for exact equality, with both
    times (CUDA events);
@@ -27,6 +28,12 @@ exit code is not 0):
    its ``vif_down2`` entry) against their plain versions at the 1080p
    shapes: KG, KH and down2 exact, KI within a relative 1e-4; kernel,
    plain and (KI, down2) library-call times;
+3e. KJ (the temporal filter's full-pel SAD search) and KK (its weighting
+   and accumulation) at the shapes of one 1080p ARF span
+   (``make_gop(1920, 1080, 5)``, centre 2): KJ exact on the 32x32 blocks
+   and on the 24-tall bottom row, ``full_pel_hierarchical`` (radius 16,
+   step 4) equal to the CPU plain path, KK exact against the plain version
+   on the card and on CPU tensors; kernel, plain and bound times;
 4. closed loop at CIF (352x288), KEY frame: the CUDA stream equals the
    port's CPU (plain-path) stream byte for byte, and the in-repo decoder
    reconstructs the port's post-loop-filter planes exactly;
@@ -41,6 +48,11 @@ exit code is not 0):
    deblocker (the uniform path runs no device loop filter);
 4e. closed loop at CIF with ``tune_vmaf=True``: a KEY frame and a 4-frame
    GOP, CUDA == CPU plain (packets and amounts), decoder == recon / chain;
+4f. the ARF, CBR and RC GOP encodes at CIF on ``make_gop(352, 288, 6)`` (ARF
+   group 4; CBR and RC at 0.8 x the rate ``encode_video`` reaches at
+   q100): CUDA == CPU plain (packets, q, trace), q moves, and every
+   displayed frame decodes to its encoder's chain (the non-shown ARF
+   displays through its show_existing packet);
 5. the KEY path: ``GpuFrameEncoder.encode()`` of the 1920x1080 test
    frame (``utils/testframes.make_frame``, the arrays of ``bench.py``'s) at
    ``base_q_idx=100`` — a first frame and 3 steady frames — with the launch
@@ -68,21 +80,30 @@ exit code is not 0):
    stream; a 3-frame 1080p ``encode_video`` with ``tune_vmaf``, timed,
    with the per-frame amounts and the counts set to 0 just before it and
    read just after;
+5g. the main path of slice 5: ``encode_video_arf(make_gop(1920, 1080,
+   9), EncoderConfig(base_q_idx=100), group=4)`` (11 packets) twice, the
+   counts set to 0 just before the second run and read just after; the
+   second run equals the first; per-packet bytes, the temporal filter's
+   time for the KEY frame and each ARF, the GOP wall;
+5h. 1080p RC and CBR GOPs (``make_gop(1920, 1080, 5)``) at 0.8 x the rate
+   of phase 5b's GOP: q, bytes, achieved rate and wall; q must move;
 6. / 6b. a profiler window over one steady 1080p KEY frame and one steady
    1080p P-frame (device busy time by kernel).
 
-``--only-kernels`` stops after phase 3d. The second-to-last line is
+``--only-kernels`` stops after phase 3e. The second-to-last line is
 ``{"kernels": [...]}``: ``launches`` from the GOP of phase 5b (for the
 4x4 / no-skip entries, from the uniform KEY frames of phase 5d; for KG,
-KH, KI and ``vif_down2``, from phase 5f), with the counts of the KEY frames
-of phases 5, 5c, 5d and 5f and of phase 5f's tune_vmaf GOP beside it. KA's and KB's entries count only
+KH, KI and ``vif_down2``, from phase 5f; for KJ and KK, from the ARF GOP
+of phase 5g), with the counts of the KEY frames of phases 5, 5c, 5d and 5f,
+of phase 5b's IPPP GOP, of phase 5f's tune_vmaf GOP and of phase 5g's ARF
+GOP beside it. KA's and KB's entries count only
 their own instances (``intra_pred_sse`` bs 8/16/32, ``intra_pred_sse
 bs4``; ``txq_recon_skip`` bs 8/16/32 with the skip decision, ``txq_recon
 bs4 / bs8 no-skip``), read from the per-variant counts the wrappers keep.
 Each entry's ``bound_ms`` is the larger of its bytes (inputs read once,
 outputs written once, from the timed call's tensors) over 3.35 TB/s and its
 operations (estimated per kernel from the shapes, in the comments beside
-each) over 67 T/s; ``library_ms`` times one PyTorch call where one
+each) over 67 T/s, float64 operations over 34 T/s; ``library_ms`` times one PyTorch call where one
 computes the function (KI's box moments and ``vif_down2``: ``conv2d``),
 else null. The last line
 is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
@@ -118,10 +139,12 @@ def cuda_time(fn, iters):
     return t0.elapsed_time(t1) / iters
 
 
-# NVIDIA H100 SXM (data sheet): HBM3 bytes/s, and the float32 rate outside
-# the tensor cores, against which integer operations are counted too
+# NVIDIA H100 SXM (data sheet): HBM3 bytes/s, the float32 rate outside
+# the tensor cores, against which integer operations are counted too, and
+# the float64 vector rate
 HBM_BYTES_PER_S = 3.35e12
 CUDA_CORE_OPS_PER_S = 67e12
+FP64_OPS_PER_S = 34e12
 
 
 def nbytes(*xs):
@@ -138,11 +161,13 @@ def nbytes(*xs):
     return total
 
 
-def bound(n_bytes, ops):
+def bound(n_bytes, ops, fp64_ops=0):
     """The least time the card could take: the larger of the bytes moved
     (each input read once, each output written once) over the memory rate
-    and the operations over the CUDA-core rate."""
-    tb, to = n_bytes / HBM_BYTES_PER_S, ops / CUDA_CORE_OPS_PER_S
+    and the operations over the CUDA-core rate (float64 operations over
+    the FP64 rate)."""
+    tb = n_bytes / HBM_BYTES_PER_S
+    to = ops / CUDA_CORE_OPS_PER_S + fp64_ops / FP64_OPS_PER_S
     return {"bound_ms": 1e3 * max(tb, to),
             "bound_by": "bytes" if tb >= to else "operations"}
 
@@ -1087,26 +1112,40 @@ def check_inter_kernels(dev):
         rdm = t(rng.uniform(5e3, 6e4, B), torch.float32)
         a = (src, pred, dc_q, ac_q, TIN._scan(TIN.BS_TO_TX[bs], str(dev)),
              rdm, *rt[key])
-        compare(f"KB bs{bs} B={B}", TQ.txq_recon_skip(*a),
-                TQ.txq_recon_skip_plain(*a))
+        err = compare(f"KB bs{bs} B={B}", TQ.txq_recon_skip(*a),
+                      TQ.txq_recon_skip_plain(*a))
         kb = (cuda_time(lambda: TQ.txq_recon_skip(*a), 10),
               cuda_time(lambda: TQ.txq_recon_skip_plain(*a), 2))
+        kb_bnd = bound(nbytes(a, TQ.txq_recon_skip(*a)), _txq_ops(B, bs))
         log(f"[3b] KB txq_recon_skip exact at bs{bs} B={B}: kernel "
-            f"{kb[0]:.4f} ms, plain {kb[1]:.4f} ms")
+            f"{kb[0]:.4f} ms, plain {kb[1]:.4f} ms, bound "
+            f"{kb_bnd['bound_ms']:.5f} ms ({kb_bnd['bound_by']})")
+        if bs == 8:
+            # K7: the P-frame's chroma TQ (U and V of 4080 16x16 chroma
+            # blocks as 8x8 transforms)
+            results.append({
+                "name": "txq_recon_skip bs8 P chroma", "route": "cuda",
+                "source": "aom_av1_psy_tpu_torch/csrc/txq.cu",
+                "replaces": "aom_av1_psy_tpu/encoder/tpu_inter.py:375",
+                "max_abs_err": err, "ms": kb[0], "plain_ms": kb[1], **kb_bnd,
+                "library_ms": None, "timed_at": "bs8 B=8160 (1080p P-frame "
+                                                "chroma)"})
     return results
 
 
 def _decodes_to_chain(tag, packets, encs):
     import numpy as np
     from aom_av1_psy_tpu_torch.decoder.obu import Av1Decoder
-    from aom_av1_psy_tpu_torch.encoder.tpu_interframe import \
-        _ref_chain_planes
+    from aom_av1_psy_tpu_torch.encoder.tpu_interframe import (
+        _ref_chain_planes, displayed_encoders)
     dec, out = Av1Decoder(), []
     for p in packets:
         out.extend(dec.decode_packet(p))
-    if len(out) != len(encs):
-        raise AssertionError(f"{tag}: {len(out)} frames decoded")
-    for i, (f, enc) in enumerate(zip(out, encs)):
+    shown = displayed_encoders(encs)
+    if len(out) != len(shown):
+        raise AssertionError(f"{tag}: {len(out)} frames decoded, "
+                             f"{len(shown)} displayed")
+    for i, (f, enc) in enumerate(zip(out, shown)):
         for name, d, r in zip("yuv", f.planes(), _ref_chain_planes(enc)):
             r = r.cpu().numpy()[: d.shape[0], : d.shape[1]]
             if not np.array_equal(d.astype(np.int32), r):
@@ -1178,10 +1217,10 @@ def gop_main_path(dev, kernels):
                                         1e-9))
     if not (rec.min() >= 0 and rec.max() <= 255 and psnr > 30):
         raise AssertionError(f"1080p GOP: bad last recon (PSNR {psnr:.2f})")
-    # the KEY frame's temporal filter (numpy host code) alone
+    # the KEY frame's temporal filter (KJ + KK) alone
     from aom_av1_psy_tpu_torch.encoder import temporal_filter as TF
     t0 = time.perf_counter()
-    TF.filter_key_frame(frames, 0, max(8, cfg.base_q_idx - 60))
+    TF.filter_key_frame(frames, 0, max(8, cfg.base_q_idx - 60), device=dev)
     tf_s = time.perf_counter() - t0
     # the whole GOP again on the CPU plain path
     t0 = time.perf_counter()
@@ -1206,7 +1245,8 @@ def gop_main_path(dev, kernels):
             raise AssertionError(f"1080p: P-frame {i} re-encode differs")
     med = statistics.median(p_s)
     log(f"[5b] 1080p GOP q100: warm-up {warm_s:.3f} s, GOP {gop_s:.3f} s "
-        f"(of which the KEY temporal filter alone takes {tf_s:.3f} s), "
+        f"(the KEY temporal filter in it {encs[0].tf_s:.4f} s, alone "
+        f"{tf_s:.4f} s), "
         f"P-frame median {med:.4f} s/frame ({1 / med:.3f} fps, min "
         f"{min(p_s):.4f}, max {max(p_s):.4f}; plan "
         f"{statistics.median(e.timings['plan_s'] for e in encs[1:]):.4f} s, "
@@ -1215,7 +1255,8 @@ def gop_main_path(dev, kernels):
         f"s), last-frame luma PSNR {psnr:.3f} dB; GOP == CPU plain path "
         f"(CPU GOP {cpu_s:.1f} s)")
     log(f"[5b] launches in the GOP: {json.dumps(counts)}")
-    return counts, frames, encs
+    rate = sum(map(len, pk)) * 8 * 30.0 / len(pk)
+    return counts, frames, encs, rate
 
 
 def profile_p_frame(dev, frames, encs):
@@ -1237,6 +1278,220 @@ def profile_p_frame(dev, frames, encs):
         wall = time.perf_counter() - t0
     _device_rows("6b", prof, wall, f"plan {enc.timings['plan_s']:.4f} s, "
                  f"pack {enc.timings['pack_s']:.4f} s")
+
+
+def check_tf_kernels(dev):
+    """Phase 3e: KJ and KK against their plain versions at the shapes of
+    one 1080p ARF span (``make_gop(1920, 1080, 5)``, centre 2): KJ on the
+    full 32x32 blocks and on the 24-tall bottom row, ``full_pel_
+    hierarchical`` (radius 16, step 4) on the same blocks against the plain
+    path on CPU tensors, KK against the plain version on the card and on
+    CPU tensors. Exact equality throughout."""
+    import torch
+    from aom_av1_psy_tpu_torch.encoder import temporal_filter as TF
+    from aom_av1_psy_tpu_torch.ops import mvsearch as MV
+    from aom_av1_psy_tpu_torch.utils import testframes
+    frames = testframes.make_gop(1920, 1080, 5)
+    planes = TF.upload([f.planes() for f in frames], dev)
+    grid = TF.SpanGrid(planes[2])
+    rad = TF.SEARCH_RAD
+    n = 2 * rad + 1
+    results = []
+
+    # ---- KJ: frame 0 against the centre, every block shape ----
+    err, shapes = 0.0, []
+    for ids, src, win in grid.windows(planes[0][0]):
+        shapes.append(f"{tuple(src.shape)}")
+        err = max(err, compare(f"KJ {tuple(src.shape)}",
+                               MV.full_pel_grid_search(src, win, rad),
+                               MV.full_pel_grid_search_plain(src, win, rad)))
+        hier = MV.full_pel_hierarchical(src, win, rad, step=4)
+        want = MV.full_pel_hierarchical(src.cpu(), win.cpu(), rad, step=4)
+        err = max(err, compare(f"KJ hierarchical {tuple(src.shape)}",
+                               tuple(x.cpu() for x in hier), want))
+        if src.shape[1] == 32:
+            B = src.shape[0]
+            kj_t = (cuda_time(lambda: MV.full_pel_grid_search(src, win, rad),
+                              20),
+                    cuda_time(lambda: MV.full_pel_grid_search_plain(
+                        src, win, rad), 2))
+            # 33 x 33 offsets, 3 operations (difference, absolute value,
+            # add) per pixel of each SAD
+            kj_bnd = bound(nbytes(src, win, MV.full_pel_grid_search(
+                src, win, rad)), 3 * n * n * B * 32 * 32)
+    results.append({"name": "fullpel_sad", "route": "cuda",
+                    "source": "aom_av1_psy_tpu_torch/csrc/mvsearch.cu",
+                    "replaces": "aom_av1_psy_tpu/ops/mvsearch.py:48",
+                    "max_abs_err": err, "ms": kj_t[0], "plain_ms": kj_t[1],
+                    **kj_bnd, "library_ms": None,
+                    "timed_at": "B=1980 32x32 blocks, radius 16, 64x64 "
+                                "windows (1080p)"})
+    log(f"[3e] KJ fullpel_sad exact on blocks {shapes} (radius 16), and "
+        f"full_pel_hierarchical (step 4) == the CPU plain path; 32x32 "
+        f"B=1980: kernel {kj_t[0]:.4f} ms, plain {kj_t[1]:.4f} ms, bound "
+        f"{kj_bnd['bound_ms']:.4f} ms ({kj_bnd['bound_by']})")
+
+    # ---- KK: frame 0's accumulation; on the card and on CPU tensors ----
+    inputs = grid.motion_inputs(planes[0])
+    params = TF.filter_params(75, 2, (1.3, 0.5, 0.5))
+    center = grid.center
+
+    def run(fn, ref, pred, ins, device):
+        acc = [torch.zeros(p.shape, dtype=torch.int64, device=device)
+               for p in ref]
+        cnt = [torch.zeros_like(a) for a in acc]
+        fn(ref, pred, *ins, params, 1, 1, 32, acc, cnt)
+        return tuple(acc + cnt)
+
+    got = run(TF.tf_weight_accum, center, planes[0], inputs, dev)
+    err = compare("KK", got, run(TF.tf_weight_accum_plain, center, planes[0],
+                                 inputs, dev))
+    cpu = [[p.cpu() for p in ps] for ps in (center, planes[0])]
+    err = max(err, compare("KK vs CPU plain", tuple(x.cpu() for x in got),
+                           run(TF.tf_weight_accum, *cpu,
+                               [x.cpu() for x in inputs], "cpu")))
+    if int(got[3].max()) <= 0:
+        raise AssertionError("KK: every weight is 0")
+    # timed as the filter calls it: accumulating into planes that exist
+    acc = [torch.zeros(p.shape, dtype=torch.int64, device=dev)
+           for p in center]
+    cnt = [torch.zeros_like(a) for a in acc]
+    kk_t = tuple(cuda_time(lambda: fn(center, planes[0], *inputs, params, 1,
+                                      1, 32, acc, cnt), iters)
+                 for fn, iters in ((TF.tf_weight_accum, 20),
+                                   (TF.tf_weight_accum_plain, 3)))
+    npix = sum(p.numel() for p in center)
+    # per pixel: 25 window adds, 4 luma adds and ~20 index and clamp
+    # operations (integer); ~10 float64 operations and ~20 for exp
+    kk_bnd = bound(nbytes(center, planes[0], inputs, got, got), 50 * npix,
+                   30 * npix)
+    results.append({"name": "tf_weight_accum", "route": "cuda",
+                    "source": "aom_av1_psy_tpu_torch/csrc/temporal_filter.cu",
+                    "replaces": "aom_av1_psy_tpu/encoder/temporal_filter.py"
+                                ":33 (host numpy, not a TPU program)",
+                    "max_abs_err": err, "ms": kk_t[0], "plain_ms": kk_t[1],
+                    **kk_bnd, "library_ms": None,
+                    "timed_at": "one 1080p frame of the span, B=2040, "
+                                "accumulating into int64 accum/count"})
+    log(f"[3e] KK tf_weight_accum exact against the plain version on the "
+        f"card and on CPU tensors (1080p, strength 2); kernel "
+        f"{kk_t[0]:.4f} ms, plain {kk_t[1]:.4f} ms, bound "
+        f"{kk_bnd['bound_ms']:.4f} ms ({kk_bnd['bound_by']})")
+    return results
+
+
+def closed_loop_gops_cif(dev):
+    """Phase 4f: the ARF, CBR and RC GOP encodes at CIF: the CUDA packets (and
+    q, trace) equal the CPU plain path's, every displayed frame decodes to
+    its encoder's chain planes; CBR and RC aim at 0.8 x the rate that
+    ``encode_video`` reaches on the same frames at q100, and move q."""
+    from aom_av1_psy_tpu_torch.encoder.tpu_frame import EncoderConfig
+    from aom_av1_psy_tpu_torch.encoder.tpu_interframe import (
+        encode_video, encode_video_arf, encode_video_cbr, encode_video_rc)
+    from aom_av1_psy_tpu_torch.utils import testframes
+    frames = testframes.make_gop(352, 288, 6)
+    cfg = EncoderConfig(base_q_idx=100)
+    t0 = time.perf_counter()
+    pk, encs = encode_video_arf(frames, cfg, group=4, device=dev)
+    gpu_s = time.perf_counter() - t0
+    if pk != encode_video_arf(frames, cfg, group=4, device="cpu")[0]:
+        raise AssertionError("CIF ARF GOP: CUDA packets differ from the "
+                             "CPU plain packets")
+    if [e is None for e in encs] != [False, False, False, False, False,
+                                     True, False, True]:
+        raise AssertionError("CIF ARF GOP: packet layout "
+                             f"{[type(e).__name__ for e in encs]}")
+    _decodes_to_chain("CIF ARF GOP", pk, encs)
+    log(f"[4f] CIF ARF GOP of 6 (group 4): bytes {[len(p) for p in pk]} "
+        f"({gpu_s:.2f} s), CUDA == CPU plain packets, 6 display frames == "
+        f"their chains (the show_existing packets show the ARFs)")
+    ipp, _ = encode_video(frames, cfg, device=dev)
+    target = 0.8 * sum(map(len, ipp)) * 8 * 30.0 / len(frames)
+    for name, fn in (("CBR", encode_video_cbr), ("RC", encode_video_rc)):
+        got = fn(frames, target, fps=30.0, device=dev)
+        want = fn(frames, target, fps=30.0, device="cpu")
+        if got[0] != want[0] or got[2:] != want[2:]:
+            raise AssertionError(f"CIF {name}: CUDA packets / q differ from "
+                                 "the CPU plain path")
+        qs = got[2]
+        if len(set(qs)) < 2:
+            raise AssertionError(f"CIF {name}: q never moved {qs}")
+        _decodes_to_chain(f"CIF {name}", got[0], got[1])
+        rate = sum(map(len, got[0])) * 8 * 30.0 / len(frames)
+        log(f"[4f] CIF {name} at {target:.0f} b/s (0.8 x encode_video's at "
+            f"q100): qs {qs}, bytes {[len(p) for p in got[0]]}, achieved "
+            f"{rate:.0f} b/s; CUDA == CPU plain, decodes to the chain")
+
+
+def arf_gop_path(dev, kernels):
+    """Phase 5g: the 1080p ARF GOP (``make_gop(1920, 1080, 9)``, group 4:
+    11 packets) twice; the launch counts set to 0 just before the second
+    run and read just after; the second run equals the first."""
+    import numpy as np
+    import torch
+    from aom_av1_psy_tpu_torch.encoder.tpu_frame import EncoderConfig
+    from aom_av1_psy_tpu_torch.encoder.tpu_interframe import (
+        _ref_chain_planes, displayed_encoders, encode_video_arf)
+    from aom_av1_psy_tpu_torch.utils import testframes
+    frames = testframes.make_gop(1920, 1080, 9)
+    cfg = EncoderConfig(base_q_idx=100)
+    t0 = time.perf_counter()
+    warm, _ = encode_video_arf(frames, cfg, group=4, device=dev)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    _reset(kernels)
+    t0 = time.perf_counter()
+    pk, encs = encode_video_arf(frames, cfg, group=4, device=dev)
+    torch.cuda.synchronize()
+    gop_s = time.perf_counter() - t0
+    counts = _counts(kernels)
+    _need("1080p ARF GOP", counts, [k.name for k in kernels])
+    if pk != warm or len(pk) != 11:
+        raise AssertionError(f"1080p ARF GOP: {len(pk)} packets, second run "
+                             f"equal to the first: {pk == warm}")
+    shown = displayed_encoders(encs)
+    src = np.asarray(frames[4].planes()[0], np.float64)
+    rec = _ref_chain_planes(shown[4])[0].cpu().numpy()[:1080, :1920]
+    psnr = 10 * np.log10(255 ** 2 / max(float(((rec - src) ** 2).mean()),
+                                        1e-9))
+    if len(shown) != 9 or psnr < 30:
+        raise AssertionError(f"1080p ARF GOP: {len(shown)} display frames, "
+                             f"ARF luma PSNR {psnr:.2f}")
+    kinds = ["KEY" if i == 0 else "show_existing" if e is None else
+             "ARF" if not e.show else "P" for i, e in enumerate(encs)]
+    log(f"[5g] 1080p ARF GOP q100 (9 frames, group 4): warm-up "
+        f"{warm_s:.3f} s, GOP {gop_s:.3f} s, packets "
+        f"{[f'{k} {len(p)}' for k, p in zip(kinds, pk)]}; temporal filter "
+        f"KEY {encs[0].tf_s:.4f} s, ARFs "
+        f"{[round(e.tf_s, 4) for e, k in zip(encs, kinds) if k == 'ARF']} "
+        f"s; display frame 4 (the first ARF) luma PSNR {psnr:.3f} dB; "
+        f"second run == first")
+    log(f"[5g] launches in the ARF GOP: {json.dumps(counts)}")
+    return counts
+
+
+def rc_gop_paths(dev, rate_5b):
+    """Phase 5h: 1080p RC and CBR GOPs (``make_gop(1920, 1080, 5)``) at
+    0.8 x the rate phase 5b's GOP reached; q must move."""
+    import torch
+    from aom_av1_psy_tpu_torch.encoder.tpu_interframe import (
+        encode_video_cbr, encode_video_rc)
+    from aom_av1_psy_tpu_torch.utils import testframes
+    frames = testframes.make_gop(1920, 1080, 5)
+    target = 0.8 * rate_5b
+    for name, fn in (("RC", encode_video_rc), ("CBR", encode_video_cbr)):
+        t0 = time.perf_counter()
+        out = fn(frames, target, fps=30.0, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        qs = out[2]
+        if len(set(qs)) < 2:
+            raise AssertionError(f"1080p {name}: q never moved {qs}")
+        rate = sum(map(len, out[0])) * 8 * 30.0 / len(frames)
+        log(f"[5h] 1080p {name} at {target:.0f} b/s (0.8 x phase 5b's "
+            f"{rate_5b:.0f}): qs {qs}, bytes {[len(p) for p in out[0]]}, "
+            f"achieved {rate:.0f} b/s ({rate / target:.3f} of the target), "
+            f"GOP {wall:.3f} s")
 
 
 def main() -> int:
@@ -1273,8 +1528,10 @@ def main() -> int:
     from aom_av1_psy_tpu_torch.ops.mc import KD
     from aom_av1_psy_tpu_torch.ops.txq import KB
     from aom_av1_psy_tpu_torch.encoder.tune_vmaf import TV
+    from aom_av1_psy_tpu_torch.encoder.temporal_filter import KK
+    from aom_av1_psy_tpu_torch.ops.mvsearch import KJ
     from aom_av1_psy_tpu_torch.native import LIB_PATH, get_lib
-    kernels = (KA, KB, KC, KD, KE, KF)
+    kernels = (KA, KB, KC, KD, KE, KF, KJ, KK)
     t0 = time.perf_counter()
     build_all(kernels + (TV,))
     log(f"[2] built {', '.join(k.name for k in kernels + (TV,))} with nvcc "
@@ -1300,6 +1557,7 @@ def main() -> int:
     results += phase("3b", check_inter_kernels, dev)
     uniform_results = phase("3c", check_uniform_kernels, dev)
     vmaf_results = phase("3d", check_tune_vmaf_kernels, dev)
+    tf_results = phase("3e", check_tf_kernels, dev)
     if "--only-kernels" in sys.argv[1:]:
         return 0
     phase("4", closed_loop_cif, dev)
@@ -1307,14 +1565,17 @@ def main() -> int:
     phase("4c", closed_loop_tiles_cif, dev)
     phase("4d", closed_loop_uniform, dev)
     phase("4e", closed_loop_tune_vmaf_cif, dev)
+    phase("4f", closed_loop_gops_cif, dev)
     key_counts, frame, cfg, key_med, key_pkt, key_enc = phase(
         "5", main_path, dev, kernels[:3])
-    counts, frames, encs = phase("5b", gop_main_path, dev, kernels)
+    counts, frames, encs, rate_5b = phase("5b", gop_main_path, dev, kernels)
     tiled_counts = phase("5c", tiled_key_path, dev, kernels, key_med)
     uniform_counts = phase("5d", uniform_key_path, dev, kernels)
     phase("5e", search_cdef_path, dev)
     vmaf_counts, vmaf_gop_counts = phase("5f", tune_vmaf_path, dev,
                                          kernels + (TV,), key_pkt, key_enc)
+    arf_counts = phase("5g", arf_gop_path, dev, kernels)
+    phase("5h", rc_gop_paths, dev, rate_5b)
     phase("6", profile_frame, dev, frame, cfg)
     phase("6b", profile_p_frame, dev, frames, encs)
 
@@ -1323,6 +1584,7 @@ def main() -> int:
     own = {"intra_pred_sse": ("intra_pred bs8", "intra_pred bs16",
                               "intra_pred bs32"),
            "txq_recon_skip": ("txq bs8", "txq bs16", "txq bs32"),
+           "txq_recon_skip bs8 P chroma": ("txq bs8",),
            "intra_pred_sse bs4": ("intra_pred bs4",),
            "txq_recon bs4 no-skip": ("txq bs4 no-skip",),
            "txq_recon bs8 no-skip": ("txq bs8 no-skip",),
@@ -1332,7 +1594,7 @@ def main() -> int:
            "vif_scale": ("tune_vmaf vif_scale",),
            "vif_down2": ("tune_vmaf vif_down2",)}
     total = {"lpf_ladder": KC, "mc_8tap": KD, "fullpel_ssd": KE,
-             "cdef_filter": KF}
+             "cdef_filter": KF, "fullpel_sad": KJ, "tf_weight_accum": KK}
 
     def n(name, c):
         if name in total:
@@ -1349,8 +1611,13 @@ def main() -> int:
         r["launches"] = n(r["name"], vmaf_counts)
         r["launches_from"] = ("5f: 3 steady 1080p tune_vmaf KEY frames and "
                               "two vif_lite")
-    results += uniform_results + vmaf_results
+    for r in tf_results:
+        r["launches"] = n(r["name"], arf_counts)
+        r["launches_from"] = "5g: the 1080p ARF GOP (9 frames, group 4)"
+    results += uniform_results + vmaf_results + tf_results
     for r in results:
+        r["launches_ippp_gop"] = n(r["name"], counts)
+        r["launches_arf_gop"] = n(r["name"], arf_counts)
         r["launches_key_frame"] = n(r["name"], key_counts)
         r["launches_tiled_key_frames"] = n(r["name"], tiled_counts)
         r["launches_uniform_key_frames"] = n(r["name"], uniform_counts)

@@ -16,6 +16,7 @@ from aom_av1_psy_tpu.ops import cdef as HC
 from aom_av1_psy_tpu.ops import cdef_jax as DC
 from aom_av1_psy_tpu_torch.encoder import tpu_frame as TF
 from aom_av1_psy_tpu_torch.ops import cdef_torch as TC
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _t(a):

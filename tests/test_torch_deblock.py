@@ -19,6 +19,7 @@ from aom_av1_psy_tpu_torch.encoder.frame import EncoderConfig
 from aom_av1_psy_tpu_torch.encoder.tpu_frame import GpuFrameEncoder
 from aom_av1_psy_tpu_torch.ops import deblock_torch as DT
 from test_tpu_encoder import make_frame
+from torch_threads import one_torch_thread  # noqa: F401
 
 CASES = [(96, 64, 60, 6), (128, 128, 100, 9), (176, 144, 200, 6)]
 

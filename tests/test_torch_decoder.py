@@ -14,6 +14,7 @@ import pytest
 
 from aom_av1_psy_tpu_torch.decoder.obu import decode_ivf
 from aom_av1_psy_tpu_torch.errors import Av1UnsupportedBitstreamError
+from torch_threads import one_torch_thread  # noqa: F401
 
 HERE = os.path.join(os.path.dirname(__file__), "golden", "streams")
 

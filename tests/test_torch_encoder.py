@@ -26,6 +26,7 @@ from aom_av1_psy_tpu_torch import convert
 from aom_av1_psy_tpu_torch.device import resolve_device
 from aom_av1_psy_tpu_torch.encoder.tpu_frame import GpuFrameEncoder
 from test_tpu_encoder import make_frame
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def encode_both(f, cfg):

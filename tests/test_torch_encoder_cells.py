@@ -8,6 +8,7 @@ import pytest
 from aom_av1_psy_tpu.encoder.frame import EncoderConfig
 from test_torch_encoder import assert_decodes_to_recon, encode_both
 from test_tpu_encoder import make_frame
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("w,h,q,bsz", [(128, 128, 100, 9),

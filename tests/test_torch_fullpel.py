@@ -11,6 +11,7 @@ import torch
 
 from aom_av1_psy_tpu.encoder import tpu_inter as JI
 from aom_av1_psy_tpu_torch.ops import fullpel as FP
+from torch_threads import one_torch_thread  # noqa: F401
 
 H, W = 112, 160
 CROP_H, CROP_W = 106, 150

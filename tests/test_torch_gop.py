@@ -30,6 +30,7 @@ from aom_av1_psy_tpu_torch.encoder.tpu_frame import GpuFrameEncoder
 from aom_av1_psy_tpu_torch.encoder.tpu_interframe import (
     GpuInterFrameEncoder, _ref_chain_planes, encode_video)
 from test_tpu_inter import panning
+from torch_threads import one_torch_thread  # noqa: F401
 
 PLAN_KEYS = ("split32", "mv8", "y_levels32", "y_levels16", "y_eob32",
              "y_eob16", "uv_levels16", "uv_levels8", "uv_eob16", "uv_eob8")

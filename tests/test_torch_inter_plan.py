@@ -14,6 +14,7 @@ from test_torch_gop import (assert_decodes_to_chain, assert_same_frames,
                             assert_same_plan, encode_both,
                             plans_from_jax_key)
 from test_tpu_inter import panning
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -11,6 +11,7 @@ from aom_av1_psy_tpu.utils.frame import Frame
 from test_torch_gop import (assert_decodes_to_chain, assert_same_frames,
                             assert_same_plan, encode_both,
                             plans_from_jax_key)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def fast_pan():

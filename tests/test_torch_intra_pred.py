@@ -15,6 +15,7 @@ from aom_av1_psy_tpu.encoder import tpu_intra_dir as JDIR
 from aom_av1_psy_tpu_torch.encoder import tpu_intra as TTI
 from aom_av1_psy_tpu_torch.encoder import tpu_intra_dir as TDIR
 from aom_av1_psy_tpu_torch.ops import intra_pred as IP
+from torch_threads import one_torch_thread  # noqa: F401
 
 # every (have_a, have_l, trreal, blreal) combination, one block each
 COMBOS = np.array(list(itertools.product((0, 1), repeat=4)), bool)

@@ -15,6 +15,7 @@ from aom_av1_psy_tpu.encoder import tpu_inter as JI
 from aom_av1_psy_tpu.ops import convolve as CONV
 from aom_av1_psy_tpu_torch.encoder import tpu_inter as TI
 from aom_av1_psy_tpu_torch.ops import mc as MC
+from torch_threads import one_torch_thread  # noqa: F401
 
 H, W = 96, 128          # padded plane
 CROP_H, CROP_W = 90, 117  # true crop: clamps stop short of the padding

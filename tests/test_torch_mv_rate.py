@@ -11,6 +11,7 @@ import torch
 from aom_av1_psy_tpu.encoder import tpu_inter as JI
 from aom_av1_psy_tpu_torch.encoder import tpu_inter as TI
 from aom_av1_psy_tpu_torch.encoder.mv_rate_proxy import MV_RATE_PROXY, S_MAX
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _splits():

@@ -11,6 +11,7 @@ from aom_av1_psy_tpu.encoder.frame import EncoderConfig
 from test_torch_encoder import assert_decodes_to_recon, encode_both
 from test_torch_gop import edges
 from test_tpu_encoder import make_frame
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def strengths(enc):

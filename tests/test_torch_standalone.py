@@ -1,8 +1,8 @@
 """The port stands alone: no module of ``aom_av1_psy_tpu_torch`` and not
 ``chip_smoke.py`` imports jax, the reference package ``aom_av1_psy_tpu``
 (or a submodule) or ``bench``; a fresh interpreter that encodes a KEY
-frame, a 3-frame GOP and a tune_vmaf frame through the port has loaded
-none of them (one interpreter, a case per stage); the port's test content
+frame, a 3-frame GOP, a tune_vmaf frame and a 4-frame ARF GOP through the
+port has loaded none of them (one interpreter, a case per stage); the port's test content
 equals ``bench``'s; its own range coder build lives beside the reference's
 in one process; and ``convert`` carries the reference's objects into the
 port's classes.
@@ -60,14 +60,15 @@ def test_no_import_of_jax_reference_or_bench(path):
 # one fresh interpreter encodes through the port alone: after each stage it
 # prints the stage, its bytes and the loaded modules of jax, the reference
 # package and bench (a KEY frame with flat chroma, a 3-frame GOP, a
-# tune_vmaf frame)
-_STAGES = ("key", "gop", "tune_vmaf")
+# tune_vmaf frame, an ARF GOP with its temporal filters)
+_STAGES = ("key", "gop", "tune_vmaf", "arf")
 _ENCODES = """
 import dataclasses, json, sys
 import numpy as np
 from aom_av1_psy_tpu_torch.encoder.frame import EncoderConfig
 from aom_av1_psy_tpu_torch.encoder.tpu_frame import GpuFrameEncoder
-from aom_av1_psy_tpu_torch.encoder.tpu_interframe import encode_video
+from aom_av1_psy_tpu_torch.encoder.tpu_interframe import (encode_video,
+                                                          encode_video_arf)
 from aom_av1_psy_tpu_torch.utils.frame import Frame
 from aom_av1_psy_tpu_torch.utils.testframes import make_frame, make_gop
 
@@ -88,6 +89,10 @@ enc = GpuFrameEncoder(make_frame(96, 64, seed=3),
                       device="cpu")
 n = len(enc.encode())
 report("tune_vmaf", n if enc.vmaf_unsharp_amount > 0 else 0)
+pk, encs = encode_video_arf(make_gop(64, 64, 4), EncoderConfig(base_q_idx=150),
+                            group=3, device="cpu")
+report("arf", sum(map(len, pk)) if encs[-1] is None and encs[1].tf_s
+       else 0)
 """
 
 

@@ -22,6 +22,7 @@ from aom_av1_psy_tpu_torch.parallel.mesh import tile_plans_batched
 from test_multichip import _frame
 from test_torch_encoder import assert_decodes_to_recon, encode_both
 from test_torch_wavefront import assert_plans_equal
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def assert_same_tile_plans(want, got):

@@ -8,6 +8,7 @@ from aom_av1_psy_tpu.encoder.frame import EncoderConfig
 from test_multichip import _frame
 from test_torch_encoder import assert_decodes_to_recon, encode_both
 from test_torch_tiles import check_tiled
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_tiled_240x64_partial_last_tile_matches_jax():

@@ -9,6 +9,7 @@ from aom_av1_psy_tpu.encoder.frame import EncoderConfig
 from test_tpu_inter import panning
 from test_torch_gop import assert_decodes_to_chain, assert_same_frames, \
     encode_both
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_tiled_key_gop_matches_jax():

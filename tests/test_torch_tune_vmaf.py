@@ -18,6 +18,7 @@ from aom_av1_psy_tpu.encoder import tune_vmaf as JT
 from aom_av1_psy_tpu_torch.encoder import tune_vmaf as TT
 from test_tune_vmaf import _src
 from tune_vmaf_cases import fma_cases
+from torch_threads import one_torch_thread  # noqa: F401
 
 VIF_RTOL = 1e-4
 

@@ -12,6 +12,7 @@ from aom_av1_psy_tpu.encoder.frame import EncoderConfig
 from aom_av1_psy_tpu.utils.frame import Frame
 from test_torch_gop import assert_decodes_to_chain, assert_same_frames, \
     encode_both
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def smooth_pan(n):

@@ -15,6 +15,7 @@ from aom_av1_psy_tpu.encoder.frame import EncoderConfig
 from aom_av1_psy_tpu.utils.frame import Frame
 from test_torch_encoder import assert_decodes_to_recon, encode_both, \
     smooth_frame
+from torch_threads import one_torch_thread  # noqa: F401
 
 CFG = EncoderConfig(base_q_idx=100, tune_vmaf=True)
 

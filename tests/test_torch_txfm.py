@@ -17,6 +17,7 @@ from aom_av1_psy_tpu_torch import convert
 from aom_av1_psy_tpu_torch.encoder import tpu_intra as TTI
 from aom_av1_psy_tpu_torch.ops import txfm as TTX
 from aom_av1_psy_tpu_torch.ops import txq as TQ
+from torch_threads import one_torch_thread  # noqa: F401
 
 TX = {4: 0, 8: 1, 16: 2, 32: 3}    # TX_4X4, TX_8X8, TX_16X16, TX_32X32
 TYPES = [(8, t) for t in range(4)] + [(16, t) for t in range(4)] + [(32, 0)] \

@@ -21,6 +21,7 @@ from aom_av1_psy_tpu_torch.encoder.tpu_frame import GpuFrameEncoder, \
     _pad_plane
 from test_tpu_encoder import make_frame
 from test_torch_wavefront import assert_plans_equal
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def padded(f, h, w):

@@ -22,6 +22,7 @@ from aom_av1_psy_tpu_torch.encoder.tpu_interframe import (_ref_chain_planes,
 from test_tpu_encoder import make_frame
 from test_tpu_inter import panning
 from test_torch_encoder import encode_both
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def assert_decodes_to_host_lpf(data, enc):

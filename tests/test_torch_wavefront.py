@@ -20,6 +20,7 @@ from aom_av1_psy_tpu_torch.ec.context import FrameContext as TFC
 from aom_av1_psy_tpu_torch.encoder import tpu_intra as TTI
 from aom_av1_psy_tpu_torch.encoder.tpu_frame import GpuFrameEncoder
 from test_tpu_encoder import make_frame
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def plans(w, h, q, bsz, **cfg_kw):

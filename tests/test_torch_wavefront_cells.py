@@ -7,6 +7,7 @@ import pytest
 from aom_av1_psy_tpu_torch.ec.context import FrameContext
 from aom_av1_psy_tpu_torch.encoder import tpu_intra as TTI
 from test_torch_wavefront import assert_plans_equal, plans
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_plan_128x128_q100_bs32():
