@@ -19,7 +19,11 @@ Exactness (each held by ``tests/test_torch_temporal_filter.py``):
   block's squared errors, ``:22-30``), never reading a neighbouring block;
 - chroma adds the 2x2 sums of the same block's luma squared errors and
   divides by 25 + 4; the subblock index uses each plane's own h//2, w//2;
-- the weight is float64 in the reference's order, no FMA;
+- the weight is float64 in the reference's order, no FMA, up to the
+  truncation of ``exp(-scaled) * 1000``, which is a lookup in the host's
+  ``np.exp`` thresholds (``weight_thresholds``) on both versions: CUDA's
+  ``exp`` gave another integer than numpy's at 276 of the 101002 values
+  within 50 ulp of the 1000 truncation boundaries (on an H100);
   ``weight_factor``, ``inv_factor`` and ``decay[plane]`` (``np.log``) are
   made on the host as ``:46-55`` makes them, and ``d_factor`` comes from
   the host's ``np.hypot`` (``:57-62``) as a per-frame table indexed by the
@@ -28,6 +32,8 @@ Exactness (each held by ``tests/test_torch_temporal_filter.py``):
   prediction's origin is clamped with an arithmetic ``>>`` (``:145-148``).
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -50,7 +56,10 @@ FILL = 128               # the search window outside the frame (:131)
 KK = CudaKernel("temporal_filter", {
     # ref0..2, pred0..2, accum0..2, count0..2, H, W, Hc, Wc, B, nbx, mb,
     # ss_x, ss_y, org, mses, dfac, decay0..2, weight_factor, inv_factor
-    "tf_weight_accum": [P] * 12 + [I] * 9 + [P, P, P] + [D] * 5,
+    # ..., thresholds
+    "tf_weight_accum": [P] * 12 + [I] * 9 + [P, P, P] + [D] * 5 + [P],
+    # scaled, n, thresholds, weight
+    "tf_weight_sweep": [P, I, P, P],
 })
 
 
@@ -141,6 +150,81 @@ def _window_sum(sq, half: int):
     return out
 
 
+@functools.cache
+def weight_thresholds() -> np.ndarray:
+    """(1000,) float64, ascending: entry 1000 - k is the largest ``scaled``
+    whose weight ``np.exp(-scaled) * 1000`` (``:92``) is still >= k, found
+    by bisection over the float64 bit patterns with the host's ``np.exp``.
+    The weight of ``scaled`` in [0, 7] is then the count of entries >= it,
+    on the host, in the plain version and in KK alike."""
+    k = np.arange(1, TF_WEIGHT_SCALE + 1, dtype=np.float64)
+
+    def holds(bits):
+        return np.exp(-bits.view(np.float64)) * TF_WEIGHT_SCALE >= k
+
+    # + 0.0: k = 1000 starts at +0, whose bit pattern orders with the rest
+    lo = (-np.log(k / TF_WEIGHT_SCALE) + 0.0).view(np.int64).copy()
+    for _ in range(64):                  # step down to a value that holds
+        bad = ~holds(lo)
+        if not bad.any():
+            break
+        lo[bad] -= 1
+    # exp(-hi) * 1000 is about k - 1/2 < k: the weight is below k there
+    hi = (-np.log((k - 0.5) / TF_WEIGHT_SCALE)).view(np.int64).copy()
+    if not holds(lo).all() or holds(hi).any():
+        raise ArithmeticError("np.exp brackets no truncation boundary")
+    while (hi - lo > 1).any():
+        mid = lo + (hi - lo) // 2
+        ok = holds(mid)
+        lo = np.where(ok, mid, lo)
+        hi = np.where(ok, hi, mid)
+    return lo.view(np.float64)[::-1].copy()
+
+
+@functools.cache
+def _thresholds_on(device: str):
+    return torch.as_tensor(weight_thresholds(), device=device)
+
+
+def tf_weight_plain(scaled):
+    """The int64 weight of float64 ``scaled`` values in [0, 7], the
+    reference's ``(np.exp(-scaled) * 1000).astype(np.int64)`` (``:92``):
+    the count of ``weight_thresholds`` at or above each value."""
+    t = _thresholds_on(str(scaled.device))
+    return TF_WEIGHT_SCALE - torch.searchsorted(t, scaled.contiguous())
+
+
+def tf_weight(scaled):
+    """``tf_weight_plain``'s weights. CPU tensors: the plain version; CUDA
+    tensors: KK's own weight function (entry ``tf_weight_sweep``), which
+    the tests hold against ``np.exp`` at every truncation boundary."""
+    if scaled.device.type == "cpu":
+        return tf_weight_plain(scaled)
+    scaled = scaled.to(torch.float64).contiguous()
+    out = torch.empty(scaled.shape, dtype=torch.int64, device=scaled.device)
+    KK.launch("tf_weight_sweep", scaled.data_ptr(), scaled.numel(),
+              _thresholds_on(str(scaled.device)).data_ptr(), out.data_ptr(),
+              variant="sweep")
+    return out
+
+
+def weight_boundary_values(ulps: int = 50) -> np.ndarray:
+    """float64 ``scaled`` values at every truncation boundary of the
+    weight: for k = 1..1000 the 2 * ulps + 1 values within ``ulps`` ulp of
+    -log(k / 1000), and the end points 0 and 7 (the sweep that holds KK's
+    weight against numpy's)."""
+    vals = [np.array([0.0, 7.0])]
+    for k in range(1, 1001):
+        v = -np.log(k / 1000.0)
+        for _ in range(ulps):
+            v = np.nextafter(v, -np.inf)
+        run = [v]
+        for _ in range(2 * ulps):
+            run.append(np.nextafter(run[-1], np.inf))
+        vals.append(np.array(run))
+    return np.concatenate(vals)
+
+
 def tf_weight_accum_plain(ref, pred, org, mses, dfac, params, ss_x: int,
                           ss_y: int, mb: int, accum, count) -> None:
     """Plain version of KK: every block of one frame's weighted
@@ -192,7 +276,7 @@ def tf_weight_accum_plain(ref, pred, org, mses, dfac, params, ss_x: int,
             combined = weight_factor * window_error + block_error * inv_factor
             scaled = (combined * dfac[idx][:, sub].reshape(-1, ph, pw)
                       * decay[p]).clamp(max=7.0)
-            weight = (torch.exp(-scaled) * TF_WEIGHT_SCALE).to(torch.int64)
+            weight = tf_weight_plain(scaled)
             rows = ((by >> sy)[:, None]
                     + torch.arange(ph, device=dev)[None])[:, :, None]
             cols = ((bx >> sx)[:, None]
@@ -240,7 +324,7 @@ def tf_weight_accum(ref, pred, org, mses, dfac, params, ss_x: int,
               *(t.data_ptr() for t in (*ref, *pred, *accum, *count)),
               H, W, Hc, Wc, B, nbx, mb, ss_x, ss_y, org.data_ptr(),
               mses.data_ptr(), dfac.data_ptr(), *decay, weight_factor,
-              inv_factor)
+              inv_factor, _thresholds_on(str(ref[0].device)).data_ptr())
 
 
 # ---------------------------------------------------------------------------

@@ -904,3 +904,13 @@ def apply_cdef_refs(planes_dev, mi_skip, fh: FrameHeader, mi_rows: int,
             c.uv_pri, c.uv_sec = [0], [0]
             return planes_dev
     return list(outs)
+
+
+def encode_ivf(frames: list, cfg: EncoderConfig, path: str,
+               device="cuda") -> None:
+    """All-intra IVF file: every frame a KEY frame of ``GpuFrameEncoder``
+    (the reference's ``encode_ivf_tpu``, ``tpu_frame.py:949-952``)."""
+    packets = [GpuFrameEncoder(f, cfg, device=device).encode()
+               for f in frames]
+    from ..bitstream.containers import write_ivf
+    write_ivf(path, packets, frames[0].width, frames[0].height)

@@ -2,8 +2,9 @@
 
 Route: ``nvcc`` compiles each ``csrc/<name>.cu`` (a plain C interface, no
 PyTorch headers) into ``build/aom_av1_psy_tpu_torch/lib<name>.so`` at first
-use, and ``ctypes`` loads it. A library is rebuilt when its source or the
-shared header is newer (the same rule as the native range coder's build).
+use, and ``ctypes`` loads it. A library is rebuilt when its source or a
+shared header (``csrc/*.cuh``) is newer (the same rule as the native range
+coder's build).
 Pointers come from ``tensor.data_ptr()`` and the stream from
 ``torch.cuda.current_stream().cuda_stream``. Every C entry point launches on
 that stream, does not synchronise, and returns ``cudaGetLastError()``;
@@ -25,7 +26,6 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build",
                          "aom_av1_psy_tpu_torch")
-_COMMON = os.path.join(CSRC, "common.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
@@ -45,7 +45,9 @@ def nvcc_path() -> str:
 
 
 class CudaKernel:
-    """One ``csrc/<name>.cu`` library.
+    """One kernel of the ``csrc/<source>.cu`` library (``source`` defaults
+    to ``name``; two kernels of one file are two objects with their own
+    names and counts).
 
     ``entry_points`` maps each C function to its ctypes argument types (the
     stream is the last argument of every one). ``launches`` counts the
@@ -53,8 +55,9 @@ class CudaKernel:
     again by the label the wrapper passes (block size, mode), so a caller
     can tell which instance of a kernel ran."""
 
-    def __init__(self, name: str, entry_points: dict):
+    def __init__(self, name: str, entry_points: dict, source: str = ""):
         self.name = name
+        self.source_name = source or name
         self.entry_points = entry_points
         self.launches = 0
         self.variants = collections.Counter()
@@ -63,18 +66,20 @@ class CudaKernel:
 
     @property
     def source(self) -> str:
-        return os.path.join(CSRC, self.name + ".cu")
+        return os.path.join(CSRC, self.source_name + ".cu")
 
     @property
     def lib_path(self) -> str:
-        return os.path.join(BUILD_DIR, f"lib{self.name}.so")
+        return os.path.join(BUILD_DIR, f"lib{self.source_name}.so")
 
     def stale(self) -> bool:
         if not os.path.exists(self.lib_path):
             return True
         built = os.path.getmtime(self.lib_path)
+        headers = [os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                   if f.endswith(".cuh")]
         return any(os.path.getmtime(s) > built
-                   for s in (self.source, _COMMON))
+                   for s in (self.source, *headers))
 
     def start_build(self) -> subprocess.Popen:
         os.makedirs(BUILD_DIR, exist_ok=True)
@@ -121,9 +126,13 @@ class CudaKernel:
 
 
 def build_all(kernels) -> None:
-    """Compile every stale library at once (one nvcc process each)."""
-    procs = [(k, k.start_build()) for k in kernels if k.stale()]
-    for k, p in procs:
+    """Compile every stale library at once (one nvcc process each, one per
+    source file however many kernels it holds)."""
+    procs = {}
+    for k in kernels:
+        if k.lib_path not in procs and k.stale():
+            procs[k.lib_path] = (k, k.start_build())
+    for k, p in procs.values():
         k.finish_build(p)
     for k in kernels:
         k.lib()

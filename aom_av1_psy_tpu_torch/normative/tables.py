@@ -26,9 +26,18 @@ def _npz():
     return np.load(_DATA)
 
 
+@functools.cache
+def _arrays() -> dict:
+    """Every table, read from the archive once (an ``NpzFile`` reads and
+    parses its member again at each access)."""
+    z = _npz()
+    return {k: z[k] for k in z.files}
+
+
 def get(name: str) -> np.ndarray:
-    """Fetch a table by name (see tools/dump_tables.c for the inventory)."""
-    return _npz()[name]
+    """Fetch a table by name (see tools/dump_tables.c for the inventory): a
+    copy, as the archive gave each caller its own array to adapt."""
+    return _arrays()[name].copy()
 
 
 @functools.cache

@@ -24,8 +24,15 @@ cost grid is made on the host (numpy float32, as the reference's numpy
 branch; its jnp branch gives the same grids at radius 3-32, weights 1-13)
 and added to the SAD as an int32 table.
 
-``subpel_refine`` and ``batched_subpel_refine`` stay numpy: they run the
-convolve's numpy branch, whose device counterpart is a later slice.
+``subpel_refine`` and ``batched_subpel_refine`` take numpy arrays (the
+host branch, the reference's numpy code) or tensors (the counterpart of
+its jnp branch). On tensors ``subpel_refine`` scores each level's 9
+neighbours with one ``convolve.subpel_predict`` (kernel KL on the card)
+and an int64 SAD, and moves the centre on the host; kernel KM
+``subpel_refine49`` (``csrc/mvsearch.cu``) replaces the jnp branch of
+``batched_subpel_refine`` (``aom_av1_psy_tpu/ops/mvsearch.py:195-223``):
+the 49-point quarter-pel lattice, each candidate through the facade path
+its phases select, the SAD and the first-index argmin.
 """
 from __future__ import annotations
 
@@ -39,6 +46,10 @@ KJ = CudaKernel("mvsearch", {
     # src, win, B, h, w, wh, ww, m, stride, cost, best_idx, best_sad
     "fullpel_sad": [P, P, I, I, I, I, I, I, I, P, P, P],
 })
+KM = CudaKernel("subpel_refine49", {
+    # src, win, B, w, h, tabx, taby, bd, best_idx, best_sad
+    "subpel_refine49": [P, P, I, I, I, P, P, I, P, P],
+}, source="mvsearch")
 
 # blocks per chunk of the plain version: (chunk, h, m, w) int32 per row
 # offset, 138 MB at 1024 blocks of 32x32 and m = 33
@@ -46,7 +57,7 @@ _CHUNK = 1024
 
 
 def _xp(x):
-    """numpy, the only array type of the host subpel helpers."""
+    """numpy, the array type of the host branches."""
     if isinstance(x, np.ndarray):
         return np
     raise TypeError(f"numpy array expected, got {type(x).__name__}")
@@ -200,7 +211,7 @@ def full_pel_hierarchical(src_blocks, ref_windows, radius: int,
 
 
 # ---------------------------------------------------------------------------
-# Subpel refinement (host numpy)
+# Subpel refinement
 # ---------------------------------------------------------------------------
 
 _NEIGH8 = np.array([(-1, -1), (-1, 0), (-1, 1),
@@ -234,6 +245,9 @@ def subpel_refine(src_block, ref_padded, mv_fullpel, levels: int = 3,
                 this full-pel part.
     Returns ((mv8_r, mv8_c), best_sad).
     """
+    if torch.is_tensor(src_block):
+        return _subpel_refine_tensor(src_block, ref_padded, mv_fullpel,
+                                     levels, interp)
     h, w = src_block.shape
     src = src_block.astype(np.int64)
     # work in 1/8-pel units relative to ref_padded origin + 1 full pel
@@ -265,7 +279,13 @@ def batched_subpel_refine(src_blocks, ref_windows, mvs_fullpel,
 
     src_blocks (B,h,w); ref_windows (B,h+9,w+9) centered so [4,4] is the
     full-pel winner minus the tap offset. Returns (B,2) 1/8-pel MVs and
-    (B,) SADs."""
+    (B,) SADs. Tensors: KM on the card, the plain version on the CPU
+    (int32 results either way)."""
+    if torch.is_tensor(src_blocks):
+        best, best_sad = subpel_refine49(src_blocks, ref_windows, interp)
+        mvtab = torch.as_tensor(_LATTICE49, device=src_blocks.device)
+        mv8 = mvs_fullpel.to(torch.int32) * 8 + mvtab[best]
+        return mv8.to(torch.int32), best_sad.to(torch.int32)
     xp = _xp(src_blocks)
     B, h, w = src_blocks.shape
     src = src_blocks.astype(xp.int32)
@@ -286,3 +306,90 @@ def batched_subpel_refine(src_blocks, ref_windows, mvs_fullpel,
     mv8 = mvs_fullpel * 8 + mvtab[best]
     best_sad = xp.take_along_axis(sads, best[:, None], axis=1)[:, 0]
     return mv8.astype(xp.int32), best_sad.astype(xp.int32)
+
+
+def _subpel_refine_tensor(src_block, ref_padded, mv_fullpel, levels, interp):
+    """``subpel_refine`` on tensors: per level one ``subpel_predict`` of the
+    9 neighbours (KL on the card) and their int64 SADs; the centre and
+    ``best`` move on the host by the reference's rules."""
+    h, w = src_block.shape
+    dev = src_block.device
+    src = src_block.to(torch.int64)
+    cur_r, cur_c = 8, 8
+    best = None
+    step = 4
+    for _ in range(levels):
+        r8 = [cur_r + int(dr) * step for dr, _ in _NEIGH8]
+        c8 = [cur_c + int(dc) * step for _, dc in _NEIGH8]
+        regs = torch.stack([ref_padded[r >> 3:(r >> 3) + h + 7,
+                                       c >> 3:(c >> 3) + w + 7]
+                            for r, c in zip(r8, c8)]).to(torch.int32)
+        ph = torch.tensor([[(c & 7) << 1 for c in c8],
+                           [(r & 7) << 1 for r in r8]], dtype=torch.int32,
+                          device=dev)
+        p = C.subpel_predict(regs, w, h, ph[0], ph[1], interp, interp)
+        preds = (p.to(torch.int64) - src).abs().sum((1, 2)).tolist()
+        k = int(np.argmin(preds))
+        if best is None or preds[k] <= best:
+            best = preds[k]
+        cur_r += int(_NEIGH8[k, 0]) * step
+        cur_c += int(_NEIGH8[k, 1]) * step
+        step >>= 1
+    mv8_r = (mv_fullpel[0] - 1) * 8 + cur_r
+    mv8_c = (mv_fullpel[1] - 1) * 8 + cur_c
+    return (int(mv8_r), int(mv8_c)), int(best)
+
+
+# the 49 lattice points of batched_subpel_refine, dr-major: (2*dr, 2*dc)
+_LATTICE49 = np.array([(2 * dr, 2 * dc) for dr in range(-3, 4)
+                       for dc in range(-3, 4)], np.int32)
+
+
+def subpel_refine49_plain(src_blocks, ref_windows,
+                          interp: int = C.EIGHTTAP_REGULAR):
+    """Plain version of KM, whatever the tensors' device: the reference's
+    49-candidate loop (``predict_subpel_plain`` per lattice point, int64
+    SADs). src_blocks (B, h, w), ref_windows (B, h+9, w+9). Returns (index
+    into the lattice (B,) int64, first on ties; SAD (B,) int64)."""
+    B, h, w = src_blocks.shape
+    src = src_blocks.to(torch.int64)
+    sads = []
+    for dr, dc in _LATTICE49 // 2:
+        r8, c8 = 8 + 2 * int(dr), 8 + 2 * int(dc)
+        reg = ref_windows[:, r8 >> 3:(r8 >> 3) + h + 7,
+                          c8 >> 3:(c8 >> 3) + w + 7]
+        p = C.predict_subpel_plain(reg, w, h, (c8 & 7) << 1, (r8 & 7) << 1,
+                                   interp, interp)
+        sads.append((p.to(torch.int64) - src).abs().sum((-1, -2)))
+    sads = torch.stack(sads, 1)
+    best = sads.argmin(1)
+    return best, sads.gather(1, best[:, None])[:, 0]
+
+
+def subpel_refine49(src_blocks, ref_windows, interp: int = C.EIGHTTAP_REGULAR):
+    """``subpel_refine49_plain``'s (index, SAD). CPU tensors: the plain
+    version; CUDA tensors: kernel KM (int32 blocks (B, h, w) with w, h in
+    {4, 8, 16, 32, 64}, windows (B, >= h+9, >= w+9))."""
+    if src_blocks.device.type == "cpu":
+        return subpel_refine49_plain(src_blocks, ref_windows, interp)
+    B, h, w = src_blocks.shape
+    if w not in (4, 8, 16, 32, 64) or h not in (4, 8, 16, 32, 64):
+        raise ValueError(f"KM: block {w}x{h} not in 4..64")
+    if ref_windows.shape[0] != B or ref_windows.shape[1] < h + 9 or \
+            ref_windows.shape[2] < w + 9:
+        raise ValueError(f"KM: windows {tuple(ref_windows.shape)} too small "
+                         f"for blocks {tuple(src_blocks.shape)}")
+    for t in (src_blocks, ref_windows):
+        if t.device != src_blocks.device or t.dtype != torch.int32:
+            raise ValueError(f"KM input: want int32 on {src_blocks.device}, "
+                             f"got {t.dtype} on {t.device}")
+    src = src_blocks.contiguous()
+    win = ref_windows[:, :h + 9, :w + 9].contiguous()
+    dev = str(src.device)
+    tx, ty = C._tap_table(interp, w, dev), C._tap_table(interp, h, dev)
+    idx = torch.empty((B,), dtype=torch.int32, device=src.device)
+    sad = torch.empty((B,), dtype=torch.int32, device=src.device)
+    KM.launch("subpel_refine49", src.data_ptr(), win.data_ptr(), B, w, h,
+              tx.data_ptr(), ty.data_ptr(), 8, idx.data_ptr(), sad.data_ptr(),
+              variant=f"{w}x{h}")
+    return idx.long(), sad.long()

@@ -41,3 +41,25 @@ def make_gop(w: int, h: int, n: int, seed: int = 1) -> list:
         v = np.full((h // 2, w // 2), 135, np.uint8)
         frames.append(Frame(y.astype(np.uint8), u, v))
     return frames
+
+
+def panning_frames(w: int, h: int, n: int, seed: int = 3) -> list:
+    """Textured scene panning 2 px/frame horizontally, 1 px vertically: the
+    arrays of the reference's inter-encoder tests
+    (``tests/test_inter_encode.py``), which its closed loops run."""
+    rng = np.random.default_rng(seed)
+    pad = 4 * n
+    base = rng.integers(0, 256, (h + pad, w + pad)).astype(np.float32)
+    # low-pass so motion search has gradients to lock onto
+    k = np.ones(7) / 7
+    base = np.apply_along_axis(lambda r: np.convolve(r, k, "same"), 1, base)
+    base = np.apply_along_axis(lambda c: np.convolve(c, k, "same"), 0, base)
+    base = base.clip(0, 255).astype(np.uint8)
+    out = []
+    for i in range(n):
+        y = base[i : i + h, 2 * i : 2 * i + w].copy()
+        cw, ch = (w + 1) // 2, (h + 1) // 2
+        u = np.full((ch, cw), 90 + i, np.uint8)
+        v = np.full((ch, cw), 150 - i, np.uint8)
+        out.append(Frame(y, u, v))
+    return out

@@ -12,8 +12,9 @@ exit code is not 0):
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
 2. build the hand-written kernels from ``csrc/`` with nvcc (sm_90a), one
    nvcc process per source, all started together (KA-KF, KG/KH/KI in
-   ``tune_vmaf.cu``, KJ ``mvsearch.cu``, KK ``temporal_filter.cu``), and the
-   native range coder (``native/ec.cpp``, g++);
+   ``tune_vmaf.cu``, KJ and KM ``mvsearch.cu``, KK ``temporal_filter.cu``,
+   KL ``convolve.cu``, KN and KO ``metrics.cu``), and the native range
+   coder (``native/ec.cpp``, g++);
 3. KA / KB / KC against their plain PyTorch versions on the card, at the
    shapes the 1080p KEY frame gives them, for exact equality, with both
    times (CUDA events);
@@ -33,7 +34,16 @@ exit code is not 0):
    (``make_gop(1920, 1080, 5)``, centre 2): KJ exact on the 32x32 blocks
    and on the 24-tall bottom row, ``full_pel_hierarchical`` (radius 16,
    step 4) equal to the CPU plain path, KK exact against the plain version
-   on the card and on CPU tensors; kernel, plain and bound times;
+   on the card and on CPU tensors; kernel, plain and bound times; KK's
+   weight against ``np.exp`` at every truncation boundary (101 values
+   within 50 ulp of each of the 1000, and 0 and 7);
+3f. KL (subpel prediction), KM (the 49-point subpel refine), KN (the
+   metric reducers) and KO (8x8 Hadamard / satd) against their plain
+   versions at the 1080p P-frame's block grid (16x16, B = 8160): KL at
+   every path and interp filter, also at 8x8 and 4x4; KN at 16x16, 8x8
+   and 4x4; KO on 4 x 8160 8x8 residuals; exact; kernel (CUDA events
+   around the wrapper, and ``device_ms``: the kernel alone under the
+   profiler), plain, bound and library times;
 4. closed loop at CIF (352x288), KEY frame: the CUDA stream equals the
    port's CPU (plain-path) stream byte for byte, and the in-repo decoder
    reconstructs the port's post-loop-filter planes exactly;
@@ -53,6 +63,10 @@ exit code is not 0):
    q100): CUDA == CPU plain (packets, q, trace), q moves, and every
    displayed frame decodes to its encoder's chain (the non-shown ARF
    displays through its show_existing packet);
+4g. the host inter encoder (``encoder/interframe.encode_video``) on
+   ``panning_frames(96, 72, 3)`` at q120: CUDA == CPU plain packets and
+   recons, every frame decodes to its recon, the launch counts (1 KJ + 3
+   KL per inter block) read around the CUDA run;
 5. the KEY path: ``GpuFrameEncoder.encode()`` of the 1920x1080 test
    frame (``utils/testframes.make_frame``, the arrays of ``bench.py``'s) at
    ``base_q_idx=100`` — a first frame and 3 steady frames — with the launch
@@ -87,25 +101,35 @@ exit code is not 0):
    time for the KEY frame and each ARF, the GOP wall;
 5h. 1080p RC and CBR GOPs (``make_gop(1920, 1080, 5)``) at 0.8 x the rate
    of phase 5b's GOP: q, bytes, achieved rate and wall; q must move;
+5i. the main path of slice 6 at full width: frame 1 of ``make_gop(1920,
+   1080, 2)`` searched against frame 0 on the 16x16 grid (B = 8160): KJ at
+   radius 16, the 49-point refine (KM), the refined prediction (KL),
+   ``variance`` / ``sse`` (KN) and the ``satd`` of the four 8x8 residuals
+   (KO); equal to the same chain on the CPU plain path; timed (median of 3
+   after a first) with the counts set to 0 before the 3 runs and read
+   after;
 6. / 6b. a profiler window over one steady 1080p KEY frame and one steady
    1080p P-frame (device busy time by kernel).
 
-``--only-kernels`` stops after phase 3e. The second-to-last line is
+``--only-kernels`` stops after phase 3f. The second-to-last line is
 ``{"kernels": [...]}``: ``launches`` from the GOP of phase 5b (for the
 4x4 / no-skip entries, from the uniform KEY frames of phase 5d; for KG,
 KH, KI and ``vif_down2``, from phase 5f; for KJ and KK, from the ARF GOP
-of phase 5g), with the counts of the KEY frames of phases 5, 5c, 5d and 5f,
-of phase 5b's IPPP GOP, of phase 5f's tune_vmaf GOP and of phase 5g's ARF
-GOP beside it. KA's and KB's entries count only
-their own instances (``intra_pred_sse`` bs 8/16/32, ``intra_pred_sse
-bs4``; ``txq_recon_skip`` bs 8/16/32 with the skip decision, ``txq_recon
-bs4 / bs8 no-skip``), read from the per-variant counts the wrappers keep.
-Each entry's ``bound_ms`` is the larger of its bytes (inputs read once,
-outputs written once, from the timed call's tensors) over 3.35 TB/s and its
-operations (estimated per kernel from the shapes, in the comments beside
-each) over 67 T/s, float64 operations over 34 T/s; ``library_ms`` times one PyTorch call where one
-computes the function (KI's box moments and ``vif_down2``: ``conv2d``),
-else null. The last line
+of phase 5g; for KL, KM, KN and KO, from the chain of phase 5i), with the
+counts of the KEY frames of phases 5, 5c, 5d and 5f, of phase 5b's IPPP
+GOP, of phase 5f's tune_vmaf GOP, of phase 5g's ARF GOP, of phase 5i's
+chain and of phase 4g's host inter GOP beside it. KA's and KB's entries
+count only their own instances (``intra_pred_sse`` bs 8/16/32,
+``intra_pred_sse bs4``; ``txq_recon_skip`` bs 8/16/32 with the skip
+decision, ``txq_recon bs4 / bs8 no-skip``), read from the per-variant
+counts the wrappers keep. Each entry's ``bound_ms`` is the larger of its
+bytes (inputs read once, outputs written once, from the timed call's
+tensors) over 3.35 TB/s and its operations (estimated per kernel from the
+shapes, in the comments beside each) over 67 T/s, float64 operations over
+34 T/s; ``library_ms`` times one PyTorch call where one computes the
+function (KI's box moments and ``vif_down2``: ``conv2d``; KN's ``sad``:
+``pairwise_distance`` with p = 1), else null with the reason
+(``library_none``). The last line
 is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
 the package beside this script, it exits non-zero and prints no result.
 """
@@ -137,6 +161,26 @@ def cuda_time(fn, iters):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def device_ms(fn, iters, name):
+    """Mean device time per call (ms) of the kernels whose name holds
+    ``name``, from a profiler window over ``iters`` calls: the kernel
+    alone, without the host's dispatch, which sets the CUDA-event time of
+    a launch this small. None where the profiler shows no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    t = sum(e.self_device_time_total for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and name in e.key)
+    return t / 1e3 / iters if t else None
 
 
 # NVIDIA H100 SXM (data sheet): HBM3 bytes/s, the float32 rate outside
@@ -255,6 +299,8 @@ def check_kernels(dev):
                     "replaces": "aom_av1_psy_tpu/encoder/tpu_intra_dir.py:241",
                     "max_abs_err": err, "ms": times[0], "plain_ms": times[1],
                     **bnd, "library_ms": None,
+                    "library_none": "no single PyTorch call predicts and "
+                                    "scores the directional intra modes",
                     "timed_at": "bs32 B=34 K=61 (SSE of all candidates)"})
     log(f"[3] KA intra_pred_sse exact at bs 32/16 (K=61) and 16/8 (K=7); "
         f"bs32 B=34: kernel {times[0]:.4f} ms, plain {times[1]:.4f} ms")
@@ -289,6 +335,9 @@ def check_kernels(dev):
                     "replaces": "aom_av1_psy_tpu/encoder/tpu_intra.py:157",
                     "max_abs_err": err, "ms": times[0], "plain_ms": times[1],
                     **bnd, "library_ms": None,
+                    "library_none": "no single PyTorch call runs the integer "
+                                    "AV1 transforms, quantizer and skip "
+                                    "decision",
                     "timed_at": "bs32 B=34 DCT"})
     log(f"[3] KB txq_recon_skip exact at 32/16 (DCT) and 16/8 (ADST mix); "
         f"bs32 B=34: kernel {times[0]:.4f} ms, plain {times[1]:.4f} ms")
@@ -321,6 +370,8 @@ def check_kernels(dev):
                     "replaces": "aom_av1_psy_tpu/ops/deblock_jax.py:183",
                     "max_abs_err": err, "ms": times[0], "plain_ms": times[1],
                     **bnd, "library_ms": None,
+                    "library_none": "no single PyTorch call runs the AV1 "
+                                    "deblocking filters",
                     "timed_at": "luma 1088x1920, 6 levels"})
     log(f"[3] KC lpf_ladder exact at 1088x1920 luma and 544x960 chroma, 6 "
         f"levels; luma: kernel {times[0]:.4f} ms, plain {times[1]:.4f} ms")
@@ -369,6 +420,8 @@ def check_uniform_kernels(dev):
                     "replaces": "aom_av1_psy_tpu/encoder/tpu_intra.py:64",
                     "max_abs_err": err, "ms": times[0], "plain_ms": times[1],
                     **bnd, "library_ms": None,
+                    "library_none": "no single PyTorch call predicts and "
+                                    "scores the directional intra modes",
                     "timed_at": "bs4 B=270 K=7 (1080p BLOCK_8X8 chroma)"})
     log(f"[3c] KA intra_pred_sse exact at bs4 K=7, B=90 and 270; B=270: "
         f"kernel {times[0]:.4f} ms, plain {times[1]:.4f} ms")
@@ -403,6 +456,8 @@ def check_uniform_kernels(dev):
                         "replaces": replaces, "max_abs_err": err,
                         "ms": times[0], "plain_ms": times[1],
                         **bnd, "library_ms": None,
+                        "library_none": "no single PyTorch call runs the "
+                                        "integer AV1 transforms and quantizer",
                         "timed_at": f"bs{bs} B={Bs[-1]}"
                                     + (" DCT/ADST mix" if adst else " DCT")})
         log(f"[3c] KB {name} exact at B={Bs}; B={Bs[-1]}: kernel "
@@ -445,6 +500,8 @@ def check_tune_vmaf_kernels(dev):
                     "ms": times[0], "plain_ms": times[1],
                     **bound(nbytes(y, got, mom), 48 * H * W),
                     "library_ms": None,
+                    "library_none": "no single PyTorch call rounds the "
+                                    "integer blur between its two passes",
                     "timed_at": "1080x1920 uint8 with the moments (the "
                                 "encoder's call)"})
     log(f"[3d] KG gauss_blur exact (uint8, int32; blur and moments) at "
@@ -463,7 +520,10 @@ def check_tune_vmaf_kernels(dev):
                     "replaces": f"{ref}:74", "max_abs_err": err,
                     "ms": times[0], "plain_ms": times[1],
                     **bound(nbytes(y, want, out), 8 * H * W),
-                    "library_ms": None, "timed_at": "1080x1920, a = 0.18498"})
+                    "library_ms": None,
+                    "library_none": "no single PyTorch call rounds a*d and s "
+                                    "+ a*d apart and clips",
+                    "timed_at": "1080x1920, a = 0.18498"})
     log(f"[3d] KH unsharp_apply exact at 1080x1920 (a = 0.18498, 0.3, "
         f"0.04742): kernel {times[0]:.4f} ms, plain {times[1]:.4f} ms")
 
@@ -1029,6 +1089,8 @@ def check_inter_kernels(dev):
                     "replaces": "aom_av1_psy_tpu/encoder/tpu_inter.py:78",
                     "max_abs_err": err, "ms": times[0], "plain_ms": times[1],
                     **bnd, "library_ms": None,
+                    "library_none": "no single PyTorch call rounds between "
+                                    "the two 8-tap passes",
                     "timed_at": "luma bw16 K=9 B=8160, SAD only (subpel "
                                 "step)"})
     log(f"[3b] KD mc_8tap exact at luma bw16 K=9 / bw32 K=5 and chroma "
@@ -1063,6 +1125,8 @@ def check_inter_kernels(dev):
                     "replaces": "aom_av1_psy_tpu/encoder/tpu_inter.py:106",
                     "max_abs_err": err, "ms": times[0], "plain_ms": times[1],
                     **bnd, "library_ms": None,
+                    "library_none": "no single PyTorch call takes the integer"
+                                    " SSD argmin over a window",
                     "timed_at": "bw16 B=8160 with centres, 1088x1920"})
     log(f"[3b] KE fullpel_ssd exact at bw8 B=8160 (544x960) and bw16 "
         f"B=8160 with centres (flat region: ties); bw16: kernel "
@@ -1094,6 +1158,8 @@ def check_inter_kernels(dev):
                     "replaces": "aom_av1_psy_tpu/ops/cdef_jax.py:144",
                     "max_abs_err": err, "ms": times[0], "plain_ms": times[1],
                     **bnd, "library_ms": None,
+                    "library_none": "no single PyTorch call runs the CDEF "
+                                    "direction-adaptive filter",
                     "timed_at": "luma 1088x1920 (1080x1920 filtered), pri 4 "
                                 "sec 2"})
     log(f"[3b] KF cdef_filter exact on 1088x1920 / 544x960 with (pri, sec) "
@@ -1128,8 +1194,10 @@ def check_inter_kernels(dev):
                 "source": "aom_av1_psy_tpu_torch/csrc/txq.cu",
                 "replaces": "aom_av1_psy_tpu/encoder/tpu_inter.py:375",
                 "max_abs_err": err, "ms": kb[0], "plain_ms": kb[1], **kb_bnd,
-                "library_ms": None, "timed_at": "bs8 B=8160 (1080p P-frame "
-                                                "chroma)"})
+                "library_ms": None,
+                "library_none": "no single PyTorch call runs the integer AV1 "
+                                "transforms, quantizer and skip decision",
+                "timed_at": "bs8 B=8160 (1080p P-frame chroma)"})
     return results
 
 
@@ -1286,7 +1354,9 @@ def check_tf_kernels(dev):
     full 32x32 blocks and on the 24-tall bottom row, ``full_pel_
     hierarchical`` (radius 16, step 4) on the same blocks against the plain
     path on CPU tensors, KK against the plain version on the card and on
-    CPU tensors. Exact equality throughout."""
+    CPU tensors, and KK's weight against ``np.exp`` at every truncation
+    boundary. Exact equality throughout."""
+    import numpy as np
     import torch
     from aom_av1_psy_tpu_torch.encoder import temporal_filter as TF
     from aom_av1_psy_tpu_torch.ops import mvsearch as MV
@@ -1324,6 +1394,8 @@ def check_tf_kernels(dev):
                     "replaces": "aom_av1_psy_tpu/ops/mvsearch.py:48",
                     "max_abs_err": err, "ms": kj_t[0], "plain_ms": kj_t[1],
                     **kj_bnd, "library_ms": None,
+                    "library_none": "no single PyTorch call takes the SAD "
+                                    "argmin over a window",
                     "timed_at": "B=1980 32x32 blocks, radius 16, 64x64 "
                                 "windows (1080p)"})
     log(f"[3e] KJ fullpel_sad exact on blocks {shapes} (radius 16), and "
@@ -1362,22 +1434,384 @@ def check_tf_kernels(dev):
                                    (TF.tf_weight_accum_plain, 3)))
     npix = sum(p.numel() for p in center)
     # per pixel: 25 window adds, 4 luma adds and ~20 index and clamp
-    # operations (integer); ~10 float64 operations and ~20 for exp
+    # operations (integer); ~10 float64 operations and the 10 compares of
+    # the weight's threshold search
     kk_bnd = bound(nbytes(center, planes[0], inputs, got, got), 50 * npix,
-                   30 * npix)
+                   20 * npix)
     results.append({"name": "tf_weight_accum", "route": "cuda",
                     "source": "aom_av1_psy_tpu_torch/csrc/temporal_filter.cu",
                     "replaces": "aom_av1_psy_tpu/encoder/temporal_filter.py"
                                 ":33 (host numpy, not a TPU program)",
                     "max_abs_err": err, "ms": kk_t[0], "plain_ms": kk_t[1],
                     **kk_bnd, "library_ms": None,
+                    "library_none": "no single PyTorch call weights and "
+                                    "accumulates the temporal filter",
                     "timed_at": "one 1080p frame of the span, B=2040, "
                                 "accumulating into int64 accum/count"})
     log(f"[3e] KK tf_weight_accum exact against the plain version on the "
         f"card and on CPU tensors (1080p, strength 2); kernel "
         f"{kk_t[0]:.4f} ms, plain {kk_t[1]:.4f} ms, bound "
         f"{kk_bnd['bound_ms']:.4f} ms ({kk_bnd['bound_by']})")
+
+    # ---- KK's weight against np.exp at every truncation boundary ----
+    sweep = TF.weight_boundary_values()
+    want = (np.exp(-sweep) * TF.TF_WEIGHT_SCALE).astype(np.int64)
+    got = TF.tf_weight(torch.as_tensor(sweep, device=dev)).cpu().numpy()
+    flips = np.nonzero(got != want)[0]
+    if flips.size:
+        raise AssertionError(
+            f"KK weight differs from np.exp at {flips.size} of {sweep.size} "
+            f"boundary values: " + ", ".join(
+                f"scaled {sweep[i]!r}: card {got[i]}, numpy {want[i]}"
+                for i in flips[:5]))
+    log(f"[3e] KK's weight == (np.exp(-s) * 1000).astype(int64) at all "
+        f"{sweep.size} boundary values (101 within 50 ulp of each of the "
+        f"1000 truncation boundaries, and 0 and 7): no flip")
     return results
+
+
+def _luma_1088(frame, dev):
+    """The 1080p luma padded to 1088 rows by its last row (int32 on dev),
+    the plane KE and KD search at 1080p."""
+    import numpy as np
+    import torch
+    y = np.zeros((1088, 1920), np.int32)
+    y[:1080] = frame.planes()[0]
+    y[1080:] = y[1079]
+    return torch.as_tensor(y, device=dev)
+
+
+def _grid(bs, dev):
+    """Origins (by, bx) of the bs x bs blocks of the 1088 x 1920 plane."""
+    import torch
+    by, bx = torch.meshgrid(torch.arange(0, 1088, bs, device=dev),
+                            torch.arange(0, 1920, bs, device=dev),
+                            indexing="ij")
+    return by.reshape(-1), bx.reshape(-1)
+
+
+def _cut(plane, r0, c0, h, w, ch=None, cw=None):
+    """(B, h, w) patches at origins r0 / c0 (B,), each index clamped to
+    [0, ch) x [0, cw) (default: the plane), as the host encoder clamps its
+    search windows (``interframe.py:146-148``)."""
+    import torch
+    ch = plane.shape[0] if ch is None else ch
+    cw = plane.shape[1] if cw is None else cw
+    ar = torch.arange(max(h, w), device=plane.device)
+    rows = (r0[:, None] + ar[None, :h]).clamp(0, ch - 1)
+    cols = (c0[:, None] + ar[None, :w]).clamp(0, cw - 1)
+    return plane[rows[:, :, None], cols[:, None, :]]
+
+
+def _path_ops(sx, sy, w, h):
+    """Operations of a batch of subpel predictions by the path each item's
+    phases select: 2 per tap (8 taps) and ~4 for the rounding and clip per
+    output of each pass; the 2-D path's x pass covers h + 7 rows."""
+    both = int(((sx > 0) & (sy > 0)).sum())
+    one = int(((sx > 0) != (sy > 0)).sum())
+    return both * ((h + 7) * w + h * w) * 20 + one * h * w * 20
+
+
+def check_k13b_kernels(dev):
+    """Phase 3f: KL, KM, KN and KO against their plain versions on the card
+    at the 1080p P-frame's block grid (``make_gop(1920, 1080, 2)``, the
+    luma padded to 1088 rows): KL at every path (per-block random phases)
+    and interp filter at 16x16 (B = 8160), 8x8 and 4x4; KM on the 49-point
+    lattice at 16x16; KN's reducers at 16x16, and sad / sse / variance at
+    8x8 and 4x4; KO on the 4 x 8160 8x8 residuals of the 16x16 grid. Exact
+    equality; kernel, plain, bound and library times."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from aom_av1_psy_tpu_torch.ops import convolve as CV
+    from aom_av1_psy_tpu_torch.ops import metrics as ME
+    from aom_av1_psy_tpu_torch.ops import mvsearch as MV
+    from aom_av1_psy_tpu_torch.utils import testframes
+
+    rng = np.random.default_rng(SEED + 6)
+    frames = testframes.make_gop(1920, 1080, 2, seed=SEED)
+    y0, y1 = _luma_1088(frames[0], dev), _luma_1088(frames[1], dev)
+    results = []
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), device=dev).to(torch.int32)
+
+    # ---- KL: per-block phases (every path) x the four filters ----
+    err, kl = 0.0, {}
+    for bs in (16, 8, 4):
+        by, bx = _grid(bs, dev)
+        B = by.numel()
+        d = t(rng.integers(-3, 4, (2, B)))
+        reg = _cut(y0, by + d[0] - 3, bx + d[1] - 3, bs + 7, bs + 7)
+        sx, sy = t(rng.integers(0, 16, B)), t(rng.integers(0, 16, B))
+        for interp in range(4):
+            a = (reg, bs, bs, sx, sy, interp, interp)
+            got = CV.subpel_predict(*a)
+            err = max(err, compare(f"KL {bs}x{bs} interp {interp}", got,
+                                   CV.subpel_predict_plain(*a)))
+        kl[bs] = (reg, sx, sy, got)
+    reg, sx, sy, pred16 = kl[16]
+    a = (reg, 16, 16, sx, sy)
+    kl_t = (cuda_time(lambda: CV.subpel_predict(*a), 20),
+            cuda_time(lambda: CV.subpel_predict_plain(*a), 3),
+            device_ms(lambda: CV.subpel_predict(*a), 20, "kl_kernel"))
+    kl_bnd = bound(nbytes(reg, sx, sy, pred16), _path_ops(sx, sy, 16, 16))
+    results.append({"name": "subpel_predict", "route": "cuda",
+                    "source": "aom_av1_psy_tpu_torch/csrc/convolve.cu",
+                    "replaces": "aom_av1_psy_tpu/ops/convolve.py:119",
+                    "max_abs_err": err, "ms": kl_t[0], "plain_ms": kl_t[1],
+                    "device_ms": kl_t[2], **kl_bnd, "library_ms": None,
+                    "library_none": "no single PyTorch call rounds between "
+                                    "the two passes and picks the path by "
+                                    "phase",
+                    "timed_at": "B=8160 16x16, per-block random phases, "
+                                "EIGHTTAP_REGULAR (1080p P-frame grid)"})
+    log(f"[3f] KL subpel_predict exact at every path and interp filter "
+        f"(16x16 B=8160, 8x8 B=32640, 4x4 B=130560); 16x16: kernel "
+        f"{kl_t[0]:.4f} ms (device {kl_t[2]} ms), plain {kl_t[1]:.4f} ms, "
+        f"bound {kl_bnd['bound_ms']:.4f} ms ({kl_bnd['bound_by']})")
+
+    # ---- KM: the 49-point lattice around a full-pel MV per block ----
+    by, bx = _grid(16, dev)
+    B = by.numel()
+    src = _cut(y1, by, bx, 16, 16)
+    mvs = t(rng.integers(-8, 9, (B, 2)))
+    win = _cut(y0, by + mvs[:, 0] - 4, bx + mvs[:, 1] - 4, 25, 25)
+    got = MV.batched_subpel_refine(src, win, mvs)
+    want = MV.subpel_refine49_plain(src, win)
+    err = compare("KM", MV.subpel_refine49(src, win), want)
+    err = max(err, compare("KM mv8", got, (
+        mvs * 8 + torch.as_tensor(MV._LATTICE49, device=dev)[want[0]],
+        want[1].to(torch.int32))))
+    km_t = (cuda_time(lambda: MV.subpel_refine49(src, win), 20),
+            cuda_time(lambda: MV.subpel_refine49_plain(src, win), 3),
+            device_ms(lambda: MV.subpel_refine49(src, win), 20, "km_kernel"))
+    # per block: 36 2-D, 12 one-pass and 1 copy candidate, and a 3-operation
+    # SAD of each
+    lat = torch.as_tensor(MV._LATTICE49 & 7)
+    km_ops = B * (_path_ops(lat[:, 1], lat[:, 0], 16, 16) + 49 * 256 * 3)
+    km_bnd = bound(nbytes(src, win, got), km_ops)
+    results.append({"name": "subpel_refine49", "route": "cuda",
+                    "source": "aom_av1_psy_tpu_torch/csrc/mvsearch.cu",
+                    "replaces": "aom_av1_psy_tpu/ops/mvsearch.py:195",
+                    "max_abs_err": err, "ms": km_t[0], "plain_ms": km_t[1],
+                    "device_ms": km_t[2], **km_bnd, "library_ms": None,
+                    "library_none": "no single PyTorch call predicts and "
+                                    "scores a candidate lattice",
+                    "timed_at": "B=8160 16x16 blocks, 25x25 windows (1080p "
+                                "P-frame grid)"})
+    log(f"[3f] KM subpel_refine49 exact (16x16 B=8160, 49 candidates); "
+        f"kernel {km_t[0]:.4f} ms (device {km_t[2]} ms), plain "
+        f"{km_t[1]:.4f} ms, bound "
+        f"{km_bnd['bound_ms']:.4f} ms ({km_bnd['bound_by']})")
+
+    # ---- KN: every reducer at 16x16; sad / sse / variance at 8 and 4 ----
+    err = 0.0
+    for bs in (16, 8, 4):
+        by, bx = _grid(bs, dev)
+        B = by.numel()
+        a, b = _cut(y1, by, bx, bs, bs), kl[bs][3]
+        for name in ("sad", "sse", "variance"):
+            err = max(err, compare(f"KN {name} {bs}x{bs}",
+                                   getattr(ME, name)(a, b),
+                                   getattr(ME, name + "_plain")(a, b)))
+        if bs != 16:
+            continue
+        sad_in = (a, b)
+        refs = torch.stack([kl[16][3].roll(k, 0) for k in range(4)], 1)
+        cases = {
+            "sad_x4": (a, refs),
+            "block_error": (t(rng.integers(-4000, 4000, (B, 256))),
+                            t(rng.integers(-4000, 4000, (B, 256)))),
+            "obmc_sad": (a, t(rng.integers(0, 255 * 4096, (B, 16, 16))),
+                         t(rng.integers(0, 4097, (B, 16, 16)))),
+            "masked_sad": (a, b, _cut(y0, by, bx, 16, 16),
+                           t(rng.integers(0, 65, (B, 16, 16)))),
+        }
+        cases["obmc_variance"] = cases["obmc_sad"]
+        for name, args in cases.items():
+            err = max(err, compare(f"KN {name}", getattr(ME, name)(*args),
+                                   getattr(ME, name + "_plain")(*args)))
+        ext = _cut(y0, by, bx, 17, 17)
+        for xo, yo in ((0, 0), (3, 5), (7, 2)):
+            for name, args in (("subpel_project", (ext, 16, 16, xo, yo)),
+                               ("sub_pixel_variance", (ext, a, xo, yo)),
+                               ("sub_pixel_avg_variance", (ext, a, xo, yo,
+                                                           b))):
+                err = max(err, compare(f"KN {name} {xo} {yo}",
+                                       getattr(ME, name)(*args),
+                                       getattr(ME, name + "_plain")(*args)))
+    a, b = sad_in
+    af, bf = a.reshape(-1, 256).float(), b.reshape(-1, 256).float()
+    kn_t = (cuda_time(lambda: ME.sad(a, b), 20),
+            cuda_time(lambda: ME.sad_plain(a, b), 5),
+            cuda_time(lambda: F.pairwise_distance(af, bf, p=1, eps=0.0), 20),
+            device_ms(lambda: ME.sad(a, b), 20, "kn_kernel"))
+    var_t = cuda_time(lambda: ME.variance(a, b), 20)
+    kn_bnd = bound(nbytes(a, b, ME.sad(a, b)), 3 * a.numel())
+    results.append({"name": "block_reduce", "route": "cuda",
+                    "source": "aom_av1_psy_tpu_torch/csrc/metrics.cu",
+                    "replaces": "aom_av1_psy_tpu/ops/metrics.py:20",
+                    "max_abs_err": err, "ms": kn_t[0], "plain_ms": kn_t[1],
+                    "device_ms": kn_t[3], **kn_bnd, "library_ms": kn_t[2],
+                    "library_call": "F.pairwise_distance(p=1) on float32 "
+                                    "(B, 256) copies",
+                    "timed_at": "sad, B=8160 16x16 (1080p P-frame grid); "
+                                f"variance {var_t:.4f} ms"})
+    log(f"[3f] KN block_reduce exact: sad, sse, variance at 16/8/4, and "
+        f"sad_x4, block_error, obmc_sad / _variance, masked_sad, "
+        f"subpel_project, sub_pixel_(avg_)variance at 16x16; sad B=8160: "
+        f"kernel {kn_t[0]:.4f} ms (device {kn_t[3]} ms), plain "
+        f"{kn_t[1]:.4f} ms, library "
+        f"(pairwise_distance p=1) {kn_t[2]:.4f} ms, bound "
+        f"{kn_bnd['bound_ms']:.4f} ms ({kn_bnd['bound_by']}); variance "
+        f"{var_t:.4f} ms")
+
+    # ---- KO: the four 8x8 residuals of every 16x16 block ----
+    res = (src - pred16).reshape(-1, 2, 8, 2, 8).transpose(2, 3) \
+        .reshape(-1, 4, 8, 8)
+    err = compare("KO satd", ME.satd(res), ME.satd_plain(res))
+    err = max(err, compare("KO hadamard", ME.hadamard8x8(res),
+                           ME.hadamard8x8_plain(res)))
+    ko_t = (cuda_time(lambda: ME.satd(res), 20),
+            cuda_time(lambda: ME.satd_plain(res), 5),
+            device_ms(lambda: ME.satd(res), 20, "ko_kernel"))
+    # per block: 2 passes x 8 vectors x 12 butterflies x 2, 64 abs, 64 adds
+    ko_bnd = bound(nbytes(res, ME.satd(res)), 512 * res.numel() // 64)
+    results.append({"name": "satd8x8", "route": "cuda",
+                    "source": "aom_av1_psy_tpu_torch/csrc/metrics.cu",
+                    "replaces": "aom_av1_psy_tpu/ops/metrics.py:97",
+                    "max_abs_err": err, "ms": ko_t[0], "plain_ms": ko_t[1],
+                    "device_ms": ko_t[2], **ko_bnd, "library_ms": None,
+                    "library_none": "no single PyTorch call sums the "
+                                    "absolute Hadamard transform",
+                    "timed_at": "4 x 8160 8x8 residuals (1080p P-frame "
+                                "grid), satd only"})
+    log(f"[3f] KO satd8x8 exact (hadamard8x8 and satd, 4 x 8160 8x8 "
+        f"residuals); kernel {ko_t[0]:.4f} ms (device {ko_t[2]} ms), plain "
+        f"{ko_t[1]:.4f} ms, bound "
+        f"{ko_bnd['bound_ms']:.4f} ms ({ko_bnd['bound_by']})")
+    return results
+
+
+def closed_loop_host_inter(dev, kernels):
+    """Phase 4g: the host inter encoder (``encoder/interframe.encode_video``)
+    closed loop on the reference's own closed-loop content,
+    ``panning_frames(96, 72, 3)`` at q120: the counts set to 0 just before
+    the CUDA run and read just after (KJ + 3 KL per inter block); CUDA ==
+    CPU plain packets and recons; every frame decodes to the recon."""
+    import numpy as np
+    import torch
+    from aom_av1_psy_tpu_torch.decoder.obu import Av1Decoder
+    from aom_av1_psy_tpu_torch.encoder import interframe as IF
+    from aom_av1_psy_tpu_torch.encoder.frame import EncoderConfig
+    from aom_av1_psy_tpu_torch.utils import testframes
+    frames = testframes.panning_frames(96, 72, 3)
+    cfg = EncoderConfig(base_q_idx=120)
+    _reset(kernels)
+    t0 = time.perf_counter()
+    pk, rec = IF.encode_video(frames, cfg, device=dev)
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    counts = _counts(kernels)
+    kj, kl = counts.get("mvsearch", 0), counts.get("convolve", 0)
+    if kj <= 0 or kl != 3 * kj:
+        raise AssertionError(f"host inter GOP: {kj} KJ and {kl} KL launches "
+                             "(want 3 KL per KJ)")
+    t0 = time.perf_counter()
+    cpu_pk, cpu_rec = IF.encode_video(frames, cfg, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if pk != cpu_pk or not all(np.array_equal(a, b) for r, q in
+                               zip(rec, cpu_rec) for a, b in zip(r, q)):
+        raise AssertionError("host inter GOP: CUDA packets / recons differ "
+                             "from the CPU plain path")
+    dec, out = Av1Decoder(), []
+    for p in pk:
+        out.extend(dec.decode_packet(p))
+    if len(out) != len(frames):
+        raise AssertionError(f"host inter GOP: {len(out)} frames decoded")
+    for i, (f, r) in enumerate(zip(out, rec)):
+        for name, d, q in zip("yuv", f.planes(), r):
+            if not np.array_equal(d, q[:d.shape[0], :d.shape[1]]):
+                raise AssertionError(f"host inter GOP: frame {i} {name} "
+                                     "decodes to other pixels than the recon")
+    log(f"[4g] host inter encoder, panning 96x72 x 3 q120: bytes "
+        f"{[len(p) for p in pk]} (CUDA {gpu_s:.2f} s, CPU plain "
+        f"{cpu_s:.2f} s), CUDA == CPU plain packets and recons, every frame "
+        f"decodes to its recon; launches {kj} KJ + {kl} KL")
+    return counts
+
+
+def _subpel_chain(y0, y1):
+    """The slice's path on the 16x16 grid of 1088-row planes: KJ at radius
+    16 (windows clamped to the 1080 x 1920 frame), the 49-point refine
+    (KM), the refined prediction (KL, per-block phases), ``variance`` and
+    ``sse`` (KN) and the ``satd`` of the four 8x8 residuals (KO). CUDA
+    tensors take the kernels, CPU tensors the plain versions."""
+    import torch
+    from aom_av1_psy_tpu_torch.ops import convolve as CV
+    from aom_av1_psy_tpu_torch.ops import metrics as ME
+    from aom_av1_psy_tpu_torch.ops import mvsearch as MV
+    r, ch, cw = 16, 1080, 1920
+    by, bx = _grid(16, y0.device)
+    src = _cut(y1, by, bx, 16, 16)
+    win = _cut(y0, by - r, bx - r, 16 + 2 * r, 16 + 2 * r, ch, cw)
+    mvs, _ = MV.full_pel_grid_search(src, win, r)
+    win9 = _cut(y0, by + mvs[:, 0] - 4, bx + mvs[:, 1] - 4, 25, 25, ch, cw)
+    mv8, sad = MV.batched_subpel_refine(src, win9, mvs)
+    pos_r, pos_c = by * 8 + mv8[:, 0], bx * 8 + mv8[:, 1]
+    reg = _cut(y0, (pos_r >> 3) - 3, (pos_c >> 3) - 3, 23, 23, ch, cw)
+    pred = CV.subpel_predict(reg, 16, 16, ((pos_c & 7) << 1).int(),
+                             ((pos_r & 7) << 1).int())
+    var, _, _ = ME.variance(src, pred)
+    res = (src - pred).reshape(-1, 2, 8, 2, 8).transpose(2, 3) \
+        .reshape(-1, 4, 8, 8)
+    return {"mvs": mvs, "mv8": mv8, "sad": sad, "pred": pred, "var": var,
+            "sse": ME.sse(src, pred), "satd": ME.satd(res)}
+
+
+def subpel_chain_path(dev, kernels):
+    """Phase 5i: the slice's path at full width: frame 1 of
+    ``make_gop(1920, 1080, 2)`` searched against frame 0 (``_subpel_chain``,
+    B = 8160 16x16 blocks); equal to the same chain on the CPU plain path;
+    the prediction's SAD equals KM's; timed (host clock to a synchronize,
+    median of 3 after a first) with the counts set to 0 just before the 3
+    runs and read just after."""
+    import torch
+    from aom_av1_psy_tpu_torch.utils import testframes
+    frames = testframes.make_gop(1920, 1080, 2)
+    y0, y1 = _luma_1088(frames[0], dev), _luma_1088(frames[1], dev)
+    t0 = time.perf_counter()
+    got = _subpel_chain(y0, y1)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    _reset(kernels)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        again = _subpel_chain(y0, y1)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = _counts(kernels)
+    _need("1080p subpel chain", counts, [k.name for k in kernels])
+    t0 = time.perf_counter()
+    want = _subpel_chain(y0.cpu(), y1.cpu())
+    cpu_s = time.perf_counter() - t0
+    for k in got:
+        compare(f"1080p chain {k} (CUDA vs CPU plain)", got[k].cpu(), want[k])
+        compare(f"1080p chain {k} (steady)", again[k], got[k])
+    sad = (got["pred"] - _cut(y1, *_grid(16, dev), 16, 16)).abs() \
+        .sum((1, 2)).to(torch.int32)
+    compare("1080p chain: the prediction's SAD vs KM's", sad, got["sad"])
+    moved = int((got["mv8"] != got["mvs"] * 8).any(1).sum())
+    log(f"[5i] 1080p subpel chain (KJ r16 -> KM -> KL -> KN variance / sse "
+        f"-> KO satd, B=8160 16x16): first {first_s:.4f} s, steady "
+        f"{statistics.median(times):.4f} s (runs "
+        f"{', '.join(f'{x:.4f}' for x in times)}), CPU plain {cpu_s:.2f} s; "
+        f"CUDA == CPU plain; {moved} of 8160 MVs moved off full pel; mean "
+        f"SAD {float(got['sad'].double().mean()):.1f}")
+    log(f"[5i] launches in the 3 timed chains: {json.dumps(counts)}")
+    return counts
 
 
 def closed_loop_gops_cif(dev):
@@ -1529,20 +1963,23 @@ def main() -> int:
     from aom_av1_psy_tpu_torch.ops.txq import KB
     from aom_av1_psy_tpu_torch.encoder.tune_vmaf import TV
     from aom_av1_psy_tpu_torch.encoder.temporal_filter import KK
-    from aom_av1_psy_tpu_torch.ops.mvsearch import KJ
+    from aom_av1_psy_tpu_torch.ops.mvsearch import KJ, KM
+    from aom_av1_psy_tpu_torch.ops.convolve import KL
+    from aom_av1_psy_tpu_torch.ops.metrics import KN, KO
     from aom_av1_psy_tpu_torch.native import LIB_PATH, get_lib
     kernels = (KA, KB, KC, KD, KE, KF, KJ, KK)
+    k13b = (KJ, KL, KM, KN, KO)
     t0 = time.perf_counter()
-    build_all(kernels + (TV,))
-    log(f"[2] built {', '.join(k.name for k in kernels + (TV,))} with nvcc "
-        f"sm_90a in {time.perf_counter() - t0:.2f} s")
+    build_all(kernels + (TV, KL, KM, KN, KO))
+    log(f"[2] built {', '.join(k.name for k in kernels + (TV,) + k13b[1:])} "
+        f"with nvcc sm_90a in {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     if get_lib() is None:
         raise RuntimeError("the native range coder (native/ec.cpp) did not "
                            "build")
     log(f"[2] native range coder {os.path.relpath(LIB_PATH, REPO)} ready in "
         f"{time.perf_counter() - t0:.2f} s")
-    for k in kernels + (TV,):
+    for k in kernels + (TV,) + k13b[1:]:
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[2]   {k.name}: {line.strip()}")
@@ -1558,6 +1995,7 @@ def main() -> int:
     uniform_results = phase("3c", check_uniform_kernels, dev)
     vmaf_results = phase("3d", check_tune_vmaf_kernels, dev)
     tf_results = phase("3e", check_tf_kernels, dev)
+    k13b_results = phase("3f", check_k13b_kernels, dev)
     if "--only-kernels" in sys.argv[1:]:
         return 0
     phase("4", closed_loop_cif, dev)
@@ -1566,6 +2004,7 @@ def main() -> int:
     phase("4d", closed_loop_uniform, dev)
     phase("4e", closed_loop_tune_vmaf_cif, dev)
     phase("4f", closed_loop_gops_cif, dev)
+    host_inter_counts = phase("4g", closed_loop_host_inter, dev, k13b)
     key_counts, frame, cfg, key_med, key_pkt, key_enc = phase(
         "5", main_path, dev, kernels[:3])
     counts, frames, encs, rate_5b = phase("5b", gop_main_path, dev, kernels)
@@ -1576,6 +2015,7 @@ def main() -> int:
                                          kernels + (TV,), key_pkt, key_enc)
     arf_counts = phase("5g", arf_gop_path, dev, kernels)
     phase("5h", rc_gop_paths, dev, rate_5b)
+    chain_counts = phase("5i", subpel_chain_path, dev, k13b)
     phase("6", profile_frame, dev, frame, cfg)
     phase("6b", profile_p_frame, dev, frames, encs)
 
@@ -1594,7 +2034,9 @@ def main() -> int:
            "vif_scale": ("tune_vmaf vif_scale",),
            "vif_down2": ("tune_vmaf vif_down2",)}
     total = {"lpf_ladder": KC, "mc_8tap": KD, "fullpel_ssd": KE,
-             "cdef_filter": KF, "fullpel_sad": KJ, "tf_weight_accum": KK}
+             "cdef_filter": KF, "fullpel_sad": KJ, "tf_weight_accum": KK,
+             "subpel_predict": KL, "subpel_refine49": KM,
+             "block_reduce": KN, "satd8x8": KO}
 
     def n(name, c):
         if name in total:
@@ -1614,8 +2056,13 @@ def main() -> int:
     for r in tf_results:
         r["launches"] = n(r["name"], arf_counts)
         r["launches_from"] = "5g: the 1080p ARF GOP (9 frames, group 4)"
-    results += uniform_results + vmaf_results + tf_results
+    for r in k13b_results:
+        r["launches"] = n(r["name"], chain_counts)
+        r["launches_from"] = "5i: 3 timed runs of the 1080p subpel chain"
+    results += uniform_results + vmaf_results + tf_results + k13b_results
     for r in results:
+        r["launches_subpel_chain"] = n(r["name"], chain_counts)
+        r["launches_host_inter_gop"] = n(r["name"], host_inter_counts)
         r["launches_ippp_gop"] = n(r["name"], counts)
         r["launches_arf_gop"] = n(r["name"], arf_counts)
         r["launches_key_frame"] = n(r["name"], key_counts)

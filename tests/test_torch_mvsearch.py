@@ -109,8 +109,22 @@ def test_cost_grid_equals_both_reference_branches(radius):
         np.testing.assert_array_equal(got, np.asarray(want_j))
 
 
-def test_subpel_helpers_stay_numpy():
+def test_subpel_helpers_take_tensors():
+    """Tensors take the tensor branch (the plain versions on CPU tensors),
+    numpy arrays the host branch; both give the same refinement, and
+    anything else raises."""
+    rng = np.random.default_rng(2)
+    src = rng.integers(0, 256, (2, 8, 8)).astype(np.int32)
+    win = rng.integers(0, 256, (2, 17, 17)).astype(np.int32)
+    mvs = np.array([[1, -2], [0, 3]], np.int32)
+    got = MV.batched_subpel_refine(torch.as_tensor(src),
+                                   torch.as_tensor(win),
+                                   torch.as_tensor(mvs))
+    assert all(torch.is_tensor(g) and g.dtype == torch.int32 for g in got)
+    for g, w_ in zip(got, MV.batched_subpel_refine(src, win, mvs)):
+        np.testing.assert_array_equal(g.numpy(), w_)
+    assert MV.subpel_refine(torch.as_tensor(src[0]), torch.as_tensor(win[0]),
+                            (1, -2)) == MV.subpel_refine(src[0], win[0],
+                                                         (1, -2))
     with pytest.raises(TypeError):
-        MV.batched_subpel_refine(torch.zeros((1, 8, 8)),
-                                 torch.zeros((1, 17, 17)),
-                                 torch.zeros((1, 2)))
+        MV.batched_subpel_refine(src.tolist(), win, mvs)

@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``aom_av1_psy_tpu_torch`` and not
 ``chip_smoke.py`` imports jax, the reference package ``aom_av1_psy_tpu``
 (or a submodule) or ``bench``; a fresh interpreter that encodes a KEY
-frame, a 3-frame GOP, a tune_vmaf frame and a 4-frame ARF GOP through the
+frame, a 3-frame GOP, a tune_vmaf frame, a 4-frame ARF GOP and a 2-frame
+GOP of the host inter encoder (with a metric on its residual) through the
 port has loaded none of them (one interpreter, a case per stage); the port's test content
 equals ``bench``'s; its own range coder build lives beside the reference's
 in one process; and ``convert`` carries the reference's objects into the
@@ -60,8 +61,9 @@ def test_no_import_of_jax_reference_or_bench(path):
 # one fresh interpreter encodes through the port alone: after each stage it
 # prints the stage, its bytes and the loaded modules of jax, the reference
 # package and bench (a KEY frame with flat chroma, a 3-frame GOP, a
-# tune_vmaf frame, an ARF GOP with its temporal filters)
-_STAGES = ("key", "gop", "tune_vmaf", "arf")
+# tune_vmaf frame, an ARF GOP with its temporal filters, the host inter
+# encoder's GOP and the satd of its residual)
+_STAGES = ("key", "gop", "tune_vmaf", "arf", "interframe")
 _ENCODES = """
 import dataclasses, json, sys
 import numpy as np
@@ -92,6 +94,17 @@ report("tune_vmaf", n if enc.vmaf_unsharp_amount > 0 else 0)
 pk, encs = encode_video_arf(make_gop(64, 64, 4), EncoderConfig(base_q_idx=150),
                             group=3, device="cpu")
 report("arf", sum(map(len, pk)) if encs[-1] is None and encs[1].tf_s
+       else 0)
+import torch
+from aom_av1_psy_tpu_torch.encoder import interframe
+from aom_av1_psy_tpu_torch.ops import metrics
+from aom_av1_psy_tpu_torch.utils.testframes import panning_frames
+pk, rec = interframe.encode_video(panning_frames(64, 64, 2),
+                                  EncoderConfig(base_q_idx=100), device="cpu")
+src = torch.as_tensor(panning_frames(64, 64, 2)[1].y.astype(np.int32))
+res = src - torch.as_tensor(rec[1][0][:64, :64])
+report("interframe", sum(map(len, pk))
+       if int(metrics.satd(res.reshape(8, 8, 8, 8).transpose(1, 2)).sum())
        else 0)
 """
 

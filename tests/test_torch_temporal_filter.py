@@ -209,3 +209,21 @@ def test_filter_key_frame_matches_reference(idx, n_span):
     for g, w in zip(got.planes(), want.planes(), strict=True):
         np.testing.assert_array_equal(g, w)
     assert not np.array_equal(got.y, port[idx].y)
+
+
+def test_plain_weight_equals_numpy_at_every_boundary():
+    """The plain version's weight (``torch.exp``) against the reference's
+    ``np.exp`` at every truncation boundary of ``* 1000`` (101 values
+    within 50 ulp of each of the 1000, and 0 and 7); KK's own weight is
+    held to the same sweep on the card (``test_torch_tf_gpu.py``)."""
+    s = TF.weight_boundary_values()
+    got = TF.tf_weight(torch.as_tensor(s)).numpy()
+    np.testing.assert_array_equal(
+        got, (np.exp(-s) * TF.TF_WEIGHT_SCALE).astype(np.int64))
+
+
+def test_plain_weight_equals_numpy_on_random_values():
+    s = np.random.default_rng(0).random(10 ** 6) * 7.0
+    np.testing.assert_array_equal(
+        TF.tf_weight(torch.as_tensor(s)).numpy(),
+        (np.exp(-s) * TF.TF_WEIGHT_SCALE).astype(np.int64))

@@ -148,3 +148,17 @@ def test_arf_gop_on_card_matches_cpu(dev):
     pk, encs = encode_video_arf(frames, cfg, group=4, device=dev)
     assert pk == encode_video_arf(frames, cfg, group=4, device="cpu")[0]
     assert [e is None for e in encs].count(True) == 2
+
+
+def test_kk_weight_equals_numpy_at_every_boundary(dev):
+    """KK's weight against ``np.exp`` at the 101 float64 values within 50
+    ulp of each of the 1000 truncation boundaries, and at 0 and 7."""
+    s = TF.weight_boundary_values()
+    assert s.size == 1000 * 101 + 2
+    want = (np.exp(-s) * TF.TF_WEIGHT_SCALE).astype(np.int64)
+    n0 = TF.KK.launches
+    got = TF.tf_weight(torch.as_tensor(s, device=dev)).cpu().numpy()
+    assert TF.KK.launches == n0 + 1
+    flips = np.nonzero(got != want)[0]
+    assert flips.size == 0, [(repr(s[i]), int(got[i]), int(want[i]))
+                             for i in flips[:10]]
