@@ -30,7 +30,7 @@
 // reference's float32 mis-floors. A 4x4 block runs on one warp (32
 // threads, 16 of them with a pixel), so the warp-shuffle reductions see a
 // full warp.
-#include "common.cuh"
+#include "txfm.cuh"
 
 namespace {
 
@@ -64,99 +64,6 @@ __device__ __forceinline__ int golomb_floor_log2(int big) {  // big >= 1
   return floor_log2(big) - (big == 8192 || big == 32768 ? 1 : 0);
 }
 
-// av1_round_shift_array: bit > 0 round-shifts down, bit < 0 scales up.
-__device__ __forceinline__ int round_shift_arr(int x, int bit) {
-  if (bit > 0) return wrap32((long long)x + (1 << (bit - 1))) >> bit;
-  if (bit < 0) return wrap32((long long)x * (1LL << -bit));
-  return x;
-}
-
-__device__ __forceinline__ int mul32(int a, int b) {
-  return wrap32((long long)a * b);
-}
-
-// av1_fadst4 / av1_iadst4 (ops/txfm.py:129-182) on one 4-vector, int32
-// wraparound throughout, no stage clamp (the reference applies none).
-__device__ void adst4(const int* x, int* o, const int* s, int cos_bit,
-                      bool inverse) {
-  const int rnd = 1 << (cos_bit - 1);
-  int t0, t1, t2, t3;
-  if (!inverse) {
-    t0 = wrap32((long long)mul32(s[1], x[0]) + mul32(s[2], x[1]));
-    t1 = mul32(s[3], wrap32((long long)x[0] + x[1] - x[3]));
-    t2 = wrap32((long long)mul32(s[4], x[0]) - mul32(s[1], x[1]));
-    t3 = mul32(s[3], x[2]);
-    t0 = wrap32((long long)t0 + mul32(s[4], x[3]));
-    t2 = wrap32((long long)t2 + mul32(s[2], x[3]));
-    o[0] = wrap32((long long)t0 + t3);
-    o[1] = t1;
-    o[2] = wrap32((long long)t2 - t3);
-    o[3] = wrap32((long long)t2 - t0 + t3);
-  } else {
-    t0 = wrap32((long long)mul32(s[1], x[0]) + mul32(s[4], x[2]));
-    t1 = wrap32((long long)mul32(s[2], x[0]) - mul32(s[1], x[2]));
-    t3 = mul32(s[3], x[1]);
-    t2 = mul32(s[3], wrap32((long long)x[0] - x[2] + x[3]));
-    t0 = wrap32((long long)t0 + mul32(s[2], x[3]));
-    t1 = wrap32((long long)t1 - mul32(s[4], x[3]));
-    o[0] = wrap32((long long)t0 + t3);
-    o[1] = wrap32((long long)t1 + t3);
-    o[2] = t2;
-    o[3] = wrap32((long long)t0 + t1 - t3);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) o[i] = wrap32((long long)o[i] + rnd) >> cos_bit;
-}
-
-// One 1-D pass over all BS vectors of the block held in X (row-major
-// r * BS + c). rows: vectors are rows (elements along c), else columns.
-// Returns the buffer that holds the result.
-template <int BS, int NT>
-__device__ int* pass(int* X, int* Y, const KBArgs& a, int prog) {
-  const int off = a.meta[4 * prog], nst = a.meta[4 * prog + 1];
-  const int cos_bit = a.meta[4 * prog + 2], clamp_bit = a.meta[4 * prog + 3];
-  const bool rows = (prog == 2 || prog == 3 || prog == 4 || prog == 5);
-  if (BS == 4 && nst < 0) {  // ADST4: one thread per vector
-    const int v = threadIdx.x;
-    if (v < 4) {
-      int x[4], o[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) x[i] = rows ? X[v * 4 + i] : X[i * 4 + v];
-      adst4(x, o, a.meta + 37 + 5 * prog, cos_bit, prog >= 4);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (rows) Y[v * 4 + i] = o[i]; else Y[i * 4 + v] = o[i];
-      }
-    }
-    __syncthreads();
-    return Y;
-  }
-  const int rnd = 1 << (cos_bit - 1);
-  const int lo = clamp_bit ? -(1 << (clamp_bit - 1)) : 0;
-  const int hi = clamp_bit ? (1 << (clamp_bit - 1)) - 1 : 0;
-  for (int st = 0; st < nst; ++st) {
-    for (int e = threadIdx.x; e < BS * BS; e += NT) {
-      const int v = e / BS, i = e % BS;
-      const int* ent = a.progs + 5 * (off + st * BS + i);
-      const int ia = ent[0], ib = ent[1], fl = ent[4];
-      const int xa = rows ? X[v * BS + ia] : X[ia * BS + v];
-      const int xb = rows ? X[v * BS + ib] : X[ib * BS + v];
-      int y = wrap32((long long)xa * ent[2] + (long long)xb * ent[3]);
-      if (fl & 1) y = wrap32((long long)y + rnd) >> cos_bit;
-      if ((fl & 2) && clamp_bit) y = clampi(y, lo, hi);
-      if (rows) Y[v * BS + i] = y; else Y[i * BS + v] = y;
-    }
-    __syncthreads();
-    int* t = X; X = Y; Y = t;
-  }
-  return X;
-}
-
-template <int BS>
-__host__ __device__ constexpr int threads() {
-  return BS * BS < 32 ? 32 : (BS * BS < 256 ? BS * BS : 256);
-}
-
 template <int BS>
 __global__ void kb_kernel(KBArgs a) {
   constexpr int NT = threads<BS>();
@@ -177,12 +84,12 @@ __global__ void kb_kernel(KBArgs a) {
   for (int p = threadIdx.x; p < N; p += NT)
     buf0[p] = round_shift_arr(src[p] - pred[p], -fsh[0]);
   __syncthreads();
-  int* X = pass<BS, NT>(buf0, buf1, a, 0 + va);
+  int* X = pass<BS, NT>(buf0, buf1, a.progs, a.meta, 0 + va);
   int* Y = X == buf0 ? buf1 : buf0;
   for (int p = threadIdx.x; p < N; p += NT)
     X[p] = round_shift_arr(X[p], -fsh[1]);
   __syncthreads();
-  X = pass<BS, NT>(X, Y, a, 2 + ha);
+  X = pass<BS, NT>(X, Y, a.progs, a.meta, 2 + ha);
   Y = X == buf0 ? buf1 : buf0;
 
   // quantize: coefficient (r, c) has flat index c * BS + r
@@ -230,12 +137,12 @@ __global__ void kb_kernel(KBArgs a) {
   }
   __syncthreads();
   // inverse: row pass, then column pass (bd 8: 16-bit input clamps)
-  X = pass<BS, NT>(X, Y, a, 4 + ha);
+  X = pass<BS, NT>(X, Y, a.progs, a.meta, 4 + ha);
   Y = X == buf0 ? buf1 : buf0;
   for (int p = threadIdx.x; p < N; p += NT)
     X[p] = clampi(round_shift_arr(X[p], -ish[0]), -(1 << 15), (1 << 15) - 1);
   __syncthreads();
-  X = pass<BS, NT>(X, Y, a, 6 + va);
+  X = pass<BS, NT>(X, Y, a.progs, a.meta, 6 + va);
 
   int ssep = 0, ssec = 0;
   for (int p = threadIdx.x; p < N; p += NT) {

@@ -13,8 +13,8 @@ exit code is not 0):
 2. build the hand-written kernels from ``csrc/`` with nvcc (sm_90a), one
    nvcc process per source, all started together (KA-KF, KG/KH/KI in
    ``tune_vmaf.cu``, KJ and KM ``mvsearch.cu``, KK ``temporal_filter.cu``,
-   KL ``convolve.cu``, KN and KO ``metrics.cu``), and the native range
-   coder (``native/ec.cpp``, g++);
+   KL ``convolve.cu``, KN and KO ``metrics.cu``, KP ``analyze.cu``, KQ
+   ``palette.cu``), and the native range coder (``native/ec.cpp``, g++);
 3. KA / KB / KC against their plain PyTorch versions on the card, at the
    shapes the 1080p KEY frame gives them, for exact equality, with both
    times (CUDA events);
@@ -44,6 +44,15 @@ exit code is not 0):
    and 4x4; KO on 4 x 8160 8x8 residuals; exact; kernel (CUDA events
    around the wrapper, and ``device_ms``: the kernel alone under the
    profiler), plain, bound and library times;
+3g. KP (the batched analysis: 7 predictions, SSE argmin, forward DCT,
+   fp quantization, eob) and KQ (palette ``calc_indices``) against their
+   plain versions on the card: KP at the 1080p KEY frame's shapes (the
+   luma padded to 1088 rows at n = 16 / 32 / 8 / 4, B = 8160 / 2040 /
+   32640 / 130560; the chroma planes padded to 544 rows at n = 8), on the
+   plane entry at q100 and q255 and on the blocks entry with its totals;
+   KQ on the golden k-means cases and at N = 4096 / K = 8 (dim 1) and
+   N = 1024 / K = 8 (dim 2); exact; kernel, ``device_ms``, plain and
+   bound times;
 4. closed loop at CIF (352x288), KEY frame: the CUDA stream equals the
    port's CPU (plain-path) stream byte for byte, and the in-repo decoder
    reconstructs the port's post-loop-filter planes exactly;
@@ -108,17 +117,27 @@ exit code is not 0):
    (KO); equal to the same chain on the CPU plain path; timed (median of 3
    after a first) with the counts set to 0 before the 3 runs and read
    after;
+5j. the main path of slice 7 at full width, on the 1080p KEY frame
+   (luma padded to 1088, chroma to 544 rows): ``analyze_plane`` of the
+   three planes (luma n = 16, chroma n = 8), ``batched_analyze_step(16,
+   100)`` on the luma blocks and source edges whole and in two halves (the
+   halves' int32 totals add up to the whole's), ``calc_indices`` of every
+   64x64 luma block (dim 1) and co-located 32x32 chroma pair block (dim 2)
+   at K = 8 with centroids from the host ``k_means``; equal to the same
+   path on the CPU plain path; timed (median of 3 after a first) with the
+   counts set to 0 before the 3 runs and read after;
 6. / 6b. a profiler window over one steady 1080p KEY frame and one steady
    1080p P-frame (device busy time by kernel).
 
-``--only-kernels`` stops after phase 3f. The second-to-last line is
+``--only-kernels`` stops after phase 3g. The second-to-last line is
 ``{"kernels": [...]}``: ``launches`` from the GOP of phase 5b (for the
 4x4 / no-skip entries, from the uniform KEY frames of phase 5d; for KG,
 KH, KI and ``vif_down2``, from phase 5f; for KJ and KK, from the ARF GOP
-of phase 5g; for KL, KM, KN and KO, from the chain of phase 5i), with the
-counts of the KEY frames of phases 5, 5c, 5d and 5f, of phase 5b's IPPP
-GOP, of phase 5f's tune_vmaf GOP, of phase 5g's ARF GOP, of phase 5i's
-chain and of phase 4g's host inter GOP beside it. KA's and KB's entries
+of phase 5g; for KL, KM, KN and KO, from the chain of phase 5i; for KP
+and KQ, from the analysis path of phase 5j), with the counts of the KEY
+frames of phases 5, 5c, 5d and 5f, of phase 5b's IPPP GOP, of phase 5f's
+tune_vmaf GOP, of phase 5g's ARF GOP, of phase 5i's chain, of phase 5j's
+analysis path and of phase 4g's host inter GOP beside it. KA's and KB's entries
 count only their own instances (``intra_pred_sse`` bs 8/16/32,
 ``intra_pred_sse bs4``; ``txq_recon_skip`` bs 8/16/32 with the skip
 decision, ``txq_recon bs4 / bs8 no-skip``), read from the per-variant
@@ -1473,12 +1492,17 @@ def check_tf_kernels(dev):
 def _luma_1088(frame, dev):
     """The 1080p luma padded to 1088 rows by its last row (int32 on dev),
     the plane KE and KD search at 1080p."""
+    return _pad_rows(frame.planes()[0], 1088, dev)
+
+
+def _pad_rows(plane, rows, dev):
+    """An 8-bit plane padded to ``rows`` by its last row (int32 on dev)."""
     import numpy as np
     import torch
-    y = np.zeros((1088, 1920), np.int32)
-    y[:1080] = frame.planes()[0]
-    y[1080:] = y[1079]
-    return torch.as_tensor(y, device=dev)
+    out = np.empty((rows, plane.shape[1]), np.int32)
+    out[:plane.shape[0]] = plane
+    out[plane.shape[0]:] = plane[-1]
+    return torch.as_tensor(out, device=dev)
 
 
 def _grid(bs, dev):
@@ -1814,6 +1838,270 @@ def subpel_chain_path(dev, kernels):
     return counts
 
 
+def _analyze_ops(B, n):
+    """Operations of KP on B n x n blocks, per pixel: 7 predictions with
+    their squared differences and sums (~10 each), the residual, the two
+    transform passes (~2 log2(n) stages of ~6 each) and the quantizer and
+    eob (~10)."""
+    return B * n * n * (80 + 24 * (n.bit_length() - 1))
+
+
+def _palette_ops(N, K, dim):
+    """Operations of KQ: per point and centroid the distance (3 per
+    component) and the compare; per point the square and the sum."""
+    return N * (K * (3 * dim + 2) + 4)
+
+
+def _palette_tiles(planes, dev):
+    """The 1080p KEY frame's palette inputs: every 64x64 block of the
+    1088-row luma (dim 1) and the co-located 32x32 (u, v) pairs of the
+    544-row chroma (dim 2), each with K = 8 centroids from the port's host
+    ``k_means`` (set-up, host clock)."""
+    import numpy as np
+    import torch
+    from aom_av1_psy_tpu_torch.ops import analyze as AN
+    from aom_av1_psy_tpu_torch.ops import palette as PAL
+    y = AN.blockify(planes[0].cpu(), 64).numpy()
+    uv = torch.stack([AN.blockify(p.cpu(), 32) for p in planes[1:]], -1) \
+        .numpy()
+    t0 = time.perf_counter()
+    cents = ([PAL.k_means(b, 8, 1)[0] for b in y],
+             [PAL.k_means(b, 8, 2)[0] for b in uv])
+    kmeans_s = time.perf_counter() - t0
+    tiles = (torch.as_tensor(y, device=dev), torch.as_tensor(uv, device=dev))
+    cents = tuple(torch.as_tensor(np.stack(c), device=dev) for c in cents)
+    return tiles, cents, kmeans_s
+
+
+def check_k12_kernels(dev):
+    """Phase 3g: KP and KQ against their plain versions on the card. KP at
+    the 1080p KEY frame's shapes (``_luma_1088(make_frame(1920, 1080))`` at
+    n = 16 (B = 8160), 32 (2040), 8 (32640) and 4 (130560); the two chroma
+    planes padded to 544 rows at n = 8), on the plane entry and on the
+    blocks entry with its totals; KQ on the golden k-means cases and at
+    N = 4096 / K = 8 (dim 1) and N = 1024 / K = 8 (dim 2). Exact equality;
+    kernel (CUDA events around the wrapper, and ``device_ms``), plain and
+    bound times."""
+    import numpy as np
+    import torch
+    from aom_av1_psy_tpu_torch.normative import tables
+    from aom_av1_psy_tpu_torch.ops import analyze as AN
+    from aom_av1_psy_tpu_torch.ops import palette as PAL
+    from aom_av1_psy_tpu_torch.ops.txfm import SQUARE_TX
+    from aom_av1_psy_tpu_torch.utils import testframes
+
+    frame = testframes.make_frame(1920, 1080)
+    y = _luma_1088(frame, dev)
+    u, v = (_pad_rows(p, 544, dev) for p in frame.planes()[1:])
+    dq, aq = tables.dc_quant(100), tables.ac_quant(100)
+    results = []
+
+    # ---- KP: luma at n = 16, 32, 8, 4; chroma at n = 8; q 100 and 255 ----
+    err, shapes = 0.0, []
+    for plane, n in ((y, 16), (y, 32), (y, 8), (y, 4), (u, 8), (v, 8)):
+        B = plane.numel() // (n * n)
+        for q in (100, 255):
+            a = (plane, tables.dc_quant(q), tables.ac_quant(q), n,
+                 SQUARE_TX[n])
+            got = AN.analyze_plane(*a)
+            err = max(err, compare(f"KP plane n={n} B={B} q={q}",
+                                   tuple(got.values()),
+                                   tuple(AN.analyze_plane_plain(*a)
+                                         .values())))
+        edges = AN._edges_from_source(plane, n)
+        blocks = AN.blockify(plane, n)
+        a = (blocks, *edges, dq, aq, SQUARE_TX[n])
+        pl = AN.analyze_blocks_plain(*a)
+        tot = torch.stack([pl["sse"].to(torch.int64).sum(),
+                           pl["eob"].to(torch.int64).sum()]).to(torch.int32)
+        err = max(err, compare(f"KP blocks n={n} B={B}", AN.analyze_blocks(*a),
+                               (pl["mode"], pl["levels"], pl["eob"], tot[0],
+                                tot[1])))
+        shapes.append(f"n={n} B={B}")
+    a = (y, dq, aq, 16, SQUARE_TX[16])
+    out = AN.analyze_plane(*a)
+    kp_t = (cuda_time(lambda: AN.analyze_plane(*a), 20),
+            cuda_time(lambda: AN.analyze_plane_plain(*a), 3),
+            device_ms(lambda: AN.analyze_plane(*a), 20, "kp_kernel"))
+    kp_bnd = bound(nbytes(y, out), _analyze_ops(out["eob"].numel(), 16))
+    n4 = (y, dq, aq, 4, SQUARE_TX[4])
+    kp4 = (cuda_time(lambda: AN.analyze_plane(*n4), 10),
+           device_ms(lambda: AN.analyze_plane(*n4), 10, "kp_kernel"))
+    results.append({"name": "analyze_blocks", "route": "cuda",
+                    "source": "aom_av1_psy_tpu_torch/csrc/analyze.cu",
+                    "replaces": "aom_av1_psy_tpu/ops/analyze.py:119-148; "
+                                "aom_av1_psy_tpu/parallel/mesh.py:32-75",
+                    "max_abs_err": err, "ms": kp_t[0], "plain_ms": kp_t[1],
+                    "device_ms": kp_t[2], **kp_bnd, "library_ms": None,
+                    "library_none": "no single PyTorch call predicts, "
+                                    "transforms and quantizes",
+                    "timed_at": "1080p luma (1088x1920 int32) n=16 B=8160 "
+                                f"q100; n=4 B=130560: {kp4[0]:.4f} ms "
+                                f"(device {kp4[1]} ms)"})
+    log(f"[3g] KP analyze_blocks exact on the plane and blocks entries "
+        f"({', '.join(shapes)}; q100 / q255); luma n=16: kernel "
+        f"{kp_t[0]:.4f} ms (device {kp_t[2]} ms), plain {kp_t[1]:.4f} ms, "
+        f"bound {kp_bnd['bound_ms']:.4f} ms ({kp_bnd['bound_by']}); n=4: "
+        f"{kp4[0]:.4f} ms (device {kp4[1]} ms)")
+
+    # ---- KQ: the golden cases, N = 4096 / K = 8 dim 1, 1024 pairs dim 2 ----
+    g = np.load(os.path.join(REPO, "tests", "golden", "golden_kmeans.npz"))
+    err = 0.0
+    for c in range(6):
+        n, k = (int(x) for x in g[f"km{c}_meta"])
+        data, cents = g[f"km{c}_data"][: n * 2], g[f"km{c}_cents"][: k * 2]
+        for dim, d, ce in ((1, data[:n], cents[:k]), (2, data, cents)):
+            got = PAL.calc_indices(torch.as_tensor(d, device=dev),
+                                   torch.as_tensor(ce, device=dev), dim)
+            want = (torch.as_tensor(g[f"km{c}_idx{dim}"][:n]
+                                    .astype(np.uint8), device=dev),
+                    int(g[f"km{c}_dist"][dim - 1]))
+            err = max(err, compare(f"KQ golden {c} dim {dim}", got[0],
+                                   want[0]))
+            if got[1] != want[1]:
+                raise AssertionError(f"KQ golden {c} dim {dim}: total "
+                                     f"{got[1]} != {want[1]}")
+    rng = np.random.default_rng(SEED + 7)
+    timed = {}
+    for dim, n in ((1, 4096), (2, 1024)):
+        d = torch.as_tensor(rng.integers(0, 256, (n, dim)), device=dev)
+        c = torch.as_tensor(rng.integers(0, 256, (8, dim)), device=dev)
+        got = PAL.calc_indices(d, c, dim)
+        want = PAL.calc_indices_plain(d, c, dim)
+        err = max(err, compare(f"KQ N={n} dim {dim}", got[0], want[0]))
+        if got[1] != want[1]:
+            raise AssertionError(f"KQ N={n} dim {dim}: total {got[1]} != "
+                                 f"{want[1]}")
+        timed[dim] = (cuda_time(lambda: PAL.calc_indices(d, c, dim), 20),
+                      cuda_time(lambda: PAL.calc_indices_plain(d, c, dim),
+                                20),
+                      device_ms(lambda: PAL.calc_indices(d, c, dim), 20,
+                                "kq_kernel"),
+                      bound(nbytes(d, c, got[0]) + 8, _palette_ops(n, 8, dim)))
+    kq_t = timed[1]
+    results.append({"name": "palette_indices", "route": "cuda",
+                    "source": "aom_av1_psy_tpu_torch/csrc/palette.cu",
+                    "replaces": "aom_av1_psy_tpu/ops/palette.py:20",
+                    "max_abs_err": err, "ms": kq_t[0], "plain_ms": kq_t[1],
+                    "device_ms": kq_t[2], **kq_t[3], "library_ms": None,
+                    "library_none": "torch.cdist gives the distances but not "
+                                    "the first-index argmin and the total in "
+                                    "one call",
+                    "timed_at": "N=4096 K=8 dim 1, with the total's copy to "
+                                f"the host; N=1024 K=8 dim 2: "
+                                f"{timed[2][0]:.4f} ms (device "
+                                f"{timed[2][2]} ms), plain "
+                                f"{timed[2][1]:.4f} ms"})
+    log(f"[3g] KQ palette_indices exact (6 golden cases x dims 1, 2; "
+        f"N=4096 K=8 dim 1; N=1024 K=8 dim 2); dim 1: kernel "
+        f"{kq_t[0]:.4f} ms (device {kq_t[2]} ms), plain {kq_t[1]:.4f} ms, "
+        f"bound {kq_t[3]['bound_ms']:.6f} ms ({kq_t[3]['bound_by']}); "
+        f"dim 2: kernel {timed[2][0]:.4f} ms, plain {timed[2][1]:.4f} ms")
+    return results
+
+
+def _wrap32(x):
+    return (x + 2**31) % 2**32 - 2**31
+
+
+def _analysis_path(planes, tiles, cents):
+    """The slice's path: ``analyze_plane`` of the luma (n = 16) and both
+    chroma planes (n = 8); ``batched_analyze_step(16, 100)`` on the luma
+    blocks and source edges, whole and in two halves of the batch (the
+    reference's 2-device mesh); ``calc_indices`` of every 64x64 luma block
+    (dim 1) and co-located 32x32 chroma pair block (dim 2) at K = 8. CUDA
+    tensors take the kernels, CPU tensors the plain versions."""
+    import torch
+    from aom_av1_psy_tpu_torch.normative import tables
+    from aom_av1_psy_tpu_torch.ops import analyze as AN
+    from aom_av1_psy_tpu_torch.ops import palette as PAL
+    from aom_av1_psy_tpu_torch.parallel.mesh import batched_analyze_step
+    from aom_av1_psy_tpu_torch.ops.txfm import SQUARE_TX
+    dev = planes[0].device
+    dq, aq = tables.dc_quant(100), tables.ac_quant(100)
+    out = {}
+    for name, p, n in (("y", planes[0], 16), ("u", planes[1], 8),
+                       ("v", planes[2], 8)):
+        for k, t in AN.analyze_plane(p, dq, aq, n, SQUARE_TX[n]).items():
+            out[f"{name} {k}"] = t
+    y = planes[0]
+    blocks, edges = AN.blockify(y, 16), AN._edges_from_source(y, 16)
+    step = batched_analyze_step(16, 100, device=dev)
+    half = blocks.shape[0] // 2
+    for name, s in (("whole", slice(None)), ("top", slice(None, half)),
+                    ("bottom", slice(half, None))):
+        res = step(*(t[s] for t in (blocks, *edges)))
+        for k, t in zip(("modes", "levels", "eob", "tot_sse", "tot_coeff"),
+                        res):
+            out[f"step {name} {k}"] = t
+    for dim, (tl, ce) in enumerate(zip(tiles, cents), 1):
+        got = [PAL.calc_indices(tl[b], ce[b], dim) for b in range(len(tl))]
+        out[f"palette dim{dim} idx"] = torch.stack([g[0] for g in got])
+        out[f"palette dim{dim} total"] = torch.tensor([g[1] for g in got])
+    return out
+
+
+def analysis_path(dev, kernels):
+    """Phase 5j: the analysis path at full width on the 1080p KEY frame
+    (``make_frame(1920, 1080)``, the luma padded to 1088 and the chroma to
+    544 rows): ``_analysis_path`` (KP: 3 plane + 3 step launches; KQ: 510
+    dim-1 + 510 dim-2 launches); the step's totals of the two halves add up
+    (int32) to the whole's, and its modes / levels / eob equal the luma
+    plane's; equal to the same path on the CPU plain path; timed (host
+    clock to a synchronize, median of 3 after a first) with the counts set
+    to 0 just before the 3 runs and read just after."""
+    import torch
+    from aom_av1_psy_tpu_torch.utils import testframes
+    frame = testframes.make_frame(1920, 1080)
+    planes = [_luma_1088(frame, dev)] + [_pad_rows(p, 544, dev)
+                                         for p in frame.planes()[1:]]
+    tiles, cents, kmeans_s = _palette_tiles(planes, dev)
+    t0 = time.perf_counter()
+    got = _analysis_path(planes, tiles, cents)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    _reset(kernels)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        again = _analysis_path(planes, tiles, cents)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = _counts(kernels)
+    _need("1080p analysis path", counts, [k.name for k in kernels])
+    t0 = time.perf_counter()
+    want = _analysis_path([p.cpu() for p in planes],
+                          [t.cpu() for t in tiles], [c.cpu() for c in cents])
+    cpu_s = time.perf_counter() - t0
+    for k in got:
+        compare(f"1080p analysis {k} (CUDA vs CPU plain)", got[k].cpu(),
+                want[k])
+        compare(f"1080p analysis {k} (steady)", again[k], got[k])
+    for k in ("modes", "levels", "eob"):
+        compare(f"1080p step {k} vs the luma plane's", got[f"step whole {k}"],
+                got[{"modes": "y mode"}.get(k, f"y {k}")])
+    for k in ("tot_sse", "tot_coeff"):
+        halves = _wrap32(int(got[f"step top {k}"])
+                         + int(got[f"step bottom {k}"]))
+        if halves != int(got[f"step whole {k}"]):
+            raise AssertionError(f"1080p step {k}: halves {halves} != "
+                                 f"whole {int(got[f'step whole {k}'])}")
+    if int(got["step whole tot_sse"]) != _wrap32(int(got["y sse"].sum())):
+        raise AssertionError("1080p step tot_sse != the luma plane's SSE sum")
+    modes = torch.bincount(got["y mode"].long(), minlength=7).tolist()
+    log(f"[5j] 1080p analysis path (KP: luma n=16, chroma n=8, the step "
+        f"whole + 2 halves; KQ: 510 luma 64x64 dim 1 + 510 chroma pair "
+        f"dim 2 at K=8): first {first_s:.4f} s, steady "
+        f"{statistics.median(times):.4f} s (runs "
+        f"{', '.join(f'{x:.4f}' for x in times)}), CPU plain {cpu_s:.2f} s, "
+        f"host k_means set-up {kmeans_s:.2f} s; CUDA == CPU plain; halves "
+        f"== whole; luma modes {modes}, tot_sse "
+        f"{int(got['step whole tot_sse'])}, tot_coeff "
+        f"{int(got['step whole tot_coeff'])}")
+    log(f"[5j] launches in the 3 timed runs: {json.dumps(counts)}")
+    return counts
+
+
 def closed_loop_gops_cif(dev):
     """Phase 4f: the ARF, CBR and RC GOP encodes at CIF: the CUDA packets (and
     q, trace) equal the CPU plain path's, every displayed frame decodes to
@@ -1966,12 +2254,16 @@ def main() -> int:
     from aom_av1_psy_tpu_torch.ops.mvsearch import KJ, KM
     from aom_av1_psy_tpu_torch.ops.convolve import KL
     from aom_av1_psy_tpu_torch.ops.metrics import KN, KO
+    from aom_av1_psy_tpu_torch.ops.analyze import KP
+    from aom_av1_psy_tpu_torch.ops.palette import KQ
     from aom_av1_psy_tpu_torch.native import LIB_PATH, get_lib
     kernels = (KA, KB, KC, KD, KE, KF, KJ, KK)
     k13b = (KJ, KL, KM, KN, KO)
+    k12 = (KP, KQ)
+    built = kernels + (TV,) + k13b[1:] + k12
     t0 = time.perf_counter()
-    build_all(kernels + (TV, KL, KM, KN, KO))
-    log(f"[2] built {', '.join(k.name for k in kernels + (TV,) + k13b[1:])} "
+    build_all(built)
+    log(f"[2] built {', '.join(k.name for k in built)} "
         f"with nvcc sm_90a in {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     if get_lib() is None:
@@ -1979,7 +2271,7 @@ def main() -> int:
                            "build")
     log(f"[2] native range coder {os.path.relpath(LIB_PATH, REPO)} ready in "
         f"{time.perf_counter() - t0:.2f} s")
-    for k in kernels + (TV,) + k13b[1:]:
+    for k in built:
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[2]   {k.name}: {line.strip()}")
@@ -1996,6 +2288,7 @@ def main() -> int:
     vmaf_results = phase("3d", check_tune_vmaf_kernels, dev)
     tf_results = phase("3e", check_tf_kernels, dev)
     k13b_results = phase("3f", check_k13b_kernels, dev)
+    k12_results = phase("3g", check_k12_kernels, dev)
     if "--only-kernels" in sys.argv[1:]:
         return 0
     phase("4", closed_loop_cif, dev)
@@ -2016,6 +2309,7 @@ def main() -> int:
     arf_counts = phase("5g", arf_gop_path, dev, kernels)
     phase("5h", rc_gop_paths, dev, rate_5b)
     chain_counts = phase("5i", subpel_chain_path, dev, k13b)
+    analysis_counts = phase("5j", analysis_path, dev, k12)
     phase("6", profile_frame, dev, frame, cfg)
     phase("6b", profile_p_frame, dev, frames, encs)
 
@@ -2036,7 +2330,8 @@ def main() -> int:
     total = {"lpf_ladder": KC, "mc_8tap": KD, "fullpel_ssd": KE,
              "cdef_filter": KF, "fullpel_sad": KJ, "tf_weight_accum": KK,
              "subpel_predict": KL, "subpel_refine49": KM,
-             "block_reduce": KN, "satd8x8": KO}
+             "block_reduce": KN, "satd8x8": KO, "analyze_blocks": KP,
+             "palette_indices": KQ}
 
     def n(name, c):
         if name in total:
@@ -2059,8 +2354,13 @@ def main() -> int:
     for r in k13b_results:
         r["launches"] = n(r["name"], chain_counts)
         r["launches_from"] = "5i: 3 timed runs of the 1080p subpel chain"
-    results += uniform_results + vmaf_results + tf_results + k13b_results
+    for r in k12_results:
+        r["launches"] = n(r["name"], analysis_counts)
+        r["launches_from"] = "5j: 3 timed runs of the 1080p analysis path"
+    results += (uniform_results + vmaf_results + tf_results + k13b_results
+                + k12_results)
     for r in results:
+        r["launches_analysis_path"] = n(r["name"], analysis_counts)
         r["launches_subpel_chain"] = n(r["name"], chain_counts)
         r["launches_host_inter_gop"] = n(r["name"], host_inter_counts)
         r["launches_ippp_gop"] = n(r["name"], counts)

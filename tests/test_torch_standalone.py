@@ -2,8 +2,8 @@
 ``chip_smoke.py`` imports jax, the reference package ``aom_av1_psy_tpu``
 (or a submodule) or ``bench``; a fresh interpreter that encodes a KEY
 frame, a 3-frame GOP, a tune_vmaf frame, a 4-frame ARF GOP and a 2-frame
-GOP of the host inter encoder (with a metric on its residual) through the
-port has loaded none of them (one interpreter, a case per stage); the port's test content
+GOP of the host inter encoder (with a metric on its residual), and runs the analysis pipeline
+and palette assignment through the port has loaded none of them (one interpreter, a case per stage); the port's test content
 equals ``bench``'s; its own range coder build lives beside the reference's
 in one process; and ``convert`` carries the reference's objects into the
 port's classes.
@@ -62,8 +62,9 @@ def test_no_import_of_jax_reference_or_bench(path):
 # prints the stage, its bytes and the loaded modules of jax, the reference
 # package and bench (a KEY frame with flat chroma, a 3-frame GOP, a
 # tune_vmaf frame, an ARF GOP with its temporal filters, the host inter
-# encoder's GOP and the satd of its residual)
-_STAGES = ("key", "gop", "tune_vmaf", "arf", "interframe")
+# encoder's GOP and the satd of its residual, the analysis of a plane and
+# the batched step on its blocks, k-means and calc_indices on a block)
+_STAGES = ("key", "gop", "tune_vmaf", "arf", "interframe", "analyze")
 _ENCODES = """
 import dataclasses, json, sys
 import numpy as np
@@ -106,6 +107,20 @@ res = src - torch.as_tensor(rec[1][0][:64, :64])
 report("interframe", sum(map(len, pk))
        if int(metrics.satd(res.reshape(8, 8, 8, 8).transpose(1, 2)).sum())
        else 0)
+from aom_av1_psy_tpu_torch.normative import tables
+from aom_av1_psy_tpu_torch.ops import analyze, palette
+from aom_av1_psy_tpu_torch.parallel.mesh import batched_analyze_step
+plane = torch.as_tensor(y)
+out = analyze.analyze_plane(plane, tables.dc_quant(100),
+                            tables.ac_quant(100), n=16, device="cpu")
+step = batched_analyze_step(16, 100, device="cpu")(
+    analyze.blockify(plane, 16), *analyze._edges_from_source(plane, 16))
+cents, idx, total = palette.k_means(y[:64, :64], 8, 1)
+idx2, total2 = palette.calc_indices(plane[:64, :64], torch.as_tensor(cents),
+                                    1)
+report("analyze", int(step[4])
+       if torch.equal(step[2], out["eob"]) and total2 == total
+       and np.array_equal(idx2.numpy(), idx) else 0)
 """
 
 
