@@ -20,8 +20,31 @@
 // (8 items per 256-thread CTA); the lanes stride over the item's elements
 // and a warp shuffle adds the int64 partial sums, so no shared memory and
 // no atomics. KO gives each 8x8 block one thread that holds it in 64
-// registers.
+// registers. Both read their inputs in the caller's integer type
+// (uint8, int8, int16 or int32: a template on the element type), so the
+// wrapper launches no conversion kernel; KN takes its arguments as one
+// struct by pointer, which the entry point copies into the launch.
 #include "common.cuh"
+
+// The argument block of block_reduce (mirrored by ops/metrics._KNArgs).
+struct KNArgs {
+  const void* a;
+  const void* b;
+  const void* c;
+  const void* d;
+  long long* s0;
+  long long* s1;     // or null: ops with one sum
+  long long* out;    // kProject: (B, n)
+  int op;
+  int dtype;         // element type of a, b, c, d: see Dtype
+  int B, n, w;       // items, elements per item, row width of the output
+  int bdiv;          // item i reads b's item i / bdiv (sad_x4: N refs)
+  int a_rows, a_w;   // bilinear: a's item is (a_rows, a_w), stride a_w
+  int t0, t1, u0, u1;  // bilinear horizontal and vertical taps
+  int avg;           // sub_pixel_avg_variance: average with c first
+};
+
+enum Dtype { kU8 = 0, kI8 = 1, kI16 = 2, kI32 = 3 };
 
 namespace {
 
@@ -39,21 +62,6 @@ enum Op {
   kProject = 8,    // bilinear pred of a, written out
 };
 
-struct KNArgs {
-  const int* a;
-  const int* b;
-  const int* c;
-  const int* d;
-  int B, n, w;       // items, elements per item, row width of the output
-  int bdiv;          // item i reads b's item i / bdiv (sad_x4: N refs)
-  int a_rows, a_w;   // bilinear: a's item is (a_rows, a_w), stride a_w
-  int t0, t1, u0, u1;  // bilinear horizontal and vertical taps
-  int avg;           // sub_pixel_avg_variance: average with c first
-  long long* s0;
-  long long* s1;
-  long long* out;    // kProject: (B, n)
-};
-
 __device__ __forceinline__ long long round2signed12(long long v) {
   const long long mag = ((v < 0 ? -v : v) + (1 << 11)) >> 12;
   return v < 0 ? -mag : mag;
@@ -61,9 +69,10 @@ __device__ __forceinline__ long long round2signed12(long long v) {
 
 // The bilinear two-pass projection at (r, c) (aom_var_filter_block2d_bil_*,
 // round 7 after each pass).
-__device__ __forceinline__ long long bil(const KNArgs& k, const int* a, int r,
+template <typename T>
+__device__ __forceinline__ long long bil(const KNArgs& k, const T* a, int r,
                                          int c) {
-  const int* p = a + r * k.a_w + c;
+  const T* p = a + r * k.a_w + c;
   const long long f0 = ((long long)p[0] * k.t0 + (long long)p[1] * k.t1 +
                         64) >> 7;
   const long long f1 = ((long long)p[k.a_w] * k.t0 +
@@ -71,35 +80,38 @@ __device__ __forceinline__ long long bil(const KNArgs& k, const int* a, int r,
   return (f0 * k.u0 + f1 * k.u1 + 64) >> 7;
 }
 
-template <int OP>
+template <int OP, typename T>
 __global__ void __launch_bounds__(kThreads) kn_kernel(KNArgs k) {
   const long long item = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (item >= k.B) return;
   const long long base = item * k.n;
   const long long bbase = (item / k.bdiv) * k.n;
-  const int* a = OP == kSubpelVar || OP == kProject
-                     ? k.a + item * k.a_rows * k.a_w
-                     : k.a + base;
+  const T* a = (const T*)k.a + (OP == kSubpelVar || OP == kProject
+                                    ? item * k.a_rows * k.a_w
+                                    : base);
+  const T* b = (const T*)k.b;
+  const T* c = (const T*)k.c;
+  const T* d = (const T*)k.d;
   long long x = 0, y = 0;
   for (int e = lane; e < k.n; e += 32) {
     if (OP == kSad) {
-      const long long v = (long long)a[e] - k.b[bbase + e];
+      const long long v = (long long)a[e] - b[bbase + e];
       x += v < 0 ? -v : v;
     } else if (OP == kSse) {
-      const long long v = (long long)a[e] - k.b[bbase + e];
+      const long long v = (long long)a[e] - b[bbase + e];
       x += v * v;
     } else if (OP == kVariance) {
-      const long long v = (long long)a[e] - k.b[bbase + e];
+      const long long v = (long long)a[e] - b[bbase + e];
       x += v;
       y += v * v;
     } else if (OP == kBlockError) {
-      const long long v = (long long)a[e] - k.b[bbase + e];
+      const long long v = (long long)a[e] - b[bbase + e];
       x += v * v;
       y += (long long)a[e] * a[e];
     } else if (OP == kObmcSad || OP == kObmcVar) {
       const long long r = round2signed12(
-          (long long)k.b[bbase + e] - (long long)a[e] * k.c[base + e]);
+          (long long)b[bbase + e] - (long long)a[e] * c[base + e]);
       if (OP == kObmcSad) {
         x += r < 0 ? -r : r;
       } else {
@@ -107,18 +119,17 @@ __global__ void __launch_bounds__(kThreads) kn_kernel(KNArgs k) {
         y += r * r;
       }
     } else if (OP == kMaskedSad) {
-      const long long m = k.c[base + e];
-      const long long pred =
-          (m * a[e] + (64 - m) * k.b[base + e] + 32) >> 6;
-      const long long v = pred - k.d[base + e];
+      const long long m = c[base + e];
+      const long long pred = (m * a[e] + (64 - m) * b[base + e] + 32) >> 6;
+      const long long v = pred - d[base + e];
       x += v < 0 ? -v : v;
     } else {  // kSubpelVar, kProject
-      long long pred = bil(k, a, e / k.w, e % k.w);
+      long long pred = bil<T>(k, a, e / k.w, e % k.w);
       if (OP == kProject) {
         k.out[base + e] = pred;
       } else {
-        if (k.avg) pred = (pred + k.c[base + e] + 1) >> 1;
-        const long long v = pred - k.b[base + e];
+        if (k.avg) pred = (pred + c[base + e] + 1) >> 1;
+        const long long v = pred - b[base + e];
         x += v;
         y += v * v;
       }
@@ -153,15 +164,16 @@ __device__ __forceinline__ void wht8(unsigned int* v, int step) {
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    ko_kernel(const int* __restrict__ x, int B, int* __restrict__ t,
+    ko_kernel(const T* __restrict__ x, int B, int* __restrict__ t,
               long long* __restrict__ satd) {
   const long long b = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (b >= B) return;
   unsigned int v[64];
-  const int* g = x + b * 64;
+  const T* g = x + b * 64;
 #pragma unroll
-  for (int i = 0; i < 64; ++i) v[i] = (unsigned int)g[i];
+  for (int i = 0; i < 64; ++i) v[i] = (unsigned int)(int)g[i];
 #pragma unroll
   for (int r = 0; r < 8; ++r) wht8(v + 8 * r, 1);  // rows (last axis)
 #pragma unroll
@@ -177,44 +189,68 @@ __global__ void __launch_bounds__(kThreads)
   if (satd) satd[b] = s;
 }
 
+template <int OP>
+void launch_op(const KNArgs& k, int grid, cudaStream_t st) {
+  switch (k.dtype) {
+    case kU8:
+      kn_kernel<OP, unsigned char><<<grid, kThreads, 0, st>>>(k);
+      break;
+    case kI8:
+      kn_kernel<OP, signed char><<<grid, kThreads, 0, st>>>(k);
+      break;
+    case kI16:
+      kn_kernel<OP, short><<<grid, kThreads, 0, st>>>(k);
+      break;
+    default:
+      kn_kernel<OP, int><<<grid, kThreads, 0, st>>>(k);
+      break;
+  }
+}
+
 }  // namespace
 
-AV1_EXPORT int block_reduce(int op, const int* a, const int* b, const int* c,
-                            const int* d, int B, int n, int w, int bdiv,
-                            int a_rows, int a_w, int t0, int t1, int u0,
-                            int u1, int avg, long long* s0, long long* s1,
-                            long long* out, void* stream) {
-  if (B <= 0) return 0;
-  if (n <= 0 || w <= 0 || bdiv <= 0 || op < kSad || op > kProject)
+AV1_EXPORT int block_reduce(const KNArgs* args, void* stream) {
+  const KNArgs k = *args;
+  if (k.B <= 0) return 0;
+  if (k.n <= 0 || k.w <= 0 || k.bdiv <= 0 || k.op < kSad ||
+      k.op > kProject || k.dtype < kU8 || k.dtype > kI32)
     return (int)cudaErrorInvalidValue;
-  KNArgs k{a, b, c, d, B, n, w, bdiv, a_rows, a_w, t0, t1, u0, u1, avg,
-           s0, s1, out};
-  const int grid = (B + kWarps - 1) / kWarps;
+  const int grid = (k.B + kWarps - 1) / kWarps;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (op) {
-    case kSad: kn_kernel<kSad><<<grid, kThreads, 0, st>>>(k); break;
-    case kSse: kn_kernel<kSse><<<grid, kThreads, 0, st>>>(k); break;
-    case kVariance: kn_kernel<kVariance><<<grid, kThreads, 0, st>>>(k); break;
-    case kBlockError:
-      kn_kernel<kBlockError><<<grid, kThreads, 0, st>>>(k);
-      break;
-    case kObmcSad: kn_kernel<kObmcSad><<<grid, kThreads, 0, st>>>(k); break;
-    case kObmcVar: kn_kernel<kObmcVar><<<grid, kThreads, 0, st>>>(k); break;
-    case kMaskedSad:
-      kn_kernel<kMaskedSad><<<grid, kThreads, 0, st>>>(k);
-      break;
-    case kSubpelVar:
-      kn_kernel<kSubpelVar><<<grid, kThreads, 0, st>>>(k);
-      break;
-    default: kn_kernel<kProject><<<grid, kThreads, 0, st>>>(k); break;
+  switch (k.op) {
+    case kSad: launch_op<kSad>(k, grid, st); break;
+    case kSse: launch_op<kSse>(k, grid, st); break;
+    case kVariance: launch_op<kVariance>(k, grid, st); break;
+    case kBlockError: launch_op<kBlockError>(k, grid, st); break;
+    case kObmcSad: launch_op<kObmcSad>(k, grid, st); break;
+    case kObmcVar: launch_op<kObmcVar>(k, grid, st); break;
+    case kMaskedSad: launch_op<kMaskedSad>(k, grid, st); break;
+    case kSubpelVar: launch_op<kSubpelVar>(k, grid, st); break;
+    default: launch_op<kProject>(k, grid, st); break;
   }
   return (int)cudaGetLastError();
 }
 
-AV1_EXPORT int satd8x8(const int* x, int B, int* t, long long* satd,
-                       void* stream) {
+AV1_EXPORT int satd8x8(const void* x, int dtype, int B, int* t,
+                       long long* satd, void* stream) {
   if (B <= 0) return 0;
-  ko_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0,
-              (cudaStream_t)stream>>>(x, B, t, satd);
+  const int grid = (B + kThreads - 1) / kThreads;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (dtype) {
+    case kU8:
+      ko_kernel<<<grid, kThreads, 0, st>>>((const unsigned char*)x, B, t, satd);
+      break;
+    case kI8:
+      ko_kernel<<<grid, kThreads, 0, st>>>((const signed char*)x, B, t, satd);
+      break;
+    case kI16:
+      ko_kernel<<<grid, kThreads, 0, st>>>((const short*)x, B, t, satd);
+      break;
+    case kI32:
+      ko_kernel<<<grid, kThreads, 0, st>>>((const int*)x, B, t, satd);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

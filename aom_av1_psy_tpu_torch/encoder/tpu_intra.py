@@ -5,11 +5,12 @@ slabs at once) and the uniform-grid fallback (``plan_frame``).
 
 The reference runs each wavefront as one ``lax.scan`` over the
 anti-diagonals of the block grid; here a host loop walks the R+C-1
-diagonals and every step is a handful of device ops: kernel KA
-(``ops/intra_pred.py``) scores all candidates of the diagonal's cells, the
-RD pick is torch ops on the device, KA re-predicts the winner, kernel KB
-(``ops/txq.py``) quantizes, reconstructs and (on the partition plan) makes
-the skip decision. The cells of a diagonal are known on the host, so only
+diagonals and every step is a handful of device ops: kernel KA's pick
+(``ops/intra_pred.intra_pick``) reads each cell's edges from the recon
+buffer, scores and prices all candidates, chooses the RD argmin and
+predicts the winner in one launch, and kernel KB (``ops/txq.py``)
+quantizes, reconstructs and (on the partition plan) makes the skip
+decision. The cells of a diagonal are known on the host, so only
 the valid cells are processed (the reference computes padding lanes and
 drops them) and the loop never waits for the device. The partition
 wavefronts carry a leading tile axis: tiles are prediction-independent, so
@@ -31,7 +32,7 @@ import numpy as np
 import torch
 
 from ..normative import tables
-from ..normative.blocks import INTRA_MODE_CONTEXT, INTRA_MODE_TO_TX_TYPE
+from ..normative.blocks import INTRA_MODE_TO_TX_TYPE
 from ..normative.enums import TxSize
 from .. import convert
 from ..ops import intra_pred as IP
@@ -43,7 +44,6 @@ PLAN_MODES = (0, 1, 2, 9, 10, 11, 12)  # DC V H SMOOTH SMOOTH_V SMOOTH_H PAETH
 BS_TO_TX = {4: int(TxSize.TX_4X4), 8: int(TxSize.TX_8X8),
             16: int(TxSize.TX_16X16), 32: int(TxSize.TX_32X32)}
 _QUADS = ((0, 0), (0, 1), (1, 0), (1, 1))
-_IMC = tuple(int(v) for v in INTRA_MODE_CONTEXT)
 _IM2TT = tuple(int(v) for v in INTRA_MODE_TO_TX_TYPE)
 
 _predict_all_modes = IP.predict_all_modes
@@ -72,13 +72,6 @@ def _tq_recon_uv(src, pred, dc_q, ac_q, tx_size, scan, uv_mode):
     assert BS_TO_TX[src.shape[-1]] == tx_size
     va, ha = _uv_adst(uv_mode)
     return TQ.tq_recon(src, pred, dc_q, ac_q, scan, va, ha)
-
-
-def _rd(sse, rate, rdmult):
-    # RDCOST scaling (ec/costs.rdcost): (rate*rdmult)>>9 + (sse<<11) in
-    # float32, in the reference's order of operations — decision-only
-    return sse.to(torch.float32) * 2048.0 + \
-        rate.to(torch.float32) * (rdmult / 512.0)
 
 
 @functools.cache
@@ -279,28 +272,6 @@ def _walk(R: int, C: int, device, T: int = 1):
         yield tuple(a[offs[d]:offs[d + 1]] for a in all_)
 
 
-def _edges(buf, tt, by, bx, bs: int):
-    """Above row, left column and corner of blocks at (by, bx) of tile tt
-    of a (T, H, W) buffer with a 1-px guard border ((by, bx) are block
-    origins + 1)."""
-    ar = torch.arange(bs, device=buf.device)
-    t1 = tt[:, None]
-    above = buf[t1, (by - 1)[:, None], bx[:, None] + ar]
-    left = buf[t1, by[:, None] + ar, (bx - 1)[:, None]]
-    tl = buf[tt, by - 1, bx - 1]
-    return above, left, tl
-
-
-def _block_index(tt, by, bx, bs: int):
-    ar = torch.arange(bs, device=by.device)
-    return tt[:, None, None], by[:, None, None] + ar[None, :, None], \
-        bx[:, None, None] + ar[None, None, :]
-
-
-def _smooth(m):
-    return (m >= 9) & (m <= 11)
-
-
 def _luma_wavefront_part(src, t: dict):
     """Two-level luma wavefront over 32px cells with the full candidate set
     (7 plain modes + the directional (mode, delta) pairs), over T tile
@@ -317,11 +288,8 @@ def _luma_wavefront_part(src, t: dict):
     dc_q, ac_q = t["dc_q"], t["ac_q"]
     masks = t["masks"]
     K = len(DIR.candidates())
-    tab32, tab16 = DIR.tables_on(32, str(dev)), DIR.tables_on(16, str(dev))
     scan32 = _scan(BS_TO_TX[32], str(dev))
     scan16 = _scan(BS_TO_TX[16], str(dev))
-    imc = _const(_IMC, str(dev))
-    mode_cost, angle_cost = t["kf_cost"], t["angle_cost"]
     rd16, rd32 = t["rd16"], t["rd32"]
     pr_none, pr_split = t["pr_none"], t["pr_split"]
     rt32, rt16 = t["rt"]["y32"], t["rt"]["y16"]
@@ -339,115 +307,61 @@ def _luma_wavefront_part(src, t: dict):
     lv16o = torch.zeros((T, 2 * R, 2 * C, 256), **i32)
     e16o = torch.zeros((T, 2 * R, 2 * C), **i32)
     src4 = src.view(T, R, 32, C, 32)
-    inf = torch.tensor(float("inf"), device=dev)
-
-    def mode_rate(am, lm):
-        # am/lm are AV1 mode ids of the neighbours -> (B, K)
-        return mode_cost[imc[am.long()], imc[lm.long()]] + angle_cost[None, :]
+    # each cell's 34x34 window (its edges and its 32x32) and its 32x32
+    windows = buf.unfold(1, 34, 32).unfold(2, 34, 32)
+    cells = buf[:, 1:1 + H, 1:1 + W].unfold(1, 32, 32).unfold(2, 32, 32)
+    # the luma pick's pricing: the neighbours' modes in the ctx map
+    price = dict(mode_cost=t["kf_cost"], angle_cost=t["angle_cost"],
+                 nbr=mode16, nbr_scale=2)
 
     for tt, rc, cc in _walk(R, C, dev, T):
-        by, bx = rc * 32 + 1, cc * 32 + 1
-        have_a, have_l = rc > 0, cc > 0
-        above, left, tl = _edges(buf, tt, by, bx, 32)
         src32 = src4[tt, rc, :, cc, :]                         # (B,32,32)
-        zero = torch.zeros_like(rc, dtype=torch.int32)
 
         # ---- 32 path ----
-        am = torch.where(have_a, mode16[tt, 2 * rc - 1, 2 * cc], zero)
-        lm = torch.where(have_l,
-                         mode16[tt, 2 * rc, (2 * cc - 1).clamp(min=0)], zero)
-        ef = (_smooth(am) & have_a) | (_smooth(lm) & have_l)
-        ssep = IP.intra_pred_sse(above, left, tl, have_a, have_l, src32, K,
-                                 ef=ef)                         # (K,B)
-        allowed = DIR.allowed_mask(masks["ok1_32"][tt, rc, cc],
-                                   masks["ok2_32"][tt, rc, cc],
-                                   masks["ok3_32"][tt, rc, cc], 32)
-        rate32 = mode_rate(am, lm)                              # (B,K)
+        pick32, pred32 = IP.intra_pick(
+            buf, tt, rc, cc, src32, K, rd32, **price,
+            ok=(masks["ok1_32"], masks["ok2_32"], masks["ok3_32"]),
+            mode_out=m32o, delta_out=d32o)
+        ymode32 = pick32[1]
         rdm32 = rd32[tt, rc, cc]
-        # disallowed candidates are masked in the RD domain: a candidate
-        # whose edge model mismatches the decoder's must never win
-        best32 = torch.where(allowed, _rd(ssep, rate32.T, rdm32),
-                             inf).argmin(0)
-        ymode32 = tab32["MODE"][best32]
-        ydelta32 = tab32["DELTA"][best32]
-        pred32 = IP.intra_pred_one(above, left, tl, have_a, have_l, best32,
-                                   K, ef=ef)
         lv32, e32, rec32, sse32, crate32 = TQ.txq_recon_skip(
             src32, pred32, dc_q, ac_q, scan32, rdm32, *rt32)
-        mrate32 = rate32.gather(1, best32[:, None])[:, 0]
         cost32 = 2048.0 * sse32 + (rdm32 / 512.0) * (
-            mrate32.to(torch.float32) + crate32 + pr_none)
+            pick32[3].to(torch.float32) + crate32 + pr_none)
 
         # ---- 16 path (4 sub-blocks, raster order, local recon) ----
-        B = rc.shape[0]
-        loc = torch.zeros((B, 34, 34), **i32)
-        loc[:, 0, 1:33] = above
-        loc[:, 1:33, 0] = left
-        loc[:, 0, 0] = tl
-        cost16 = torch.zeros((B,), dtype=torch.float32, device=dev)
-        sub_modes = {}
+        loc = windows[tt, rc, cc]                              # (B,34,34)
+        cost16 = torch.zeros_like(cost32)
         subs = []
         for qr, qc in _QUADS:
-            a = loc[:, qr * 16, 1 + qc * 16:17 + qc * 16]
-            l = loc[:, 1 + qr * 16:17 + qr * 16, qc * 16]
-            tq = loc[:, qr * 16, qc * 16]
-            ha = have_a | (qr > 0)
-            hl = have_l | (qc > 0)
-            i16, j16 = 2 * rc + qr, 2 * cc + qc
-            if qr == 0:
-                am = torch.where(have_a, mode16[tt, 2 * rc - 1, j16], zero)
-            else:
-                am = sub_modes[(0, qc)]
-            if qc == 0:
-                lm = torch.where(have_l, mode16[tt, i16,
-                                                (2 * cc - 1).clamp(min=0)],
-                                 zero)
-            else:
-                lm = sub_modes[(qr, 0)]
-            ef16 = (_smooth(am) & ha) | (_smooth(lm) & hl)
             # real extension pixels in wavefront+Z order: top-right row =
-            # loc row qr*16 cols 17..32, bottom-left col = loc col 0/16
-            aext = loc[:, qr * 16, 17:33]
-            lext = loc[:, 17:33, qc * 16]
-            trr = masks["trreal_16"][tt, i16, j16]
-            blr = masks["blreal_16"][tt, i16, j16]
+            # loc row qr*16 cols 17..32, bottom-left col = loc col 0/16;
+            # the neighbours inside the cell are the quads already chosen
             s16 = src32[:, qr * 16:qr * 16 + 16, qc * 16:qc * 16 + 16]
-            sp = IP.intra_pred_sse(a, l, tq, ha, hl, s16, K, trr, blr, aext,
-                                   lext, ef16)
-            allowed16 = DIR.allowed_mask(masks["ok1_16"][tt, i16, j16],
-                                         masks["ok2_16"][tt, i16, j16],
-                                         masks["ok3_16"][tt, i16, j16], 16)
-            r16 = mode_rate(am, lm)
-            rdm16 = rd16[tt, i16, j16]
-            b16 = torch.where(allowed16, _rd(sp, r16.T, rdm16),
-                              inf).argmin(0)
-            ymode16 = tab16["MODE"][b16]
-            ydelta16 = tab16["DELTA"][b16]
-            pr = IP.intra_pred_one(a, l, tq, ha, hl, b16, K, trr, blr, aext,
-                                   lext, ef16)
+            pick16, pr = IP.intra_pick(
+                loc, tt, rc, cc, s16, K, rd16, local=True, qr=qr, qc=qc,
+                scale=2, **price,
+                ok=(masks["ok1_16"], masks["ok2_16"], masks["ok3_16"]),
+                trreal=masks["trreal_16"], blreal=masks["blreal_16"],
+                mode_out=m16o, delta_out=d16o)
+            rdm16 = rd16[tt, 2 * rc + qr, 2 * cc + qc]
             lv, e, rec, sse, crate = TQ.txq_recon_skip(
                 s16, pr, dc_q, ac_q, scan16, rdm16, *rt16)
-            mrate = r16.gather(1, b16[:, None])[:, 0]
             cost16 = cost16 + 2048.0 * sse + (rdm16 / 512.0) * (
-                mrate.to(torch.float32) + crate)
+                pick16[3].to(torch.float32) + crate)
             loc[:, 1 + qr * 16:17 + qr * 16, 1 + qc * 16:17 + qc * 16] = rec
-            sub_modes[(qr, qc)] = ymode16
-            subs.append((ymode16, ydelta16, lv, e))
+            subs.append((pick16[1], lv, e))
         cost16 = cost16 + (rdm32 / 512.0) * pr_split
 
         split = t["forced"][tt, rc, cc] | ((cost16 < cost32)
                                            & ~t["no_split"][tt, rc, cc])
-        recon = torch.where(split[:, None, None], loc[:, 1:33, 1:33], rec32)
-        buf[_block_index(tt, by, bx, 32)] = recon
+        cells[tt, rc, cc] = torch.where(split[:, None, None],
+                                        loc[:, 1:33, 1:33], rec32)
         split_out[tt, rc, cc] = split.to(torch.int32)
-        m32o[tt, rc, cc] = ymode32
-        d32o[tt, rc, cc] = ydelta32
         lv32o[tt, rc, cc] = lv32
         e32o[tt, rc, cc] = e32
-        for (qr, qc), (ym16, yd16, lv, e) in zip(_QUADS, subs):
+        for (qr, qc), (ym16, lv, e) in zip(_QUADS, subs):
             rq, cq = 2 * rc + qr, 2 * cc + qc
-            m16o[tt, rq, cq] = ym16
-            d16o[tt, rq, cq] = yd16
             lv16o[tt, rq, cq] = lv
             e16o[tt, rq, cq] = e
             # ctx map: chosen sub mode where split else the 32 mode
@@ -478,7 +392,6 @@ def _chroma_wavefront_part(src_u, src_v, t: dict, split32, y_m32, y_m16):
     H, W = R * 16, C * 16
     i32 = dict(dtype=torch.int32, device=dev)
     bufs = torch.zeros((2, T, H + 2 + 16, W + 2 + 16), **i32)
-    plan_modes = _const(PLAN_MODES, str(dev))
     uvm16o = torch.zeros((T, R, C), **i32)
     uvlv16o = torch.zeros((T, 2, R, C, 256), **i32)
     uve16o = torch.zeros((T, 2, R, C), **i32)
@@ -486,69 +399,54 @@ def _chroma_wavefront_part(src_u, src_v, t: dict, split32, y_m32, y_m16):
     uvlv8o = torch.zeros((T, 2, 2 * R, 2 * C, 64), **i32)
     uve8o = torch.zeros((T, 2, 2 * R, 2 * C), **i32)
     srcs4 = (src_u.view(T, R, 16, C, 16), src_v.view(T, R, 16, C, 16))
+    planes = bufs.view(2 * T, H + 2 + 16, W + 2 + 16)   # U tiles, V tiles
+    windows = bufs.unfold(2, 18, 16).unfold(3, 18, 16)
+    cells = bufs[:, :, 1:1 + H, 1:1 + W].unfold(2, 16, 16).unfold(3, 16, 16)
 
     def both(x):
         return torch.cat([x, x])
 
     for tt, rc, cc in _walk(R, C, dev, T):
         B = rc.shape[0]
-        by, bx = rc * 16 + 1, cc * 16 + 1
-        have_a, have_l = both(rc > 0), both(cc > 0)
         split = split32[tt, rc, cc].bool()
         rdm32 = rd32[tt, rc, cc]
         sb = torch.cat([s4[tt, rc, :, cc, :] for s4 in srcs4])  # (2B,16,16)
-        edges = [_edges(bufs[p], tt, by, bx, 16) for p in range(2)]
-        a, l, tl = (torch.cat([e[i] for e in edges]) for i in range(3))
 
         # ---- 16 path (single chroma block per plane) ----
-        ym32 = y_m32[tt, rc, cc]                    # AV1 mode ids
-        s2 = IP.intra_pred_sse(a, l, tl, have_a, have_l, sb, 7)
-        sse16 = s2[:, :B] + s2[:, B:]
-        best16 = _rd(sse16, uv_cost[ym32.long()].T, rdm32).argmin(0)
-        va, ha = _uv_adst(plan_modes[best16])
-        pred = IP.intra_pred_one(a, l, tl, have_a, have_l, both(best16), 7)
+        pick16, pred = IP.intra_pick(planes, tt, rc, cc, sb, 7, rd32,
+                                     uv_cost=uv_cost, nbr=y_m32,
+                                     mode_out=uvm16o)
+        va, ha = _uv_adst(pick16[1])
         lv16, e16, rec16, _, _ = TQ.txq_recon_skip(
             sb, pred, dc_q, ac_q, scan16, both(rdm32), *rtc16,
             vadst=both(va), hadst=both(ha))
 
         # ---- 8 path (4 sub-blocks per plane, raster, local recon) ----
-        locs = torch.zeros((2 * B, 18, 18), **i32)
-        locs[:, 0, 1:17] = a
-        locs[:, 1:17, 0] = l
-        locs[:, 0, 0] = tl
+        locs = windows[:, tt, rc, cc].reshape(2 * B, 18, 18)
         subs8 = []
         for qr, qc in _QUADS:
-            ha8 = have_a | (qr > 0)
-            hl8 = have_l | (qc > 0)
-            ym = y_m16[tt, 2 * rc + qr, 2 * cc + qc]    # AV1 mode id
-            a8 = locs[:, qr * 8, 1 + qc * 8:9 + qc * 8]
-            l8 = locs[:, 1 + qr * 8:9 + qr * 8, qc * 8]
-            t8 = locs[:, qr * 8, qc * 8]
             sb8 = sb[:, qr * 8:qr * 8 + 8, qc * 8:qc * 8 + 8]
-            s2 = IP.intra_pred_sse(a8, l8, t8, ha8, hl8, sb8, 7)
-            sse8 = s2[:, :B] + s2[:, B:]
+            p8, pred = IP.intra_pick(locs, tt, rc, cc, sb8, 7, rd16,
+                                     local=True, qr=qr, qc=qc, scale=2,
+                                     uv_cost=uv_cost, nbr=y_m16,
+                                     nbr_scale=2, mode_out=uvm8o)
+            va, ha = _uv_adst(p8[1])
             rdm16 = rd16[tt, 2 * rc + qr, 2 * cc + qc]
-            b8 = _rd(sse8, uv_cost[ym.long()].T, rdm16).argmin(0)
-            va, ha = _uv_adst(plan_modes[b8])
-            pred = IP.intra_pred_one(a8, l8, t8, ha8, hl8, both(b8), 7)
             lv, e, rec, _, _ = TQ.txq_recon_skip(
                 sb8, pred, dc_q, ac_q, scan8, both(rdm16), *rtc8,
                 vadst=both(va), hadst=both(ha))
             locs[:, 1 + qr * 8:9 + qr * 8, 1 + qc * 8:9 + qc * 8] = rec
-            subs8.append((b8, lv, e))
+            subs8.append((lv, e))
 
         # ---- select & scatter ----
         rec = torch.where(both(split)[:, None, None], locs[:, 1:17, 1:17],
                           rec16)
-        idx = _block_index(tt, by, bx, 16)
         for p in range(2):
-            bufs[p][idx] = rec[p * B:(p + 1) * B]
+            cells[p, tt, rc, cc] = rec[p * B:(p + 1) * B]
             uvlv16o[tt, p, rc, cc] = lv16[p * B:(p + 1) * B]
             uve16o[tt, p, rc, cc] = e16[p * B:(p + 1) * B]
-        uvm16o[tt, rc, cc] = best16.to(torch.int32)
-        for (qr, qc), (b8, lv, e) in zip(_QUADS, subs8):
+        for (qr, qc), (lv, e) in zip(_QUADS, subs8):
             rq, cq = 2 * rc + qr, 2 * cc + qc
-            uvm8o[tt, rq, cq] = b8.to(torch.int32)
             for p in range(2):
                 uvlv8o[tt, p, rq, cq] = lv[p * B:(p + 1) * B]
                 uve8o[tt, p, rq, cq] = e[p * B:(p + 1) * B]
@@ -642,45 +540,34 @@ def plan_frame_part(src_planes, q, fc, rdmult, mi_rows, mi_cols,
 def _luma_wavefront(src, mode_cost, angle_cost, dc_q, ac_q, rdmult, bs: int,
                     R: int, C: int):
     """Uniform-grid luma wavefront (the reference's ``_luma_wavefront``):
-    per anti-diagonal, KA scores the 7 plain modes of every block, the RD
-    argmin runs in torch ops, KA predicts the winner again and KB (no skip
-    decision) quantizes and reconstructs it.
+    per anti-diagonal, KA's pick chooses among the 7 plain modes of every
+    block (priced from the chosen neighbours in the PLAN-index grid) and
+    predicts the winner, and KB (no skip decision) quantizes and
+    reconstructs it.
 
     src: (R*bs, C*bs) int32; rdmult (R, C) float32. Returns (mode_idx
     (R,C) PLAN index, levels (R,C,n), eob (R,C), recon (R*bs, C*bs))."""
     dev = src.device
     scan = _scan(BS_TO_TX[bs], str(dev))
-    imc = _const(_IMC, str(dev))
-    plan_modes = _const(PLAN_MODES, str(dev))
     H, W = R * bs, C * bs
     i32 = dict(dtype=torch.int32, device=dev)
     buf = torch.zeros((1, H + 2 + bs, W + 2 + bs), **i32)
-    mode_grid = torch.zeros((R, C), **i32)            # chosen PLAN index
+    mode_grid = torch.zeros((1, R, C), **i32)         # chosen PLAN index
     levels_out = torch.zeros((R, C, bs * bs), **i32)
     eob_out = torch.zeros((R, C), **i32)
     src4 = src.view(R, bs, C, bs)
+    cells = buf[0, 1:1 + H, 1:1 + W].unfold(0, bs, bs).unfold(1, bs, bs)
     for tt, rc, cc in _walk(R, C, dev):
-        by, bx = rc * bs + 1, cc * bs + 1
-        have_a, have_l = rc > 0, cc > 0
-        above, left, tl = _edges(buf, tt, by, bx, bs)
         sb = src4[rc, :, cc, :]                                # (B,bs,bs)
-        sse = IP.intra_pred_sse(above, left, tl, have_a, have_l, sb,
-                                IP.N_PLAIN)                    # (7,B)
-        zero = torch.zeros_like(rc, dtype=torch.int32)
-        am = torch.where(have_a, mode_grid[rc - 1, cc], zero)
-        lm = torch.where(have_l, mode_grid[rc, (cc - 1).clamp(min=0)], zero)
-        actx = imc[plan_modes[am.long()].long()]
-        lctx = imc[plan_modes[lm.long()].long()]
-        rate = mode_cost[actx, lctx] + angle_cost[None, :]     # (B,7)
-        best = _rd(sse, rate.T, rdmult[rc, cc]).argmin(0)
-        pred = IP.intra_pred_one(above, left, tl, have_a, have_l, best,
-                                 IP.N_PLAIN)
+        _, pred = IP.intra_pick(buf, tt, rc, cc, sb, IP.N_PLAIN, rdmult[None],
+                                mode_cost=mode_cost, angle_cost=angle_cost,
+                                nbr=mode_grid, nbr_plan=True,
+                                mode_out=mode_grid)
         levels, eob, recon = TQ.txq_recon(sb, pred, dc_q, ac_q, scan)
-        buf[_block_index(tt, by, bx, bs)] = recon
-        mode_grid[rc, cc] = best.to(torch.int32)
+        cells[rc, cc] = recon
         levels_out[rc, cc] = levels
         eob_out[rc, cc] = eob
-    return mode_grid, levels_out, eob_out, buf[0, 1:1 + H, 1:1 + W]
+    return mode_grid[0], levels_out, eob_out, buf[0, 1:1 + H, 1:1 + W]
 
 
 def _chroma_wavefront(src_u, src_v, uv_cost, dc_q, ac_q, rdmult, y_mode_idx,
@@ -694,41 +581,33 @@ def _chroma_wavefront(src_u, src_v, uv_cost, dc_q, ac_q, rdmult, y_mode_idx,
     recon (2, R*bs, C*bs))."""
     dev = src_u.device
     scan = _scan(BS_TO_TX[bs], str(dev))
-    plan_modes = _const(PLAN_MODES, str(dev))
     H, W = R * bs, C * bs
     i32 = dict(dtype=torch.int32, device=dev)
-    bufs = torch.zeros((2, 1, H + 2 + bs, W + 2 + bs), **i32)
-    mode_grid = torch.zeros((R, C), **i32)
+    bufs = torch.zeros((2, H + 2 + bs, W + 2 + bs), **i32)
+    mode_grid = torch.zeros((1, R, C), **i32)
     levels_out = torch.zeros((2, R, C, bs * bs), **i32)
     eob_out = torch.zeros((2, R, C), **i32)
     srcs4 = (src_u.view(R, bs, C, bs), src_v.view(R, bs, C, bs))
+    cells = bufs[:, 1:1 + H, 1:1 + W].unfold(1, bs, bs).unfold(2, bs, bs)
 
     def both(x):
         return torch.cat([x, x])
 
     for tt, rc, cc in _walk(R, C, dev):
         B = rc.shape[0]
-        by, bx = rc * bs + 1, cc * bs + 1
-        have_a, have_l = both(rc > 0), both(cc > 0)
         sb = torch.cat([s4[rc, :, cc, :] for s4 in srcs4])     # (2B,bs,bs)
-        edges = [_edges(bufs[p], tt, by, bx, bs) for p in range(2)]
-        a, l, tl = (torch.cat([e[i] for e in edges]) for i in range(3))
-        s2 = IP.intra_pred_sse(a, l, tl, have_a, have_l, sb, IP.N_PLAIN)
-        sse = s2[:, :B] + s2[:, B:]
-        ym = plan_modes[y_mode_idx[rc, cc].long()]
-        best = _rd(sse, uv_cost[ym.long()].T, rdmult[rc, cc]).argmin(0)
-        va, ha = _uv_adst(plan_modes[best])
-        pred = IP.intra_pred_one(a, l, tl, have_a, have_l, both(best),
-                                 IP.N_PLAIN)
+        pick, pred = IP.intra_pick(bufs, tt, rc, cc, sb, IP.N_PLAIN,
+                                   rdmult[None], uv_cost=uv_cost,
+                                   nbr=y_mode_idx[None], nbr_plan=True,
+                                   mode_out=mode_grid)
+        va, ha = _uv_adst(pick[1])
         levels, eob, recon = TQ.txq_recon(sb, pred, dc_q, ac_q, scan,
                                           both(va), both(ha))
-        idx = _block_index(tt, by, bx, bs)
         for p in range(2):
-            bufs[p][idx] = recon[p * B:(p + 1) * B]
+            cells[p, rc, cc] = recon[p * B:(p + 1) * B]
             levels_out[p, rc, cc] = levels[p * B:(p + 1) * B]
             eob_out[p, rc, cc] = eob[p * B:(p + 1) * B]
-        mode_grid[rc, cc] = best.to(torch.int32)
-    return mode_grid, levels_out, eob_out, bufs[:, 0, 1:1 + H, 1:1 + W]
+    return mode_grid[0], levels_out, eob_out, bufs[:, 1:1 + H, 1:1 + W]
 
 
 def plan_frame(src_planes, q, bs, fc, rdmult, device="cuda",

@@ -154,6 +154,66 @@ def tables(bs: int):
     }
 
 
+def dir_consts(bs: int) -> np.ndarray:
+    """(nd, 7) int32, one row per directional candidate of ``candidates``:
+    dx, dy, the edge-filter strength of the above edge for ef type 0 and 1,
+    of the left edge for ef type 0 and 1, and the class (Z1, Z2, Z3). Kernel
+    KA's pick keeps these in constant memory and computes every sample
+    position from them (``dir_positions``), in place of the gathers."""
+    assert bs in (16, 32), bs
+    rows = []
+    for mode, delta, cls in candidates():
+        if cls == PLAIN:
+            continue
+        pa = _p_angle(mode, delta)
+        rows.append([intra_ops.get_dx(pa), intra_ops.get_dy(pa)]
+                    + [intra_ops.intra_edge_filter_strength(bs, bs, pa - d, t)
+                       for d in (90, 180) for t in (0, 1)] + [cls])
+    return np.array(rows, np.int32)
+
+
+def dir_positions(bs: int):
+    """(IDXa, IDXb) (2, nd, bs, bs) and SH (2, nd, bs, bs) from
+    ``dir_consts`` by the arithmetic of kernel KA's pick
+    (``csrc/intra_pred.cu`` ``dir_pix``): Z1 steps along the above edge
+    (``dx * (r + 1)``), Z3 along the left edge (``dy * (c + 1)``), and past
+    the last sample both read it with shift 0; Z2 reads the above edge
+    where ``((c << 6) - (r + 1) * dx) >> 6 >= -1`` and the left edge
+    (``(r << 6) - (c + 1) * dy``) elsewhere, clipped to [-2, bs - 1]. The
+    offsets are those of the edge-buffer layout above. Equal to
+    ``tables(bs)``'s gathers (the shift for both ef types)."""
+    a1, a2 = 2 * bs + 1, bs + 2
+    mb = 2 * bs - 1
+    r = np.arange(bs)[:, None] + np.zeros(bs, np.int64)[None, :]
+    c = np.arange(bs)[None, :] + np.zeros(bs, np.int64)[:, None]
+    consts = dir_consts(bs).astype(np.int64)
+    shape = (2, len(consts), bs, bs)
+    ia, ib, sh = (np.zeros(shape, np.int32) for _ in range(3))
+    for k, (dx, dy, sa0, sa1, sl0, sl1, cls) in enumerate(consts):
+        for t, (sa, sl) in enumerate(((sa0, sl0), (sa1, sl1))):
+            if cls in (Z1, Z3):
+                pos = dx * (r + 1) if cls == Z1 else dy * (c + 1)
+                base = (pos >> 6) + (c if cls == Z1 else r)
+                off = sa * a1 + 1 if cls == Z1 else \
+                    4 * a1 + 8 * a2 + sl * a1 + 1
+                over = base >= mb
+                ia[t, k] = off + np.where(over, mb, base)
+                ib[t, k] = off + np.where(over, mb, base + 1)
+                sh[t, k] = np.where(over, 0, (pos & 63) >> 1)
+            else:
+                x = (c << 6) - (r + 1) * dx
+                y = (r << 6) - (c + 1) * dy
+                above = (x >> 6) >= -1
+                pos = np.where(above, x, y)
+                base = pos >> 6
+                off = np.where(above, 4 * a1 + sa * a2,
+                               4 * a1 + 4 * a2 + sl * a2)
+                ia[t, k] = off + np.clip(base, -2, bs - 1) + 2
+                ib[t, k] = off + np.clip(base + 1, -2, bs - 1) + 2
+                sh[t, k] = (pos & 63) >> 1
+    return ia, ib, sh
+
+
 @functools.cache
 def tables_on(bs: int, device: str):
     """``tables(bs)`` arrays as tensors on ``device`` (uploaded once)."""

@@ -5,10 +5,12 @@ PyTorch headers) into ``build/aom_av1_psy_tpu_torch/lib<name>.so`` at first
 use, and ``ctypes`` loads it. A library is rebuilt when its source or a
 shared header (``csrc/*.cuh``) is newer (the same rule as the native range
 coder's build).
-Pointers come from ``tensor.data_ptr()`` and the stream from
-``torch.cuda.current_stream().cuda_stream``. Every C entry point launches on
-that stream, does not synchronise, and returns ``cudaGetLastError()``;
-``CudaKernel.launch`` raises on a non-zero code.
+Pointers come from ``tensor.data_ptr()`` and the stream is the current
+device's current stream (its raw handle, without building a
+``torch.cuda.Stream``). Every C entry point launches on that stream, does
+not synchronise, and returns ``cudaGetLastError()``; ``CudaKernel.launch``
+raises on a non-zero code. The ctypes functions are resolved once, when
+the library loads.
 
 ``-O3 --fmad=false``: the RD arithmetic next to the kernels is float32 and
 decides modes, so ``a*b+c`` must round twice as it does in the JAX
@@ -63,6 +65,8 @@ class CudaKernel:
         self.variants = collections.Counter()
         self.build_log = ""
         self._lib = None
+        self._fns = {}
+        self._stream = None
 
     @property
     def source(self) -> str:
@@ -99,6 +103,7 @@ class CudaKernel:
 
     def lib(self) -> ctypes.CDLL:
         if self._lib is None:
+            import torch
             if self.stale():
                 self.finish_build(self.start_build())
             lib = ctypes.CDLL(self.lib_path)
@@ -106,6 +111,11 @@ class CudaKernel:
                 f = getattr(lib, fn)
                 f.argtypes = list(argtypes) + [P]
                 f.restype = I
+                self._fns[fn] = f
+            # the current device's current stream, as a raw handle
+            raw, device = torch._C._cuda_getCurrentRawStream, \
+                torch.cuda.current_device
+            self._stream = lambda: raw(device())
             self._lib = lib
         return self._lib
 
@@ -113,14 +123,20 @@ class CudaKernel:
         self.launches = 0
         self.variants.clear()
 
-    def launch(self, fn: str, *args, variant: str = "") -> None:
+    def call(self, fn: str, *args) -> None:
         """Call entry point ``fn`` on the current CUDA stream; raise on a
-        launch error. ``variant`` labels the launch in ``variants``."""
-        import torch
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(self.lib(), fn)(*args, stream)
+        CUDA error. Not counted: for set-up entries that launch no kernel."""
+        if self._lib is None:
+            self.lib()
+        rc = self._fns[fn](*args, self._stream())
         if rc != 0:
             raise RuntimeError(f"{self.name}.{fn}: CUDA error {rc}")
+
+    def launch(self, fn: str, *args, variant: str = "") -> None:
+        """Call entry point ``fn``, which launches the kernel on the
+        current CUDA stream; raise on a launch error. ``variant`` labels
+        the launch in ``variants``."""
+        self.call(fn, *args)
         self.launches += 1
         self.variants[variant or fn] += 1
 

@@ -14,24 +14,35 @@ reference's jnp branch: on CPU tensors the plain PyTorch versions
 (``hadamard8x8``, ``satd``), both in ``csrc/metrics.cu``, with no fallback
 between them. Sums are int64 on both, as the numpy branch's are (the jnp
 branch sums in int32, since JAX runs without x64, and wraps where they do
-not fit). The kernels take integer tensors of at most 32 bits. ``psnr``,
+not fit). The kernels take integer tensors of at most 32 bits and read
+them in their own type (inputs of different types go to the kernel as
+int32). ``psnr``,
 ``ssim`` and ``psnr_hvs`` are host numpy only, as in the reference.
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 
 from ..kernels.build import CudaKernel, I, P
 
+
+class _KNArgs(ctypes.Structure):
+    """``csrc/metrics.cu``'s ``KNArgs``, field for field."""
+    _fields_ = ([(f, P) for f in ("a", "b", "c", "d", "s0", "s1", "out")]
+                + [(f, I) for f in ("op", "dtype", "B", "n", "w", "bdiv",
+                                    "a_rows", "a_w", "t0", "t1", "u0", "u1",
+                                    "avg")])
+
+
 KN = CudaKernel("block_reduce", {
-    # op, a, b, c, d, B, n, w, bdiv, a_rows, a_w, t0, t1, u0, u1, avg,
-    # s0, s1, out
-    "block_reduce": [I, P, P, P, P] + [I] * 11 + [P, P, P],
+    "block_reduce": [ctypes.POINTER(_KNArgs)],
 }, source="metrics")
 KO = CudaKernel("satd8x8", {
-    # x, B, transform, satd
-    "satd8x8": [P, I, P, P],
+    # x, dtype, B, transform, satd
+    "satd8x8": [P, I, I, P, P],
 }, source="metrics")
 
 # KN's ops (csrc/metrics.cu enum Op)
@@ -48,13 +59,13 @@ def _xp(x):
 
 
 def _on_cpu(t) -> bool:
-    return t.device.type == "cpu"
+    return t.is_cpu
 
 
 def sad(a, b):
     """Sum of absolute differences over trailing 2 dims (aom_sad{W}x{H})."""
     if torch.is_tensor(a):
-        return sad_plain(a, b) if _on_cpu(a) else _kn(_SAD, a, b)[0]
+        return sad_plain(a, b) if _on_cpu(a) else _kn(_SAD, a, b)
     xp = _xp(a)
     return xp.abs(a.astype(xp.int32) - b.astype(xp.int32)).sum((-1, -2))
 
@@ -72,7 +83,7 @@ def sad_x4(src, refs):
 def sse(a, b):
     """Sum of squared error (aom_sse)."""
     if torch.is_tensor(a):
-        return sse_plain(a, b) if _on_cpu(a) else _kn(_SSE, a, b)[0]
+        return sse_plain(a, b) if _on_cpu(a) else _kn(_SSE, a, b)
     xp = _xp(a)
     d = a.astype(xp.int64) - b.astype(xp.int64)
     return (d * d).sum((-1, -2))
@@ -277,7 +288,7 @@ def obmc_sad(pre, wsrc, mask):
     if torch.is_tensor(pre):
         if _on_cpu(pre):
             return obmc_sad_plain(pre, wsrc, mask)
-        return _kn(_OBMC_SAD, pre, wsrc, mask)[0]
+        return _kn(_OBMC_SAD, pre, wsrc, mask)
     xp = _xp(pre)
     diff = wsrc.astype(xp.int64) - pre.astype(xp.int64) * mask.astype(xp.int64)
     r = _round2_signed(diff, 12)
@@ -308,7 +319,7 @@ def masked_sad(src, a, b, mask, invert: bool = False):
             a, b = b, a
         if _on_cpu(src):
             return masked_sad_plain(src, a, b, mask)
-        return _kn(_MASKED_SAD, a, b, mask, src)[0]
+        return _kn(_MASKED_SAD, a, b, mask, src)
     xp = _xp(src)
     m = mask.astype(xp.int64)
     if invert:
@@ -432,30 +443,46 @@ def masked_sad_plain(src, a, b, mask):
     return (pred - src.to(_I64)).abs().sum((-1, -2))
 
 
-def _kernel_input(t, dev):
-    if t.device != dev or t.dtype not in (torch.uint8, torch.int8,
-                                          torch.int16, torch.int32):
-        raise ValueError(f"KN/KO input: want an integer tensor of at most 32 "
-                         f"bits on {dev}, got {t.dtype} on {t.device}")
-    return t.to(torch.int32).contiguous()
+# the kernels' element types (csrc/metrics.cu enum Dtype)
+_DTYPES = {torch.uint8: 0, torch.int8: 1, torch.int16: 2, torch.int32: 3}
+# ops that write a second sum
+_TWO_SUMS = frozenset((_VAR, _BLOCK_ERROR, _OBMC_VAR, _SUBPEL_VAR))
 
 
-def _launch_kn(op, ts, B, n, w, bdiv=1, a_rows=0, a_w=0, taps=(0, 0, 0, 0),
-               avg=0, project=False):
-    dev = ts[0].device
-    ptrs = [t.data_ptr() for t in ts] + [0] * (4 - len(ts))
-    if project:
-        out = torch.empty((B, n), dtype=_I64, device=dev)
-        s0 = s1 = None
-        outs = (0, 0, out.data_ptr())
+def _kernel_inputs(ts):
+    """The inputs as KN / KO read them, and their type code: one integer
+    type of at most 32 bits on one device (int32 where the inputs' types
+    differ), contiguous. An input already in that form is not copied."""
+    d, dt = ts[0].get_device(), ts[0].dtype
+    for t in ts:
+        if t.get_device() != d or t.dtype not in _DTYPES:
+            raise ValueError(f"KN/KO input: want an integer tensor of at "
+                             f"most 32 bits on {ts[0].device}, got "
+                             f"{t.dtype} on {t.device}")
+        if t.dtype != dt:
+            dt = None
+    if dt is None:
+        ts, dt = [t.to(torch.int32) for t in ts], torch.int32
+    return [t if t.is_contiguous() else t.contiguous() for t in ts], \
+        _DTYPES[dt]
+
+
+def _launch_kn(op, ts, code, shape, B, n, w, bdiv=1, a_rows=0, a_w=0,
+               taps=(0, 0, 0, 0), avg=0):
+    """One KN launch into a new int64 tensor of ``shape``: the B items'
+    sums (with a leading 2 for the ops with two sums), or the
+    projection."""
+    out = torch.empty(shape, dtype=_I64, device=ts[0].device)
+    p = out.data_ptr()
+    if op == _PROJECT:
+        sums = (0, 0, p)
     else:
-        s0 = torch.empty((B,), dtype=_I64, device=dev)
-        s1 = torch.empty((B,), dtype=_I64, device=dev)
-        out = None
-        outs = (s0.data_ptr(), s1.data_ptr(), 0)
-    KN.launch("block_reduce", op, *ptrs, B, n, w, bdiv, a_rows, a_w, *taps,
-              avg, *outs, variant=_OP_NAMES[op])
-    return s0, s1, out
+        sums = (p, p + 8 * B if op in _TWO_SUMS else 0, 0)
+    ptrs = [t.data_ptr() for t in ts] + [0] * (4 - len(ts))
+    KN.launch("block_reduce", ctypes.byref(_KNArgs(
+        *ptrs, *sums, op, code, B, n, w, bdiv, a_rows, a_w, *taps, avg)),
+        variant=_OP_NAMES[op])
+    return out
 
 
 _OP_NAMES = ("sad", "sse", "variance", "block_error", "obmc_sad",
@@ -464,29 +491,30 @@ _OP_NAMES = ("sad", "sse", "variance", "block_error", "obmc_sad",
 
 
 def _kn(op, *ts, dims: int = 2):
-    """KN over the broadcast of ``ts`` with items of the last ``dims``
-    axes: the two int64 sums, each of the batch shape."""
-    ts = torch.broadcast_tensors(*ts)
+    """KN over ``ts`` (broadcast only where their shapes differ) with items
+    of the last ``dims`` axes: each item's int64 sum, of the batch shape
+    (with a leading 2 for the ops with two sums)."""
     shape = ts[0].shape
+    if any(t.shape != shape for t in ts[1:]):
+        ts = torch.broadcast_tensors(*ts)
+        shape = ts[0].shape
     lead = shape[:len(shape) - dims]
-    n = int(np.prod(shape[len(shape) - dims:]))
-    B = int(np.prod(lead))
-    ts = [_kernel_input(t, ts[0].device).reshape(B, n) for t in ts]
-    s0, s1, _ = _launch_kn(op, ts, B, n, shape[-1])
-    return s0.reshape(lead), s1.reshape(lead)
+    n = shape[-1] * shape[-2] if dims == 2 else shape[-1]
+    ts, code = _kernel_inputs(ts)
+    B = ts[0].numel() // n if n else 0
+    return _launch_kn(op, ts, code, (2, *lead) if op in _TWO_SUMS else lead,
+                      B, n, shape[-1])
 
 
 def _kn_x4(src, refs):
     """sad_x4 through KN: item (i, k) reads refs[i, k] and src[i]."""
     N, h, w = refs.shape[-3:]
     lead = torch.broadcast_shapes(src.shape[:-2], refs.shape[:-3])
-    B = int(np.prod(lead))
-    r = _kernel_input(refs.expand(*lead, N, h, w), refs.device)
-    s = _kernel_input(src.expand(*lead, h, w), refs.device)
-    s0, _, _ = _launch_kn(_SAD, [r.reshape(B * N, h * w),
-                                 s.reshape(B, h * w)], B * N, h * w, w,
-                          bdiv=N)
-    return s0.reshape(*lead, N)
+    (r, s), code = _kernel_inputs([refs.expand(*lead, N, h, w),
+                                   src.expand(*lead, h, w)])
+    B = s.numel() // (h * w) if h * w else 0
+    return _launch_kn(_SAD, [r, s], code, (*lead, N), B * N, h * w, w,
+                      bdiv=N)
 
 
 def _kn_bil(op, src_ext, ref, h, xoffset, yoffset, second_pred=None):
@@ -496,26 +524,21 @@ def _kn_bil(op, src_ext, ref, h, xoffset, yoffset, second_pred=None):
     taps = (*(int(v) for v in _BIL_2T[xoffset]),
             *(int(v) for v in _BIL_2T[yoffset]))
     others = [t for t in (ref, second_pred) if t is not None]
-    lead = torch.broadcast_shapes(src_ext.shape[:-2],
-                                  *(t.shape[:-2] for t in others))
-    B = int(np.prod(lead))
-    dev = src_ext.device
-    a = _kernel_input(src_ext[..., :h + 1, :].expand(*lead, h + 1, wo + 1),
-                      dev)
-    ts = [a.reshape(B, -1)]
     for t in others:
         if t.shape[-2:] != (h, wo):
             raise ValueError(f"KN: {tuple(t.shape)} against a projection of "
                              f"{h}x{wo}")
-        ts.append(_kernel_input(t.expand(*lead, h, wo), dev).reshape(B, -1))
-    if op == _PROJECT:
-        out = _launch_kn(op, ts, B, h * wo, wo, a_rows=h + 1, a_w=wo + 1,
-                         taps=taps, project=True)[2]
-        return out.reshape(*lead, h, wo)
-    s0, s1, _ = _launch_kn(op, ts, B, h * wo, wo,
-                           a_rows=h + 1, a_w=wo + 1, taps=taps,
-                           avg=int(second_pred is not None))
-    return s0.reshape(lead), s1.reshape(lead)
+    lead = torch.broadcast_shapes(src_ext.shape[:-2],
+                                  *(t.shape[:-2] for t in others))
+    ts, code = _kernel_inputs(
+        [src_ext[..., :h + 1, :].expand(*lead, h + 1, wo + 1)]
+        + [t.expand(*lead, h, wo) for t in others])
+    B = ts[0].numel() // ((h + 1) * (wo + 1))
+    shape = (*lead, h, wo) if op == _PROJECT else (2, *lead)
+    out = _launch_kn(op, ts, code, shape, B, h * wo, wo, a_rows=h + 1,
+                     a_w=wo + 1, taps=taps,
+                     avg=int(second_pred is not None))
+    return out if op == _PROJECT else (out[0], out[1])
 
 
 def _ko(x, want_transform: bool):
@@ -523,16 +546,15 @@ def _ko(x, want_transform: bool):
     if tuple(x.shape[-2:]) != (8, 8):
         raise ValueError(f"KO: blocks {tuple(x.shape)}, want (..., 8, 8)")
     lead = x.shape[:-2]
-    B = int(np.prod(lead))
-    xi = _kernel_input(x, x.device).reshape(B, 64)
-    t = torch.empty((B, 8, 8), dtype=torch.int32, device=x.device) \
+    (xi,), code = _kernel_inputs([x])
+    B = xi.numel() // 64
+    t = torch.empty((*lead, 8, 8), dtype=torch.int32, device=x.device) \
         if want_transform else None
-    s = torch.empty((B,), dtype=_I64, device=x.device)
-    KO.launch("satd8x8", xi.data_ptr(), B, t.data_ptr() if t is not None
-              else 0, s.data_ptr(), variant="transform" if want_transform
-              else "satd")
-    return (t.reshape(*lead, 8, 8) if t is not None else None,
-            s.reshape(lead))
+    s = torch.empty(lead, dtype=_I64, device=x.device)
+    KO.launch("satd8x8", xi.data_ptr(), code, B,
+              t.data_ptr() if t is not None else 0, s.data_ptr(),
+              variant="transform" if want_transform else "satd")
+    return t, s
 
 
 # ---------------------------------------------------------------------------

@@ -17,14 +17,20 @@ exit code is not 0):
    ``palette.cu``), and the native range coder (``native/ec.cpp``, g++);
 3. KA / KB / KC against their plain PyTorch versions on the card, at the
    shapes the 1080p KEY frame gives them, for exact equality, with both
-   times (CUDA events);
+   times (CUDA events): KA's pick (``intra_pick``, the wavefronts' entry)
+   at the longest 1080p diagonal (luma 32 and the four 16 quads, B = 34,
+   K = 61; chroma 16 and the four 8 quads, B = 2 x 34) and its older
+   entries ``intra_pred_sse`` / ``intra_pred_one``; ``device_ms`` (the
+   profiler's device time) of the pick, of the old pair and of KB;
 3b. KD / KE / KF, and KB at the P-frame's batch sizes, against their plain
    versions at the 1080p P-frame's shapes, for exact equality, with both
    times;
 3c. KA and KB at 4x4 (KB with the sinpi ADST4 and the skip decision off)
    and KB with the skip off at 8x8, at the uniform grid's shapes (640x360:
-   chroma B = 2 x 45; 1080p BLOCK_8X8: luma B = 135, chroma B = 270), for
-   exact equality, with both times;
+   chroma B = 2 x 45; 1080p BLOCK_8X8: luma B = 135, chroma B = 270), and
+   the pick at the 1080p BLOCK_8X8 grid's longest diagonal (luma bs 8
+   B = 135, chroma bs 4 B = 2 x 135), for exact equality, with both
+   times;
 3d. KG (with and without the moments), KH and KI (the four VIF scales, and
    its ``vif_down2`` entry) against their plain versions at the 1080p
    shapes: KG, KH and down2 exact, KI within a relative 1e-4; kernel,
@@ -43,7 +49,8 @@ exit code is not 0):
    every path and interp filter, also at 8x8 and 4x4; KN at 16x16, 8x8
    and 4x4; KO on 4 x 8160 8x8 residuals; exact; kernel (CUDA events
    around the wrapper, and ``device_ms``: the kernel alone under the
-   profiler), plain, bound and library times;
+   profiler; KN's also with the L2 flushed before each launch, and the
+   wrapper's host time per call), plain, bound and library times;
 3g. KP (the batched analysis: 7 predictions, SSE argmin, forward DCT,
    fp quantization, eob) and KQ (palette ``calc_indices``) against their
    plain versions on the card: KP at the 1080p KEY frame's shapes (the
@@ -79,7 +86,8 @@ exit code is not 0):
 5. the KEY path: ``GpuFrameEncoder.encode()`` of the 1920x1080 test
    frame (``utils/testframes.make_frame``, the arrays of ``bench.py``'s) at
    ``base_q_idx=100`` — a first frame and 3 steady frames — with the launch
-   counts read around that run;
+   counts read around that run (KA: 930 picks per frame, 10 per diagonal
+   step, and no launch of its older entries);
 5b. the main path of slice 2: ``encode_video(make_gop(1920, 1080, 5),
    EncoderConfig(base_q_idx=100))`` twice (the first run warms up), the
    counts set to 0 just before the second and read just after; per-frame
@@ -116,7 +124,8 @@ exit code is not 0):
    ``variance`` / ``sse`` (KN) and the ``satd`` of the four 8x8 residuals
    (KO); equal to the same chain on the CPU plain path; timed (median of 3
    after a first) with the counts set to 0 before the 3 runs and read
-   after;
+   after; KN's device time inside one chain (the L2 as the chain leaves
+   it);
 5j. the main path of slice 7 at full width, on the 1080p KEY frame
    (luma padded to 1088, chroma to 544 rows): ``analyze_plane`` of the
    three planes (luma n = 16, chroma n = 8), ``batched_analyze_step(16,
@@ -137,11 +146,13 @@ of phase 5g; for KL, KM, KN and KO, from the chain of phase 5i; for KP
 and KQ, from the analysis path of phase 5j), with the counts of the KEY
 frames of phases 5, 5c, 5d and 5f, of phase 5b's IPPP GOP, of phase 5f's
 tune_vmaf GOP, of phase 5g's ARF GOP, of phase 5i's chain, of phase 5j's
-analysis path and of phase 4g's host inter GOP beside it. KA's and KB's entries
-count only their own instances (``intra_pred_sse`` bs 8/16/32,
-``intra_pred_sse bs4``; ``txq_recon_skip`` bs 8/16/32 with the skip
-decision, ``txq_recon bs4 / bs8 no-skip``), read from the per-variant
-counts the wrappers keep. Each entry's ``bound_ms`` is the larger of its
+analysis path and of phase 4g's host inter GOP beside it, and
+``launches_per_key_frame`` (phase 5's count over its 3 frames). KA's and
+KB's entries count only their own instances (``intra_pick`` bs 8/16/32,
+``intra_pick bs4``; ``intra_pred_sse`` bs 8/16/32 and bs 4, no longer on
+any encoder path; ``txq_recon_skip`` bs 8/16/32 with the skip decision,
+``txq_recon bs4 / bs8 no-skip``), read from the per-variant counts the
+wrappers keep. Each entry's ``bound_ms`` is the larger of its
 bytes (inputs read once, outputs written once, from the timed call's
 tensors) over 3.35 TB/s and its operations (estimated per kernel from the
 shapes, in the comments beside each) over 67 T/s, float64 operations over
@@ -200,6 +211,20 @@ def device_ms(fn, iters, name):
             if e.device_type == torch.autograd.DeviceType.CUDA
             and name in e.key)
     return t / 1e3 / iters if t else None
+
+
+def _host_us(fn, n=1000):
+    """Host microseconds per call of fn: n calls enqueued, then one wait
+    (the wrapper's dispatch where it outruns the card)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 # NVIDIA H100 SXM (data sheet): HBM3 bytes/s, the float32 rate outside
@@ -263,6 +288,123 @@ def _txq_ops(B, bs):
     return B * bs * bs * (8 * (bs.bit_length() - 1) + 20)
 
 
+def _pick_calls(dev, uniform=False):
+    """The pick's calls at one diagonal of the 1080p KEY frame, with the
+    test frame's planes as recon and source: (name, call) pairs, where
+    call(fn) runs ``fn`` (``intra_pick`` or ``intra_pick_plain``) with
+    fresh output maps and returns its outputs and the maps. The partition
+    plan's longest diagonal (d = 33 of 34 x 60 cells: B = 34): luma 32, the
+    four luma 16 quads (K = 61), chroma 16 and the four chroma 8 quads (U
+    and V pairs, 2 x 34 blocks, K = 7). ``uniform``: the BLOCK_8X8 grid's
+    longest diagonal (d = 134 of 135 x 240: B = 135), luma bs 8 and the
+    chroma bs 4 pairs (2 x 135 blocks). Neighbour modes and lambdas are
+    seeded."""
+    import numpy as np
+    import torch
+    from aom_av1_psy_tpu_torch.encoder import tpu_intra as TI
+    from aom_av1_psy_tpu_torch.encoder import tpu_intra_dir as DIR
+    from aom_av1_psy_tpu_torch.encoder.tpu_frame import FrameContext
+    from aom_av1_psy_tpu_torch.ops import intra_pred as IP
+    from aom_av1_psy_tpu_torch.utils import testframes
+
+    rng = np.random.default_rng(SEED + 5)
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), device=dev)
+
+    def lam(*shape):
+        return t(rng.uniform(5e3, 6e4, shape).astype(np.float32))
+
+    y, u, v = testframes.make_frame(1920, 1080, seed=SEED).planes()
+    bs = 8 if uniform else 32
+    R, C = 1080 // bs if uniform else 34, 1920 // bs
+    cb = bs // 2
+    ys = _pad_rows(y, R * bs, dev)
+    uvs = [_pad_rows(p, R * cb, dev) for p in (u, v)]
+    buf = torch.zeros((1, R * bs + bs + 2, C * bs + bs + 2), **i32)
+    buf[0, 1:1 + R * bs, 1:1 + C * bs] = ys
+    bufs = torch.zeros((2, R * cb + cb + 2, C * cb + cb + 2), **i32)
+    for p in range(2):
+        bufs[p, 1:1 + R * cb, 1:1 + C * cb] = uvs[p]
+    tiles, rows, cols, offs = TI._diagonals(R, C, 1)
+    d = R - 1
+    tt, rc, cc = (t(a[offs[d]:offs[d + 1]]) for a in (tiles, rows, cols))
+    B = rc.shape[0]
+    src4 = ys.view(R, bs, C, bs)
+    sl = torch.cat([p.view(R, cb, C, cb)[rc, :, cc, :] for p in uvs])
+    calls = []
+
+    def call(args, kw, maps):
+        def run(fn):
+            fresh = {k: m.clone() for k, m in maps.items()}
+            return (*fn(*args, **kw, **fresh), *fresh.values())
+        # the bare kernel call (into the same maps each time), for timing
+        run.bare = lambda: IP.intra_pick(*args, **kw, **maps)
+        return run
+
+    if uniform:
+        kf7, angle7, uv = (t(x) for x in TI._plan_cost_tables(
+            FrameContext(100)))
+        grid = t(rng.integers(0, 7, (1, R, C)).astype(np.int32))
+        rd = lam(1, R, C)
+        calls.append(("luma bs8", call(
+            (buf, tt, rc, cc, src4[rc, :, cc, :], 7, rd),
+            dict(mode_cost=kf7, angle_cost=angle7, nbr=grid,
+                 nbr_plan=True), {"mode_out": grid})))
+        calls.append(("chroma bs4", call(
+            (bufs, tt, rc, cc, sl, 7, rd),
+            dict(uv_cost=uv, nbr=grid, nbr_plan=True),
+            {"mode_out": torch.zeros_like(grid)})))
+        return calls, B
+    kf61, angle61, uv = (t(x) for x in TI._plan_cost_tables2(
+        FrameContext(100)))
+    masks = {k: t(m[None]) for k, m in DIR.position_masks(
+        270, 480, 480, R, C).items()}
+    mode16 = t(rng.integers(0, 13, (1, 2 * R, 2 * C)).astype(np.int32))
+    y_m32 = t(rng.integers(0, 13, (1, R, C)).astype(np.int32))
+    y_m16 = t(rng.integers(0, 13, (1, 2 * R, 2 * C)).astype(np.int32))
+    rd32, rd16 = lam(1, R, C), lam(1, 2 * R, 2 * C)
+    src32 = src4[rc, :, cc, :]
+    luma = dict(mode_cost=kf61, angle_cost=angle61, nbr=mode16,
+                nbr_scale=2)
+    calls.append(("luma bs32", call(
+        (buf, tt, rc, cc, src32, 61, rd32),
+        dict(luma, ok=tuple(masks[f"ok{k}_32"] for k in (1, 2, 3))),
+        {"mode_out": torch.zeros_like(y_m32),
+         "delta_out": torch.zeros_like(y_m32)})))
+    loc = buf.unfold(1, 34, 32).unfold(2, 34, 32)[tt, rc, cc]
+    locs = bufs.unfold(1, 18, 16).unfold(2, 18, 16)[:, rc, cc] \
+        .reshape(2 * B, 18, 18)
+    for qr, qc in TI._QUADS:
+        calls.append((f"luma bs16 quad {qr}{qc}", call(
+            (loc, tt, rc, cc, src32[:, 16 * qr:16 * qr + 16,
+                                    16 * qc:16 * qc + 16], 61, rd16),
+            dict(luma, local=True, qr=qr, qc=qc, scale=2,
+                 ok=tuple(masks[f"ok{k}_16"] for k in (1, 2, 3)),
+                 trreal=masks["trreal_16"], blreal=masks["blreal_16"]),
+            {"mode_out": y_m16.clone(), "delta_out": torch.zeros_like(
+                y_m16)})))
+    calls.append(("chroma bs16", call(
+        (bufs, tt, rc, cc, sl, 7, rd32), dict(uv_cost=uv, nbr=y_m32),
+        {"mode_out": torch.zeros_like(y_m32)})))
+    for qr, qc in TI._QUADS:
+        calls.append((f"chroma bs8 quad {qr}{qc}", call(
+            (locs, tt, rc, cc, sl[:, 8 * qr:8 * qr + 8, 8 * qc:8 * qc + 8],
+             7, rd16),
+            dict(uv_cost=uv, nbr=y_m16, nbr_scale=2, local=True, qr=qr,
+                 qc=qc, scale=2), {"mode_out": torch.zeros_like(y_m16)})))
+    return calls, B
+
+
+def _pick_bytes(B, bs, npl, K):
+    """Bytes the pick must move per call: each block's edges (2 bs + 1,
+    and 2 bs more of extensions at K = 61), source, cost row and map
+    entries read once, its prediction and pick row written once."""
+    edges = (4 if K == 61 else 2) * bs + 1
+    return 4 * B * (npl * (edges + 2 * bs * bs) + K + 8)
+
+
 def check_kernels(dev):
     """Phase 3: kernel vs plain version at the 1080p encode's shapes."""
     import numpy as np
@@ -306,6 +448,7 @@ def check_kernels(dev):
             f"KA one bs{bs}", IP.intra_pred_one(*args, cand, k, **ext),
             IP.intra_pred_one_plain(*args, cand, k, **ext)))
         if bs == 32:
+            args32, src32, cand32, ext32 = args, src, cand, ext
             times = (cuda_time(lambda: IP.intra_pred_sse(*args, src, k, **ext),
                                50),
                      cuda_time(lambda: IP.intra_pred_sse_plain(
@@ -323,6 +466,49 @@ def check_kernels(dev):
                     "timed_at": "bs32 B=34 K=61 (SSE of all candidates)"})
     log(f"[3] KA intra_pred_sse exact at bs 32/16 (K=61) and 16/8 (K=7); "
         f"bs32 B=34: kernel {times[0]:.4f} ms, plain {times[1]:.4f} ms")
+    # the old pair's device time (both launches of one pick at bs 32)
+    pair = (lambda: (IP.intra_pred_sse(*args32, src32, K, **ext32),
+                     IP.intra_pred_one(*args32, cand32, K, **ext32)))
+    pair_t = (cuda_time(pair, 50), device_ms(pair, 20, "ka_"))
+    results[-1]["device_ms"] = device_ms(
+        lambda: IP.intra_pred_sse(*args32, src32, K, **ext32), 20,
+        "ka_sse_kernel")
+    results[-1]["launches_note"] = ("not on any encoder path: the "
+                                    "wavefronts run intra_pick")
+
+    # ---- KA's pick: one diagonal of the 1080p KEY frame ----
+    calls, B = _pick_calls(dev)
+    err = 0.0
+    for name, run in calls:
+        err = max(err, compare(f"KA pick {name}", run(IP.intra_pick),
+                               run(IP.intra_pick_plain)))
+    run32 = calls[0][1]
+    pick_t = (cuda_time(run32.bare, 50),
+              cuda_time(lambda: run32(IP.intra_pick_plain), 5),
+              device_ms(run32.bare, 20, "pick61_kernel"),
+              _host_us(run32.bare))
+    # ~4 operations per predicted pixel, 3 for its squared error
+    bnd = bound(_pick_bytes(B, 32, 1, K), 7 * K * B * 32 * 32)
+    results.append({"name": "intra_pick", "route": "cuda",
+                    "source": "aom_av1_psy_tpu_torch/csrc/intra_pred.cu",
+                    "replaces": "aom_av1_psy_tpu/encoder/tpu_intra.py:570",
+                    "max_abs_err": err, "ms": pick_t[0],
+                    "plain_ms": pick_t[1], "device_ms": pick_t[2], **bnd,
+                    "library_ms": None,
+                    "library_none": "no single PyTorch call predicts, prices "
+                                    "and chooses among the intra modes",
+                    "host_us_per_call": pick_t[3],
+                    "old_pair_ms": pair_t[0], "old_pair_device_ms": pair_t[1],
+                    "timed_at": "luma bs32 B=34 K=61 (one 1080p diagonal); "
+                                "old pair: intra_pred_sse + intra_pred_one "
+                                "at bs32 B=34 K=61"})
+    log(f"[3] KA intra_pick exact against intra_pick_plain at one 1080p "
+        f"diagonal ({', '.join(n for n, _ in calls)}; B={B}); luma bs32: "
+        f"kernel {pick_t[0]:.4f} ms (device {pick_t[2]} ms, host "
+        f"{pick_t[3]:.2f} us per call), plain "
+        f"{pick_t[1]:.4f} ms, bound {bnd['bound_ms']:.5f} ms "
+        f"({bnd['bound_by']}); the old pair intra_pred_sse + "
+        f"intra_pred_one {pair_t[0]:.4f} ms (device {pair_t[1]} ms)")
 
     # ---- KB: luma 32/16 DCT (B=34), chroma 16/8 with ADST (B=68) ----
     fc = FrameContext(100)
@@ -347,19 +533,22 @@ def check_kernels(dev):
                                TQ.txq_recon_skip_plain(*a, **flags)))
         if bs == 32:
             times = (cuda_time(lambda: TQ.txq_recon_skip(*a), 50),
-                     cuda_time(lambda: TQ.txq_recon_skip_plain(*a), 10))
+                     cuda_time(lambda: TQ.txq_recon_skip_plain(*a), 10),
+                     device_ms(lambda: TQ.txq_recon_skip(*a), 20,
+                               "kb_kernel"))
             bnd = bound(nbytes(a, TQ.txq_recon_skip(*a)), _txq_ops(B, bs))
     results.append({"name": "txq_recon_skip", "route": "cuda",
                     "source": "aom_av1_psy_tpu_torch/csrc/txq.cu",
                     "replaces": "aom_av1_psy_tpu/encoder/tpu_intra.py:157",
                     "max_abs_err": err, "ms": times[0], "plain_ms": times[1],
-                    **bnd, "library_ms": None,
+                    "device_ms": times[2], **bnd, "library_ms": None,
                     "library_none": "no single PyTorch call runs the integer "
                                     "AV1 transforms, quantizer and skip "
                                     "decision",
                     "timed_at": "bs32 B=34 DCT"})
     log(f"[3] KB txq_recon_skip exact at 32/16 (DCT) and 16/8 (ADST mix); "
-        f"bs32 B=34: kernel {times[0]:.4f} ms, plain {times[1]:.4f} ms")
+        f"bs32 B=34: kernel {times[0]:.4f} ms (device {times[2]} ms), "
+        f"plain {times[1]:.4f} ms")
 
     # ---- KC: 1080p luma 1088x1920 and chroma 544x960, 6 levels ----
     from aom_av1_psy_tpu_torch.utils import testframes
@@ -444,6 +633,32 @@ def check_uniform_kernels(dev):
                     "timed_at": "bs4 B=270 K=7 (1080p BLOCK_8X8 chroma)"})
     log(f"[3c] KA intra_pred_sse exact at bs4 K=7, B=90 and 270; B=270: "
         f"kernel {times[0]:.4f} ms, plain {times[1]:.4f} ms")
+    results[-1]["launches_note"] = ("not on any encoder path: the "
+                                    "wavefronts run intra_pick")
+
+    # ---- KA's pick on the 1080p BLOCK_8X8 grid's longest diagonal ----
+    calls, B = _pick_calls(dev, uniform=True)
+    err = 0.0
+    for name, run in calls:
+        err = max(err, compare(f"KA pick uniform {name}", run(IP.intra_pick),
+                               run(IP.intra_pick_plain)))
+    run4 = calls[1][1]
+    times = (cuda_time(run4.bare, 50),
+             cuda_time(lambda: run4(IP.intra_pick_plain), 10),
+             device_ms(run4.bare, 20, "pick7_kernel"))
+    bnd = bound(_pick_bytes(B, 4, 2, 7), 7 * 7 * 2 * B * 16)
+    results.append({"name": "intra_pick bs4", "route": "cuda",
+                    "source": "aom_av1_psy_tpu_torch/csrc/intra_pred.cu",
+                    "replaces": "aom_av1_psy_tpu/encoder/tpu_intra.py:345",
+                    "max_abs_err": err, "ms": times[0], "plain_ms": times[1],
+                    "device_ms": times[2], **bnd, "library_ms": None,
+                    "library_none": "no single PyTorch call predicts, prices "
+                                    "and chooses among the intra modes",
+                    "timed_at": f"chroma bs4 pairs, B=2x{B} K=7 (1080p "
+                                "BLOCK_8X8 diagonal)"})
+    log(f"[3c] KA intra_pick exact at the 1080p BLOCK_8X8 diagonal (luma bs8 "
+        f"B={B}, chroma bs4 B=2x{B}); chroma bs4: kernel {times[0]:.4f} ms "
+        f"(device {times[2]} ms), plain {times[1]:.4f} ms")
 
     # ---- KB, skip off: bs 4 ADST mix (B=90, 270), bs 8 DCT (B=135) ----
     dc_q, ac_q = tables.dc_quant(100), tables.ac_quant(100)
@@ -683,8 +898,8 @@ def tune_vmaf_path(dev, kernels, plain_pkt, plain_enc):
     counts = _counts(kernels)
     _need("1080p tune_vmaf", counts, (
         "tune_vmaf gauss_blur moments", "tune_vmaf unsharp_apply",
-        "tune_vmaf vif_scale", "tune_vmaf vif_down2", "intra_pred bs32",
-        "txq bs32", "deblock"))
+        "tune_vmaf vif_scale", "tune_vmaf vif_down2",
+        "intra_pred pick bs32", "txq bs32", "deblock"))
     if not (0.0 < enc.vmaf_unsharp_amount <= TV.MAX_AMOUNT
             and 0.0 < vif[0] <= 1.0 and 0.0 < vif[1] <= 1.0):
         raise AssertionError(f"1080p tune_vmaf: amount "
@@ -823,8 +1038,8 @@ def _reset(kernels):
 
 def _counts(kernels):
     """Launches since the last ``_reset``: each kernel's total under its
-    name, and each variant's under "<name> <variant>" (KA "intra_pred bs4",
-    KB "txq bs8 no-skip", ...)."""
+    name, and each variant's under "<name> <variant>" (KA "intra_pred pick
+    bs4", KB "txq bs8 no-skip", ...)."""
     counts = {k.name: k.launches for k in kernels}
     for k in kernels:
         counts.update({f"{k.name} {v}": n for v, n in k.variants.items()})
@@ -850,9 +1065,10 @@ def tiled_key_path(dev, kernels, untiled_med):
         dev, frame, cfg, kernels)
     if enc.tile_T != 2:
         raise AssertionError(f"1080p tiles: tile_T {enc.tile_T}")
-    _need("1080p tiles", counts, ("intra_pred bs32", "intra_pred bs16",
-                                  "intra_pred bs8", "txq bs32", "txq bs16",
-                                  "txq bs8", "deblock"))
+    _need("1080p tiles", counts, ("intra_pred pick bs32",
+                                  "intra_pred pick bs16",
+                                  "intra_pred pick bs8", "txq bs32",
+                                  "txq bs16", "txq bs8", "deblock"))
     cpu_s = _cpu_equal("1080p tiles", frame, cfg, pkt)
     # untiled and tiled in turns (U T T U, twice): the plan times of the
     # two, compared on the same card and host state
@@ -891,7 +1107,7 @@ def uniform_key_path(dev, kernels):
         dev, frame, cfg, kernels)
     if enc.use_part or (enc.bs, enc.R, enc.C) != (8, 135, 240):
         raise AssertionError(f"1080p bs8: bs {enc.bs} grid {enc.R}x{enc.C}")
-    _need("1080p bs8", counts, ("intra_pred bs8", "intra_pred bs4",
+    _need("1080p bs8", counts, ("intra_pred pick bs8", "intra_pred pick bs4",
                                 "txq bs8 no-skip", "txq bs4 no-skip"))
     cpu_s = _cpu_equal("1080p bs8", frame, cfg, pkt)
     med = statistics.median(times)
@@ -994,8 +1210,16 @@ def main_path(dev, kernels):
     psnr = 10 * np.log10(255 ** 2 / max(mse, 1e-9))
     if not (pkt[:2] == bytes([0x12, 0x00]) and psnr > 30):
         raise AssertionError(f"1080p: bad stream or recon (PSNR {psnr:.2f})")
+    # one pick per luma 32 and per 16 quad, per chroma 16 and 8 quad: 10
+    # per diagonal step, 93 steps (34 x 60 cells)
+    picks = counts.get("intra_pred", 0) / 3
+    if picks != 10 * (34 + 60 - 1) or counts.get("intra_pred", 0) != sum(
+            counts.get(f"intra_pred pick bs{b}", 0) for b in (8, 16, 32)):
+        raise AssertionError(f"1080p: {picks} KA launches per frame, want "
+                             f"930 picks")
     cpu_s = _cpu_equal("1080p", frame, cfg, pkt)
     med = statistics.median(times)
+    log(f"[5] KA launches per 1080p KEY frame: {picks:.0f} (all picks)")
     log(f"[5] 1080p q100: {len(pkt)} bytes, luma PSNR {psnr:.3f} dB, first "
         f"frame {first_s:.3f} s, steady median {med:.4f} s/frame "
         f"({1 / med:.3f} fps, min {min(times):.4f}, max {max(times):.4f}), "
@@ -1667,17 +1891,24 @@ def check_k13b_kernels(dev):
                                        getattr(ME, name + "_plain")(*args)))
     a, b = sad_in
     af, bf = a.reshape(-1, 256).float(), b.reshape(-1, 256).float()
+    # L2 flushed before each launch: a 64 MB write (the L2 holds 50 MB)
+    flush = torch.empty(16 << 20, dtype=torch.int32, device=dev)
     kn_t = (cuda_time(lambda: ME.sad(a, b), 20),
             cuda_time(lambda: ME.sad_plain(a, b), 5),
             cuda_time(lambda: F.pairwise_distance(af, bf, p=1, eps=0.0), 20),
-            device_ms(lambda: ME.sad(a, b), 20, "kn_kernel"))
+            device_ms(lambda: ME.sad(a, b), 20, "kn_kernel"),
+            device_ms(lambda: (flush.fill_(1), ME.sad(a, b)), 20,
+                      "kn_kernel"))
+    host_us = _host_us(lambda: ME.sad(a, b), 2000)
     var_t = cuda_time(lambda: ME.variance(a, b), 20)
     kn_bnd = bound(nbytes(a, b, ME.sad(a, b)), 3 * a.numel())
     results.append({"name": "block_reduce", "route": "cuda",
                     "source": "aom_av1_psy_tpu_torch/csrc/metrics.cu",
                     "replaces": "aom_av1_psy_tpu/ops/metrics.py:20",
                     "max_abs_err": err, "ms": kn_t[0], "plain_ms": kn_t[1],
-                    "device_ms": kn_t[3], **kn_bnd, "library_ms": kn_t[2],
+                    "device_ms": kn_t[3], "device_ms_l2_flushed": kn_t[4],
+                    "host_us_per_call": host_us, **kn_bnd,
+                    "library_ms": kn_t[2],
                     "library_call": "F.pairwise_distance(p=1) on float32 "
                                     "(B, 256) copies",
                     "timed_at": "sad, B=8160 16x16 (1080p P-frame grid); "
@@ -1685,7 +1916,8 @@ def check_k13b_kernels(dev):
     log(f"[3f] KN block_reduce exact: sad, sse, variance at 16/8/4, and "
         f"sad_x4, block_error, obmc_sad / _variance, masked_sad, "
         f"subpel_project, sub_pixel_(avg_)variance at 16x16; sad B=8160: "
-        f"kernel {kn_t[0]:.4f} ms (device {kn_t[3]} ms), plain "
+        f"kernel {kn_t[0]:.4f} ms (device {kn_t[3]} ms warm, {kn_t[4]} ms "
+        f"with the L2 flushed; host {host_us:.2f} us per call), plain "
         f"{kn_t[1]:.4f} ms, library "
         f"(pairwise_distance p=1) {kn_t[2]:.4f} ms, bound "
         f"{kn_bnd['bound_ms']:.4f} ms ({kn_bnd['bound_by']}); variance "
@@ -1818,6 +2050,8 @@ def subpel_chain_path(dev, kernels):
         times.append(time.perf_counter() - t0)
     counts = _counts(kernels)
     _need("1080p subpel chain", counts, [k.name for k in kernels])
+    # KN's device time as the chain leaves the L2 (one chain per window)
+    kn_chain = device_ms(lambda: _subpel_chain(y0, y1), 1, "kn_kernel")
     t0 = time.perf_counter()
     want = _subpel_chain(y0.cpu(), y1.cpu())
     cpu_s = time.perf_counter() - t0
@@ -1833,7 +2067,8 @@ def subpel_chain_path(dev, kernels):
         f"{statistics.median(times):.4f} s (runs "
         f"{', '.join(f'{x:.4f}' for x in times)}), CPU plain {cpu_s:.2f} s; "
         f"CUDA == CPU plain; {moved} of 8160 MVs moved off full pel; mean "
-        f"SAD {float(got['sad'].double().mean()):.1f}")
+        f"SAD {float(got['sad'].double().mean()):.1f}; KN device time in "
+        f"the chain {kn_chain} ms for its 2 launches")
     log(f"[5i] launches in the 3 timed chains: {json.dumps(counts)}")
     return counts
 
@@ -2317,6 +2552,9 @@ def main() -> int:
     # variants that the entry's check covered
     own = {"intra_pred_sse": ("intra_pred bs8", "intra_pred bs16",
                               "intra_pred bs32"),
+           "intra_pick": ("intra_pred pick bs8", "intra_pred pick bs16",
+                          "intra_pred pick bs32"),
+           "intra_pick bs4": ("intra_pred pick bs4",),
            "txq_recon_skip": ("txq bs8", "txq bs16", "txq bs32"),
            "txq_recon_skip bs8 P chroma": ("txq bs8",),
            "intra_pred_sse bs4": ("intra_pred bs4",),
@@ -2366,6 +2604,7 @@ def main() -> int:
         r["launches_ippp_gop"] = n(r["name"], counts)
         r["launches_arf_gop"] = n(r["name"], arf_counts)
         r["launches_key_frame"] = n(r["name"], key_counts)
+        r["launches_per_key_frame"] = n(r["name"], key_counts) / 3
         r["launches_tiled_key_frames"] = n(r["name"], tiled_counts)
         r["launches_uniform_key_frames"] = n(r["name"], uniform_counts)
         r["launches_tune_vmaf_key_frames"] = n(r["name"], vmaf_counts)

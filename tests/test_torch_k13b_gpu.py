@@ -194,3 +194,33 @@ def test_convolve_paths_on_card_match_plain(dev, w, h):
         assert got.shape == (2, 3, h, w)
         assert torch.equal(got.cpu(), fn(_t(src, "cpu"), w, h, *args)), name
     assert C.KL.launches == n0 + 3
+
+
+def _same_cpu(got, want):
+    for g, w in zip(got, want, strict=True):
+        assert torch.equal(g.cpu(), w.cpu())
+
+
+def test_kn_reads_narrow_types_as_they_are(dev):
+    """KN's wrapper hands uint8 / int16 inputs to the kernel as they are,
+    mixed types as int32, a transposed input copied, a broadcast
+    expanded."""
+    rng = np.random.default_rng(5)
+    a = rng.integers(0, 256, (300, 16, 16))
+    b = rng.integers(0, 256, (300, 16, 16))
+    for dt in (torch.uint8, torch.int16, torch.int32):
+        ta, tb = (torch.as_tensor(x).to(dt) for x in (a, b))
+        for name in ("sad", "sse", "variance"):
+            got = getattr(M, name)(ta.to(dev), tb.to(dev))
+            want = getattr(M, name + "_plain")(ta, tb)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            _same_cpu(got, want)
+    # mixed types, a transposed (non-contiguous) input and a broadcast
+    ta = torch.as_tensor(a).to(torch.uint8)
+    tb = torch.as_tensor(b).to(torch.int32).transpose(-1, -2)
+    _same_cpu((M.sad(ta.to(dev), tb.to(dev)),), (M.sad_plain(ta, tb),))
+    _same_cpu((M.sse(ta.to(dev), ta[:1].to(dev)),),
+              (M.sse_plain(ta, ta[:1]),))
+    x = torch.as_tensor(rng.integers(-255, 256, (40, 8, 8))).to(torch.int16)
+    _same_cpu((M.satd(x.to(dev)),), (M.satd_plain(x),))

@@ -165,3 +165,23 @@ def test_host_metrics_equal_reference():
         RM.psnr_hvs((a, ca, ca), (b, cb, cb))
     with pytest.raises(TypeError):
         M.sse(jnp.asarray(a), jnp.asarray(b))
+
+
+def test_kernel_inputs_pass_through_or_convert_once():
+    """What KN / KO are handed: an int32 (or uint8, int16) contiguous input
+    as it is, with its type code; inputs of different types as int32; a
+    non-contiguous input as a contiguous copy; no type wider than 32
+    bits."""
+    a = torch.arange(64, dtype=torch.int32).reshape(4, 4, 4)
+    b8 = a.to(torch.uint8)
+    (x,), code = M._kernel_inputs([a])
+    assert x is a and code == 3
+    (x, y), code = M._kernel_inputs([b8, b8.to(torch.int16)])
+    assert code == 3 and x.dtype == y.dtype == torch.int32
+    assert torch.equal(x, a) and torch.equal(y, a)
+    (x,), code = M._kernel_inputs([b8])
+    assert x is b8 and code == 0
+    (x,), _ = M._kernel_inputs([a.transpose(1, 2)])
+    assert x.is_contiguous() and torch.equal(x, a.transpose(1, 2))
+    with pytest.raises(ValueError):
+        M._kernel_inputs([a.to(torch.int64)])
