@@ -31,7 +31,10 @@ Device work runs as plain torch ops plus eleven hand-written CUDA kernels
   block (edge buffer, plain + directional predictions) and their SSE;
 - KB ``txq_recon_skip`` (``ops/txq.py``): forward transform, quantize,
   dequantize, inverse transform + recon and the skip-RD decision (or, as
-  ``txq_recon``, no skip decision), 4x4 to 32x32;
+  ``txq_recon``, no skip decision), 4x4 to 32x32; ``TxqStep``, the
+  wavefronts' in-place entry over the same body, also reads the blocks
+  where they lie, prices the partition paths, takes the split and writes
+  the plan's maps;
 - KC ``lpf_ladder`` (``ops/deblock_torch.py``): the loop-filter level
   ladder with an exact per-level SSE;
 - KD ``mc_8tap`` (``ops/mc.py``): batched 8-tap motion compensation over a

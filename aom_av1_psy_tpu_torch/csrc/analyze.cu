@@ -28,12 +28,14 @@
 //
 // What bounds it: at the 1080p luma plane (n = 16, B = 8160) the kernel
 // reads 8.4 MB of int32 samples and writes 8.4 MB of levels, ~5 us at
-// 3.35 TB/s, and does ~10^8 integer operations; the transform's ~9
-// barriers per pass make a CTA latency-bound. Design: one CTA per block
-// (KB's thread counts: a full warp for 4x4, so the warp-shuffle reductions
-// see 32 lanes); the block, its edges and the transform's two buffers live
-// in shared memory; each thread scores the 7 modes on its pixels and the
-// 7 SSEs are block reductions.
+// 3.35 TB/s, and does ~10^8 integer operations; the transform's chain of
+// dependent stages makes a CTA latency-bound. Design: one CTA per block,
+// one thread per element (a full warp for 4x4, so the warp-shuffle
+// reductions see 32 lanes); the block and its edges live in shared memory;
+// each thread scores the 7 modes on its pixel and the 7 SSEs are block
+// reductions; the forward transform runs on KB's register pass (txfm.cuh:
+// each 1-D vector in BS lanes, a stage is two shuffles, one transpose
+// through shared memory between the column and the row pass).
 #include "txfm.cuh"
 
 namespace {
@@ -48,7 +50,7 @@ struct KPArgs {
   const int* sw;      // (n,) smooth weights
   int dc_q, ac_q, shift;
   const int* scan;    // (n*n,)
-  const int* progs;   // stage programs (txfm.cuh)
+  const int* stages;  // stage table and meta (txfm.cuh)
   const int* meta;
   int* mode;          // (B,)
   int* sse;           // (B,)
@@ -90,102 +92,112 @@ __device__ __forceinline__ int predict(int m, int r, int c, int n,
 
 // quantize_fp (analyze.py:110-116) of one coefficient, jnp's int32.
 __device__ __forceinline__ int quantize_fp(int x, int dq, int shift) {
-  const int ax = x < 0 ? wrap32(-(long long)x) : x;
-  const int scaled = wrap32((long long)ax * (1LL << shift));
-  const int lv = floordiv(wrap32((long long)scaled + (dq >> 1)), dq);
-  return wrap32((long long)((x > 0) - (x < 0)) * lv);
+  const int ax = x < 0 ? sub32(0, x) : x;
+  const int scaled = (int)((unsigned)ax << shift);
+  const int lv = floordiv(add32(scaled, dq >> 1), dq);
+  return mul32((x > 0) - (x < 0), lv);
 }
 
 template <int BS>
-__global__ void kp_kernel(KPArgs a) {
-  constexpr int NT = threads<BS>();
-  constexpr int N = BS * BS;
-  __shared__ int src[N], buf0[N], buf1[N];
-  __shared__ int ab[BS], lf[BS], sw[BS];
-  __shared__ int s_corner, s_dc;
-  __shared__ unsigned int red[32];
-  __shared__ int red_i[32];
-  const int b = blockIdx.x;
+struct KPSmem {
+  static constexpr int N = BS * BS;
+  static constexpr int NT = N < 32 ? 32 : N;
+  int4 st[stage_rows<BS>()];
+  int meta[kMetaLen];
+  int iscan[N];
+  int src[N];
+  int tr[BS][BS + 1];
+  int ab[BS], lf[BS], sw[BS];
+  int corner, dc;
+  unsigned int red[32];
+  int red_i[32];
+};
+
+template <int BS>
+__global__ void __launch_bounds__(KPSmem<BS>::NT) kp_kernel(KPArgs a) {
+  constexpr int N = BS * BS, NT = KPSmem<BS>::NT;
+  __shared__ KPSmem<BS> sm;
+  const int b = blockIdx.x, t = threadIdx.x;
+  load_stages<BS>(sm.st, sm.meta, sm.iscan, a.stages, a.meta, a.scan);
 
   if (a.plane) {
     const int cols = a.W / BS, by = b / cols, bx = b % cols;
     const int* o = a.plane + ((size_t)by * BS * a.W + (size_t)bx * BS);
-    for (int p = threadIdx.x; p < N; p += NT)
-      src[p] = o[(size_t)(p / BS) * a.W + p % BS];
-    for (int j = threadIdx.x; j < BS; j += NT) {
-      ab[j] = by ? o[j - a.W] : 127;
-      lf[j] = bx ? o[(long long)j * a.W - 1] : 129;
+    for (int p = t; p < N; p += NT)
+      sm.src[p] = o[(size_t)(p / BS) * a.W + p % BS];
+    for (int j = t; j < BS; j += NT) {
+      sm.ab[j] = by ? o[j - a.W] : 127;
+      sm.lf[j] = bx ? o[(long long)j * a.W - 1] : 129;
     }
-    if (threadIdx.x == 0) s_corner = (by && bx) ? o[-a.W - 1] : 128;
+    if (t == 0) sm.corner = (by && bx) ? o[-a.W - 1] : 128;
   } else {
-    for (int p = threadIdx.x; p < N; p += NT)
-      src[p] = a.blocks[(size_t)b * N + p];
-    for (int j = threadIdx.x; j < BS; j += NT) {
-      ab[j] = a.above[(size_t)b * BS + j];
-      lf[j] = a.left[(size_t)b * BS + j];
+    for (int p = t; p < N; p += NT)
+      sm.src[p] = a.blocks[(size_t)b * N + p];
+    for (int j = t; j < BS; j += NT) {
+      sm.ab[j] = a.above[(size_t)b * BS + j];
+      sm.lf[j] = a.left[(size_t)b * BS + j];
     }
-    if (threadIdx.x == 0) s_corner = a.corner[b];
+    if (t == 0) sm.corner = a.corner[b];
   }
-  for (int j = threadIdx.x; j < BS; j += NT) sw[j] = a.sw[j];
+  for (int j = t; j < BS; j += NT) sm.sw[j] = a.sw[j];
   __syncthreads();
-  if (threadIdx.x == 0) {
+  if (t == 0) {
     int s = BS;
-    for (int j = 0; j < BS; ++j) s = wrap32((long long)s + ab[j] + lf[j]);
-    s_dc = floordiv(s, 2 * BS);
+    for (int j = 0; j < BS; ++j) s = add32(add32(s, sm.ab[j]), sm.lf[j]);
+    sm.dc = floordiv(s, 2 * BS);
   }
   __syncthreads();
-  const int cr = s_corner, dc = s_dc;
+  const int cr = sm.corner, dc = sm.dc;
 
   // the 7 SSEs (wrapping int32, as jnp's) and the first-index argmin
   unsigned int part[kModes];
 #pragma unroll
   for (int m = 0; m < kModes; ++m) part[m] = 0u;
-  for (int p = threadIdx.x; p < N; p += NT) {
+  for (int p = t; p < N; p += NT) {
     const int r = p / BS, c = p % BS;
 #pragma unroll
     for (int m = 0; m < kModes; ++m) {
-      const unsigned int d =
-          (unsigned int)(predict(m, r, c, BS, ab, lf, cr, dc, sw) - src[p]);
+      const unsigned int d = (unsigned int)(
+          predict(m, r, c, BS, sm.ab, sm.lf, cr, dc, sm.sw) - sm.src[p]);
       part[m] += d * d;
     }
   }
   int best = 0, best_sse = 0;
 #pragma unroll
   for (int m = 0; m < kModes; ++m) {
-    const int s = (int)block_sum<unsigned int>(part[m], red);
+    const int s = (int)block_sum<unsigned int>(part[m], sm.red);
     if (m == 0 || s < best_sse) { best = m; best_sse = s; }
   }
 
-  // residual -> forward DCT_DCT: column pass along H, then row pass
-  const int* fsh = a.meta + 32;
-  for (int p = threadIdx.x; p < N; p += NT) {
-    const int pr = predict(best, p / BS, p % BS, BS, ab, lf, cr, dc, sw);
-    buf0[p] = round_shift_arr(src[p] - pr, -fsh[0]);
+  // residual -> forward DCT_DCT on the register pass: thread t < N holds
+  // element (r, c) = (i, g) for the column pass, (g, i) for the row pass
+  // (the threads past N of a 4x4 block's warp run the pass on zeros)
+  const bool own = t < N;
+  const int g = t / BS, i = t % BS;
+  const int* meta = sm.meta;
+  const int* fsh = meta + 32;
+  int x = 0;
+  if (own) {
+    const int pr = predict(best, i, g, BS, sm.ab, sm.lf, cr, dc, sm.sw);
+    x = round_shift_arr(sm.src[i * BS + g] - pr, -fsh[0]);
   }
+  x = tx_pass<BS>(x, sm.st, meta, 0, pass_stages(meta, 0, false));
+  if (own) sm.tr[i][g] = round_shift_arr(x, -fsh[1]);
   __syncthreads();
-  int* X = pass<BS, NT>(buf0, buf1, a.progs, a.meta, 0);
-  int* Y = X == buf0 ? buf1 : buf0;
-  for (int p = threadIdx.x; p < N; p += NT)
-    X[p] = round_shift_arr(X[p], -fsh[1]);
-  __syncthreads();
-  X = pass<BS, NT>(X, Y, a.progs, a.meta, 2);
-  Y = X == buf0 ? buf1 : buf0;
+  x = tx_pass<BS>(own ? sm.tr[g][i] : 0, sm.st, meta, 2,
+                  pass_stages(meta, 2, false));
 
-  // quantize_fp: coefficient (r, c) has flat index c * BS + r
-  for (int p = threadIdx.x; p < N; p += NT) {
-    const int r = p / BS, c = p % BS, f = c * BS + r;
-    const int x = round_shift_arr(X[p], -fsh[2]);
-    Y[f] = quantize_fp(x, f == 0 ? a.dc_q : a.ac_q, a.shift);
-  }
-  __syncthreads();
-
+  // quantize_fp: coefficient (g, i) has flat index i * BS + g
+  const int f = i * BS + g;
   int e_loc = 0;
-  for (int j = threadIdx.x; j < N; j += NT)
-    if (Y[a.scan[j]] != 0) e_loc = j + 1;
-  const int eob = block_max<int>(e_loc, red_i);
-  for (int p = threadIdx.x; p < N; p += NT)
-    a.levels[(size_t)b * N + p] = Y[p];
-  if (threadIdx.x == 0) {
+  if (own) {
+    const int lv = quantize_fp(round_shift_arr(x, -fsh[2]),
+                               f == 0 ? a.dc_q : a.ac_q, a.shift);
+    a.levels[(size_t)b * N + f] = lv;
+    if (lv != 0) e_loc = sm.iscan[f] + 1;
+  }
+  const int eob = block_max<int>(e_loc, sm.red_i);
+  if (t == 0) {
     a.mode[b] = best;
     a.sse[b] = best_sse;
     a.eob[b] = eob;
@@ -205,21 +217,21 @@ AV1_EXPORT int analyze_blocks(const int* plane, int W, const int* blocks,
                               const int* above, const int* left,
                               const int* corner, int B, int n, const int* sw,
                               int dc_q, int ac_q, int shift, const int* scan,
-                              const int* progs, const int* meta, int* mode,
+                              const int* stages, const int* meta, int* mode,
                               int* sse, int* levels, int* eob,
                               long long* totals, void* stream) {
   if (B <= 0 || (plane == nullptr) == (blocks == nullptr) || dc_q <= 0 ||
       ac_q <= 0)
     return (int)cudaErrorInvalidValue;
-  KPArgs a{plane, W,     blocks, above,  left,  corner, sw,
-           dc_q,  ac_q,  shift,  scan,   progs, meta,   mode,
+  KPArgs a{plane, W,     blocks, above,  left,   corner, sw,
+           dc_q,  ac_q,  shift,  scan,   stages, meta,   mode,
            sse,   levels, eob,   (unsigned long long*)totals};
   cudaStream_t st = (cudaStream_t)stream;
   switch (n) {
-    case 4: kp_kernel<4><<<B, threads<4>(), 0, st>>>(a); break;
-    case 8: kp_kernel<8><<<B, threads<8>(), 0, st>>>(a); break;
-    case 16: kp_kernel<16><<<B, threads<16>(), 0, st>>>(a); break;
-    case 32: kp_kernel<32><<<B, threads<32>(), 0, st>>>(a); break;
+    case 4: kp_kernel<4><<<B, KPSmem<4>::NT, 0, st>>>(a); break;
+    case 8: kp_kernel<8><<<B, KPSmem<8>::NT, 0, st>>>(a); break;
+    case 16: kp_kernel<16><<<B, KPSmem<16>::NT, 0, st>>>(a); break;
+    case 32: kp_kernel<32><<<B, KPSmem<32>::NT, 0, st>>>(a); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

@@ -321,7 +321,8 @@ struct PickArgs {
   const long long* tt;    // (B,) cell tile
   const long long* rc;    // (B,) cell row
   const long long* cc;    // (B,) cell column
-  const int* src;         // (P*B, bs, bs), strides (src_sb, src_sr, 1)
+  const int* src;         // (T, SH, SW) source plane (a pair: U)
+  const int* src_v;       // (T, SH, SW) V source plane, or null
   const float* rd;        // (T, MR, MC) lambdas
   const bool* ok1;        // (T, MR, MC) class masks, or null (all allowed)
   const bool* ok2;
@@ -337,7 +338,7 @@ struct PickArgs {
   int* pred;              // (P*B, bs, bs)
   int B, K, bs, P, pstride, Hb, Wb;
   int local, qr, qc;      // local: block b reads plane b at the quad
-  int src_sb, src_sr;
+  int SH, SW;
   int T, MR, MC, scale, NR, NC, nscale;
   int nbr_plan, luma;
 };
@@ -561,12 +562,17 @@ __device__ int warp_sse(int k, int P, const PlaneEdges<BS>* ed,
   return acc;
 }
 
+// Block b's source, read where it lies: the (i*BS, j*BS) block of plane
+// tt[b] of the source planes (U, then V for a pair), (i, j) the block's
+// position on the maps.
 template <int BS>
 __device__ void load_src(const PickArgs& a, int b, int* srcs) {
-  for (int i = threadIdx.x; i < a.P * BS * BS; i += blockDim.x) {
-    const int p = i / (BS * BS), px = i % (BS * BS);
-    srcs[i] = a.src[(long long)(p * a.B + b) * a.src_sb +
-                    (long long)(px / BS) * a.src_sr + px % BS];
+  const long long i = a.rc[b] * a.scale + a.qr, j = a.cc[b] * a.scale + a.qc;
+  const long long o = (a.tt[b] * a.SH + i * BS) * a.SW + j * BS;
+  for (int k = threadIdx.x; k < a.P * BS * BS; k += blockDim.x) {
+    const int p = k / (BS * BS), px = k % (BS * BS);
+    srcs[k] = (p ? a.src_v : a.src)[o + (long long)(px / BS) * a.SW +
+                                    px % BS];
   }
 }
 

@@ -5,12 +5,16 @@ slabs at once) and the uniform-grid fallback (``plan_frame``).
 
 The reference runs each wavefront as one ``lax.scan`` over the
 anti-diagonals of the block grid; here a host loop walks the R+C-1
-diagonals and every step is a handful of device ops: kernel KA's pick
-(``ops/intra_pred.intra_pick``) reads each cell's edges from the recon
-buffer, scores and prices all candidates, chooses the RD argmin and
-predicts the winner in one launch, and kernel KB (``ops/txq.py``)
-quantizes, reconstructs and (on the partition plan) makes the skip
-decision. The cells of a diagonal are known on the host, so only
+diagonals and every step is kernel launches and nothing else: kernel KA's
+pick (``ops/intra_pred.intra_pick``) reads each cell's edges from the
+recon buffer, scores and prices all candidates, chooses the RD argmin and
+predicts the winner in one launch, and kernel KB's in-place entry
+(``ops/txq.TxqStep``) reads the source where it lies, quantizes,
+reconstructs, (on the partition plan) makes the skip decision, prices the
+two partition paths and chooses the split, and writes levels, eobs, recon
+and the mode context into the plan's maps. A partition step is 5 picks +
+5 KB launches, a uniform step 1 + 1; both kernels read the source planes
+where they lie. The cells of a diagonal are known on the host, so only
 the valid cells are processed (the reference computes padding lanes and
 drops them) and the loop never waits for the device. The partition
 wavefronts carry a leading tile axis: tiles are prediction-independent, so
@@ -32,7 +36,6 @@ import numpy as np
 import torch
 
 from ..normative import tables
-from ..normative.blocks import INTRA_MODE_TO_TX_TYPE
 from ..normative.enums import TxSize
 from .. import convert
 from ..ops import intra_pred as IP
@@ -44,20 +47,13 @@ PLAN_MODES = (0, 1, 2, 9, 10, 11, 12)  # DC V H SMOOTH SMOOTH_V SMOOTH_H PAETH
 BS_TO_TX = {4: int(TxSize.TX_4X4), 8: int(TxSize.TX_8X8),
             16: int(TxSize.TX_16X16), 32: int(TxSize.TX_32X32)}
 _QUADS = ((0, 0), (0, 1), (1, 0), (1, 1))
-_IM2TT = tuple(int(v) for v in INTRA_MODE_TO_TX_TYPE)
 
 _predict_all_modes = IP.predict_all_modes
 _quantize = TQ.quantize
 _dequantize = TQ.dequantize
 _coeff_rate_est = TQ.coeff_rate_est
 _skip_rd = TQ.skip_rd
-
-
-def _uv_adst(uv_mode):
-    """(vertical, horizontal) ADST flags of the mode-DERIVED chroma tx type
-    (decoder/frame.py:_uv_tx_type: INTRA_MODE_TO_TX_TYPE[uv_mode])."""
-    tt = _const(_IM2TT, str(uv_mode.device))[uv_mode.long()]
-    return (tt == 1) | (tt == 3), (tt == 2) | (tt == 3)
+_uv_adst = TQ.uv_adst
 
 
 def _tq_recon(src, pred, dc_q, ac_q, tx_size, scan):
@@ -72,11 +68,6 @@ def _tq_recon_uv(src, pred, dc_q, ac_q, tx_size, scan, uv_mode):
     assert BS_TO_TX[src.shape[-1]] == tx_size
     va, ha = _uv_adst(uv_mode)
     return TQ.tq_recon(src, pred, dc_q, ac_q, scan, va, ha)
-
-
-@functools.cache
-def _const(values: tuple, device: str):
-    return torch.as_tensor(values, device=device)
 
 
 @functools.cache
@@ -278,6 +269,12 @@ def _luma_wavefront_part(src, t: dict):
     slabs at once: tiles are prediction-independent, so every diagonal
     step runs the cells of all T tiles as one batch.
 
+    A step is 5 KA picks and 5 KB launches (``ops/txq.TxqStep``): the 32
+    pick and KB (which also fills each cell's local window from the recon
+    buffer), then per 16 quad its pick (from the local window) and KB
+    (recon into the window; quad (1, 1)'s launch takes the split and
+    writes the chosen recon and mode context back).
+
     src: (T, R*32, C*32) int32 on the device; ``t`` the plan inputs as
     tensors (``convert.inputs_from_numpy`` of ``stack_tiles``). Returns
     (split (T,R,C), m32 (AV1 mode), d32 (angle delta), lv32, eob32, m16,
@@ -285,14 +282,9 @@ def _luma_wavefront_part(src, t: dict):
     R, C = t["R"], t["C"]
     T = src.shape[0]
     dev = src.device
-    dc_q, ac_q = t["dc_q"], t["ac_q"]
     masks = t["masks"]
     K = len(DIR.candidates())
-    scan32 = _scan(BS_TO_TX[32], str(dev))
-    scan16 = _scan(BS_TO_TX[16], str(dev))
     rd16, rd32 = t["rd16"], t["rd32"]
-    pr_none, pr_split = t["pr_none"], t["pr_split"]
-    rt32, rt16 = t["rt"]["y32"], t["rt"]["y16"]
     H, W = R * 32, C * 32
     i32 = dict(dtype=torch.int32, device=dev)
     buf = torch.zeros((T, H + 2 + 32, W + 2 + 32), **i32)
@@ -306,66 +298,47 @@ def _luma_wavefront_part(src, t: dict):
     d16o = torch.zeros((T, 2 * R, 2 * C), **i32)
     lv16o = torch.zeros((T, 2 * R, 2 * C, 256), **i32)
     e16o = torch.zeros((T, 2 * R, 2 * C), **i32)
-    src4 = src.view(T, R, 32, C, 32)
-    # each cell's 34x34 window (its edges and its 32x32) and its 32x32
-    windows = buf.unfold(1, 34, 32).unfold(2, 34, 32)
-    cells = buf[:, 1:1 + H, 1:1 + W].unfold(1, 32, 32).unfold(2, 32, 32)
+    # the longest diagonal's cells: each one's local window (its edges and
+    # its 32x32), its 32 recon and its two costs
+    bmax = T * min(R, C)
+    loc = torch.zeros((bmax, 34, 34), **i32)
+    stage = torch.zeros((bmax, 32, 32), **i32)
+    cost = torch.zeros((2, bmax), dtype=torch.float32, device=dev)
+    common = dict(dc_q=t["dc_q"], ac_q=t["ac_q"], loc=loc, stage=stage,
+                  cost=cost)
+    kb32 = TQ.luma_cell_step(src, buf, lv32o[:, None], e32o[:, None],
+                             scan=_scan(BS_TO_TX[32], str(dev)), rd=rd32,
+                             rt=t["rt"]["y32"], pr_none=t["pr_none"],
+                             **common)
+    kb16 = TQ.luma_quad_step(src, buf, lv16o[:, None], e16o[:, None],
+                             scan=_scan(BS_TO_TX[16], str(dev)), rd=rd16,
+                             rt=t["rt"]["y16"], rd_cell=rd32,
+                             forced=t["forced"], no_split=t["no_split"],
+                             split=split_out, m32=m32o, m16=m16o,
+                             mode16=mode16, pr_split=t["pr_split"], **common)
     # the luma pick's pricing: the neighbours' modes in the ctx map
     price = dict(mode_cost=t["kf_cost"], angle_cost=t["angle_cost"],
                  nbr=mode16, nbr_scale=2)
 
     for tt, rc, cc in _walk(R, C, dev, T):
-        src32 = src4[tt, rc, :, cc, :]                         # (B,32,32)
-
-        # ---- 32 path ----
+        B = rc.shape[0]
         pick32, pred32 = IP.intra_pick(
-            buf, tt, rc, cc, src32, K, rd32, **price,
+            buf, tt, rc, cc, (src,), 32, K, rd32, **price,
             ok=(masks["ok1_32"], masks["ok2_32"], masks["ok3_32"]),
             mode_out=m32o, delta_out=d32o)
-        ymode32 = pick32[1]
-        rdm32 = rd32[tt, rc, cc]
-        lv32, e32, rec32, sse32, crate32 = TQ.txq_recon_skip(
-            src32, pred32, dc_q, ac_q, scan32, rdm32, *rt32)
-        cost32 = 2048.0 * sse32 + (rdm32 / 512.0) * (
-            pick32[3].to(torch.float32) + crate32 + pr_none)
-
-        # ---- 16 path (4 sub-blocks, raster order, local recon) ----
-        loc = windows[tt, rc, cc]                              # (B,34,34)
-        cost16 = torch.zeros_like(cost32)
-        subs = []
+        kb32(tt, rc, cc, pick32, pred32)
+        # the 4 sub-blocks, raster order, in the cells' local windows: the
+        # top-right row is window row qr*16 cols 17..32, the bottom-left
+        # column window col 0/16; the neighbours inside the cell are the
+        # quads already chosen
         for qr, qc in _QUADS:
-            # real extension pixels in wavefront+Z order: top-right row =
-            # loc row qr*16 cols 17..32, bottom-left col = loc col 0/16;
-            # the neighbours inside the cell are the quads already chosen
-            s16 = src32[:, qr * 16:qr * 16 + 16, qc * 16:qc * 16 + 16]
             pick16, pr = IP.intra_pick(
-                loc, tt, rc, cc, s16, K, rd16, local=True, qr=qr, qc=qc,
-                scale=2, **price,
+                loc[:B], tt, rc, cc, (src,), 16, K, rd16, local=True, qr=qr,
+                qc=qc, scale=2, **price,
                 ok=(masks["ok1_16"], masks["ok2_16"], masks["ok3_16"]),
                 trreal=masks["trreal_16"], blreal=masks["blreal_16"],
                 mode_out=m16o, delta_out=d16o)
-            rdm16 = rd16[tt, 2 * rc + qr, 2 * cc + qc]
-            lv, e, rec, sse, crate = TQ.txq_recon_skip(
-                s16, pr, dc_q, ac_q, scan16, rdm16, *rt16)
-            cost16 = cost16 + 2048.0 * sse + (rdm16 / 512.0) * (
-                pick16[3].to(torch.float32) + crate)
-            loc[:, 1 + qr * 16:17 + qr * 16, 1 + qc * 16:17 + qc * 16] = rec
-            subs.append((pick16[1], lv, e))
-        cost16 = cost16 + (rdm32 / 512.0) * pr_split
-
-        split = t["forced"][tt, rc, cc] | ((cost16 < cost32)
-                                           & ~t["no_split"][tt, rc, cc])
-        cells[tt, rc, cc] = torch.where(split[:, None, None],
-                                        loc[:, 1:33, 1:33], rec32)
-        split_out[tt, rc, cc] = split.to(torch.int32)
-        lv32o[tt, rc, cc] = lv32
-        e32o[tt, rc, cc] = e32
-        for (qr, qc), (ym16, lv, e) in zip(_QUADS, subs):
-            rq, cq = 2 * rc + qr, 2 * cc + qc
-            lv16o[tt, rq, cq] = lv
-            e16o[tt, rq, cq] = e
-            # ctx map: chosen sub mode where split else the 32 mode
-            mode16[tt, rq, cq] = torch.where(split, ym16, ymode32)
+            kb16(tt, rc, cc, pick16, pr, qr, qc)
     return (split_out, m32o, d32o, lv32o, e32o, m16o, d16o, lv16o, e16o,
             buf[:, 1:1 + H, 1:1 + W])
 
@@ -374,8 +347,9 @@ def _chroma_wavefront_part(src_u, src_v, t: dict, split32, y_m32, y_m16):
     """Two-level chroma wavefront over 16px chroma cells (4:2:0 mirror of
     the luma 32/16 partition) of T tile slabs at once. The structure
     follows the luma split map; both alternatives are reconstructed and
-    selected by ``split32``. The U and V blocks of a step run as one batch
-    of 2B blocks.
+    selected by ``split32`` in quad (1, 1)'s KB launch. The U and V blocks
+    of a step run as one batch of 2B blocks: a step is 5 KA picks and 5 KB
+    launches, as in the luma wavefront.
 
     src_u/src_v: (T, R*16, C*16). Returns (uvm16 (T,R,C), uvlv16
     (T,2,R,C,256), uveob16 (T,2,R,C), uvm8 (T,2R,2C), uvlv8 (T,2,2R,2C,64),
@@ -383,12 +357,8 @@ def _chroma_wavefront_part(src_u, src_v, t: dict, split32, y_m32, y_m16):
     R, C = t["R"], t["C"]
     T = src_u.shape[0]
     dev = src_u.device
-    dc_q, ac_q = t["dc_q"], t["ac_q"]
     uv_cost = t["uv_cost"]
     rd16, rd32 = t["rd16"], t["rd32"]
-    rtc16, rtc8 = t["rt"]["uv16"], t["rt"]["uv8"]
-    scan16 = _scan(BS_TO_TX[16], str(dev))
-    scan8 = _scan(BS_TO_TX[8], str(dev))
     H, W = R * 16, C * 16
     i32 = dict(dtype=torch.int32, device=dev)
     bufs = torch.zeros((2, T, H + 2 + 16, W + 2 + 16), **i32)
@@ -398,58 +368,31 @@ def _chroma_wavefront_part(src_u, src_v, t: dict, split32, y_m32, y_m16):
     uvm8o = torch.zeros((T, 2 * R, 2 * C), **i32)
     uvlv8o = torch.zeros((T, 2, 2 * R, 2 * C, 64), **i32)
     uve8o = torch.zeros((T, 2, 2 * R, 2 * C), **i32)
-    srcs4 = (src_u.view(T, R, 16, C, 16), src_v.view(T, R, 16, C, 16))
     planes = bufs.view(2 * T, H + 2 + 16, W + 2 + 16)   # U tiles, V tiles
-    windows = bufs.unfold(2, 18, 16).unfold(3, 18, 16)
-    cells = bufs[:, :, 1:1 + H, 1:1 + W].unfold(2, 16, 16).unfold(3, 16, 16)
-
-    def both(x):
-        return torch.cat([x, x])
+    bmax = T * min(R, C)
+    locs = torch.zeros((2 * bmax, 18, 18), **i32)
+    stage = torch.zeros((2 * bmax, 16, 16), **i32)
+    common = dict(dc_q=t["dc_q"], ac_q=t["ac_q"], loc=locs, stage=stage)
+    kb16 = TQ.chroma_cell_step(src_u, src_v, planes, uvlv16o, uve16o,
+                               scan=_scan(BS_TO_TX[16], str(dev)), rd=rd32,
+                               rt=t["rt"]["uv16"], **common)
+    kb8 = TQ.chroma_quad_step(src_u, src_v, planes, uvlv8o, uve8o,
+                              scan=_scan(BS_TO_TX[8], str(dev)), rd=rd16,
+                              rt=t["rt"]["uv8"], split=split32, **common)
 
     for tt, rc, cc in _walk(R, C, dev, T):
         B = rc.shape[0]
-        split = split32[tt, rc, cc].bool()
-        rdm32 = rd32[tt, rc, cc]
-        sb = torch.cat([s4[tt, rc, :, cc, :] for s4 in srcs4])  # (2B,16,16)
-
-        # ---- 16 path (single chroma block per plane) ----
-        pick16, pred = IP.intra_pick(planes, tt, rc, cc, sb, 7, rd32,
+        pick16, pred = IP.intra_pick(planes, tt, rc, cc, (src_u, src_v), 16,
+                                     7, rd32,
                                      uv_cost=uv_cost, nbr=y_m32,
                                      mode_out=uvm16o)
-        va, ha = _uv_adst(pick16[1])
-        lv16, e16, rec16, _, _ = TQ.txq_recon_skip(
-            sb, pred, dc_q, ac_q, scan16, both(rdm32), *rtc16,
-            vadst=both(va), hadst=both(ha))
-
-        # ---- 8 path (4 sub-blocks per plane, raster, local recon) ----
-        locs = windows[:, tt, rc, cc].reshape(2 * B, 18, 18)
-        subs8 = []
+        kb16(tt, rc, cc, pick16, pred)
         for qr, qc in _QUADS:
-            sb8 = sb[:, qr * 8:qr * 8 + 8, qc * 8:qc * 8 + 8]
-            p8, pred = IP.intra_pick(locs, tt, rc, cc, sb8, 7, rd16,
-                                     local=True, qr=qr, qc=qc, scale=2,
-                                     uv_cost=uv_cost, nbr=y_m16,
-                                     nbr_scale=2, mode_out=uvm8o)
-            va, ha = _uv_adst(p8[1])
-            rdm16 = rd16[tt, 2 * rc + qr, 2 * cc + qc]
-            lv, e, rec, _, _ = TQ.txq_recon_skip(
-                sb8, pred, dc_q, ac_q, scan8, both(rdm16), *rtc8,
-                vadst=both(va), hadst=both(ha))
-            locs[:, 1 + qr * 8:9 + qr * 8, 1 + qc * 8:9 + qc * 8] = rec
-            subs8.append((lv, e))
-
-        # ---- select & scatter ----
-        rec = torch.where(both(split)[:, None, None], locs[:, 1:17, 1:17],
-                          rec16)
-        for p in range(2):
-            cells[p, tt, rc, cc] = rec[p * B:(p + 1) * B]
-            uvlv16o[tt, p, rc, cc] = lv16[p * B:(p + 1) * B]
-            uve16o[tt, p, rc, cc] = e16[p * B:(p + 1) * B]
-        for (qr, qc), (lv, e) in zip(_QUADS, subs8):
-            rq, cq = 2 * rc + qr, 2 * cc + qc
-            for p in range(2):
-                uvlv8o[tt, p, rq, cq] = lv[p * B:(p + 1) * B]
-                uve8o[tt, p, rq, cq] = e[p * B:(p + 1) * B]
+            p8, pred = IP.intra_pick(
+                locs[:2 * B], tt, rc, cc, (src_u, src_v), 8, 7, rd16,
+                local=True, qr=qr, qc=qc, scale=2, uv_cost=uv_cost,
+                nbr=y_m16, nbr_scale=2, mode_out=uvm8o)
+            kb8(tt, rc, cc, p8, pred, qr, qc)
     return (uvm16o, uvlv16o, uve16o, uvm8o, uvlv8o, uve8o,
             bufs[:, :, 1:1 + H, 1:1 + W])
 
@@ -542,31 +485,28 @@ def _luma_wavefront(src, mode_cost, angle_cost, dc_q, ac_q, rdmult, bs: int,
     """Uniform-grid luma wavefront (the reference's ``_luma_wavefront``):
     per anti-diagonal, KA's pick chooses among the 7 plain modes of every
     block (priced from the chosen neighbours in the PLAN-index grid) and
-    predicts the winner, and KB (no skip decision) quantizes and
-    reconstructs it.
+    predicts the winner, and KB (``TxqStep``, no skip decision) quantizes
+    and reconstructs it into the recon buffer: 1 pick + 1 KB per step.
 
     src: (R*bs, C*bs) int32; rdmult (R, C) float32. Returns (mode_idx
     (R,C) PLAN index, levels (R,C,n), eob (R,C), recon (R*bs, C*bs))."""
     dev = src.device
-    scan = _scan(BS_TO_TX[bs], str(dev))
     H, W = R * bs, C * bs
     i32 = dict(dtype=torch.int32, device=dev)
     buf = torch.zeros((1, H + 2 + bs, W + 2 + bs), **i32)
     mode_grid = torch.zeros((1, R, C), **i32)         # chosen PLAN index
     levels_out = torch.zeros((R, C, bs * bs), **i32)
     eob_out = torch.zeros((R, C), **i32)
-    src4 = src.view(R, bs, C, bs)
-    cells = buf[0, 1:1 + H, 1:1 + W].unfold(0, bs, bs).unfold(1, bs, bs)
+    kb = TQ.uniform_step(bs, src[None], buf, levels_out[None, None],
+                         eob_out[None, None], dc_q=dc_q, ac_q=ac_q,
+                         scan=_scan(BS_TO_TX[bs], str(dev)))
     for tt, rc, cc in _walk(R, C, dev):
-        sb = src4[rc, :, cc, :]                                # (B,bs,bs)
-        _, pred = IP.intra_pick(buf, tt, rc, cc, sb, IP.N_PLAIN, rdmult[None],
-                                mode_cost=mode_cost, angle_cost=angle_cost,
-                                nbr=mode_grid, nbr_plan=True,
-                                mode_out=mode_grid)
-        levels, eob, recon = TQ.txq_recon(sb, pred, dc_q, ac_q, scan)
-        cells[rc, cc] = recon
-        levels_out[rc, cc] = levels
-        eob_out[rc, cc] = eob
+        pick, pred = IP.intra_pick(buf, tt, rc, cc, (src[None],), bs,
+                                   IP.N_PLAIN, rdmult[None],
+                                   mode_cost=mode_cost, angle_cost=angle_cost,
+                                   nbr=mode_grid, nbr_plan=True,
+                                   mode_out=mode_grid)
+        kb(tt, rc, cc, pick, pred)
     return mode_grid[0], levels_out, eob_out, buf[0, 1:1 + H, 1:1 + W]
 
 
@@ -575,38 +515,27 @@ def _chroma_wavefront(src_u, src_v, uv_cost, dc_q, ac_q, rdmult, y_mode_idx,
     """Uniform-grid joint U/V wavefront (the reference's
     ``_chroma_wavefront``): one mode per block from the summed U+V SSE,
     the U and V blocks of a step as one batch of 2B, the chroma tx type
-    derived from the mode (ADST/DCT), no skip decision.
+    derived from the mode (ADST/DCT), no skip decision; 1 pick + 1 KB per
+    step.
 
     Returns (mode_idx (R,C), levels (2,R,C,n), eob (2,R,C),
     recon (2, R*bs, C*bs))."""
     dev = src_u.device
-    scan = _scan(BS_TO_TX[bs], str(dev))
     H, W = R * bs, C * bs
     i32 = dict(dtype=torch.int32, device=dev)
     bufs = torch.zeros((2, H + 2 + bs, W + 2 + bs), **i32)
     mode_grid = torch.zeros((1, R, C), **i32)
     levels_out = torch.zeros((2, R, C, bs * bs), **i32)
     eob_out = torch.zeros((2, R, C), **i32)
-    srcs4 = (src_u.view(R, bs, C, bs), src_v.view(R, bs, C, bs))
-    cells = bufs[:, 1:1 + H, 1:1 + W].unfold(1, bs, bs).unfold(2, bs, bs)
-
-    def both(x):
-        return torch.cat([x, x])
-
+    kb = TQ.uniform_step(bs, src_u[None], bufs, levels_out[None],
+                         eob_out[None], src_v=src_v[None], dc_q=dc_q,
+                         ac_q=ac_q, scan=_scan(BS_TO_TX[bs], str(dev)))
     for tt, rc, cc in _walk(R, C, dev):
-        B = rc.shape[0]
-        sb = torch.cat([s4[rc, :, cc, :] for s4 in srcs4])     # (2B,bs,bs)
-        pick, pred = IP.intra_pick(bufs, tt, rc, cc, sb, IP.N_PLAIN,
-                                   rdmult[None], uv_cost=uv_cost,
-                                   nbr=y_mode_idx[None], nbr_plan=True,
-                                   mode_out=mode_grid)
-        va, ha = _uv_adst(pick[1])
-        levels, eob, recon = TQ.txq_recon(sb, pred, dc_q, ac_q, scan,
-                                          both(va), both(ha))
-        for p in range(2):
-            cells[p, rc, cc] = recon[p * B:(p + 1) * B]
-            levels_out[p, rc, cc] = levels[p * B:(p + 1) * B]
-            eob_out[p, rc, cc] = eob[p * B:(p + 1) * B]
+        pick, pred = IP.intra_pick(
+            bufs, tt, rc, cc, (src_u[None], src_v[None]), bs, IP.N_PLAIN,
+            rdmult[None], uv_cost=uv_cost, nbr=y_mode_idx[None],
+            nbr_plan=True, mode_out=mode_grid)
+        kb(tt, rc, cc, pick, pred)
     return mode_grid[0], levels_out, eob_out, bufs[:, 1:1 + H, 1:1 + W]
 
 

@@ -141,6 +141,20 @@ class CudaKernel:
         self.variants[variant or fn] += 1
 
 
+def need(t, dtype, shape, di: int, what: str) -> int:
+    """``t``'s data pointer after a wrapper's checks (0 for None): a
+    contiguous ``dtype`` tensor of ``shape`` on CUDA device ``di``; raises
+    ``ValueError`` naming ``what`` otherwise."""
+    if t is None:
+        return 0
+    if t.get_device() != di or t.dtype != dtype or tuple(t.shape) != \
+            tuple(shape) or not t.is_contiguous():
+        raise ValueError(f"{what}: want contiguous {dtype} {tuple(shape)} "
+                         f"on cuda:{di}, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")
+    return t.data_ptr()
+
+
 def build_all(kernels) -> None:
     """Compile every stale library at once (one nvcc process each, one per
     source file however many kernels it holds)."""

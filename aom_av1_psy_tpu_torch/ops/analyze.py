@@ -38,7 +38,7 @@ BATCH_MODES = (0, 1, 2, 9, 10, 11, 12)
 
 KP = CudaKernel("analyze", {
     # plane, W, blocks, above, left, corner, B, n, sw, dc_q, ac_q, shift,
-    # scan, progs, meta, mode, sse, levels, eob, totals
+    # scan, stages, meta, mode, sse, levels, eob, totals
     "analyze_blocks": [P, I, P, P, P, P, I, I, P, I, I, I, P, P, P, P, P, P,
                        P, P],
 })
@@ -215,11 +215,11 @@ def _launch_kp(n: int, tx_size: int, dc_q: int, ac_q: int, plane=None,
                                              device=dev)
     if B == 0:
         return out
-    progs, meta = _programs(n, str(dev))
+    stages, meta = _programs(n, str(dev))
     KP.launch("analyze_blocks", *ptrs, B, n,
               _smooth_weights_on(n, str(dev)).data_ptr(), dc_q, ac_q,
               TS.tx_scale(tx_size), _scan_on(tx_size, str(dev)).data_ptr(),
-              progs.data_ptr(), meta.data_ptr(), out["mode"].data_ptr(),
+              stages.data_ptr(), meta.data_ptr(), out["mode"].data_ptr(),
               out["sse"].data_ptr(), out["levels"].data_ptr(),
               out["eob"].data_ptr(),
               0 if totals is None else totals.data_ptr(),

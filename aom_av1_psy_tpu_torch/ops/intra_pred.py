@@ -35,7 +35,7 @@ import torch
 
 from . import intra as intra_ops
 from ..encoder import tpu_intra_dir as DIR
-from ..kernels.build import CudaKernel, I, P
+from ..kernels.build import CudaKernel, I, P, need
 from ..normative.blocks import INTRA_MODE_CONTEXT
 
 N_PLAIN = 7
@@ -46,12 +46,12 @@ PLAN_MODES = tuple(m for m, _, _ in DIR.candidates()[:N_PLAIN])
 class _PickArgs(ctypes.Structure):
     """``csrc/intra_pred.cu``'s ``PickArgs``, field for field."""
     _fields_ = ([(f, P) for f in (
-        "buf", "tt", "rc", "cc", "src", "rd", "ok1", "ok2", "ok3", "trreal",
-        "blreal", "cost", "angle", "nbr", "mode_out", "delta_out", "pick",
-        "pred")]
+        "buf", "tt", "rc", "cc", "src", "src_v", "rd", "ok1", "ok2", "ok3",
+        "trreal", "blreal", "cost", "angle", "nbr", "mode_out", "delta_out",
+        "pick", "pred")]
         + [(f, I) for f in (
             "B", "K", "bs", "P", "pstride", "Hb", "Wb", "local", "qr", "qc",
-            "src_sb", "src_sr", "T", "MR", "MC", "scale", "NR", "NC",
+            "SH", "SW", "T", "MR", "MC", "scale", "NR", "NC",
             "nscale", "nbr_plan", "luma")])
 
 
@@ -278,7 +278,7 @@ def pick_table() -> np.ndarray:
     return out
 
 
-def intra_pick_plain(buf, tt, rc, cc, src, K, rd, *, local=False, qr=0,
+def intra_pick_plain(buf, tt, rc, cc, src, bs, K, rd, *, local=False, qr=0,
                      qc=0, scale=1, mode_cost=None, angle_cost=None,
                      uv_cost=None, nbr=None, nbr_scale=1, nbr_plan=False,
                      ok=None, trreal=None, blreal=None, mode_out=None,
@@ -287,8 +287,7 @@ def intra_pick_plain(buf, tt, rc, cc, src, K, rd, *, local=False, qr=0,
     (edge gathers, ``intra_pred_sse_plain``, the rate, the candidate mask,
     ``rd_cost``, the first-index argmin, ``intra_pred_one_plain``)."""
     dev = buf.device
-    B, bs = rc.shape[0], src.shape[-1]
-    npl = src.shape[0] // B
+    B, npl = rc.shape[0], len(src)
     zero = torch.zeros_like(rc)
     plane = torch.arange(B, device=dev) if local else tt
     oy = (zero if local else rc) * bs + (qr * bs + 1)
@@ -302,6 +301,9 @@ def intra_pick_plain(buf, tt, rc, cc, src, K, rd, *, local=False, qr=0,
     tl = buf[planes, oy - 1, ox - 1]
     have_a, have_l = (rc > 0) | (qr > 0), (cc > 0) | (qc > 0)
     i, j = rc * scale + qr, cc * scale + qc
+    blocks = torch.cat([s[tt[:, None, None], (i * bs)[:, None, None]
+                          + ar[:, None], (j * bs)[:, None, None] + ar]
+                        for s in src])
     ni, nj = rc * nbr_scale + qr, cc * nbr_scale + qc
     modes, deltas, plan, imc = _pick_consts(str(dev))
 
@@ -333,8 +335,7 @@ def intra_pick_plain(buf, tt, rc, cc, src, K, rd, *, local=False, qr=0,
             ef=ef)
     both = (lambda x: x.repeat(npl)) if npl > 1 else (lambda x: x)
     ha2, hl2 = both(have_a), both(have_l)
-    sse = intra_pred_sse_plain(above, left, tl, ha2, hl2,
-                               src.reshape(npl * B, bs, bs), K, **ext)
+    sse = intra_pred_sse_plain(above, left, tl, ha2, hl2, blocks, K, **ext)
     if npl > 1:
         sse = sse[:, :B] + sse[:, B:]
     cost = rd_cost(sse, rate.T, rd[tt, i, j])
@@ -357,19 +358,6 @@ def intra_pick_plain(buf, tt, rc, cc, src, K, rd, *, local=False, qr=0,
     return pick.to(torch.int32), pred
 
 
-def _need(t, dtype, shape, di, name):
-    """``t``'s data pointer after the kernel's checks (0 for None): a
-    contiguous ``dtype`` tensor of ``shape`` on CUDA device ``di``."""
-    if t is None:
-        return 0
-    if t.get_device() != di or t.dtype != dtype or t.shape != shape or \
-            not t.is_contiguous():
-        raise ValueError(f"KA pick {name}: want contiguous {dtype} "
-                         f"{tuple(shape)} on cuda:{di}, got {t.dtype} "
-                         f"{tuple(t.shape)} on {t.device}")
-    return t.data_ptr()
-
-
 _PICK_READY = set()
 
 
@@ -383,7 +371,7 @@ def _pick_init(di: int):
         _PICK_READY.add(di)
 
 
-def intra_pick(buf, tt, rc, cc, src, K, rd, *, local=False, qr=0, qc=0,
+def intra_pick(buf, tt, rc, cc, src, bs, K, rd, *, local=False, qr=0, qc=0,
                scale=1, mode_cost=None, angle_cost=None, uv_cost=None,
                nbr=None, nbr_scale=1, nbr_plan=False, ok=None, trreal=None,
                blreal=None, mode_out=None, delta_out=None):
@@ -393,18 +381,20 @@ def intra_pick(buf, tt, rc, cc, src, K, rd, *, local=False, qr=0, qc=0,
     and predict the winner. CPU tensors: plain version; CUDA tensors:
     kernel KA, one launch.
 
-    Block b is cell (tt[b], rc[b], cc[b]) (int64, (B,)) of the wavefront.
-    Its edges are read from ``buf`` (int32 planes with a 1-px guard
-    border): plane tt[b] at origin (rc*bs + 1, cc*bs + 1), or with
+    Block b is cell (tt[b], rc[b], cc[b]) (int64, (B,)) of the wavefront,
+    of size ``bs``, at position (i, j) = (rc*scale + qr, cc*scale + qc) on
+    the maps. Its edges are read from ``buf`` (int32 planes with a 1-px
+    guard border): plane tt[b] at origin (rc*bs + 1, cc*bs + 1), or with
     ``local`` plane b of a per-cell buffer at (qr*bs + 1, qc*bs + 1)
-    (quad (qr, qc) of the cell). ``src`` is (P*B, bs, bs) (any strides
-    with the last 1): P = 2 scores the U and V blocks of a pair together
-    (the SSEs summed before pricing), the V edges read from the plane
-    ``buf.shape[0] // 2`` further on. The above edge is there when rc > 0
-    or qr > 0, the left when cc > 0 or qc > 0.
+    (quad (qr, qc) of the cell). ``src`` holds the source planes, each
+    (T, SH, SW) int32 and contiguous: (luma,) or (U, V), a pair scored
+    together (the SSEs summed before pricing), the V edges read from the
+    plane ``buf.shape[0] // 2`` further on. The block's source is read
+    where it lies, the (i*bs, j*bs) block of plane tt[b]. The above edge
+    is there when rc > 0 or qr > 0, the left when cc > 0 or qc > 0.
 
-    Per-position maps (T, MR, MC) are read at (tt, rc*scale + qr,
-    cc*scale + qc): the float32 lambdas ``rd``, the bool class masks
+    Per-position maps (T, MR, MC) are read at (tt, i, j): the float32
+    lambdas ``rd``, the bool class masks
     ``ok`` = (ok1, ok2, ok3) and ``trreal`` / ``blreal`` (K = 61). Pricing:
     luma (``mode_cost`` (5, 5, K), ``angle_cost`` (K,)): the neighbours'
     modes, from ``mode_out`` inside the cell (qr / qc > 0), else from
@@ -422,13 +412,12 @@ def intra_pick(buf, tt, rc, cc, src, K, rd, *, local=False, qr=0, qc=0,
               nbr_scale=nbr_scale, nbr_plan=nbr_plan, ok=ok, trreal=trreal,
               blreal=blreal, mode_out=mode_out, delta_out=delta_out)
     if buf.device.type == "cpu":
-        return intra_pick_plain(buf, tt, rc, cc, src, K, rd, **kw)
-    B, bs = rc.shape[0], src.shape[-1]
-    npl = src.shape[0] // max(B, 1)
+        return intra_pick_plain(buf, tt, rc, cc, src, bs, K, rd, **kw)
+    B, npl = rc.shape[0], len(src)
     luma = mode_cost is not None
     if bs not in (4, 8, 16, 32) or K not in (N_PLAIN, len(DIR.candidates())) \
-            or src.shape != (npl * B, bs, bs) or npl not in (1, 2) \
-            or src.stride(-1) != 1 or luma == (uv_cost is not None) \
+            or npl not in (1, 2) or src[0].dim() != 3 \
+            or luma == (uv_cost is not None) \
             or (K != N_PLAIN and (bs < 16 or npl != 1 or not luma)) \
             or (not local and (qr or qc)) \
             or ((qr or qc) and scale != 2) \
@@ -436,40 +425,42 @@ def intra_pick(buf, tt, rc, cc, src, K, rd, *, local=False, qr=0, qc=0,
                                           or nbr_scale != scale)) \
             or buf.dim() != 3 or rd.dim() != 3 or nbr is None \
             or nbr.dim() != 3:
-        raise ValueError(f"KA pick: unsupported call (bs {bs}, K {K}, src "
-                         f"{tuple(src.shape)}, B {B}, local {local}, quad "
+        raise ValueError(f"KA pick: unsupported call (bs {bs}, K {K}, "
+                         f"{npl} source planes, B {B}, local {local}, quad "
                          f"{qr},{qc}, scale {scale})")
     T, MR, MC = rd.shape
     di, i32, maps, vec = buf.get_device(), torch.int32, rd.shape, (B,)
     i64, b8 = torch.int64, torch.bool
     oks = ok if ok is not None else (None, None, None)
-    if src.get_device() != di or src.dtype != i32:
-        raise ValueError(f"KA pick src: want int32 on cuda:{di}, got "
-                         f"{src.dtype} on {src.device}")
+
+    def chk(t, dtype, shape, name):
+        return need(t, dtype, shape, di, f"KA pick {name}")
+
     if luma:
-        cost = _need(mode_cost, i32, (5, 5, K), di, "mode_cost")
-        angle = _need(angle_cost, i32, (K,), di, "angle_cost")
+        cost = chk(mode_cost, i32, (5, 5, K), "mode_cost")
+        angle = chk(angle_cost, i32, (K,), "angle_cost")
     else:
-        cost, angle = _need(uv_cost, i32, (13, K), di, "uv_cost"), 0
-    ptrs = (_need(buf, i32, buf.shape, di, "buf"),
-            _need(tt, i64, vec, di, "tt"), _need(rc, i64, vec, di, "rc"),
-            _need(cc, i64, vec, di, "cc"), src.data_ptr(),
-            _need(rd, torch.float32, maps, di, "rd"),
-            _need(oks[0], b8, maps, di, "ok1"),
-            _need(oks[1], b8, maps, di, "ok2"),
-            _need(oks[2], b8, maps, di, "ok3"),
-            _need(trreal, b8, maps, di, "trreal"),
-            _need(blreal, b8, maps, di, "blreal"), cost, angle,
-            _need(nbr, i32, nbr.shape, di, "nbr"),
-            _need(mode_out, i32, maps, di, "mode_out"),
-            _need(delta_out, i32, maps, di, "delta_out"))
+        cost, angle = chk(uv_cost, i32, (13, K), "uv_cost"), 0
+    ptrs = (chk(buf, i32, buf.shape, "buf"),
+            chk(tt, i64, vec, "tt"), chk(rc, i64, vec, "rc"),
+            chk(cc, i64, vec, "cc"), chk(src[0], i32, src[0].shape, "src"),
+            chk(src[1] if npl == 2 else None, i32, src[0].shape, "src_v"),
+            chk(rd, torch.float32, maps, "rd"),
+            chk(oks[0], b8, maps, "ok1"),
+            chk(oks[1], b8, maps, "ok2"),
+            chk(oks[2], b8, maps, "ok3"),
+            chk(trreal, b8, maps, "trreal"),
+            chk(blreal, b8, maps, "blreal"), cost, angle,
+            chk(nbr, i32, nbr.shape, "nbr"),
+            chk(mode_out, i32, maps, "mode_out"),
+            chk(delta_out, i32, maps, "delta_out"))
     pick = torch.empty((4, B), dtype=i32, device=buf.device)
     pred = torch.empty((npl * B, bs, bs), dtype=i32, device=buf.device)
     _pick_init(di)
     args = _PickArgs(*ptrs, pick.data_ptr(), pred.data_ptr(), B, K, bs, npl,
                      buf.shape[0] // npl, buf.shape[1], buf.shape[2],
-                     int(local), qr, qc, src.stride(0), src.stride(1), T, MR,
-                     MC, scale, nbr.shape[1], nbr.shape[2], nbr_scale,
+                     int(local), qr, qc, src[0].shape[1], src[0].shape[2], T,
+                     MR, MC, scale, nbr.shape[1], nbr.shape[2], nbr_scale,
                      int(nbr_plan), int(luma))
     KA.launch("intra_pick", ctypes.byref(args), variant=f"pick bs{bs}")
     return pick, pred

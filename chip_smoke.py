@@ -20,17 +20,23 @@ exit code is not 0):
    times (CUDA events): KA's pick (``intra_pick``, the wavefronts' entry)
    at the longest 1080p diagonal (luma 32 and the four 16 quads, B = 34,
    K = 61; chroma 16 and the four 8 quads, B = 2 x 34) and its older
-   entries ``intra_pred_sse`` / ``intra_pred_one``; ``device_ms`` (the
-   profiler's device time) of the pick, of the old pair and of KB;
-3b. KD / KE / KF, and KB at the P-frame's batch sizes, against their plain
-   versions at the 1080p P-frame's shapes, for exact equality, with both
-   times;
+   entries ``intra_pred_sse`` / ``intra_pred_one``; KB's batched entry
+   (``txq_recon_skip``) and its in-place entry (``txq_step``, the
+   wavefronts') at the same diagonal: every call site of a step (luma
+   32, the four 16 quads with the split and the recon write-back, the
+   chroma 16 pair, the four 8 quad pairs) against its plain version on
+   CPU tensors, timed with events, ``device_ms`` and host us per call;
+   ``device_ms`` (the profiler's device time) of the pick, of the old
+   pair and of KB;
+3b. KD / KE / KF, and KB's batched entry at the P-frame's batch sizes,
+   against their plain versions at the 1080p P-frame's shapes, for exact
+   equality, with both times and KB's ``device_ms``;
 3c. KA and KB at 4x4 (KB with the sinpi ADST4 and the skip decision off)
    and KB with the skip off at 8x8, at the uniform grid's shapes (640x360:
    chroma B = 2 x 45; 1080p BLOCK_8X8: luma B = 135, chroma B = 270), and
-   the pick at the 1080p BLOCK_8X8 grid's longest diagonal (luma bs 8
-   B = 135, chroma bs 4 B = 2 x 135), for exact equality, with both
-   times;
+   the pick and KB's in-place entry at the 1080p BLOCK_8X8 grid's longest
+   diagonal (luma bs 8 B = 135, chroma bs 4 B = 2 x 135), for exact
+   equality, with both times;
 3d. KG (with and without the moments), KH and KI (the four VIF scales, and
    its ``vif_down2`` entry) against their plain versions at the 1080p
    shapes: KG, KH and down2 exact, KI within a relative 1e-4; kernel,
@@ -87,7 +93,8 @@ exit code is not 0):
    frame (``utils/testframes.make_frame``, the arrays of ``bench.py``'s) at
    ``base_q_idx=100`` — a first frame and 3 steady frames — with the launch
    counts read around that run (KA: 930 picks per frame, 10 per diagonal
-   step, and no launch of its older entries);
+   step, and no launch of its older entries; KB: 930 launches per frame,
+   all through ``txq_step``);
 5b. the main path of slice 2: ``encode_video(make_gop(1920, 1080, 5),
    EncoderConfig(base_q_idx=100))`` twice (the first run warms up), the
    counts set to 0 just before the second and read just after; per-frame
@@ -150,9 +157,12 @@ analysis path and of phase 4g's host inter GOP beside it, and
 ``launches_per_key_frame`` (phase 5's count over its 3 frames). KA's and
 KB's entries count only their own instances (``intra_pick`` bs 8/16/32,
 ``intra_pick bs4``; ``intra_pred_sse`` bs 8/16/32 and bs 4, no longer on
-any encoder path; ``txq_recon_skip`` bs 8/16/32 with the skip decision,
-``txq_recon bs4 / bs8 no-skip``), read from the per-variant counts the
-wrappers keep. Each entry's ``bound_ms`` is the larger of its
+any encoder path; ``txq_step`` (``step`` bs 8/16/32) and ``txq_step
+no-skip`` (``step bs4 / bs8 no-skip``), the wavefronts' in-place entry;
+``txq_recon_skip`` bs 8/16/32 with the skip decision, the P-frame's
+batched entry; ``txq_recon bs4 / bs8 no-skip``, the batched entry without
+the skip, no longer on any encoder path), read from the per-variant
+counts the wrappers keep. Each entry's ``bound_ms`` is the larger of its
 bytes (inputs read once, outputs written once, from the timed call's
 tensors) over 3.35 TB/s and its operations (estimated per kernel from the
 shapes, in the comments beside each) over 67 T/s, float64 operations over
@@ -331,8 +341,7 @@ def _pick_calls(dev, uniform=False):
     d = R - 1
     tt, rc, cc = (t(a[offs[d]:offs[d + 1]]) for a in (tiles, rows, cols))
     B = rc.shape[0]
-    src4 = ys.view(R, bs, C, bs)
-    sl = torch.cat([p.view(R, cb, C, cb)[rc, :, cc, :] for p in uvs])
+    sy, suv = (ys[None],), tuple(p[None] for p in uvs)   # source planes
     calls = []
 
     def call(args, kw, maps):
@@ -349,11 +358,11 @@ def _pick_calls(dev, uniform=False):
         grid = t(rng.integers(0, 7, (1, R, C)).astype(np.int32))
         rd = lam(1, R, C)
         calls.append(("luma bs8", call(
-            (buf, tt, rc, cc, src4[rc, :, cc, :], 7, rd),
+            (buf, tt, rc, cc, sy, bs, 7, rd),
             dict(mode_cost=kf7, angle_cost=angle7, nbr=grid,
                  nbr_plan=True), {"mode_out": grid})))
         calls.append(("chroma bs4", call(
-            (bufs, tt, rc, cc, sl, 7, rd),
+            (bufs, tt, rc, cc, suv, cb, 7, rd),
             dict(uv_cost=uv, nbr=grid, nbr_plan=True),
             {"mode_out": torch.zeros_like(grid)})))
         return calls, B
@@ -365,11 +374,10 @@ def _pick_calls(dev, uniform=False):
     y_m32 = t(rng.integers(0, 13, (1, R, C)).astype(np.int32))
     y_m16 = t(rng.integers(0, 13, (1, 2 * R, 2 * C)).astype(np.int32))
     rd32, rd16 = lam(1, R, C), lam(1, 2 * R, 2 * C)
-    src32 = src4[rc, :, cc, :]
     luma = dict(mode_cost=kf61, angle_cost=angle61, nbr=mode16,
                 nbr_scale=2)
     calls.append(("luma bs32", call(
-        (buf, tt, rc, cc, src32, 61, rd32),
+        (buf, tt, rc, cc, sy, 32, 61, rd32),
         dict(luma, ok=tuple(masks[f"ok{k}_32"] for k in (1, 2, 3))),
         {"mode_out": torch.zeros_like(y_m32),
          "delta_out": torch.zeros_like(y_m32)})))
@@ -378,20 +386,18 @@ def _pick_calls(dev, uniform=False):
         .reshape(2 * B, 18, 18)
     for qr, qc in TI._QUADS:
         calls.append((f"luma bs16 quad {qr}{qc}", call(
-            (loc, tt, rc, cc, src32[:, 16 * qr:16 * qr + 16,
-                                    16 * qc:16 * qc + 16], 61, rd16),
+            (loc, tt, rc, cc, sy, 16, 61, rd16),
             dict(luma, local=True, qr=qr, qc=qc, scale=2,
                  ok=tuple(masks[f"ok{k}_16"] for k in (1, 2, 3)),
                  trreal=masks["trreal_16"], blreal=masks["blreal_16"]),
             {"mode_out": y_m16.clone(), "delta_out": torch.zeros_like(
                 y_m16)})))
     calls.append(("chroma bs16", call(
-        (bufs, tt, rc, cc, sl, 7, rd32), dict(uv_cost=uv, nbr=y_m32),
+        (bufs, tt, rc, cc, suv, 16, 7, rd32), dict(uv_cost=uv, nbr=y_m32),
         {"mode_out": torch.zeros_like(y_m32)})))
     for qr, qc in TI._QUADS:
         calls.append((f"chroma bs8 quad {qr}{qc}", call(
-            (locs, tt, rc, cc, sl[:, 8 * qr:8 * qr + 8, 8 * qc:8 * qc + 8],
-             7, rd16),
+            (locs, tt, rc, cc, suv, 8, 7, rd16),
             dict(uv_cost=uv, nbr=y_m16, nbr_scale=2, local=True, qr=qr,
                  qc=qc, scale=2), {"mode_out": torch.zeros_like(y_m16)})))
     return calls, B
@@ -403,6 +409,185 @@ def _pick_bytes(B, bs, npl, K):
     entries read once, its prediction and pick row written once."""
     edges = (4 if K == 61 else 2) * bs + 1
     return 4 * B * (npl * (edges + 2 * bs * bs) + K + 8)
+
+
+def _step_bytes(B, bs, npl, window=0):
+    """Bytes KB's in-place entry must move per call: each block's source
+    and prediction read once, its levels and recon written once, its
+    pick row and map entries, and (a cell launch) its local window read
+    and written once."""
+    return 4 * npl * B * (4 * bs * bs + 16 + 2 * window * window)
+
+
+def _step_sites(uniform=False):
+    """KB's in-place entry (``TxqStep``) at one diagonal of the 1080p KEY
+    frame, with the test frame's planes as source and as recon buffer:
+    returns (run, B). ``run(where)`` builds fresh maps on ``where`` (the
+    card or "cpu", the plain version), runs the step's KB calls in the
+    wavefront's order with seeded KA outputs (the source plus noise,
+    modes and rates at random) and returns (maps, calls): the maps after
+    the step and the (name, bare call) pairs of the call sites. The
+    partition plan's longest diagonal (d = 33 of 34 x 60 cells: B = 34):
+    luma 32, the four 16 quads (quad (1, 1) with the split, the recon
+    write-back and the mode context), chroma 16 and the four 8 quads (U
+    and V pairs, 2 x 34 blocks, ADST from the mode). ``uniform``: the
+    BLOCK_8X8 grid's longest diagonal (d = 134 of 135 x 240: B = 135), luma
+    bs 8 and the chroma bs 4 pairs (2 x 135 blocks), no skip decision."""
+    import numpy as np
+    import torch
+    from aom_av1_psy_tpu_torch.encoder import tpu_intra as TI
+    from aom_av1_psy_tpu_torch.encoder.tpu_frame import FrameContext, tables
+    from aom_av1_psy_tpu_torch.ops import txq as TQ
+    from aom_av1_psy_tpu_torch.utils import testframes
+
+    rng = np.random.default_rng(SEED + 9)
+    y, u, v = (np.asarray(p, np.int32) for p in
+               testframes.make_frame(1920, 1080, seed=SEED).planes())
+    bs = 8 if uniform else 32
+    R, C = (135, 240) if uniform else (34, 60)
+    cb = bs // 2
+
+    def pad(p, rows):
+        out = np.empty((rows, p.shape[1]), np.int32)
+        out[:p.shape[0]] = p
+        out[p.shape[0]:] = p[-1]
+        return out
+
+    ys = pad(y, R * bs)[None]
+    uvs = [pad(p, R * cb)[None] for p in (u, v)]
+    buf = np.zeros((1, R * bs + bs + 2, C * bs + bs + 2), np.int32)
+    buf[0, 1:1 + R * bs, 1:1 + C * bs] = ys[0]
+    bufs = np.zeros((2, 1, R * cb + cb + 2, C * cb + cb + 2), np.int32)
+    for p in range(2):
+        bufs[p, 0, 1:1 + R * cb, 1:1 + C * cb] = uvs[p][0]
+    tiles, rows, cols, offs = TI._diagonals(R, C, 1)
+    d = R - 1
+    cells = [a[offs[d]:offs[d + 1]] for a in (tiles, rows, cols)]
+    B = len(cells[0])
+    dc_q, ac_q = tables.dc_quant(100), tables.ac_quant(100)
+    rt = TI._rate_tables(FrameContext(100))
+    pr_none, pr_split = TI._part_rate_scalars(FrameContext(100))
+    forced, no_split = TI.edge_cell_masks(R, C, 270, 480)
+
+    def lam(*shape):
+        return rng.uniform(5e3, 6e4, shape).astype(np.float32)
+
+    host = {"rd32": lam(1, R, C), "rd16": lam(1, 2 * R, 2 * C),
+            "forced": forced[None], "no_split": no_split[None],
+            "m32": rng.integers(0, 13, (1, R, C)).astype(np.int32),
+            "m16": rng.integers(0, 13, (1, 2 * R, 2 * C)).astype(np.int32),
+            "mode16": rng.integers(0, 13, (1, 2 * R, 2 * C)).astype(np.int32),
+            "split32": rng.integers(0, 2, (1, R, C)).astype(np.int32)}
+
+    def ka_outputs(planes, b, r0, c0):
+        """A pick (4, B) and a prediction near each plane's block."""
+        blocks = np.concatenate([
+            np.stack([pl[0, r:r + b, c:c + b] for r, c in zip(r0, c0)])
+            for pl in planes])
+        amp = rng.choice([1, 4, 25], len(blocks))[:, None, None]
+        pred = np.clip(blocks + np.round(rng.uniform(-1, 1, blocks.shape)
+                                         * amp), 0, 255).astype(np.int32)
+        pick = np.zeros((4, B), np.int32)
+        pick[0] = rng.integers(0, 7, B)
+        pick[1] = rng.integers(0, 13, B)
+        pick[3] = rng.integers(0, 3000, B)
+        return pick, pred
+
+    tt, rc, cc = cells
+    if uniform:
+        seq = [("luma bs8", None, ka_outputs([ys], bs, rc * bs, cc * bs)),
+               ("chroma bs4", None, ka_outputs(uvs, cb, rc * cb, cc * cb))]
+    else:
+        seq = [("luma bs32", None, ka_outputs([ys], 32, rc * 32, cc * 32))]
+        seq += [(f"luma bs16 quad {qr}{qc}", (qr, qc), ka_outputs(
+            [ys], 16, rc * 32 + 16 * qr, cc * 32 + 16 * qc))
+            for qr, qc in TI._QUADS]
+        seq += [("chroma bs16", None, ka_outputs(uvs, 16, rc * 16,
+                                                 cc * 16))]
+        seq += [(f"chroma bs8 quad {qr}{qc}", (qr, qc), ka_outputs(
+            uvs, 8, rc * 16 + 8 * qr, cc * 16 + 8 * qc))
+            for qr, qc in TI._QUADS]
+
+    def run(where):
+        def t(a):
+            # a copy: on the CPU, as_tensor would share (and the step
+            # write into) the host arrays
+            return torch.tensor(np.asarray(a), device=where)
+
+        i32 = dict(dtype=torch.int32, device=where)
+        h = {k: t(x) for k, x in host.items()}
+        r = {k: tuple(t(x) for x in v) for k, v in rt.items()}
+        cells_t = tuple(t(a.astype(np.int64)) for a in cells)
+        m = {"buf": t(buf), "bufs": t(bufs)}
+        sy, su, sv = t(ys), t(uvs[0]), t(uvs[1])
+        if uniform:
+            m.update(ylv=torch.zeros((1, 1, R, C, 64), **i32),
+                     ye=torch.zeros((1, 1, R, C), **i32),
+                     uvlv=torch.zeros((1, 2, R, C, 16), **i32),
+                     uve=torch.zeros((1, 2, R, C), **i32))
+            planes = m["bufs"].view(2, *bufs.shape[2:])
+            sites = [TQ.uniform_step(
+                8, sy, m["buf"], m["ylv"], m["ye"], dc_q=dc_q, ac_q=ac_q,
+                scan=TI._scan(TI.BS_TO_TX[8], str(where))),
+                     TQ.uniform_step(
+                4, su, planes, m["uvlv"], m["uve"], src_v=sv, dc_q=dc_q,
+                ac_q=ac_q, scan=TI._scan(TI.BS_TO_TX[4], str(where)))]
+        else:
+            m.update({k: h[k].clone() for k in ("m32", "m16", "mode16")})
+            m.update(split=torch.zeros((1, R, C), **i32),
+                     lv32=torch.zeros((1, 1, R, C, 1024), **i32),
+                     e32=torch.zeros((1, 1, R, C), **i32),
+                     lv16=torch.zeros((1, 1, 2 * R, 2 * C, 256), **i32),
+                     e16=torch.zeros((1, 1, 2 * R, 2 * C), **i32),
+                     loc=torch.zeros((B, 34, 34), **i32),
+                     stage=torch.zeros((B, 32, 32), **i32),
+                     cost=torch.zeros((2, B), dtype=torch.float32,
+                                      device=where),
+                     uvlv16=torch.zeros((1, 2, R, C, 256), **i32),
+                     uve16=torch.zeros((1, 2, R, C), **i32),
+                     uvlv8=torch.zeros((1, 2, 2 * R, 2 * C, 64), **i32),
+                     uve8=torch.zeros((1, 2, 2 * R, 2 * C), **i32),
+                     locs=torch.zeros((2 * B, 18, 18), **i32),
+                     stages=torch.zeros((2 * B, 16, 16), **i32))
+            planes = m["bufs"].view(2, *bufs.shape[2:])
+            lc = dict(dc_q=dc_q, ac_q=ac_q, loc=m["loc"], stage=m["stage"],
+                      cost=m["cost"])
+            cc_ = dict(dc_q=dc_q, ac_q=ac_q, loc=m["locs"],
+                       stage=m["stages"])
+            scan = {b: TI._scan(TI.BS_TO_TX[b], str(where))
+                    for b in (32, 16, 8)}
+            kb32 = TQ.luma_cell_step(
+                sy, m["buf"], m["lv32"], m["e32"], scan=scan[32],
+                rd=h["rd32"], rt=r["y32"], pr_none=pr_none, **lc)
+            kb16 = TQ.luma_quad_step(
+                sy, m["buf"], m["lv16"], m["e16"], scan=scan[16],
+                rd=h["rd16"], rt=r["y16"], rd_cell=h["rd32"],
+                forced=h["forced"], no_split=h["no_split"],
+                split=m["split"], m32=m["m32"], m16=m["m16"],
+                mode16=m["mode16"], pr_split=pr_split, **lc)
+            kc16 = TQ.chroma_cell_step(
+                su, sv, planes, m["uvlv16"], m["uve16"], scan=scan[16],
+                rd=h["rd32"], rt=r["uv16"], **cc_)
+            kc8 = TQ.chroma_quad_step(
+                su, sv, planes, m["uvlv8"], m["uve8"], scan=scan[8],
+                rd=h["rd16"], rt=r["uv8"], split=h["split32"], **cc_)
+            sites = [kb32] + [kb16] * 4 + [kc16] + [kc8] * 4
+        calls = []
+        for site, (name, quad, (pick, pred)) in zip(sites, seq):
+            args = (*cells_t, t(pick), t(pred), *(quad or ()))
+            if not uniform and name.startswith("luma"):
+                # what KA's pick writes before KB: its mode into the map
+                tt_, rc_, cc_t = cells_t
+                if quad is None:
+                    m["m32"][tt_, rc_, cc_t] = args[3][1]
+                else:
+                    m["m16"][tt_, 2 * rc_ + quad[0],
+                             2 * cc_t + quad[1]] = args[3][1]
+            site(*args)
+            calls.append((name, (lambda s=site, a=args: s(*a))))
+        return m, calls
+
+    return run, B
 
 
 def check_kernels(dev):
@@ -535,7 +720,7 @@ def check_kernels(dev):
             times = (cuda_time(lambda: TQ.txq_recon_skip(*a), 50),
                      cuda_time(lambda: TQ.txq_recon_skip_plain(*a), 10),
                      device_ms(lambda: TQ.txq_recon_skip(*a), 20,
-                               "kb_kernel"))
+                               "kb_batch_kernel"))
             bnd = bound(nbytes(a, TQ.txq_recon_skip(*a)), _txq_ops(B, bs))
     results.append({"name": "txq_recon_skip", "route": "cuda",
                     "source": "aom_av1_psy_tpu_torch/csrc/txq.cu",
@@ -545,10 +730,55 @@ def check_kernels(dev):
                     "library_none": "no single PyTorch call runs the integer "
                                     "AV1 transforms, quantizer and skip "
                                     "decision",
-                    "timed_at": "bs32 B=34 DCT"})
+                    "timed_at": "bs32 B=34 DCT (the batched entry)",
+                    "launches_note": "the batched entry: the P-frame's; the "
+                                     "KEY wavefronts run txq_step"})
     log(f"[3] KB txq_recon_skip exact at 32/16 (DCT) and 16/8 (ADST mix); "
         f"bs32 B=34: kernel {times[0]:.4f} ms (device {times[2]} ms), "
-        f"plain {times[1]:.4f} ms")
+        f"plain {times[1]:.4f} ms, bound {bnd['bound_ms']:.5f} ms "
+        f"({bnd['bound_by']})")
+
+    # ---- KB's in-place entry: one diagonal of the 1080p KEY frame ----
+    run, B = _step_sites()
+    got, calls = run(dev)
+    want, _ = run("cpu")
+    err = 0.0
+    for k in want:
+        err = max(err, compare(f"KB step {k}", got[k].cpu(), want[k]))
+    bare = dict(calls)
+    step32 = bare["luma bs32"]
+    step_t = (cuda_time(step32, 50),
+              cuda_time(lambda: run("cpu"), 3),
+              device_ms(step32, 20, "kb_step_kernel"),
+              _host_us(step32),
+              device_ms(bare["luma bs16 quad 11"], 20, "kb_step_kernel"),
+              device_ms(lambda: [f() for _, f in calls], 10,
+                        "kb_step_kernel"))
+    bnd = bound(_step_bytes(B, 32, 1, 34), _txq_ops(B, 32))
+    results.append({"name": "txq_step", "route": "cuda",
+                    "source": "aom_av1_psy_tpu_torch/csrc/txq.cu",
+                    "replaces": "aom_av1_psy_tpu/encoder/tpu_intra.py:157; "
+                                "aom_av1_psy_tpu/encoder/tpu_intra.py:570",
+                    "max_abs_err": err, "ms": step_t[0],
+                    "plain_ms": step_t[1], "device_ms": step_t[2], **bnd,
+                    "library_ms": None,
+                    "library_none": "no single PyTorch call runs the integer "
+                                    "AV1 transforms, quantizer, skip "
+                                    "decision and partition choice",
+                    "host_us_per_call": step_t[3],
+                    "quad11_device_ms": step_t[4],
+                    "step_device_ms": step_t[5],
+                    "timed_at": "luma bs32 B=34 (one 1080p diagonal, the "
+                                "cell launch); plain: the whole step's 10 "
+                                "calls on CPU tensors; step_device_ms: the "
+                                "step's 10 KB launches"})
+    log(f"[3] KB txq_step exact against its plain version at one 1080p "
+        f"diagonal ({', '.join(n for n, _ in calls)}; B={B}); luma bs32: "
+        f"kernel {step_t[0]:.4f} ms (device {step_t[2]} ms, host "
+        f"{step_t[3]:.2f} us per call), quad 11 with the split device "
+        f"{step_t[4]} ms, the step's 10 launches device {step_t[5]} ms, "
+        f"bound {bnd['bound_ms']:.5f} ms ({bnd['bound_by']}); plain step "
+        f"on the CPU {step_t[1]:.4f} ms")
 
     # ---- KC: 1080p luma 1088x1920 and chroma 544x960, 6 levels ----
     from aom_av1_psy_tpu_torch.utils import testframes
@@ -694,8 +924,45 @@ def check_uniform_kernels(dev):
                                         "integer AV1 transforms and quantizer",
                         "timed_at": f"bs{bs} B={Bs[-1]}"
                                     + (" DCT/ADST mix" if adst else " DCT")})
+        results[-1]["launches_note"] = ("the batched entry: on no encoder "
+                                        "path, the uniform wavefronts run "
+                                        "txq_step")
         log(f"[3c] KB {name} exact at B={Bs}; B={Bs[-1]}: kernel "
             f"{times[0]:.4f} ms, plain {times[1]:.4f} ms")
+
+    # ---- KB's in-place entry on the 1080p BLOCK_8X8 grid's diagonal ----
+    run, B = _step_sites(uniform=True)
+    got, calls = run(dev)
+    want, _ = run("cpu")
+    err = 0.0
+    for k in want:
+        err = max(err, compare(f"KB uniform step {k}", got[k].cpu(),
+                               want[k]))
+    bare = dict(calls)
+    times = (cuda_time(bare["chroma bs4"], 50),
+             cuda_time(lambda: run("cpu"), 5),
+             device_ms(bare["chroma bs4"], 20, "kb_step_kernel"),
+             device_ms(bare["luma bs8"], 20, "kb_step_kernel"),
+             _host_us(bare["chroma bs4"]))
+    bnd = bound(_step_bytes(B, 4, 2), _txq_ops(2 * B, 4))
+    results.append({"name": "txq_step no-skip", "route": "cuda",
+                    "source": "aom_av1_psy_tpu_torch/csrc/txq.cu",
+                    "replaces": "aom_av1_psy_tpu/encoder/tpu_intra.py:282; "
+                                "aom_av1_psy_tpu/encoder/tpu_intra.py:345",
+                    "max_abs_err": err, "ms": times[0], "plain_ms": times[1],
+                    "device_ms": times[2], **bnd, "library_ms": None,
+                    "library_none": "no single PyTorch call runs the integer "
+                                    "AV1 transforms and quantizer",
+                    "luma_bs8_device_ms": times[3],
+                    "host_us_per_call": times[4],
+                    "timed_at": f"chroma bs4 pairs, B=2x{B} (1080p BLOCK_8X8 "
+                                "diagonal); plain: both calls on CPU "
+                                "tensors"})
+    log(f"[3c] KB txq_step exact at the 1080p BLOCK_8X8 diagonal (luma bs8 "
+        f"B={B}, chroma bs4 B=2x{B}); chroma bs4: kernel {times[0]:.4f} ms "
+        f"(device {times[2]} ms, host {times[4]:.2f} us per call), luma bs8 "
+        f"device {times[3]} ms, plain {times[1]:.4f} ms, bound "
+        f"{bnd['bound_ms']:.5f} ms")
     return results
 
 VIF_RTOL = 1e-4
@@ -899,7 +1166,7 @@ def tune_vmaf_path(dev, kernels, plain_pkt, plain_enc):
     _need("1080p tune_vmaf", counts, (
         "tune_vmaf gauss_blur moments", "tune_vmaf unsharp_apply",
         "tune_vmaf vif_scale", "tune_vmaf vif_down2",
-        "intra_pred pick bs32", "txq bs32", "deblock"))
+        "intra_pred pick bs32", "txq step bs32", "deblock"))
     if not (0.0 < enc.vmaf_unsharp_amount <= TV.MAX_AMOUNT
             and 0.0 < vif[0] <= 1.0 and 0.0 < vif[1] <= 1.0):
         raise AssertionError(f"1080p tune_vmaf: amount "
@@ -1067,8 +1334,9 @@ def tiled_key_path(dev, kernels, untiled_med):
         raise AssertionError(f"1080p tiles: tile_T {enc.tile_T}")
     _need("1080p tiles", counts, ("intra_pred pick bs32",
                                   "intra_pred pick bs16",
-                                  "intra_pred pick bs8", "txq bs32",
-                                  "txq bs16", "txq bs8", "deblock"))
+                                  "intra_pred pick bs8",
+                                  "txq step bs32", "txq step bs16",
+                                  "txq step bs8", "deblock"))
     cpu_s = _cpu_equal("1080p tiles", frame, cfg, pkt)
     # untiled and tiled in turns (U T T U, twice): the plan times of the
     # two, compared on the same card and host state
@@ -1108,7 +1376,8 @@ def uniform_key_path(dev, kernels):
     if enc.use_part or (enc.bs, enc.R, enc.C) != (8, 135, 240):
         raise AssertionError(f"1080p bs8: bs {enc.bs} grid {enc.R}x{enc.C}")
     _need("1080p bs8", counts, ("intra_pred pick bs8", "intra_pred pick bs4",
-                                "txq bs8 no-skip", "txq bs4 no-skip"))
+                                "txq step bs8 no-skip",
+                                "txq step bs4 no-skip"))
     cpu_s = _cpu_equal("1080p bs8", frame, cfg, pkt)
     med = statistics.median(times)
     log(f"[5d] 1080p q100 BLOCK_8X8 uniform grid ({enc.R}x{enc.C} blocks, "
@@ -1210,16 +1479,23 @@ def main_path(dev, kernels):
     psnr = 10 * np.log10(255 ** 2 / max(mse, 1e-9))
     if not (pkt[:2] == bytes([0x12, 0x00]) and psnr > 30):
         raise AssertionError(f"1080p: bad stream or recon (PSNR {psnr:.2f})")
-    # one pick per luma 32 and per 16 quad, per chroma 16 and 8 quad: 10
-    # per diagonal step, 93 steps (34 x 60 cells)
+    # one pick and one KB per luma 32 and per 16 quad, per chroma 16 and
+    # 8 quad: 10 of each per diagonal step, 93 steps (34 x 60 cells)
     picks = counts.get("intra_pred", 0) / 3
     if picks != 10 * (34 + 60 - 1) or counts.get("intra_pred", 0) != sum(
             counts.get(f"intra_pred pick bs{b}", 0) for b in (8, 16, 32)):
         raise AssertionError(f"1080p: {picks} KA launches per frame, want "
                              f"930 picks")
+    # one KB launch per pick, all through the in-place entry
+    kbs = counts.get("txq", 0) / 3
+    if kbs != picks or counts.get("txq", 0) != sum(
+            counts.get(f"txq step bs{b}", 0) for b in (8, 16, 32)):
+        raise AssertionError(f"1080p: {kbs} KB launches per frame, want "
+                             f"930 txq_step launches")
     cpu_s = _cpu_equal("1080p", frame, cfg, pkt)
     med = statistics.median(times)
-    log(f"[5] KA launches per 1080p KEY frame: {picks:.0f} (all picks)")
+    log(f"[5] KA launches per 1080p KEY frame: {picks:.0f} (all picks); KB "
+        f"launches: {kbs:.0f} (all txq_step)")
     log(f"[5] 1080p q100: {len(pkt)} bytes, luma PSNR {psnr:.3f} dB, first "
         f"frame {first_s:.3f} s, steady median {med:.4f} s/frame "
         f"({1 / med:.3f} fps, min {min(times):.4f}, max {max(times):.4f}), "
@@ -1424,23 +1700,31 @@ def check_inter_kernels(dev):
         err = compare(f"KB bs{bs} B={B}", TQ.txq_recon_skip(*a),
                       TQ.txq_recon_skip_plain(*a))
         kb = (cuda_time(lambda: TQ.txq_recon_skip(*a), 10),
-              cuda_time(lambda: TQ.txq_recon_skip_plain(*a), 2))
+              cuda_time(lambda: TQ.txq_recon_skip_plain(*a), 2),
+              device_ms(lambda: TQ.txq_recon_skip(*a), 10,
+                        "kb_batch_kernel"))
         kb_bnd = bound(nbytes(a, TQ.txq_recon_skip(*a)), _txq_ops(B, bs))
         log(f"[3b] KB txq_recon_skip exact at bs{bs} B={B}: kernel "
-            f"{kb[0]:.4f} ms, plain {kb[1]:.4f} ms, bound "
-            f"{kb_bnd['bound_ms']:.5f} ms ({kb_bnd['bound_by']})")
-        if bs == 8:
-            # K7: the P-frame's chroma TQ (U and V of 4080 16x16 chroma
-            # blocks as 8x8 transforms)
-            results.append({
-                "name": "txq_recon_skip bs8 P chroma", "route": "cuda",
-                "source": "aom_av1_psy_tpu_torch/csrc/txq.cu",
-                "replaces": "aom_av1_psy_tpu/encoder/tpu_inter.py:375",
-                "max_abs_err": err, "ms": kb[0], "plain_ms": kb[1], **kb_bnd,
-                "library_ms": None,
-                "library_none": "no single PyTorch call runs the integer AV1 "
-                                "transforms, quantizer and skip decision",
-                "timed_at": "bs8 B=8160 (1080p P-frame chroma)"})
+            f"{kb[0]:.4f} ms (device {kb[2]} ms), plain {kb[1]:.4f} ms, "
+            f"bound {kb_bnd['bound_ms']:.5f} ms ({kb_bnd['bound_by']})")
+        # K6 / K7: the P-frame's luma TQ (8160 16x16, 2040 32x32) and
+        # chroma TQ (U and V of 4080 16x16 chroma blocks as 8x8 transforms)
+        name, replaces, what = {
+            8: ("txq_recon_skip bs8 P chroma", "tpu_inter.py:375",
+                "bs8 B=8160 (1080p P-frame chroma)"),
+            16: ("txq_recon_skip bs16 P", "tpu_inter.py:197",
+                 "bs16 B=8160 (1080p P-frame luma 16)"),
+            32: ("txq_recon_skip bs32 P", "tpu_inter.py:197",
+                 "bs32 B=2040 (1080p P-frame luma 32)")}[bs]
+        results.append({
+            "name": name, "route": "cuda",
+            "source": "aom_av1_psy_tpu_torch/csrc/txq.cu",
+            "replaces": f"aom_av1_psy_tpu/encoder/{replaces}",
+            "max_abs_err": err, "ms": kb[0], "plain_ms": kb[1],
+            "device_ms": kb[2], **kb_bnd, "library_ms": None,
+            "library_none": "no single PyTorch call runs the integer AV1 "
+                            "transforms, quantizer and skip decision",
+            "timed_at": what})
     return results
 
 
@@ -2557,6 +2841,11 @@ def main() -> int:
            "intra_pick bs4": ("intra_pred pick bs4",),
            "txq_recon_skip": ("txq bs8", "txq bs16", "txq bs32"),
            "txq_recon_skip bs8 P chroma": ("txq bs8",),
+           "txq_recon_skip bs16 P": ("txq bs16",),
+           "txq_recon_skip bs32 P": ("txq bs32",),
+           "txq_step": ("txq step bs8", "txq step bs16", "txq step bs32"),
+           "txq_step no-skip": ("txq step bs8 no-skip",
+                                "txq step bs4 no-skip"),
            "intra_pred_sse bs4": ("intra_pred bs4",),
            "txq_recon bs4 no-skip": ("txq bs4 no-skip",),
            "txq_recon bs8 no-skip": ("txq bs8 no-skip",),

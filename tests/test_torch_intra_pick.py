@@ -173,6 +173,12 @@ def _old_uniform_chroma(c, tt, rc, cc, sb, bs):
 R, C, T = 3, 4, 2
 
 
+def _plane(blocks):
+    """(T, R, C, b, b) blocks -> the (T, R*b, C*b) plane they tile."""
+    t, r, c, b = blocks.shape[:4]
+    return blocks.transpose(2, 3).reshape(t, r * b, c * b).contiguous()
+
+
 def _case(seed, dev="cpu", bs_u=8):
     rng = np.random.default_rng(seed)
     kf61, angle61, uv = TTI._plan_cost_tables2(FrameContext(100))
@@ -212,6 +218,13 @@ def _case(seed, dev="cpu", bs_u=8):
         c[k] = np.stack([m[k] for m in masks])
     out = {k: torch.as_tensor(np.asarray(v), device=dev)
            for k, v in c.items()}
+    # the same sources as the pick reads them: whole planes
+    h = bs_u // 2
+    out["sy"] = _plane(out["src32"])
+    out["suv"] = tuple(_plane(out["src16"][p]) for p in range(2))
+    out["suy"] = _plane(out["usrc"][0][None])
+    out["suuv"] = tuple(_plane(out["usrc"][p][None, ..., :h, :h])
+                       for p in range(2))
     tiles, rows, cols, offs = TTI._diagonals(R, C, T)
     cells = tuple(torch.as_tensor(a[offs[2]:offs[3]], device=dev)
                   for a in (tiles, rows, cols))
@@ -244,7 +257,8 @@ def test_luma32_pick_equals_old_composition():
     m32o, d32o = torch.zeros((T, R, C), dtype=torch.int32), \
         torch.zeros((T, R, C), dtype=torch.int32)
     pick, pred = IP.intra_pick_plain(
-        c["buf"], tt, rc, cc, src32, K61, c["rd32"], mode_cost=c["kf61"],
+        c["buf"], tt, rc, cc, (c["sy"],), 32, K61, c["rd32"],
+        mode_cost=c["kf61"],
         angle_cost=c["angle61"], nbr=c["mode16"], nbr_scale=2,
         ok=(c["ok1_32"], c["ok2_32"], c["ok3_32"]), mode_out=m32o,
         delta_out=d32o)
@@ -269,7 +283,8 @@ def test_luma16_quad_pick_equals_old_composition(qr, qc):
     m16 = c["m16"].clone()
     d16 = torch.zeros_like(m16)
     pick, pred = IP.intra_pick_plain(
-        loc, tt, rc, cc, s16, K61, c["rd16"], local=True, qr=qr, qc=qc,
+        loc, tt, rc, cc, (c["sy"],), 16, K61, c["rd16"], local=True, qr=qr,
+        qc=qc,
         scale=2, mode_cost=c["kf61"], angle_cost=c["angle61"],
         nbr=c["mode16"], nbr_scale=2,
         ok=(c["ok1_16"], c["ok2_16"], c["ok3_16"]),
@@ -293,9 +308,9 @@ def test_chroma16_pair_pick_equals_old_composition():
     sb = torch.cat([c["src16"][p][tt, rc, cc] for p in range(2)])
     planes = c["bufs"].reshape(2 * T, *c["bufs"].shape[2:])
     uvm = torch.full((T, R, C), -1, dtype=torch.int32)
-    pick, pred = IP.intra_pick_plain(planes, tt, rc, cc, sb, 7, c["rd32"],
-                                     uv_cost=c["uv"], nbr=c["y_m32"],
-                                     mode_out=uvm)
+    pick, pred = IP.intra_pick_plain(planes, tt, rc, cc, c["suv"], 16, 7,
+                                     c["rd32"], uv_cost=c["uv"],
+                                     nbr=c["y_m32"], mode_out=uvm)
     old = _old_chroma16(c, tt, rc, cc, sb)
     _check(pick, pred, old, PLAN, 7)
     _written(torch.full_like(uvm, -1), uvm, (tt, rc, cc), old[0])
@@ -310,9 +325,10 @@ def test_chroma8_quad_pair_pick_equals_old_composition(qr, qc):
         .reshape(2 * B, 18, 18)
     sb8 = sb[:, qr * 8:qr * 8 + 8, qc * 8:qc * 8 + 8]
     uvm8 = torch.zeros((T, 2 * R, 2 * C), dtype=torch.int32)
-    pick, pred = IP.intra_pick_plain(locs, tt, rc, cc, sb8, 7, c["rd16"],
-                                     local=True, qr=qr, qc=qc, scale=2,
-                                     uv_cost=c["uv"], nbr=c["y_m16"],
+    pick, pred = IP.intra_pick_plain(locs, tt, rc, cc, c["suv"], 8, 7,
+                                     c["rd16"], local=True, qr=qr, qc=qc,
+                                     scale=2, uv_cost=c["uv"],
+                                     nbr=c["y_m16"],
                                      nbr_scale=2, mode_out=uvm8)
     old = _old_chroma8(c, tt, rc, cc, qr, qc, locs, sb8)
     _check(pick, pred, old, PLAN, 7)
@@ -328,7 +344,8 @@ def test_uniform_picks_equal_old_composition(bs):
     sb = c["usrc"][0][rc, cc]
     grid = c["grid"].clone()
     pick, pred = IP.intra_pick_plain(
-        c["ubuf"], tt, rc, cc, sb, 7, c["urd"], mode_cost=c["kf7"],
+        c["ubuf"], tt, rc, cc, (c["suy"],), bs, 7, c["urd"],
+        mode_cost=c["kf7"],
         angle_cost=c["angle7"], nbr=grid, nbr_plan=True, mode_out=grid)
     old = _old_uniform_luma(c, tt, rc, cc, sb, bs)
     _check(pick, pred, old, PLAN, 7)
@@ -338,7 +355,7 @@ def test_uniform_picks_equal_old_composition(bs):
     sbc = torch.cat([c["usrc"][p][rc, cc][:, :h, :h] for p in range(2)])
     uvm = torch.zeros_like(grid)
     pick, pred = IP.intra_pick_plain(
-        c["ubufs"], tt, rc, cc, sbc, 7, c["urd"], uv_cost=c["uv"],
+        c["ubufs"], tt, rc, cc, c["suuv"], h, 7, c["urd"], uv_cost=c["uv"],
         nbr=c["grid"], nbr_plan=True, mode_out=uvm)
     old = _old_uniform_chroma(c, tt, rc, cc, sbc, h)
     _check(pick, pred, old, PLAN, 7)
@@ -348,7 +365,7 @@ def test_uniform_picks_equal_old_composition(bs):
 def test_ties_go_to_the_first_index():
     c, (tt, rc, cc) = _case(30)
     flat = torch.full_like(c["buf"], 128)
-    src32 = torch.full((rc.shape[0], 32, 32), 128, dtype=torch.int32)
+    src32 = (torch.full((T, 32 * R, 32 * C), 128, dtype=torch.int32),)
     # every candidate predicts 128 from flat edges: all SSEs are 0, and
     # the rates decide; candidates 20 and 30 (Z1, Z2) tie lowest
     cls = DIR.tables(32)["CLS"]
@@ -358,25 +375,26 @@ def test_ties_go_to_the_first_index():
     kf = torch.zeros_like(c["kf61"])
     on = torch.ones_like(c["ok1_32"])
     kw = dict(mode_cost=kf, angle_cost=angle, nbr=c["mode16"], nbr_scale=2)
-    pick, _ = IP.intra_pick_plain(flat, tt, rc, cc, src32, K61, c["rd32"],
-                                  ok=(on, on, on), **kw)
+    pick, _ = IP.intra_pick_plain(flat, tt, rc, cc, src32, 32, K61,
+                                  c["rd32"], ok=(on, on, on), **kw)
     assert (pick[0] == 20).all()
     # with Z1 masked off, the tie's second member wins
-    pick, _ = IP.intra_pick_plain(flat, tt, rc, cc, src32, K61, c["rd32"],
-                                  ok=(~on, on, on), **kw)
+    pick, _ = IP.intra_pick_plain(flat, tt, rc, cc, src32, 32, K61,
+                                  c["rd32"], ok=(~on, on, on), **kw)
     assert (pick[0] == 30).all()
     # all equal: the first candidate (DC)
     pick, pred = IP.intra_pick_plain(
-        flat, tt, rc, cc, src32, K61, c["rd32"], ok=(on, on, on),
+        flat, tt, rc, cc, src32, 32, K61, c["rd32"], ok=(on, on, on),
         mode_cost=kf, angle_cost=torch.zeros_like(angle), nbr=c["mode16"],
         nbr_scale=2)
     assert (pick[0] == 0).all() and (pred == 128).all()
     # chroma: rates [5, 3, 3, 3, 4, 4, 3] -> V (index 1)
     uv = torch.tensor([[5, 3, 3, 3, 4, 4, 3]] * 13, dtype=torch.int32)
-    sb = torch.full((2 * rc.shape[0], 16, 16), 128, dtype=torch.int32)
+    sb = tuple(torch.full((T, 16 * R, 16 * C), 128, dtype=torch.int32)
+               for _ in range(2))
     planes = torch.full((2 * T, 16 * R + 18, 16 * C + 18), 128,
                         dtype=torch.int32)
-    pick, _ = IP.intra_pick_plain(planes, tt, rc, cc, sb, 7, c["rd32"],
+    pick, _ = IP.intra_pick_plain(planes, tt, rc, cc, sb, 16, 7, c["rd32"],
                                   uv_cost=uv, nbr=c["y_m32"])
     assert (pick[0] == 1).all() and (pick[3] == 3).all()
 
@@ -457,41 +475,38 @@ def test_pick_kernel_matches_plain(dev, seed):
         d32o = torch.zeros_like(m32o)
         m16o = c["m16"].clone()
         d16o = torch.zeros_like(m16o)
-        src32 = c["src32"][tt, rc, cc]
         outs += IP.intra_pick(
-            c["buf"], tt, rc, cc, src32, K61, c["rd32"],
+            c["buf"], tt, rc, cc, (c["sy"],), 32, K61, c["rd32"],
             mode_cost=c["kf61"], angle_cost=c["angle61"], nbr=c["mode16"],
             nbr_scale=2, ok=(c["ok1_32"], c["ok2_32"], c["ok3_32"]),
             mode_out=m32o, delta_out=d32o)
         loc = c["buf"].unfold(1, 34, 32).unfold(2, 34, 32)[tt, rc, cc]
         for qr, qc in TTI._QUADS:
             outs += IP.intra_pick(
-                loc, tt, rc, cc, src32[:, qr * 16:qr * 16 + 16,
-                                       qc * 16:qc * 16 + 16],
-                K61, c["rd16"], local=True, qr=qr, qc=qc, scale=2,
+                loc, tt, rc, cc, (c["sy"],), 16, K61, c["rd16"], local=True,
+                qr=qr, qc=qc, scale=2,
                 mode_cost=c["kf61"], angle_cost=c["angle61"],
                 nbr=c["mode16"], nbr_scale=2,
                 ok=(c["ok1_16"], c["ok2_16"], c["ok3_16"]),
                 trreal=c["trreal_16"], blreal=c["blreal_16"],
                 mode_out=m16o, delta_out=d16o)
         planes = c["bufs"].reshape(2 * T, *c["bufs"].shape[2:])
-        sb = torch.cat([c["src16"][p][tt, rc, cc] for p in range(2)])
         uvm = torch.zeros((T, R, C), dtype=torch.int32, device=where)
-        outs += IP.intra_pick(planes, tt, rc, cc, sb, 7, c["rd32"],
-                              uv_cost=c["uv"], nbr=c["y_m32"], mode_out=uvm)
+        outs += IP.intra_pick(planes, tt, rc, cc, c["suv"], 16, 7,
+                              c["rd32"], uv_cost=c["uv"], nbr=c["y_m32"],
+                              mode_out=uvm)
         locs = c["bufs"].unfold(2, 18, 16).unfold(3, 18, 16)[
             :, tt, rc, cc].reshape(-1, 18, 18)
         uvm8 = torch.zeros((T, 2 * R, 2 * C), dtype=torch.int32,
                            device=where)
         for qr, qc in TTI._QUADS:
             outs += IP.intra_pick(
-                locs, tt, rc, cc, sb[:, qr * 8:qr * 8 + 8,
-                                     qc * 8:qc * 8 + 8], 7, c["rd16"],
+                locs, tt, rc, cc, c["suv"], 8, 7, c["rd16"],
                 local=True, qr=qr, qc=qc, scale=2, uv_cost=c["uv"],
                 nbr=c["y_m16"], nbr_scale=2, mode_out=uvm8)
         grid = c["grid"].clone()
         z = torch.zeros_like(rc)
-        outs += IP.intra_pick(c["ubuf"], z, rc, cc, c["usrc"][0][rc, cc], 7,
+        outs += IP.intra_pick(c["ubuf"], z, rc, cc, (c["suy"],), 8, 7,
                               c["urd"], mode_cost=c["kf7"],
                               angle_cost=c["angle7"], nbr=grid,
                               nbr_plan=True, mode_out=grid)
