@@ -47,7 +47,9 @@ Device work runs as plain torch ops plus eleven hand-written CUDA kernels
   the unsharp mask and the VIF pyramid;
 - KJ ``fullpel_sad`` (``ops/mvsearch.py``): the dense full-pel SAD search
   over the caller's windows (and the strided coarse level of
-  ``full_pel_hierarchical``), first-index argmin;
+  ``full_pel_hierarchical``) or, through its plane entry
+  (``full_pel_plane_search``, the temporal filter's), over windows read
+  where they lie in a plane; first-index argmin;
 - KK ``tf_weight_accum`` (``encoder/temporal_filter.py``): the temporal
   filter's block-local 5x5 windowed error, float64 weight and int64
   accumulation over every block of a frame.

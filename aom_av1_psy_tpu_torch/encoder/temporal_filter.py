@@ -7,12 +7,13 @@ motion search, the noise estimate and the KEY-frame filter.
 (temporal_filter.c:815-831, :1060-1075; see encoder/psy.PsyConfig).
 
 Per non-centre frame of a span, everything is batched over the 32x32 luma
-blocks: one full-pel search (``ops/mvsearch.full_pel_grid_search``, kernel
-KJ; one launch per block shape), the clamped gather of the prediction,
-the per-subblock integer MSEs (torch), then one launch of kernel KK
-``tf_weight_accum`` (``csrc/temporal_filter.cu``), which replaces the
-reference's host ``apply_temporal_filter`` (``:33-94``) over every block of
-the frame. The centre frame takes KK with zero MVs and MSEs.
+blocks: one full-pel search (``ops/mvsearch.full_pel_plane_search``, kernel
+KJ's plane entry, which reads each block's window where it lies in the
+frame padded with 128; one launch per block shape), the clamped gather of
+the prediction, the per-subblock integer MSEs (torch), then one launch of
+kernel KK ``tf_weight_accum`` (``csrc/temporal_filter.cu``), which replaces
+the reference's host ``apply_temporal_filter`` (``:33-94``) over every
+block of the frame. The centre frame takes KK with zero MVs and MSEs.
 
 Exactness (each held by ``tests/test_torch_temporal_filter.py``):
 - the 5x5 window clamps at the BLOCK's border (``_window_sum`` pads the
@@ -40,6 +41,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels.build import CudaKernel, D, I, P
+from ..ops import mvsearch as MV
 
 TF_WINDOW_LENGTH = 5
 TF_WEIGHT_SCALE = 1000
@@ -126,14 +128,6 @@ def _shape_groups(H: int, W: int, mb: int):
             if ids.size:
                 out.append(((int(h), int(w)), ids))
     return out
-
-
-def _cut(plane, r0, c0, h: int, w: int):
-    """(G, h, w) patches of ``plane`` at origins r0/c0 (G,)."""
-    ar_h = torch.arange(h, device=plane.device)
-    ar_w = torch.arange(w, device=plane.device)
-    return plane[(r0[:, None] + ar_h[None])[:, :, None],
-                 (c0[:, None] + ar_w[None])[:, None, :]]
 
 
 def _window_sum(sq, half: int):
@@ -253,9 +247,10 @@ def tf_weight_accum_plain(ref, pred, org, mses, dfac, params, ss_x: int,
         for p in range(3):
             sy, sx = (ss_y, ss_x) if p else (0, 0)
             ph, pw = h >> sy, w >> sx
-            refb = _cut(ref[p], by >> sy, bx >> sx, ph, pw).to(torch.int64)
-            predb = _cut(pred[p], org[idx, p, 0], org[idx, p, 1], ph,
-                         pw).to(torch.int64)
+            refb = MV.cut(ref[p], by >> sy, bx >> sx, ph,
+                          pw).to(torch.int64)
+            predb = MV.cut(pred[p], org[idx, p, 0], org[idx, p, 1], ph,
+                           pw).to(torch.int64)
             sq = (refb - predb) ** 2
             total = _window_sum(sq, half).to(torch.float64)
             if p == 0:
@@ -355,8 +350,12 @@ class SpanGrid:
         self.B = self.by.numel()
         self.groups = [((h, w), torch.as_tensor(ids, device=dev))
                        for (h, w), ids in _shape_groups(H, W, mb)]
-        self.src = {hw: _cut(center[0], self.by[ids], self.bx[ids], *hw)
+        self.src = {hw: MV.cut(center[0], self.by[ids], self.bx[ids], *hw)
                     for hw, ids in self.groups}
+        # each group's window origins in the padded frame (int32, KJ's)
+        self.origins = {hw: (self.by[ids].to(torch.int32),
+                             self.bx[ids].to(torch.int32))
+                        for hw, ids in self.groups}
         self.dtab = torch.as_tensor(distance_table(SEARCH_RAD, W, H),
                                     device=dev)
         self.shifts = [(0, 0), (ss_y, ss_x), (ss_y, ss_x)]
@@ -369,28 +368,27 @@ class SpanGrid:
                            device=org.device)
         return org, mses, self.dtab[SEARCH_RAD, SEARCH_RAD].expand(self.B, 4)
 
-    def windows(self, frame_y):
-        """[(ids, src, win)] per block shape: the centre's luma blocks and
-        this frame's (h + 32, w + 32) search windows, 128 outside the
-        frame (``:129-137``)."""
+    def padded(self, frame_y):
+        """This frame's luma with SEARCH_RAD rows and columns of 128
+        around it (``:129-137``): block b's search window is the (h + 32,
+        w + 32) patch at (by[b], bx[b]) of it."""
         rad = SEARCH_RAD
         padded = torch.full((self.H + 2 * rad, self.W + 2 * rad), FILL,
                             dtype=torch.int32, device=frame_y.device)
         padded[rad:rad + self.H, rad:rad + self.W] = frame_y
-        return [(ids, self.src[(h, w)],
-                 _cut(padded, self.by[ids], self.bx[ids], h + 2 * rad,
-                      w + 2 * rad))
-                for (h, w), ids in self.groups]
+        return padded
 
     def motion_inputs(self, f):
         """(org, mses, dfac) of a non-centre frame ``f`` (three planes):
-        the search (KJ, one launch per block shape), the prediction's
-        clamped origin in each plane and the subblock MSEs."""
-        from ..ops import mvsearch as MV
+        the search (KJ's plane entry, one launch per block shape, reading
+        each window in the padded frame), the prediction's clamped origin
+        in each plane and the subblock MSEs."""
+        padded = self.padded(f[0])
         dy = torch.empty(self.B, dtype=torch.int64, device=f[0].device)
         dx = torch.empty_like(dy)
-        for ids, src, win in self.windows(f[0]):
-            mv, _ = MV.full_pel_grid_search(src, win, SEARCH_RAD)
+        for hw, ids in self.groups:
+            mv, _ = MV.full_pel_plane_search(self.src[hw], padded,
+                                             *self.origins[hw], SEARCH_RAD)
             dy[ids] = mv[:, 0].long()
             dx[ids] = mv[:, 1].long()
         # the prediction's origin in each plane, clamped to the plane
@@ -406,7 +404,7 @@ class SpanGrid:
         # per-subblock MSE of the chosen luma prediction (:156-162)
         mses = torch.empty((self.B, 4), dtype=torch.int64, device=dy.device)
         for (h, w), ids in self.groups:
-            pred = _cut(f[0], org[ids, 0, 0], org[ids, 0, 1], h, w)
+            pred = MV.cut(f[0], org[ids, 0, 0], org[ids, 0, 1], h, w)
             dsq = (pred.to(torch.int64) - self.src[(h, w)]) ** 2
             hh, hw = max(h // 2, 1), max(w // 2, 1)
             for si, (r0, c0) in enumerate(((0, 0), (0, hw), (hh, 0),

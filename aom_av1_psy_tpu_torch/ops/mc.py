@@ -122,6 +122,8 @@ def mc_8tap(ref, by, bx, qr, qc, bw: int, crop_h: int, crop_w: int, kernels,
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
         args.append(t.contiguous())
     ref, by, bx, qr, qc, kern = args[:6]
+    if kern.data_ptr() % 16:
+        kern = kern.clone()        # KD reads each phase's taps as 2 x int4
     dev = ref.device
     pred = torch.empty((K, B, bw, bw), dtype=torch.int32, device=dev) \
         if want_pred else None

@@ -12,10 +12,15 @@ neighbours in one shot through the normative convolve kernels
 Kernel KJ ``fullpel_sad`` (``csrc/mvsearch.cu``) replaces the jnp branch of
 ``aom_av1_psy_tpu/ops/mvsearch.py:48-134`` (``full_pel_grid_search`` and
 ``full_pel_hierarchical``: the (B, n, n, h, w) candidate gather, the SAD
-and the first-index argmin). The windows are the caller's, whatever they
-hold outside the frame (the temporal filter fills them with 128): KJ does
-not clamp. CPU tensors go to the plain version, CUDA tensors to KJ; there
-is no fallback from one to the other.
+and the first-index argmin). It has two entries over one kernel body:
+``sad_argmin`` takes the caller's (B, h + 2r, w + 2r) windows, whatever
+they hold outside the frame (KJ does not clamp to a crop);
+``sad_argmin_plane`` / ``full_pel_plane_search`` read each block's window
+where it lies in a plane, at the block's origin, so no window tensor is
+built (the temporal filter passes its luma frame padded with 128; its
+plain version is ``cut`` + ``sad_argmin_plain``). CPU tensors go to the
+plain versions, CUDA tensors to KJ; there is no fallback from one to the
+other.
 
 Cost model mirrors av1_mv_bit_cost (mcomp.c:96): mvcost[] lookups are
 replaced round-1 by the standard log2-based approximation
@@ -45,6 +50,8 @@ from ..kernels.build import CudaKernel, I, P
 KJ = CudaKernel("mvsearch", {
     # src, win, B, h, w, wh, ww, m, stride, cost, best_idx, best_sad
     "fullpel_sad": [P, P, I, I, I, I, I, I, I, P, P, P],
+    # src, plane, H, W, oy, ox, B, h, w, m, cost, best_idx, best_sad
+    "fullpel_sad_plane": [P, P, I, I, P, P, I, I, I, I, P, P, P],
 })
 KM = CudaKernel("subpel_refine49", {
     # src, win, B, w, h, tabx, taby, bd, best_idx, best_sad
@@ -111,6 +118,24 @@ def sad_argmin_plain(src, win, m: int, stride: int = 1, cost=None):
     return torch.cat(idx), torch.cat(best).to(torch.int32)
 
 
+def _check_int32_cuda(what, *ts):
+    for t in ts:
+        if t.device.type != "cuda" or t.dtype != torch.int32:
+            raise ValueError(f"{what} input: want int32 on cuda, got "
+                             f"{t.dtype} on {t.device}")
+
+
+def _cost_ptr(cost, m: int, device):
+    """(tensor kept alive, data pointer) of the (m * m,) int32 cost grid;
+    (None, 0) without one."""
+    if cost is None:
+        return None, 0
+    cost = cost.to(device, torch.int32).contiguous()
+    if cost.numel() != m * m:
+        raise ValueError(f"KJ: cost has {cost.numel()} entries, want {m * m}")
+    return cost, cost.data_ptr()
+
+
 def sad_argmin(src, win, m: int, stride: int = 1, cost=None):
     """``sad_argmin_plain``'s (flat index, SAD). CPU tensors: plain
     version; CUDA tensors: kernel KJ (int32 inputs, made contiguous)."""
@@ -122,18 +147,9 @@ def sad_argmin(src, win, m: int, stride: int = 1, cost=None):
             ww < w + (m - 1) * stride:
         raise ValueError(f"KJ: windows {tuple(win.shape)} too small for "
                          f"blocks {tuple(src.shape)}, m={m}, stride={stride}")
-    for t in (src, win):
-        if t.device.type != "cuda" or t.dtype != torch.int32:
-            raise ValueError(f"KJ input: want int32 on cuda, got {t.dtype} "
-                             f"on {t.device}")
+    _check_int32_cuda("KJ", src, win)
     src, win = src.contiguous(), win.contiguous()
-    cptr = 0
-    if cost is not None:
-        cost = cost.to(win.device, torch.int32).contiguous()
-        if cost.numel() != m * m:
-            raise ValueError(f"KJ: cost has {cost.numel()} entries, want "
-                             f"{m * m}")
-        cptr = cost.data_ptr()
+    cost, cptr = _cost_ptr(cost, m, win.device)
     idx = torch.empty((B,), dtype=torch.int32, device=src.device)
     sad = torch.empty((B,), dtype=torch.int32, device=src.device)
     KJ.launch("fullpel_sad", src.data_ptr(), win.data_ptr(), B, h, w, wh, ww,
@@ -142,12 +158,66 @@ def sad_argmin(src, win, m: int, stride: int = 1, cost=None):
     return idx.long(), sad
 
 
+def cut(plane, r0, c0, h: int, w: int):
+    """(G, h, w) patches of ``plane`` at origins r0/c0 (G,)."""
+    ar_h = torch.arange(h, device=plane.device)
+    ar_w = torch.arange(w, device=plane.device)
+    return plane[(r0[:, None] + ar_h[None])[:, :, None],
+                 (c0[:, None] + ar_w[None])[:, None, :]]
+
+
+def _clamped_origins(plane, oy, ox, wh: int, ww: int):
+    H, W = plane.shape
+    return (oy.to(plane.device, torch.int64).clamp(0, H - wh),
+            ox.to(plane.device, torch.int64).clamp(0, W - ww))
+
+
+def sad_argmin_plane_plain(src, plane, oy, ox, m: int, cost=None):
+    """Plain version of KJ's plane entry: the (h + m - 1, w + m - 1)
+    windows of ``plane`` (H, W) at origins oy/ox (B,) cut out (origins
+    clamp to the plane, as in the kernel), then ``sad_argmin_plain`` at
+    stride 1."""
+    _, h, w = src.shape
+    wh, ww = h + m - 1, w + m - 1
+    oy, ox = _clamped_origins(plane, oy, ox, wh, ww)
+    return sad_argmin_plain(src, cut(plane, oy, ox, wh, ww), m, 1, cost)
+
+
+def sad_argmin_plane(src, plane, oy, ox, m: int, cost=None):
+    """``sad_argmin_plane_plain``'s (flat index, SAD). CPU tensors: plain
+    version; CUDA tensors: kernel KJ's plane entry, which reads each window
+    where it lies (int32 src (B, h, w) and plane (H, W); origins of any
+    integer type)."""
+    if plane.device.type == "cpu":
+        return sad_argmin_plane_plain(src, plane, oy, ox, m, cost)
+    B, h, w = src.shape
+    H, W = plane.shape
+    if h + m - 1 > H or w + m - 1 > W:
+        raise ValueError(f"KJ: plane {tuple(plane.shape)} smaller than a "
+                         f"window of blocks {tuple(src.shape)}, m={m}")
+    _check_int32_cuda("KJ", src, plane)
+    oy = oy.to(plane.device, torch.int32).contiguous()
+    ox = ox.to(plane.device, torch.int32).contiguous()
+    if oy.shape != (B,) or ox.shape != (B,):
+        raise ValueError(f"KJ: origins {tuple(oy.shape)} / "
+                         f"{tuple(ox.shape)}, want ({B},)")
+    src, plane = src.contiguous(), plane.contiguous()
+    cost, cptr = _cost_ptr(cost, m, plane.device)
+    idx = torch.empty((B,), dtype=torch.int32, device=plane.device)
+    sad = torch.empty((B,), dtype=torch.int32, device=plane.device)
+    KJ.launch("fullpel_sad_plane", src.data_ptr(), plane.data_ptr(), H, W,
+              oy.data_ptr(), ox.data_ptr(), B, h, w, m, cptr,
+              idx.data_ptr(), sad.data_ptr(), variant="plane")
+    return idx.long(), sad
+
+
 def full_pel_grid_search_plain(src_blocks, ref_windows, radius: int,
                                sad_per_bit: int = 0):
     """``full_pel_grid_search`` through the plain version, whatever the
     tensors' device."""
-    return _grid_search(sad_argmin_plain, src_blocks, ref_windows, radius,
-                        sad_per_bit)
+    return _grid_search(
+        lambda n, cost: sad_argmin_plain(src_blocks, ref_windows, n, 1, cost),
+        src_blocks.device, radius, sad_per_bit)
 
 
 def full_pel_grid_search(src_blocks, ref_windows, radius: int,
@@ -164,17 +234,39 @@ def full_pel_grid_search(src_blocks, ref_windows, radius: int,
     (mcomp.c:2015): a mesh search with step 1, evaluated as one dense
     batched scan (KJ on the card) instead of nested scalar loops.
     """
-    return _grid_search(sad_argmin, src_blocks, ref_windows, radius,
-                        sad_per_bit)
+    return _grid_search(
+        lambda n, cost: sad_argmin(src_blocks, ref_windows, n, 1, cost),
+        src_blocks.device, radius, sad_per_bit)
 
 
-def _grid_search(scan, src_blocks, ref_windows, radius, sad_per_bit):
+def full_pel_plane_search_plain(src_blocks, plane, oy, ox, radius: int,
+                                sad_per_bit: int = 0):
+    """``full_pel_plane_search`` through the plain version, whatever the
+    tensors' device."""
+    return _grid_search(
+        lambda n, cost: sad_argmin_plane_plain(src_blocks, plane, oy, ox, n,
+                                               cost),
+        src_blocks.device, radius, sad_per_bit)
+
+
+def full_pel_plane_search(src_blocks, plane, oy, ox, radius: int,
+                          sad_per_bit: int = 0):
+    """``full_pel_grid_search`` on the windows of ``plane`` at origins
+    oy/ox (B,): block b's window is ``plane[oy[b]:oy[b] + h + 2*radius,
+    ox[b]:ox[b] + w + 2*radius]``, read where it lies (KJ's plane entry on
+    the card; no window tensor is built). Same (mvs, best_sad)."""
+    return _grid_search(
+        lambda n, cost: sad_argmin_plane(src_blocks, plane, oy, ox, n, cost),
+        src_blocks.device, radius, sad_per_bit)
+
+
+def _grid_search(scan, device, radius, sad_per_bit):
     n = 2 * radius + 1
     cost = None
     if sad_per_bit:
         cost = torch.as_tensor(_cost_grid(radius, sad_per_bit).reshape(-1),
-                               device=src_blocks.device)
-    best, best_sad = scan(src_blocks, ref_windows, n, 1, cost)
+                               device=device)
+    best, best_sad = scan(n, cost)
     mvs = torch.stack([best // n - radius, best % n - radius], 1)
     return mvs.to(torch.int32), best_sad
 

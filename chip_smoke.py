@@ -30,7 +30,10 @@ exit code is not 0):
    pair and of KB;
 3b. KD / KE / KF, and KB's batched entry at the P-frame's batch sizes,
    against their plain versions at the 1080p P-frame's shapes, for exact
-   equality, with both times and KB's ``device_ms``;
+   equality, with both times and KB's ``device_ms``; KD at every K the
+   plan uses (1, 2, 3, 5, 9) at bw 8 / 16 / 32, with and without the
+   source blocks and the prediction, and its ``device_ms`` at bw 16,
+   K = 9, B = 8160;
 3c. KA and KB at 4x4 (KB with the sinpi ADST4 and the skip decision off)
    and KB with the skip off at 8x8, at the uniform grid's shapes (640x360:
    chroma B = 2 x 45; 1080p BLOCK_8X8: luma B = 135, chroma B = 270), and
@@ -44,9 +47,12 @@ exit code is not 0):
 3e. KJ (the temporal filter's full-pel SAD search) and KK (its weighting
    and accumulation) at the shapes of one 1080p ARF span
    (``make_gop(1920, 1080, 5)``, centre 2): KJ exact on the 32x32 blocks
-   and on the 24-tall bottom row, ``full_pel_hierarchical`` (radius 16,
-   step 4) equal to the CPU plain path, KK exact against the plain version
-   on the card and on CPU tensors; kernel, plain and bound times; KK's
+   and on the 24-tall bottom row through both entries (the windows cut
+   from the padded frame, and the plane entry reading them where they
+   lie), ``full_pel_hierarchical`` (radius 16, step 4) equal to the CPU
+   plain path, KJ's strip-tiling edge cases (``_kj_edge_cases``), KK exact
+   against the plain version on the card and on CPU tensors; kernel
+   (events and ``device_ms``, both entries), plain and bound times; KK's
    weight against ``np.exp`` at every truncation boundary (101 values
    within 50 ulp of each of the 1000, and 0 and 7);
 3f. KL (subpel prediction), KM (the 49-point subpel refine), KN (the
@@ -143,7 +149,8 @@ exit code is not 0):
    path on the CPU plain path; timed (median of 3 after a first) with the
    counts set to 0 before the 3 runs and read after;
 6. / 6b. a profiler window over one steady 1080p KEY frame and one steady
-   1080p P-frame (device busy time by kernel).
+   1080p P-frame (device busy time by kernel; 6b also KD's and KE's
+   launches and device time in the P-frame).
 
 ``--only-kernels`` stops after phase 3g. The second-to-last line is
 ``{"kernels": [...]}``: ``launches`` from the GOP of phase 5b (for the
@@ -1570,13 +1577,18 @@ def check_inter_kernels(dev):
     uv[540:] = uv[539]
     results = []
 
-    # ---- KD: every phase, all 3 families, MVs past every border ----
+    # ---- KD: every phase, all 3 families, MVs past every border, every K
+    # the plan uses (1, 2, 3, 5, 9) at bw 8 / 16 / 32 ----
     kern3 = TI._all_kernels(str(dev))
-    err, times = 0.0, None
+    err, times, cases = 0.0, None, []
     for bw, B, K, plane, (ch, cw) in ((16, 8160, 9, y, (1080, 1920)),
+                                      (16, 8160, 2, y, (1080, 1920)),
                                       (32, 2040, 5, y, (1080, 1920)),
+                                      (32, 2040, 1, y, (1080, 1920)),
                                       (8, 8160, 3, uv, (540, 960)),
-                                      (16, 2040, 3, uv, (540, 960))):
+                                      (8, 8160, 1, uv, (540, 960)),
+                                      (16, 2040, 3, uv, (540, 960)),
+                                      (16, 2040, 1, uv, (540, 960))):
         ncols = plane.shape[1] // bw
         by, bx = TI._origins(B, ncols, bw, str(dev))
         ph = (np.arange(K)[:, None] * 37 + np.arange(B)[None, :]) % 256
@@ -1586,35 +1598,40 @@ def check_inter_kernels(dev):
         kern = kern3[torch.arange(K, device=dev) % 3]
         src = t(rng.integers(0, 256, (B, bw, bw)))
         a = (t(plane), by, bx, t(qr), t(qc), bw, ch, cw, kern)
+        want = MC.mc_8tap_plain(*a, src=src)
         err = max(err, compare(f"KD bw{bw} K{K}", MC.mc_8tap(*a, src=src),
-                               MC.mc_8tap_plain(*a, src=src)))
-        err = max(err, compare(f"KD bw{bw} no-src", MC.mc_8tap(*a)[0],
-                               MC.mc_8tap_plain(*a)[0]))
-        sad = MC.mc_8tap(*a, src=src, want_pred=False)[1]
-        err = max(err, compare(f"KD bw{bw} sad-only", sad,
-                               MC.mc_8tap_plain(*a, src=src)[1]))
+                               want))
+        err = max(err, compare(f"KD bw{bw} K{K} no-src", MC.mc_8tap(*a)[0],
+                               want[0]))
+        got = MC.mc_8tap(*a, src=src, want_pred=False)
+        if got[0] is not None:
+            raise AssertionError("KD: a prediction without want_pred")
+        err = max(err, compare(f"KD bw{bw} K{K} sad-only", got[1:],
+                               want[1:]))
+        cases.append(f"bw{bw} K{K} B{B}")
         if bw == 16 and K == 9:
-            times = (cuda_time(lambda: MC.mc_8tap(*a, src=src,
-                                                  want_pred=False), 20),
-                     cuda_time(lambda: MC.mc_8tap_plain(*a, src=src), 3))
-            # the block's (bw+7)^2 window per candidate, read once (the
-            # plane itself is far larger than what the blocks touch); 8 + 8
-            # taps of 2 operations and 3 for the SAD per pixel
-            bnd = bound(nbytes(a[1:5], src, MC.mc_8tap(
-                *a, src=src, want_pred=False)[1]) + K * B * (bw + 7) ** 2 * 4,
-                35 * K * B * bw * bw)
+            sad_only = lambda: MC.mc_8tap(*a, src=src, want_pred=False)
+            times = (cuda_time(sad_only, 20),
+                     cuda_time(lambda: MC.mc_8tap_plain(*a, src=src), 3),
+                     device_ms(sad_only, 20, "kd_kernel"))
+            # each input read once (the plane, the origins, the MVs, the
+            # taps and the blocks), each output written once; 8 + 8 taps
+            # of 2 operations and 3 for the SAD per pixel
+            bnd = bound(nbytes(a, src, sad_only()), 35 * K * B * bw * bw)
     results.append({"name": "mc_8tap", "route": "cuda",
                     "source": "aom_av1_psy_tpu_torch/csrc/mc.cu",
                     "replaces": "aom_av1_psy_tpu/encoder/tpu_inter.py:78",
                     "max_abs_err": err, "ms": times[0], "plain_ms": times[1],
-                    **bnd, "library_ms": None,
+                    "device_ms": times[2], **bnd, "library_ms": None,
                     "library_none": "no single PyTorch call rounds between "
                                     "the two 8-tap passes",
                     "timed_at": "luma bw16 K=9 B=8160, SAD only (subpel "
                                 "step)"})
-    log(f"[3b] KD mc_8tap exact at luma bw16 K=9 / bw32 K=5 and chroma "
-        f"bw8 / bw16 (256 phases, 3 families, MVs past the borders); bw16 "
-        f"K=9 B=8160: kernel {times[0]:.4f} ms, plain {times[1]:.4f} ms")
+    log(f"[3b] KD mc_8tap exact at {', '.join(cases)} (256 phases, 3 "
+        f"families, MVs past the borders; with src, without, SAD only); "
+        f"bw16 K=9 B=8160: kernel {times[0]:.4f} ms (device "
+        f"{times[2]} ms), plain {times[1]:.4f} ms, bound "
+        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
 
     # ---- KE: bw 8 on the half-resolution plane, bw 16 with centres ----
     err, times = 0.0, None
@@ -1873,6 +1890,82 @@ def profile_p_frame(dev, frames, encs):
         wall = time.perf_counter() - t0
     _device_rows("6b", prof, wall, f"plan {enc.timings['plan_s']:.4f} s, "
                  f"pack {enc.timings['pack_s']:.4f} s")
+    for kernel, key in (("KD", "kd_kernel"), ("KE", "ke_kernel")):
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and key in e.key]
+        log(f"[6b] {kernel}: {sum(e.count for e in rows)} launches, "
+            f"{sum(e.self_device_time_total for e in rows) / 1e3:.4f} ms of "
+            f"device time in the P-frame")
+
+
+def _kj_edge_cases(dev):
+    """KJ's strip tiling at its edges, both entries against their plain
+    versions: m = 33, 13 and 5 (not multiples of the strip's 12 offsets);
+    B = 1; the host inter encoder's largest block at radius 16 (64x64);
+    the 32-bit path (a width of 30, values up to 1023); flat blocks on a
+    flat patch (ties); the cost grid; the stride-4 coarse level. Returns
+    the max error (0)."""
+    import numpy as np
+    import torch
+    from aom_av1_psy_tpu_torch.ops import mvsearch as MV
+    rng = np.random.default_rng(SEED + 5)
+    err, names = 0.0, []
+    for h, w, r, B, spb, top in ((64, 64, 16, 1, 0, 256),
+                                 (64, 64, 16, 3, 4, 256),
+                                 (32, 32, 16, 1, 0, 256),
+                                 (16, 16, 6, 300, 4, 256),
+                                 (8, 8, 2, 300, 0, 256),
+                                 (24, 24, 16, 60, 0, 256),
+                                 (32, 30, 16, 60, 0, 256),
+                                 (32, 32, 16, 60, 4, 1024)):
+        m = 2 * r + 1
+        wh, ww = h + m - 1, w + m - 1
+        H, W = 3 * wh, 3 * ww
+        plane = rng.integers(0, top, (H, W))
+        plane[:wh, :ww] = 128                          # flat: ties
+        oy = rng.integers(0, H - wh + 1, B)
+        ox = rng.integers(0, W - ww + 1, B)
+        oy[0] = ox[0] = 0
+        src = rng.integers(0, min(top, 256), (B, h, w))
+        src[0] = 128
+        for b in range(1, B, 2):                       # planted matches
+            dy, dx = rng.integers(0, m, 2)
+            y, x = oy[b] + dy, ox[b] + dx
+            src[b] = plane[y:y + h, x:x + w]
+        t = lambda a: torch.as_tensor(a.astype(np.int32), device=dev)
+        P, S, Y, X = t(plane), t(src), t(oy), t(ox)
+        cost = None
+        if spb:
+            cost = torch.as_tensor(MV._cost_grid(r, spb).reshape(-1),
+                                   device=dev)
+        win = MV.cut(P, Y.long(), X.long(), wh, ww)
+        want = MV.sad_argmin_plain(S, win, m, 1, cost)
+        err = max(err, compare(f"KJ edge {h}x{w} r{r} B{B}",
+                               MV.sad_argmin(S, win, m, 1, cost), want))
+        err = max(err, compare(f"KJ plane edge {h}x{w} r{r} B{B}",
+                               MV.sad_argmin_plane(S, P, Y, X, m, cost),
+                               MV.sad_argmin_plane_plain(S, P, Y, X, m,
+                                                         cost)))
+        err = max(err, compare(f"KJ plane edge {h}x{w} vs windows",
+                               MV.sad_argmin_plane(S, P, Y, X, m, cost),
+                               want))
+        names.append(f"{h}x{w} r{r} B{B}")
+    # the coarse level of full_pel_hierarchical: stride 4, m = 9
+    B, h, w, m, step = 60, 32, 32, 9, 4
+    win = rng.integers(0, 256, (B, h + (m - 1) * step, w + (m - 1) * step))
+    win[-2:] = 128
+    src = rng.integers(0, 256, (B, h, w))
+    src[-2:] = 128
+    src[0] = win[0, 8:8 + h, 12:12 + w]
+    S, Wn = (torch.as_tensor(a.astype(np.int32), device=dev)
+             for a in (src, win))
+    err = max(err, compare("KJ coarse stride 4", MV.sad_argmin(S, Wn, m,
+                                                               step),
+                           MV.sad_argmin_plain(S, Wn, m, step)))
+    log(f"[3e] KJ edge cases exact, both entries: {', '.join(names)}; the "
+        f"stride-4 coarse level (m = 9, B = 60)")
+    return err
 
 
 def check_tf_kernels(dev):
@@ -1895,40 +1988,62 @@ def check_tf_kernels(dev):
     n = 2 * rad + 1
     results = []
 
-    # ---- KJ: frame 0 against the centre, every block shape ----
+    # ---- KJ: frame 0 against the centre, every block shape, both entries
+    padded = grid.padded(planes[0][0])
     err, shapes = 0.0, []
-    for ids, src, win in grid.windows(planes[0][0]):
+    for (h, w), ids in grid.groups:
+        src = grid.src[(h, w)]
+        oy, ox = grid.origins[(h, w)]
+        win = MV.cut(padded, oy, ox, h + 2 * rad, w + 2 * rad)
         shapes.append(f"{tuple(src.shape)}")
+        want = MV.full_pel_grid_search_plain(src, win, rad)
         err = max(err, compare(f"KJ {tuple(src.shape)}",
-                               MV.full_pel_grid_search(src, win, rad),
-                               MV.full_pel_grid_search_plain(src, win, rad)))
+                               MV.full_pel_grid_search(src, win, rad), want))
+        err = max(err, compare(
+            f"KJ plane {tuple(src.shape)}",
+            MV.full_pel_plane_search(src, padded, oy, ox, rad),
+            MV.full_pel_plane_search_plain(src, padded, oy, ox, rad)))
+        err = max(err, compare(
+            f"KJ plane {tuple(src.shape)} vs windows",
+            MV.full_pel_plane_search(src, padded, oy, ox, rad), want))
         hier = MV.full_pel_hierarchical(src, win, rad, step=4)
         want = MV.full_pel_hierarchical(src.cpu(), win.cpu(), rad, step=4)
         err = max(err, compare(f"KJ hierarchical {tuple(src.shape)}",
                                tuple(x.cpu() for x in hier), want))
-        if src.shape[1] == 32:
+        if (h, w) == (32, 32):
             B = src.shape[0]
-            kj_t = (cuda_time(lambda: MV.full_pel_grid_search(src, win, rad),
-                              20),
+            on_windows = lambda: MV.full_pel_grid_search(src, win, rad)
+            on_plane = lambda: MV.full_pel_plane_search(src, padded, oy, ox,
+                                                        rad)
+            kj_t = (cuda_time(on_windows, 20),
                     cuda_time(lambda: MV.full_pel_grid_search_plain(
-                        src, win, rad), 2))
+                        src, win, rad), 2),
+                    device_ms(on_windows, 20, "kj_kernel"),
+                    cuda_time(on_plane, 20),
+                    device_ms(on_plane, 20, "kj_kernel"))
             # 33 x 33 offsets, 3 operations (difference, absolute value,
             # add) per pixel of each SAD
-            kj_bnd = bound(nbytes(src, win, MV.full_pel_grid_search(
-                src, win, rad)), 3 * n * n * B * 32 * 32)
+            kj_bnd = bound(nbytes(src, win, on_windows()),
+                           3 * n * n * B * 32 * 32)
+    err = max(err, _kj_edge_cases(dev))
     results.append({"name": "fullpel_sad", "route": "cuda",
                     "source": "aom_av1_psy_tpu_torch/csrc/mvsearch.cu",
                     "replaces": "aom_av1_psy_tpu/ops/mvsearch.py:48",
                     "max_abs_err": err, "ms": kj_t[0], "plain_ms": kj_t[1],
-                    **kj_bnd, "library_ms": None,
+                    "device_ms": kj_t[2], "plane_ms": kj_t[3],
+                    "plane_device_ms": kj_t[4], **kj_bnd,
+                    "library_ms": None,
                     "library_none": "no single PyTorch call takes the SAD "
                                     "argmin over a window",
                     "timed_at": "B=1980 32x32 blocks, radius 16, 64x64 "
-                                "windows (1080p)"})
-    log(f"[3e] KJ fullpel_sad exact on blocks {shapes} (radius 16), and "
-        f"full_pel_hierarchical (step 4) == the CPU plain path; 32x32 "
-        f"B=1980: kernel {kj_t[0]:.4f} ms, plain {kj_t[1]:.4f} ms, bound "
-        f"{kj_bnd['bound_ms']:.4f} ms ({kj_bnd['bound_by']})")
+                                "windows (1080p); plane_*: the plane entry "
+                                "(the temporal filter's) on the same blocks"})
+    log(f"[3e] KJ fullpel_sad exact on blocks {shapes} (radius 16), both "
+        f"entries, and full_pel_hierarchical (step 4) == the CPU plain "
+        f"path; the edge cases exact; 32x32 B=1980: windows "
+        f"{kj_t[0]:.4f} ms (device {kj_t[2]} ms), plane entry "
+        f"{kj_t[3]:.4f} ms (device {kj_t[4]} ms), plain {kj_t[1]:.4f} ms, "
+        f"bound {kj_bnd['bound_ms']:.4f} ms ({kj_bnd['bound_by']})")
 
     # ---- KK: frame 0's accumulation; on the card and on CPU tensors ----
     inputs = grid.motion_inputs(planes[0])

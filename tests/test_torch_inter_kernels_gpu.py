@@ -50,11 +50,14 @@ def _pan(w, h, n, seed=0):
             for i in range(n)]
 
 
-@pytest.mark.parametrize("bw,K", [(8, 3), (16, 9), (32, 5)])
+@pytest.mark.parametrize("K", [1, 2, 3, 5, 9])
+@pytest.mark.parametrize("bw", [8, 16, 32])
 def test_mc_kernel_matches_plain(dev, bw, K):
+    """KD at every K the P-frame plan uses, at bw 8 / 16 / 32 (B = 61: a
+    CTA past the last pair), with and without ``src`` and ``pred``."""
     c = _on(dev)
-    rng = np.random.default_rng(bw)
-    H, W, B = 96, 160, 60
+    rng = np.random.default_rng(bw + K)
+    H, W, B = 96, 160, 61
     ref = c(rng.integers(0, 256, (H, W)).astype(np.int32))
     by = c((bw * rng.integers(0, H // bw, B)).astype(np.int32))
     bx = c((bw * rng.integers(0, W // bw, B)).astype(np.int32))
@@ -64,9 +67,23 @@ def test_mc_kernel_matches_plain(dev, bw, K):
              .astype(np.int32))
     src = c(rng.integers(0, 256, (B, bw, bw)).astype(np.int32))
     a = (ref, by, bx, qr, qc, bw, 90, 150, kern)
-    for g, w in zip(MC.mc_8tap(*a, src=src), MC.mc_8tap_plain(*a, src=src)):
+    n0 = MC.KD.launches
+    want = MC.mc_8tap_plain(*a, src=src)
+    for g, w in zip(MC.mc_8tap(*a, src=src), want):
         assert torch.equal(g, w)
-    assert MC.mc_8tap(*a, src=src, want_pred=False)[0] is None
+    pred, sad, sse = MC.mc_8tap(*a, src=src, want_pred=False)
+    assert pred is None
+    assert torch.equal(sad, want[1]) and torch.equal(sse, want[2])
+    pred, sad, sse = MC.mc_8tap(*a)
+    assert sad is None and sse is None and torch.equal(pred, want[0])
+    # a tap table 4 bytes off a 16-byte boundary (KD reads int4 taps)
+    flat = torch.zeros(kern.numel() + 1, dtype=torch.int32, device=dev)
+    flat[1:] = kern.reshape(-1)
+    odd = flat[1:].view(kern.shape)
+    assert odd.data_ptr() % 16
+    for g, w in zip(MC.mc_8tap(*a[:-1], odd, src=src), want):
+        assert torch.equal(g, w)
+    assert MC.KD.launches == n0 + 4
 
 
 @pytest.mark.parametrize("bw,centres", [(8, False), (16, True)])

@@ -1,4 +1,5 @@
-"""Kernels KJ (``fullpel_sad``) and KK (``tf_weight_accum``) of
+"""Kernels KJ (``fullpel_sad``, both entries: the caller's windows and the
+windows read where they lie in a plane) and KK (``tf_weight_accum``) of
 ``aom_av1_psy_tpu_torch`` against their plain PyTorch versions on a CUDA
 device (KK also against the plain version on CPU tensors), and the
 temporal filter and the ARF GOP on CUDA against the CPU plain path.
@@ -32,12 +33,13 @@ def dev():
     return torch.device("cuda")
 
 
-def _windows(h, w, radius, B, seed):
+def _windows(h, w, radius, B, seed, stride=1, hi=256):
     rng = np.random.default_rng(seed)
-    win = rng.integers(0, 256, (B, h + 2 * radius, w + 2 * radius))
-    src = rng.integers(0, 256, (B, h, w))
+    wh, ww = h + 2 * radius * stride, w + 2 * radius * stride
+    win = rng.integers(0, hi, (B, wh, ww))
+    src = rng.integers(0, hi, (B, h, w))
     for b in range(B // 2):
-        dy, dx = rng.integers(0, 2 * radius + 1, 2)
+        dy, dx = rng.integers(0, 2 * radius + 1, 2) * stride
         src[b] = win[b, dy:dy + h, dx:dx + w]
     win[-2:] = 128                                  # flat: every offset ties
     src[-2:] = 128
@@ -45,10 +47,19 @@ def _windows(h, w, radius, B, seed):
             torch.as_tensor(win.astype(np.int32)))
 
 
-@pytest.mark.parametrize("h,w,radius,spb", [(32, 32, 16, 0), (24, 32, 16, 0),
-                                            (16, 16, 6, 4), (8, 8, 2, 0)])
-def test_kj_matches_plain(dev, h, w, radius, spb):
-    src, win = _windows(h, w, radius, 40, seed=h + radius)
+# KJ's strip tiling (kR = 12 offsets per strip, G = 2 row groups): m = 33
+# (three strips, 3 phantom offsets), 13 (two strips), 5 and 11 (one short
+# strip) and 41 (four strips, 7 phantom offsets); B = 1; the host inter
+# encoder's largest block at radius 16 (64x64: 36 KB of window), narrow and
+# non-square blocks; flat-block ties in every case (the last two blocks)
+@pytest.mark.parametrize("h,w,radius,spb,B", [
+    (32, 32, 16, 0, 40), (24, 32, 16, 0, 40), (16, 16, 6, 4, 40),
+    (8, 8, 2, 0, 40), (32, 24, 16, 4, 40), (24, 24, 16, 0, 40),
+    (16, 8, 5, 0, 40), (8, 16, 20, 4, 20), (4, 4, 16, 0, 40),
+    (16, 64, 16, 0, 3), (64, 64, 16, 0, 1), (64, 64, 16, 4, 3),
+    (32, 32, 16, 0, 1)])
+def test_kj_matches_plain(dev, h, w, radius, spb, B):
+    src, win = _windows(h, w, radius, B, seed=h + radius)
     want = MV.full_pel_grid_search(src, win, radius, spb)
     n0 = MV.KJ.launches
     got = MV.full_pel_grid_search(src.to(dev), win.to(dev), radius, spb)
@@ -59,6 +70,67 @@ def test_kj_matches_plain(dev, h, w, radius, spb):
     for g, w_ in zip(MV.full_pel_grid_search_plain(src.to(dev), win.to(dev),
                                                    radius, spb), want):
         assert torch.equal(g.cpu(), w_)
+
+
+@pytest.mark.parametrize("h,w,radius,spb,hi", [
+    (16, 30, 16, 0, 256), (24, 10, 3, 4, 256), (32, 32, 16, 4, 1024),
+    (8, 12, 5, 0, 1024)])
+def test_kj_32bit_matches_plain(dev, h, w, radius, spb, hi):
+    """KJ's 32-bit strips at stride 1: a width not a multiple of 4, or
+    values past 255 (10-bit), where the CTA cannot pack 8-bit words."""
+    src, win = _windows(h, w, radius, 40, seed=h + w + hi, hi=hi)
+    want = MV.full_pel_grid_search(src, win, radius, spb)
+    got = MV.full_pel_grid_search(src.to(dev), win.to(dev), radius, spb)
+    for g, w_ in zip(got, want):
+        assert g.is_cuda and torch.equal(g.cpu(), w_)
+
+
+@pytest.mark.parametrize("h,w,m,B", [(32, 32, 9, 40), (24, 32, 9, 1),
+                                     (16, 16, 13, 40)])
+def test_kj_coarse_matches_plain(dev, h, w, m, B):
+    """The stride-4 coarse level of ``full_pel_hierarchical`` (m = 9 at
+    radius 16), and m = 13, directly at ``sad_argmin``."""
+    src, win = _windows(h, w, (m - 1) // 2, B, seed=m + B, stride=4)
+    want = MV.sad_argmin_plain(src, win, m, 4)
+    n0 = MV.KJ.variants["coarse"]
+    got = MV.sad_argmin(src.to(dev), win.to(dev), m, 4)
+    assert MV.KJ.variants["coarse"] == n0 + 1
+    for g, w_ in zip(got, want):
+        assert torch.equal(g.cpu(), w_.to(g.dtype))
+
+
+@pytest.mark.parametrize("h,w,spb,B", [(32, 32, 0, 60), (24, 32, 4, 60),
+                                       (32, 24, 0, 60), (24, 24, 0, 1),
+                                       (64, 64, 0, 2)])
+def test_kj_plane_matches_plain(dev, h, w, spb, B):
+    """KJ's plane entry on a frame padded with 128 (blocks at every border,
+    flat blocks that tie with the fill and with a flat patch) against its
+    plain version (``cut`` + ``sad_argmin_plain``) and the (src, win)
+    entry on the cut windows."""
+    rng = np.random.default_rng(h + w + B)
+    H, W, rad = 96, 160, 16
+    y = rng.integers(0, 256, (H, W)).astype(np.int32)
+    y[:40, :40] = 60
+    grid = TF.SpanGrid([torch.as_tensor(y)] * 3)
+    padded = grid.padded(torch.as_tensor(y))
+    oy = torch.as_tensor(rng.integers(0, H - h + 1, B))
+    ox = torch.as_tensor(rng.integers(0, W - w + 1, B))
+    oy[:1], ox[:1] = 0, 0
+    src = torch.as_tensor(rng.integers(0, 256, (B, h, w)).astype(np.int32))
+    src[-1:] = 128
+    if B > 2:
+        src[1] = 60
+    want = MV.full_pel_plane_search_plain(src, padded, oy, ox, rad, spb)
+    win = MV.cut(padded, oy, ox, h + 2 * rad, w + 2 * rad)
+    for g, w_ in zip(MV.full_pel_grid_search(src, win, rad, spb), want):
+        assert torch.equal(g, w_)
+    n0 = MV.KJ.variants["plane"]
+    got = MV.full_pel_plane_search(src.to(dev), padded.to(dev), oy.to(dev),
+                                   ox.to(dev), rad, spb)
+    torch.cuda.synchronize()
+    assert MV.KJ.variants["plane"] == n0 + 1
+    for g, w_ in zip(got, want):
+        assert g.is_cuda and torch.equal(g.cpu(), w_)
 
 
 @pytest.mark.parametrize("h,w", [(32, 32), (24, 32)])

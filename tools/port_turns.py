@@ -1,16 +1,29 @@
 #!/usr/bin/env python3
 """Two checkouts of the PyTorch + CUDA port on one card, in turns.
 
-Times the 1080p KEY frame's plan (untiled, two tile columns, the
-``BLOCK_8X8`` uniform grid: a first frame, then the median of 3 steady
-frames, with KA's and KB's launches per frame), KN's ``sad`` at
-B = 8160 16x16 blocks (CUDA events, beside
-``F.pairwise_distance(p=1)``) and KB's batched entry ``txq_recon_skip``
-at the 1080p P-frame's batches (bs 16 B = 8160, bs 32 B = 2040, bs 8
-B = 8160: CUDA events and the profiler's device time of KB's kernel) for
-checkout A and checkout B, each turn a fresh process, in the order
-A B B A (``--rounds`` times). Both checkouts build their kernels into
-their own ``build/`` at first use.
+Times, for checkout A and checkout B, each turn a fresh process, in the
+order A B B A (``--rounds`` times):
+- the 1080p KEY frame's plan (untiled, two tile columns, the
+  ``BLOCK_8X8`` uniform grid: a first frame, then the median of 3 steady
+  frames, with KA's and KB's launches per frame);
+- KN's ``sad`` at B = 8160 16x16 blocks (CUDA events, beside
+  ``F.pairwise_distance(p=1)``) and KB's batched entry ``txq_recon_skip``
+  at the 1080p P-frame's batches (bs 16 B = 8160, bs 32 B = 2040, bs 8
+  B = 8160: CUDA events and the profiler's device time of KB's kernel);
+- KJ's ``full_pel_grid_search`` at the 1980 full 32x32 blocks of a 1080p
+  frame, radius 16, on 64x64 windows cut from the frame padded with 128
+  (events and device time), and the temporal filter's
+  ``SpanGrid.motion_inputs`` for one 1080p frame of a 5-frame span (host
+  clock to a synchronize, median of 25 after a first; KJ's launches per
+  call);
+- KD's ``mc_8tap`` at bw 16, K = 9, B = 8160, SAD only (events and device
+  time);
+- the 1080p P-frame: each P-frame of ``make_gop(1920, 1080, 5)`` at q100
+  re-encoded alone from the GOP's chain, twice: the median ``plan_s`` and
+  frame time, KD's launches per P-frame, and KD's launches and device
+  time summed over one P-frame under the profiler.
+Only entry points that both checkouts have are timed. Both checkouts
+build their kernels into their own ``build/`` at first use.
 
     python3 tools/port_turns.py PARENT_DIR CHANGE_DIR [--rounds 1]
 
@@ -88,8 +101,8 @@ out["pairwise_ms"] = events_ms(
     lambda: F.pairwise_distance(af, bf, p=1, eps=0.0))
 
 
-def device_ms(fn, iters=20):
-    # the profiler's device time per call of KB's kernels in fn
+def device_ms(fn, iters=20, name="kb_"):
+    # the profiler's device time per call of the kernels named name in fn
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -100,7 +113,7 @@ def device_ms(fn, iters=20):
         torch.cuda.synchronize()
     t = sum(e.self_device_time_total for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and "kb_" in e.key)
+            and name in e.key)
     return t / 1e3 / iters if t else None
 
 
@@ -118,6 +131,99 @@ for bs, B, key in ((16, 8160, "y16"), (32, 2040, "y32"), (8, 8160, "uv8")):
                          device="cuda"), *rt[key])
     out[f"kb_bs{bs}_ms"] = events_ms(lambda: TQ.txq_recon_skip(*a), 20)
     out[f"kb_bs{bs}_device_ms"] = device_ms(lambda: TQ.txq_recon_skip(*a))
+
+# KJ and the temporal filter's search inputs: frame 0 of a 1080p span
+from aom_av1_psy_tpu_torch.encoder import temporal_filter as TF
+from aom_av1_psy_tpu_torch.ops import mvsearch as MV
+gop = testframes.make_gop(1920, 1080, 5)
+planes = TF.upload([f.planes() for f in gop], "cuda")
+grid = TF.SpanGrid(planes[2])
+
+
+def cut(plane, r0, c0, h, w):
+    ar_h = torch.arange(h, device=plane.device)
+    ar_w = torch.arange(w, device=plane.device)
+    return plane[(r0[:, None] + ar_h[None])[:, :, None],
+                 (c0[:, None] + ar_w[None])[:, None, :]]
+
+
+full = (grid.hs == 32) & (grid.ws == 32)
+by, bx = grid.by[full], grid.bx[full]
+padded = torch.full((1080 + 32, 1920 + 32), 128, dtype=torch.int32,
+                    device="cuda")
+padded[16:-16, 16:-16] = planes[0][0]
+src = cut(planes[2][0], by, bx, 32, 32).contiguous()
+win = cut(padded, by, bx, 64, 64).contiguous()
+kj = lambda: MV.full_pel_grid_search(src, win, 16)
+out["kj_ms"] = events_ms(kj, 20)
+out["kj_device_ms"] = device_ms(kj, 20, "kj_kernel")
+MV.KJ.reset()
+walls = []
+for _ in range(26):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grid.motion_inputs(planes[0])
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter() - t0)
+out["tf_motion_s"] = statistics.median(walls[1:])
+out["kj_launches_per_motion_inputs"] = MV.KJ.launches / 26
+
+# KD at the subpel step's shape
+from aom_av1_psy_tpu_torch.encoder import tpu_inter as TIN
+from aom_av1_psy_tpu_torch.ops import mc as MC
+y = torch.zeros((1088, 1920), dtype=torch.int32, device="cuda")
+y[:1080] = planes[1][0]
+y[1080:] = y[1079]
+K, B = 9, 8160
+gy, gx = TIN._origins(B, 120, 16, "cuda")
+qr = torch.as_tensor(rng.integers(-64, 65, (K, B)).astype(np.int32),
+                     device="cuda")
+qc = torch.as_tensor(rng.integers(-64, 65, (K, B)).astype(np.int32),
+                     device="cuda")
+kern = TIN._all_kernels("cuda")[torch.arange(K, device="cuda") % 3]
+s16 = torch.as_tensor(rng.integers(0, 256, (B, 16, 16)).astype(np.int32),
+                      device="cuda")
+kd = lambda: MC.mc_8tap(y, gy, gx, qr, qc, 16, 1080, 1920, kern, src=s16,
+                        want_pred=False)
+out["kd_ms"] = events_ms(kd, 20)
+out["kd_device_ms"] = device_ms(kd, 20, "kd_kernel")
+
+# the 1080p P-frame, re-encoded alone from the GOP's chain
+from aom_av1_psy_tpu_torch.encoder.tpu_interframe import (
+    GpuInterFrameEncoder, _ref_chain_planes, encode_video)
+cfg = EncoderConfig(base_q_idx=100)
+_, encs = encode_video(gop, cfg, device="cuda")
+torch.cuda.synchronize()
+MC.KD.reset()
+plans, walls = [], []
+for _ in range(2):
+    for i in range(1, len(gop)):
+        prev = encs[i - 1]
+        t0 = time.perf_counter()
+        enc = GpuInterFrameEncoder(gop[i], encs[i].cfg, prev.seq,
+                                   _ref_chain_planes(prev), 1920, 1080,
+                                   prev_fc=prev.saved_fc, device="cuda")
+        enc.encode()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        plans.append(enc.timings["plan_s"])
+out["p_plan_s"] = statistics.median(plans)
+out["p_frame_s"] = statistics.median(walls)
+out["kd_launches_per_p_frame"] = MC.KD.launches / len(plans)
+# KD's device time summed over one P-frame, under the profiler
+from torch.profiler import ProfilerActivity, profile
+with profile(activities=[ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA]) as prof:
+    GpuInterFrameEncoder(gop[2], encs[2].cfg, encs[1].seq,
+                         _ref_chain_planes(encs[1]), 1920, 1080,
+                         prev_fc=encs[1].saved_fc, device="cuda").encode()
+    torch.cuda.synchronize()
+rows = [e for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and "kd_kernel" in e.key]
+out["kd_p_frame_device_ms"] = sum(e.self_device_time_total
+                                  for e in rows) / 1e3
+out["kd_p_frame_launches"] = sum(e.count for e in rows)
 print(json.dumps(out))
 """
 
@@ -153,7 +259,11 @@ def main() -> int:
                   for k in ("untiled", "tiled", "bs8")
                   for m in ("plan_s", "frame_s", "ka_launches_per_frame",
                             "kb_launches_per_frame")}
-        for k in ("kn_sad_ms", "pairwise_ms") + tuple(
+        for k in ("kn_sad_ms", "pairwise_ms", "kj_ms", "kj_device_ms",
+                  "tf_motion_s", "kj_launches_per_motion_inputs", "kd_ms",
+                  "kd_device_ms", "p_plan_s", "p_frame_s",
+                  "kd_launches_per_p_frame", "kd_p_frame_device_ms",
+                  "kd_p_frame_launches") + tuple(
                 f"kb_bs{bs}{m}" for bs in (16, 32, 8)
                 for m in ("_ms", "_device_ms")):
             vals = [x[k] for x in lines if x[k] is not None]
