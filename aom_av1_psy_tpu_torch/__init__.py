@@ -36,11 +36,16 @@ Device work runs as plain torch ops plus eleven hand-written CUDA kernels
   where they lie, prices the partition paths, takes the split and writes
   the plan's maps;
 - KC ``lpf_ladder`` (``ops/deblock_torch.py``): the loop-filter level
-  ladder with an exact per-level SSE;
+  ladder with an exact per-level SSE, one launch per plane: one CTA per
+  tile of 4 x 4 cells whose origin sits half a cell before an edge (no
+  halo), looping over the levels with the tile and the source in
+  registers;
 - KD ``mc_8tap`` (``ops/mc.py``): batched 8-tap motion compensation over a
   candidate axis, with per-block SAD / SSE;
 - KE ``fullpel_ssd`` (``ops/fullpel.py``): the exhaustive +/-16 full-pel
-  search with the reference's first-index ties;
+  search with the reference's first-index ties, on KJ's strip engine
+  (``csrc/strips.cuh``: strips of 12 offsets in registers, 8-bit words
+  where the staged values allow);
 - KF ``cdef_filter`` (``ops/cdef_torch.py``): the frame CDEF apply;
 - KG ``gauss_blur``, KH ``unsharp_apply``, KI ``vif_scale`` / ``vif_down2``
   (``encoder/tune_vmaf.py``): the tune_vmaf blur (with exact moment sums),
@@ -49,7 +54,8 @@ Device work runs as plain torch ops plus eleven hand-written CUDA kernels
   over the caller's windows (and the strided coarse level of
   ``full_pel_hierarchical``) or, through its plane entry
   (``full_pel_plane_search``, the temporal filter's), over windows read
-  where they lie in a plane; first-index argmin;
+  where they lie in a plane; first-index argmin; the strip engine of
+  ``csrc/strips.cuh``, templated on the metric, shared with KE;
 - KK ``tf_weight_accum`` (``encoder/temporal_filter.py``): the temporal
   filter's block-local 5x5 windowed error, float64 weight and int64
   accumulation over every block of a frame.

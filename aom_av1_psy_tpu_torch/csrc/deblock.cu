@@ -5,20 +5,32 @@
 // lpf_pick_and_filter / lpf_apply (aom_av1_psy_tpu/ops/deblock_jax.py:
 // 183-290), with the edge filters _filter_seg14 / _filter_seg6 (:59-167).
 //
-// For one plane and L candidate levels: copy the plane into L slices,
-// filter every vertical edge (one launch), then every horizontal edge (a
-// second launch), then reduce each slice's squared error against the
-// source exactly in int64 (a third launch). The pick and the chroma
-// zeroing stay in torch.
+// For one plane and L candidate levels: the plane filtered at each level
+// (every vertical edge, then every horizontal edge) and, where a source is
+// given, each level's exact squared error against it over the cropped
+// area, in int64. The pick and the chroma zeroing stay in torch.
 //
-// What bounds it: memory traffic. At 1080p luma the ladder's working set
-// is 6 x 1088 x 1920 int32 (50 MB, about the L2 size); the filters are a
-// few dozen integer ops per segment. Design: one thread per (level, line,
-// edge) segment holding its 14 (or 6) taps in registers; edges of one
-// direction are independent (writes +-6 around edges >= 16 px apart, reads
-// +-7), so the in-place update needs no synchronisation.
-#include <algorithm>
-
+// What bounds it: memory traffic. At 1080p luma the ladder writes 6 x 1088
+// x 1920 int32 (50 MB) and reads the plane and the source (17 MB); the
+// filters are a few dozen integer operations per segment. Design: one
+// launch per plane, one CTA per tile, looping over the levels. Tile origins
+// sit half a cell before an edge (luma 16m - 8, chroma 8m - 4), so an edge
+// at e reads and writes only inside [e - cell/2, e + cell/2) (luma
+// e-7..e+6, chroma e-3..e+2), which lies in one tile in both directions: a
+// tile depends on nothing outside it, after the vertical pass and after the
+// horizontal pass, and needs no halo. Tiles are 4 x 4 cells (luma 64 px,
+// chroma 32 px; ops/deblock_torch.kc_tile states the same layout for the
+// CPU test of this claim), clipped to the plane at its border.
+// A thread holds a fixed set of the tile's pixels (rows a warp apart,
+// columns 32 apart): it reads them, and the source at the same positions,
+// from DRAM once, into registers. For each level the CTA writes the tile
+// into shared memory (row stride odd, so a warp's lanes on 32 rows of one
+// column hit distinct banks), runs one thread per (row, vertical edge)
+// segment with its 14 (or 6) taps in registers, a barrier, one thread per
+// (column, horizontal edge) segment, a barrier, then writes every pixel of
+// the tile to the level's plane once, coalesced, summing (out - src)^2 in
+// int64: a block sum and one atomicAdd per CTA and level (integer sums: the
+// order does not matter).
 #include "common.cuh"
 
 namespace {
@@ -142,99 +154,168 @@ __device__ void filter6(int* px, int level) {
 }
 
 struct KCArgs {
-  int* outs;             // (L, Hb, Wb)
+  const int* buf;        // (Hb, Wb)
   int Hb, Wb;
   const bool* split16;   // (R2, C2)
-  int R2, C2;
+  int C2;
   const int* cands;      // (L,)
-  int L, cell, luma;
+  int nl_v, kv, nl_h, kh;
+  const int* src;        // (>= ph, src_stride) or null
+  int src_stride, pw, ph;
+  int* outs;             // (L, Hb, Wb)
+  unsigned long long* sse;  // (L,)
+  int L, ntx;            // levels, tiles per row
 };
 
-__global__ void copy_kernel(const int* __restrict__ buf, long long n, int L,
-                            int* __restrict__ outs) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < n * L; i += (long long)gridDim.x * blockDim.x)
-    outs[i] = buf[i % n];
-}
-
-// One thread per (level, line, edge). vertical: line = row y, edge at
-// column k * cell; horizontal: line = column x, edge at row k * cell.
-template <bool VERT>
-__global__ void edge_kernel(KCArgs a, int nl, int nk) {
-  const long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (idx >= (long long)a.L * nl * nk) return;
-  const int k = (int)(idx % nk) + 1;
-  const int line = (int)((idx / nk) % nl);
-  const int l = (int)(idx / ((long long)nk * nl));
-  const int level = a.cands[l];
-  const int e = k * a.cell;
-  const bool tu = (k % 2 == 0) ||
-                  (VERT ? a.split16[(line / a.cell) * a.C2 + k]
-                        : a.split16[k * a.C2 + line / a.cell]);
-  if (!tu || level <= 0) return;
-  const int taps = a.luma ? 14 : 6, half = taps / 2;
-  int* base = a.outs + (long long)l * a.Hb * a.Wb;
-  const long long step = VERT ? 1 : a.Wb;
-  int* p0 = VERT ? base + (long long)line * a.Wb + (e - half)
-                 : base + (long long)(e - half) * a.Wb + line;
-  int px[14];
-  for (int i = 0; i < taps; ++i) px[i] = p0[i * step];
-  if (a.luma) {
+// Filters a segment of TAPS values `step` apart at p0 in place (14: luma,
+// 6: chroma), the taps in registers.
+template <int TAPS>
+__device__ __forceinline__ void segment(int* p0, int step, int level) {
+  int px[TAPS];
+#pragma unroll
+  for (int i = 0; i < TAPS; ++i) px[i] = p0[i * step];
+  if constexpr (TAPS == 14)
     filter14(px, level);
-    for (int i = 1; i < 13; ++i) p0[i * step] = px[i];
-  } else {
+  else
     filter6(px, level);
-    for (int i = 1; i < 5; ++i) p0[i * step] = px[i];
-  }
+#pragma unroll
+  for (int i = 1; i < TAPS - 1; ++i) p0[i * step] = px[i];
 }
 
-__global__ void sse_kernel(const int* __restrict__ outs, int Hb, int Wb,
-                           const int* __restrict__ src, int src_stride,
-                           int pw, int ph, unsigned long long* sse) {
+// A tile of 4 x 4 cells (TAPS 14: luma, 16 px cells; 6: chroma, 8 px): its
+// side, threads (one per vertical segment: side rows x 4 edges) and the
+// pixels each thread holds (PR rows, a warp apart, of PC columns, 32
+// apart).
+template <int TAPS>
+struct Tile {
+  static constexpr int kCells = 4;
+  static constexpr int kCell = TAPS == 14 ? 16 : 8;
+  static constexpr int kSide = kCells * kCell;
+  static constexpr int kThreads = kSide * kCells;
+  static constexpr int kPR = kSide / (kThreads / 32), kPC = kSide / 32;
+  static constexpr int kStride = kSide | 1;   // shared row stride, odd
+};
+
+// One CTA per tile (blockIdx.x, row-major), looping over the levels. Tile
+// (ty, tx) spans rows ty * side - cell / 2 ... and columns tx * side -
+// cell / 2 ..., clipped to the plane; its edges lie at tile-local cell / 2
+// + j * cell, edge index k = (ty or tx) * 4 + j.
+template <int TAPS>
+__global__ void __launch_bounds__(Tile<TAPS>::kThreads)
+    kc_tile_kernel(KCArgs a) {
+  using T = Tile<TAPS>;
+  constexpr int cell = T::kCell, side = T::kSide, ts = T::kStride;
+  constexpr int cells = T::kCells, half = TAPS / 2, nw = T::kThreads / 32;
+  __shared__ int t[side * ts];   // tile-local coordinates
   __shared__ long long red[32];
-  const int l = blockIdx.y;
-  const int* o = outs + (long long)l * Hb * Wb;
-  long long acc = 0;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < (long long)pw * ph; i += (long long)gridDim.x * blockDim.x) {
-    const int y = (int)(i / pw), x = (int)(i % pw);
-    const long long d = o[(long long)y * Wb + x] - src[(long long)y * src_stride + x];
-    acc += d * d;
+  const int ty = blockIdx.x / a.ntx, tx = blockIdx.x - ty * a.ntx;
+  const int Y0 = ty * side - cell / 2, X0 = tx * side - cell / 2;
+  const int y0 = max(Y0, 0), y1 = min(Y0 + side, a.Hb);
+  const int x0 = max(X0, 0), x1 = min(X0 + side, a.Wb);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // this thread's pixels of the plane (ov) and of the source (sv); zero
+  // where they fall outside the plane or the source's cropped area
+  int ov[T::kPR][T::kPC], sv[T::kPR][T::kPC];
+#pragma unroll
+  for (int i = 0; i < T::kPR; ++i) {
+    const int y = Y0 + warp + i * nw;
+#pragma unroll
+    for (int j = 0; j < T::kPC; ++j) {
+      const int x = X0 + lane + 32 * j;
+      ov[i][j] = sv[i][j] = 0;
+      if (y >= y0 && y < y1 && x >= x0 && x < x1) {
+        ov[i][j] = a.buf[(long long)y * a.Wb + x];
+        if (a.src && y < a.ph && x < a.pw)
+          sv[i][j] = a.src[(long long)y * a.src_stride + x];
+      }
+    }
   }
-  acc = block_sum<long long>(acc, red);
-  if (threadIdx.x == 0) atomicAdd(sse + l, (unsigned long long)acc);
-}
 
-int blocks_for(long long n, int nt) {
-  return (int)((n + nt - 1) / nt);
+  for (int l = 0; l < a.L; ++l) {
+    // the tile, unfiltered (the barrier orders the last level's reads)
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < T::kPR; ++i)
+#pragma unroll
+      for (int j = 0; j < T::kPC; ++j)
+        t[(warp + i * nw) * ts + lane + 32 * j] = ov[i][j];
+    __syncthreads();
+
+    const int level = a.cands[l];
+    if (level > 0) {
+      // vertical edges: one thread per (row, edge), rows fastest
+      const int nr = min(y1, a.nl_v) - y0;
+      for (int s = threadIdx.x; s < nr * cells; s += T::kThreads) {
+        const int y = y0 + s % nr, j = s / nr;
+        const int k = tx * cells + j;
+        if (k < 1 || k > a.kv) continue;
+        if (k % 2 != 0 && !a.split16[(y / cell) * a.C2 + k]) continue;
+        segment<TAPS>(t + (y - Y0) * ts + (cell / 2 + j * cell - half), 1,
+                      level);
+      }
+      __syncthreads();
+      // horizontal edges: one thread per (column, edge), columns fastest
+      const int nc = min(x1, a.nl_h) - x0;
+      for (int s = threadIdx.x; s < nc * cells; s += T::kThreads) {
+        const int x = x0 + s % nc, j = s / nc;
+        const int k = ty * cells + j;
+        if (k < 1 || k > a.kh) continue;
+        if (k % 2 != 0 && !a.split16[k * a.C2 + x / cell]) continue;
+        segment<TAPS>(t + (cell / 2 + j * cell - half) * ts + (x - X0), ts,
+                      level);
+      }
+      __syncthreads();
+    }
+
+    int* out = a.outs + (long long)l * a.Hb * a.Wb;
+    long long acc = 0;
+#pragma unroll
+    for (int i = 0; i < T::kPR; ++i) {
+      const int y = Y0 + warp + i * nw;
+#pragma unroll
+      for (int j = 0; j < T::kPC; ++j) {
+        const int x = X0 + lane + 32 * j;
+        if (y >= y0 && y < y1 && x >= x0 && x < x1) {
+          const int v = t[(y - Y0) * ts + x - X0];
+          out[(long long)y * a.Wb + x] = v;
+          const long long d = v - sv[i][j];
+          if (a.src && y < a.ph && x < a.pw) acc += d * d;
+        }
+      }
+    }
+    if (a.src) {
+      acc = block_sum<long long>(acc, red);
+      if (threadIdx.x == 0) atomicAdd(a.sse + l, (unsigned long long)acc);
+    }
+  }
 }
 
 }  // namespace
 
+// One launch, beside the memset of the sums.
 AV1_EXPORT int lpf_ladder(const int* buf, int Hb, int Wb,
                           const bool* split16, int R2, int C2,
                           const int* cands, int L, int cell, int luma,
                           int nl_v, int kv, int nl_h, int kh,
                           const int* src, int src_stride, int pw, int ph,
                           int* outs, long long* sse, void* stream) {
+  if (L <= 0) return 0;
+  if (cell != (luma ? 16 : 8) || R2 <= 0 || C2 <= 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int nt = 256;
-  const long long n = (long long)Hb * Wb;
-  copy_kernel<<<std::min(blocks_for(n * L, nt), 4096), nt, 0, st>>>(buf, n, L,
-                                                              outs);
-  KCArgs a{outs, Hb, Wb, split16, R2, C2, cands, L, cell, luma};
-  if (kv > 0)
-    edge_kernel<true><<<blocks_for((long long)L * nl_v * kv, nt), nt, 0, st>>>(
-        a, nl_v, kv);
-  if (kh > 0)
-    edge_kernel<false><<<blocks_for((long long)L * nl_h * kh, nt), nt, 0,
-                         st>>>(a, nl_h, kh);
   if (src) {
     cudaError_t e = cudaMemsetAsync(sse, 0, sizeof(long long) * L, st);
     if (e != cudaSuccess) return (int)e;
-    sse_kernel<<<dim3(std::min(blocks_for((long long)pw * ph, nt), 512), L), nt, 0,
-                 st>>>(outs, Hb, Wb, src, src_stride, pw, ph,
-                       (unsigned long long*)sse);
   }
+  // tiles of side `tile` from -cell / 2
+  const int tile = luma ? Tile<14>::kSide : Tile<6>::kSide;
+  const int nty = (Hb + cell / 2 + tile - 1) / tile;
+  const int ntx = (Wb + cell / 2 + tile - 1) / tile;
+  const KCArgs a{buf, Hb, Wb, split16, C2, cands, nl_v, kv, nl_h, kh, src,
+                 src_stride, pw, ph, outs, (unsigned long long*)sse, L, ntx};
+  if (luma)
+    kc_tile_kernel<14><<<nty * ntx, Tile<14>::kThreads, 0, st>>>(a);
+  else
+    kc_tile_kernel<6><<<nty * ntx, Tile<6>::kThreads, 0, st>>>(a);
   return (int)cudaGetLastError();
 }

@@ -20,30 +20,14 @@
 // 1024 pixels for each of 1980 full blocks per reference frame, 2.2 G
 // abs-diff-adds. A shared-memory read per operand (two 4-byte loads per
 // pixel-SAD) would cap it at 16 pixel-SADs per clock per SM, so the design
-// takes the operands from registers instead:
-// - one CTA per block; the window (zero past its width) and the block are
-//   staged into shared memory with cp.async;
-// - a thread owns a strip of kR = 12 horizontally adjacent offsets of one
-//   offset row (33 = 3 strips; the last strip of a row computes phantom
-//   offsets that are never compared) and a row group g of G: block rows g,
-//   g + G, ...; for each block row it reads each block value once (the
-//   same address across the strips of a warp) and updates kR running
-//   SADs;
-// - 8-bit samples go four to a word where the CTA finds every staged value
-//   in 0..255 (and the candidate stride is 1, the width a multiple of 4):
-//   one vabsdiff4 with accumulate (`sad4`) scores four pixels of one
-//   offset, the window words of the 12 offsets come from 4 words by byte
-//   permutes, about 0.5 instructions per pixel-SAD; otherwise (a value
-//   past 255, a width not a multiple of 4, the coarse level's stride) the
-//   same strips run on 32-bit values, one shared read and one __sad per
-//   pixel-SAD; the result is the same either way;
-// - the G row groups of a strip sit in adjacent lanes and add their
-//   partial SADs with xor shuffles; G = 2 at 33 x 33 (198 of 224 threads
-//   busy, equal work each);
-// - the shared-memory row strides spread the lanes of a warp (2 block
-//   rows, 16 strips) over distinct banks or the same word;
-// - the first strict `<` in a thread (offsets rise within it), then
-//   better() (lowest index on ties) across lanes and warps.
+// takes the operands from registers instead: one CTA per block, the window
+// (zero past its width) and the block staged into shared memory with
+// cp.async, and the offsets scored by the strip engine of csrc/strips.cuh
+// (shared with KE): strips of 12 offsets in registers, four 8-bit samples
+// to a word (one vabsdiff4 with accumulate per four pixel-SADs, about 0.5
+// instructions per pixel-SAD) where the CTA finds every staged value in
+// 0..255 and the candidate stride is 1, 32-bit strips otherwise; G = 2 row
+// groups at 33 x 33 (198 of 224 threads busy, equal work each).
 //
 // Kernel KM: subpel_refine49.
 //
@@ -66,16 +50,12 @@
 #include <limits.h>
 
 #include "convolve.cuh"
+#include "strips.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;   // KM
-constexpr int kR = 12;          // KJ: offsets per strip, a multiple of 4
-constexpr int kMaxThreads = 512;
-
-__device__ __forceinline__ bool better(int s, int i, int bs, int bi) {
-  return s < bs || (s == bs && i < bi);
-}
+constexpr int kMaxThreads = 512;  // KJ
 
 struct KJArgs {
   const int* src;      // (B, h, w)
@@ -83,11 +63,8 @@ struct KJArgs {
   const int* oy;       // (B,) window origins in the plane, or null
   const int* ox;
   int H, W;            // the plane (origins clamp to it)
-  int h, w, wh, ww, m, stride;
-  int S, G;            // strips per offset row, row groups per strip
-  int sw, bs;          // shared-memory row strides: window, block
-  int swp, bsp;        // the same in words of four 8-bit samples; 0: the
-                       // launch runs on 32-bit values only
+  int wh, ww;
+  strips::Shape p;     // block (h, w), m, stride; kj_launch fills the rest
   const int* cost;     // (m * m,) or null
   int* best_idx;
   int* best_sad;
@@ -99,60 +76,55 @@ __device__ __forceinline__ void cp_async4(int* dst, const int* src) {
                "l"(src));
 }
 
-// d = c + |a0 - b0| + |a1 - b1| + |a2 - b2| + |a3 - b3| over the bytes
-__device__ __forceinline__ unsigned sad4(unsigned a, unsigned b, unsigned c) {
-  unsigned d;
-  asm("vabsdiff4.u32.u32.u32.add %0, %1, %2, %3;"
-      : "=r"(d)
-      : "r"(a), "r"(b), "r"(c));
-  return d;
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
-// kR running SADs of one block row on 8-bit samples four to a word: wr is
-// the window row at the strip's first offset (a multiple of 4), q the
-// block row, nq = w / 4 words. W[] holds the 16 window bytes that the 12
-// offsets of 4 columns read.
-__device__ __forceinline__ void strip_row_packed(const unsigned* wr,
-                                                 const unsigned* q, int nq,
-                                                 unsigned (&s)[kR]) {
-  unsigned W[4];
-  W[0] = wr[0];
-  W[1] = wr[1];
-  W[2] = wr[2];
-  for (int k = 0; k < nq; ++k) {
-    W[3] = wr[k + 3];
-    const unsigned qv = q[k];
+// Whether this thread's share of the staged values (rows wid, wid + nw, ...
+// of warp wid of nw, columns lane, lane + 32, ...) lies in 0..255 (the
+// CTA then agrees with __syncthreads_and).
+__device__ __forceinline__ int fits(const strips::Shape& p,
+                                    const strips::Smem& v, int wh, int ww,
+                                    int wid, int nw, int lane) {
+  int ok = 1;
+  for (int r = wid; r < wh; r += nw)
+    for (int c = lane; c < ww; c += 32)
+      ok &= (unsigned)v.win[r * p.sw + c] <= 255u;
+  for (int r = wid; r < p.h; r += nw)
+    for (int c = lane; c < p.w; c += 32)
+      ok &= (unsigned)v.blk[r * p.bs + c] <= 255u;
+  return ok;
+}
+
+// Packs the staged values four 8-bit samples to a word (the CTA found that
+// they fit); a barrier must follow before the words are read.
+__device__ __forceinline__ void pack(const strips::Shape& p,
+                                     const strips::Smem& v, int wh, int ww,
+                                     int wid, int nw, int lane) {
+  for (int r = wid; r < wh; r += nw)
+    for (int k = lane; k < p.swp; k += 32) {
+      unsigned x = 0;
 #pragma unroll
-    for (int r = 0; r < kR; ++r) {
-      const int i = r >> 2, sh = r & 3;
-      const unsigned x =
-          sh ? __byte_perm(W[i], W[i + 1], 0x3210 + sh * 0x1111) : W[i];
-      s[r] = sad4(x, qv, s[r]);
+      for (int e = 0; e < 4; ++e) {
+        const int c = 4 * k + e;
+        x |= (unsigned)(c < ww ? v.win[r * p.sw + c] : 0) << (8 * e);
+      }
+      v.pwin[r * p.swp + k] = x;
     }
-    W[0] = W[1];
-    W[1] = W[2];
-    W[2] = W[3];
-  }
-}
-
-// kR running SADs of one block row on 32-bit values: wr is the window row
-// at the strip's first offset, q the block row; the strip's offsets are
-// `stride` apart (1 dense, `step` at the coarse level).
-__device__ __forceinline__ void strip_row_strided(const int* wr, const int* q,
-                                                  int w, int stride,
-                                                  unsigned (&s)[kR]) {
-  for (int j = 0; j < w; ++j) {
-    const int qv = q[j];
-#pragma unroll
-    for (int r = 0; r < kR; ++r) s[r] = __sad(wr[r * stride + j], qv, s[r]);
-  }
+  for (int r = wid; r < p.h; r += nw)
+    for (int k = lane; k < p.w / 4; k += 32) {
+      const int* x = v.blk + r * p.bs + 4 * k;
+      v.pblk[r * p.bsp + k] = (unsigned)x[0] | (unsigned)x[1] << 8 |
+                              (unsigned)x[2] << 16 | (unsigned)x[3] << 24;
+    }
 }
 
 __global__ void __launch_bounds__(kMaxThreads, 2) kj_kernel(KJArgs a) {
   extern __shared__ int sm[];
-  int* swin = sm;                   // (wh, sw), zero past ww
-  int* sblk = sm + a.wh * a.sw;     // (h, bs)
   __shared__ int rs[kMaxThreads / 32], ri[kMaxThreads / 32];
+  const strips::Shape& p = a.p;
+  const strips::Smem v(sm, p, a.wh);
   const long long b = blockIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
@@ -167,114 +139,39 @@ __global__ void __launch_bounds__(kMaxThreads, 2) kj_kernel(KJArgs a) {
     gw = a.win + b * a.wh * a.ww;
     ld = a.ww;
   }
-  const int* gs = a.src + b * a.h * a.w;
+  const int* gs = a.src + b * p.h * p.w;
   for (int r = warp; r < a.wh; r += nw)
-    for (int c = lane; c < a.sw; c += 32) {
+    for (int c = lane; c < p.sw; c += 32) {
       if (c < a.ww)
-        cp_async4(swin + r * a.sw + c, gw + r * ld + c);
+        cp_async4(v.win + r * p.sw + c, gw + r * ld + c);
       else
-        swin[r * a.sw + c] = 0;
+        v.win[r * p.sw + c] = 0;
     }
-  for (int r = warp; r < a.h; r += nw)
-    for (int c = lane; c < a.w; c += 32)
-      cp_async4(sblk + r * a.bs + c, gs + r * a.w + c);
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::);
+  for (int r = warp; r < p.h; r += nw)
+    for (int c = lane; c < p.w; c += 32)
+      cp_async4(v.blk + r * p.bs + c, gs + r * p.w + c);
+  cp_async_wait_all();
   __syncthreads();
 
-  // four 8-bit samples to a word where every staged value lies in 0..255
-  unsigned* pwin = (unsigned*)(sblk + a.h * a.bs);  // (wh, swp)
-  unsigned* pblk = pwin + a.wh * a.swp;             // (h, bsp)
   bool packed = false;
-  if (a.swp) {
-    int ok = 1;
-    for (int r = warp; r < a.wh; r += nw)
-      for (int c = lane; c < a.ww; c += 32)
-        ok &= (unsigned)swin[r * a.sw + c] <= 255u;
-    for (int r = warp; r < a.h; r += nw)
-      for (int c = lane; c < a.w; c += 32)
-        ok &= (unsigned)sblk[r * a.bs + c] <= 255u;
-    packed = __syncthreads_and(ok);
-  }
-  if (packed) {
-    for (int r = warp; r < a.wh; r += nw)
-      for (int k = lane; k < a.swp; k += 32) {
-        unsigned v = 0;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = 4 * k + e;
-          v |= (unsigned)(c < a.ww ? swin[r * a.sw + c] : 0) << (8 * e);
-        }
-        pwin[r * a.swp + k] = v;
-      }
-    for (int r = warp; r < a.h; r += nw)
-      for (int k = lane; k < a.w / 4; k += 32) {
-        const int* x = sblk + r * a.bs + 4 * k;
-        pblk[r * a.bsp + k] = (unsigned)x[0] | (unsigned)x[1] << 8 |
-                              (unsigned)x[2] << 16 | (unsigned)x[3] << 24;
-      }
-    __syncthreads();
-  }
-
-  const int ns = a.m * a.S, items = ns * a.G;
-  int best = INT_MAX, bi = INT_MAX;
-  // the trip count is the same for every thread: the shuffles see full
-  // warps (blockDim is a multiple of 32 and of G)
-  for (int base = 0; base < items; base += blockDim.x) {
-    const int it = base + threadIdx.x;
-    const int strip = it / a.G, g = it - strip * a.G;
-    const int ky = strip / a.S, ox0 = (strip - ky * a.S) * kR;
-    unsigned s[kR];
-#pragma unroll
-    for (int r = 0; r < kR; ++r) s[r] = 0;
-    if (strip < ns && packed) {
-      const unsigned* w0 = pwin + ky * a.swp + ox0 / 4;
-      for (int i = g; i < a.h; i += a.G)
-        strip_row_packed(w0 + i * a.swp, pblk + i * a.bsp, a.w / 4, s);
-    } else if (strip < ns) {
-      const int* w0 = swin + ky * a.stride * a.sw + ox0 * a.stride;
-      for (int i = g; i < a.h; i += a.G)
-        strip_row_strided(w0 + i * a.sw, sblk + i * a.bs, a.w, a.stride, s);
-    }
-    for (int off = 1; off < a.G; off <<= 1) {
-#pragma unroll
-      for (int r = 0; r < kR; ++r)
-        s[r] += __shfl_xor_sync(0xffffffffu, s[r], off);
-    }
-    if (strip < ns && g == 0) {
-#pragma unroll
-      for (int r = 0; r < kR; ++r) {
-        if (ox0 + r < a.m) {
-          const int o = ky * a.m + ox0 + r;
-          int t = (int)s[r];
-          if (a.cost) t += a.cost[o];
-          if (t < best) {  // offsets rise within a thread: keep the first
-            best = t;
-            bi = o;
-          }
-        }
-      }
+  if (p.swp) {
+    packed = __syncthreads_and(fits(p, v, a.wh, a.ww, warp, nw,
+                                            lane));
+    if (packed) {
+      pack(p, v, a.wh, a.ww, warp, nw, lane);
+      __syncthreads();
     }
   }
-  for (int off = 16; off > 0; off >>= 1) {
-    const int s = __shfl_down_sync(0xffffffffu, best, off);
-    const int i = __shfl_down_sync(0xffffffffu, bi, off);
-    if (better(s, i, best, bi)) {
-      best = s;
-      bi = i;
-    }
-  }
-  if (lane == 0) {
-    rs[warp] = best;
-    ri[warp] = bi;
-  }
-  __syncthreads();
+  int best, bi;
+  const int* cost = a.cost;
+  strips::best_of_strips<strips::Sad>(
+      p, v, packed,
+      [cost](unsigned sad, int o) {
+        return cost ? (int)sad + cost[o] : (int)sad;
+      },
+      best, bi);
+  strips::argmin_cta(best, bi, rs, ri);
   if (threadIdx.x == 0) {
-    for (int k = 1; k < nw; ++k)
-      if (better(rs[k], ri[k], best, bi)) {
-        best = rs[k];
-        bi = ri[k];
-      }
     a.best_idx[b] = bi;
     a.best_sad[b] = best;
   }
@@ -282,33 +179,17 @@ __global__ void __launch_bounds__(kMaxThreads, 2) kj_kernel(KJArgs a) {
 
 // Fills the launch shape of `a` (strips, row groups, strides) and launches.
 int kj_launch(KJArgs a, int B, void* stream) {
+  strips::Shape& p = a.p;
   if (B <= 0) return 0;
-  if (a.h <= 0 || a.w <= 0 || a.m <= 0 || a.stride <= 0 ||
-      a.wh < a.h + (a.m - 1) * a.stride || a.ww < a.w + (a.m - 1) * a.stride)
+  if (p.h <= 0 || p.w <= 0 || p.m <= 0 || p.stride <= 0 ||
+      a.wh < p.h + (p.m - 1) * p.stride || a.ww < p.w + (p.m - 1) * p.stride)
     return (int)cudaErrorInvalidValue;
-  a.S = (a.m + kR - 1) / kR;
-  const int ns = a.m * a.S;
-  a.G = ns * 2 <= kMaxThreads ? 2 : 1;
-  const int items = ns * a.G;
+  const int ns = p.m * ((p.m + strips::kR - 1) / strips::kR);
+  p.G = ns * 2 <= kMaxThreads ? 2 : 1;
+  const int items = ns * p.G;
   const int threads = items >= kMaxThreads ? kMaxThreads
                                            : (items + 31) / 32 * 32;
-  // every strip's reads stay in the row: the last strip's last offset is
-  // S * kR - 1, read up to w - 1 values past it
-  const int need = a.ww > a.S * kR * a.stride + a.w
-                       ? a.ww
-                       : a.S * kR * a.stride + a.w;
-  a.sw = need + (33 - need % 32) % 32;  // 1 mod 32
-  a.bs = a.w | 1;                       // odd
-  a.swp = a.bsp = 0;
-  if (a.stride == 1 && a.w % 4 == 0) {
-    // the last strip reads 3 words past the block's width; 9 mod 32
-    const int words = (a.S * kR + a.w) / 4 + 1;
-    a.swp = words + (41 - words % 32) % 32;
-    a.bsp = (a.w / 4) | 1;
-  }
-  const size_t smem =
-      sizeof(int) * ((size_t)a.wh * a.sw + (size_t)a.h * a.bs +
-                     (size_t)a.wh * a.swp + (size_t)a.h * a.bsp);
+  const size_t smem = sizeof(int) * (size_t)strips::plan(p, a.wh, a.ww);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -325,8 +206,8 @@ AV1_EXPORT int fullpel_sad(const int* src, const int* win, int B, int h,
                            int w, int wh, int ww, int m, int stride,
                            const int* cost, int* best_idx, int* best_sad,
                            void* stream) {
-  KJArgs a{src, win, nullptr, nullptr, 0, 0, h, w, wh, ww, m, stride,
-           0, 0, 0, 0, 0, 0, cost, best_idx, best_sad};
+  KJArgs a{src, win, nullptr, nullptr, 0, 0, wh, ww,
+           {h, w, m, stride}, cost, best_idx, best_sad};
   return kj_launch(a, B, stream);
 }
 
@@ -338,8 +219,8 @@ AV1_EXPORT int fullpel_sad_plane(const int* src, const int* plane, int H,
                                  int* best_idx, int* best_sad,
                                  void* stream) {
   if (h + m - 1 > H || w + m - 1 > W) return (int)cudaErrorInvalidValue;
-  KJArgs a{src, plane, oy, ox, H, W, h, w, h + m - 1, w + m - 1, m, 1,
-           0, 0, 0, 0, 0, 0, cost, best_idx, best_sad};
+  KJArgs a{src, plane, oy, ox, H, W, h + m - 1, w + m - 1, {h, w, m, 1},
+           cost, best_idx, best_sad};
   return kj_launch(a, B, stream);
 }
 

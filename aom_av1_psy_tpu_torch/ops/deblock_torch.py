@@ -10,6 +10,12 @@ tx origin, and all edges of one direction are independent (a 14-tap
 filter writes +-6 and reads +-7 around edges >= 16 px apart). So one
 direction is one parallel gather -> filter -> scatter.
 
+KC runs one CTA per tile, looping over the levels: tile origins half a
+cell before an edge, so every edge reads and writes inside one tile and a
+tile needs no halo. ``kc_tile`` states the kernel's layout and ``kc_tiles``
+lists its tiles, so that ``tests/test_torch_kc_tiles.py`` holds the claim
+against the plain version.
+
 The level pick sums each candidate's squared error exactly in int64 (the
 reference sums in float32 because JAX runs without x64; the picked levels
 agree on the tested frames).
@@ -27,6 +33,27 @@ KC = CudaKernel("deblock", {
     "lpf_ladder": [P, I, I, P, I, I, P, I, I, I, I, I, I, I, P, I, I, I,
                    P, P],
 })
+
+# KC's tile side in cells (luma 64 px, chroma 32 px: csrc/deblock.cu Tile)
+TILE_CELLS = 4
+
+
+def kc_tile(cell: int):
+    """KC's tile layout for a cell size: (origin offset, side). Origins
+    sit half a cell before an edge (luma 16m - 8, chroma 8m - 4): an edge at
+    e reads and writes only inside [e - cell/2, e + cell/2), which lies in
+    one tile in both directions."""
+    return -(cell // 2), TILE_CELLS * cell
+
+
+def kc_tiles(cell: int, hb: int, wb: int):
+    """KC's tiles of an (hb, wb) plane as (y0, y1, x0, x1), row-major,
+    clipped to the plane (the kernel's grid order)."""
+    off, side = kc_tile(cell)
+    ny, nx = -(-(hb - off) // side), -(-(wb - off) // side)
+    return [(max(off + i * side, 0), min(off + (i + 1) * side, hb),
+             max(off + j * side, 0), min(off + (j + 1) * side, wb))
+            for i in range(ny) for j in range(nx)]
 
 
 def _clamp127(v):
@@ -273,7 +300,8 @@ def lpf_ladder(buf, split16, cands, src, w: int, h: int, cell: int,
     KC.launch("lpf_ladder", buf.data_ptr(), Hb, Wb, split16.data_ptr(), R2,
               C2, cands.data_ptr(), L, cell, int(luma), nl_v, kv, nl_h, kh,
               *src_args, outs.data_ptr(),
-              0 if sse is None else sse.data_ptr())
+              0 if sse is None else sse.data_ptr(),
+              variant="luma" if luma else "chroma")
     return outs, sse
 
 

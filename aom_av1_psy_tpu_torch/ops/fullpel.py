@@ -12,8 +12,10 @@ integer SSD: same order, same ties. Ties go to the lowest flat index
 
 No convolution library is used: the plain version sums squared
 differences with elementwise torch ops, chunked over blocks so that a
-1080p frame fits on the card and on the CPU; the kernel keeps the window
-in shared memory (``csrc/fullpel.cu``).
+1080p frame fits on the card and on the CPU; the kernel stages the window
+in shared memory and scores strips of 12 offsets in registers, on 8-bit
+words where the staged values allow (``csrc/fullpel.cu``, the strip engine
+``csrc/strips.cuh`` it shares with KJ).
 """
 from __future__ import annotations
 
@@ -99,5 +101,6 @@ def fullpel_search(src, plane, by, bx, crop_h: int, crop_w: int,
     dx = torch.empty((B,), dtype=torch.int32, device=plane.device)
     KE.launch("fullpel_ssd", src.data_ptr(), plane.data_ptr(),
               plane.shape[0], plane.shape[1], crop_h, crop_w, by.data_ptr(),
-              bx.data_ptr(), *cptr, B, bw, dy.data_ptr(), dx.data_ptr())
+              bx.data_ptr(), *cptr, B, bw, dy.data_ptr(),
+              dx.data_ptr(), variant=f"bw{bw}")
     return dy, dx

@@ -27,13 +27,22 @@ exit code is not 0):
    chroma 16 pair, the four 8 quad pairs) against its plain version on
    CPU tensors, timed with events, ``device_ms`` and host us per call;
    ``device_ms`` (the profiler's device time) of the pick, of the old
-   pair and of KB;
+   pair and of KB; KC (the loop-filter ladder, 6 levels with the source)
+   at 1088x1920 luma and 544x960 chroma, each timed with events,
+   ``device_ms`` and its bound, and on zero, duplicated and level-63
+   ladders at planes no multiple of its tile (208x336, 1080x1928 and
+   their chroma) cropped below the buffer, with the source and without it
+   at L = 1;
 3b. KD / KE / KF, and KB's batched entry at the P-frame's batch sizes,
    against their plain versions at the 1080p P-frame's shapes, for exact
    equality, with both times and KB's ``device_ms``; KD at every K the
    plan uses (1, 2, 3, 5, 9) at bw 8 / 16 / 32, with and without the
    source blocks and the prediction, and its ``device_ms`` at bw 16,
-   K = 9, B = 8160;
+   K = 9, B = 8160; KE at bw 8 on the half-resolution plane and at bw 16
+   (B = 8160), with and without centres (to +-48: windows past every
+   border of the crop), on 8-bit (words) and 10-bit (32-bit strips)
+   samples, bw 16 with centres and bw 8 without timed with events,
+   ``device_ms`` and their bounds;
 3c. KA and KB at 4x4 (KB with the sinpi ADST4 and the skip decision off)
    and KB with the skip off at 8x8, at the uniform grid's shapes (640x360:
    chroma B = 2 x 45; 1080p BLOCK_8X8: luma B = 135, chroma B = 270), and
@@ -149,8 +158,8 @@ exit code is not 0):
    path on the CPU plain path; timed (median of 3 after a first) with the
    counts set to 0 before the 3 runs and read after;
 6. / 6b. a profiler window over one steady 1080p KEY frame and one steady
-   1080p P-frame (device busy time by kernel; 6b also KD's and KE's
-   launches and device time in the P-frame).
+   1080p P-frame (device busy time by kernel; KC's launches and device
+   time in the KEY frame; 6b also KD's, KE's and KC's in the P-frame).
 
 ``--only-kernels`` stops after phase 3g. The second-to-last line is
 ``{"kernels": [...]}``: ``launches`` from the GOP of phase 5b (for the
@@ -793,7 +802,7 @@ def check_kernels(dev):
     g = 14
     cands = t([0, g // 2, g - 2, g, g + 2, 2 * g])
     split16 = t(rng.random((68, 120)) < .5, torch.bool)
-    err, times = 0.0, None
+    err, kc_t = 0.0, {}
     for pl, (hb, wb, cell, luma, w, h) in zip(
             frame.planes(), ((1088, 1920, 16, True, 1920, 1080),
                              (544, 960, 8, False, 960, 540))):
@@ -801,26 +810,77 @@ def check_kernels(dev):
         src[:pl.shape[0], :pl.shape[1]] = pl
         recon = (src // 6) * 6 + rng.integers(0, 3, src.shape)  # blocky
         a = (t(recon), split16, cands, t(src), w, h, cell, luma)
-        err = max(err, compare(f"KC {'luma' if luma else 'chroma'}",
-                               DT.lpf_ladder(*a), DT.lpf_ladder_plain(*a)))
-        if luma:
-            times = (cuda_time(lambda: DT.lpf_ladder(*a), 20),
-                     cuda_time(lambda: DT.lpf_ladder_plain(*a), 3))
-            # ~20 operations per pixel and level (edge masks, filters, the
-            # squared error)
-            bnd = bound(nbytes(a, DT.lpf_ladder(*a)),
-                        20 * len(cands) * hb * wb)
+        tag = "luma" if luma else "chroma"
+        err = max(err, compare(f"KC {tag}", DT.lpf_ladder(*a),
+                               DT.lpf_ladder_plain(*a)))
+        # ~20 operations per pixel and level (edge masks, filters, the
+        # squared error)
+        kc_t[tag] = (cuda_time(lambda: DT.lpf_ladder(*a), 20),
+                     cuda_time(lambda: DT.lpf_ladder_plain(*a), 3),
+                     device_ms(lambda: DT.lpf_ladder(*a), 20,
+                               "kc_tile_kernel"),
+                     bound(nbytes(a, DT.lpf_ladder(*a)),
+                           20 * len(cands) * hb * wb))
+    cases = _kc_edge_cases(dev, rng)
     results.append({"name": "lpf_ladder", "route": "cuda",
                     "source": "aom_av1_psy_tpu_torch/csrc/deblock.cu",
                     "replaces": "aom_av1_psy_tpu/ops/deblock_jax.py:183",
-                    "max_abs_err": err, "ms": times[0], "plain_ms": times[1],
-                    **bnd, "library_ms": None,
+                    "max_abs_err": err, "ms": kc_t["luma"][0],
+                    "plain_ms": kc_t["luma"][1], **kc_t["luma"][3],
+                    "device_ms": kc_t["luma"][2],
+                    "chroma_ms": kc_t["chroma"][0],
+                    "chroma_plain_ms": kc_t["chroma"][1],
+                    "chroma_device_ms": kc_t["chroma"][2],
+                    "chroma_bound_ms": kc_t["chroma"][3]["bound_ms"],
+                    "library_ms": None,
                     "library_none": "no single PyTorch call runs the AV1 "
                                     "deblocking filters",
-                    "timed_at": "luma 1088x1920, 6 levels"})
+                    "timed_at": "luma 1088x1920, 6 levels (chroma_*: "
+                                "544x960)"})
     log(f"[3] KC lpf_ladder exact at 1088x1920 luma and 544x960 chroma, 6 "
-        f"levels; luma: kernel {times[0]:.4f} ms, plain {times[1]:.4f} ms")
+        f"levels, and on {cases}; "
+        + "; ".join(f"{k}: kernel {v[0]:.4f} ms (device {v[2]} ms), plain "
+                    f"{v[1]:.4f} ms, bound {v[3]['bound_ms']:.4f} ms "
+                    f"({v[3]['bound_by']})" for k, v in kc_t.items()))
     return results
+
+
+def _kc_edge_cases(dev, rng):
+    """KC against its plain version on all-zero and duplicated ladders and
+    at level 63, on planes no multiple of its tile cropped below the
+    buffer, with the source and without it at L = 1 (``lpf_apply``'s
+    call)."""
+    import numpy as np
+    import torch
+    from aom_av1_psy_tpu_torch.ops import deblock_torch as DT
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), device=dev)
+
+    n = 0
+    for hb, wb, h, w in ((208, 336, 198, 330), (1080, 1928, 1075, 1921)):
+        split16 = rng.random((-(-hb // 16), -(-wb // 16))) < .5
+        for luma in (True, False):
+            cell = 16 if luma else 8
+            ph, pw, ch, cw = ((hb, wb, h, w) if luma else
+                              (hb // 2, wb // 2, (h + 1) // 2, (w + 1) // 2))
+            blocks = rng.integers(0, 256, (-(-ph // 8), -(-pw // 8)))
+            buf = np.kron(blocks, np.ones((8, 8), np.int64))[:ph, :pw]
+            buf = (buf + rng.integers(0, 3, (ph, pw))).astype(np.int32)
+            src = rng.integers(0, 256, (ph, pw)).astype(np.int32)
+            for cands in ([0, 0, 0], [14, 14, 7, 7], [63], [0, 63, 63, 40]):
+                a = (t(buf), t(split16), t(np.array(cands, np.int32)),
+                     t(src), cw, ch, cell, luma)
+                compare(f"KC {ph}x{pw} {cands}", DT.lpf_ladder(*a),
+                        DT.lpf_ladder_plain(*a))
+                b = (a[0], a[1], t(np.array(cands[-1:], np.int32)),
+                     None) + a[4:]
+                compare(f"KC {ph}x{pw} L=1 no src", DT.lpf_ladder(*b)[0],
+                        DT.lpf_ladder_plain(*b)[0])
+                n += 2
+    return (f"{n} edge cases (zero, duplicated and level-63 ladders, "
+            "208x336 and 1080x1928 planes and their chroma, L = 1 without "
+            "the source)")
 
 
 def check_uniform_kernels(dev):
@@ -1548,6 +1608,14 @@ def profile_frame(dev, frame, cfg):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     _device_rows("6", prof, wall)
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "kc_tile_kernel" in e.key]
+    log(f"[6] KC: {sum(e.count for e in rows)} launches, "
+        f"{sum(e.self_device_time_total for e in rows) / 1e3:.4f} ms of "
+        f"device time in the KEY frame")
+
+
 def check_inter_kernels(dev):
     """Phase 3b: KD / KE / KF (and KB at the P-frame's batch sizes) against
     their plain versions at the 1080p P-frame's shapes."""
@@ -1633,40 +1701,59 @@ def check_inter_kernels(dev):
         f"{times[2]} ms), plain {times[1]:.4f} ms, bound "
         f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
 
-    # ---- KE: bw 8 on the half-resolution plane, bw 16 with centres ----
-    err, times = 0.0, None
+    # ---- KE: bw 8 on the half-resolution plane, bw 16 with centres; the
+    # same at 10 bits (the 32-bit strips), windows past every border ----
+    err, ke_t = 0.0, {}
     half = (y[0::2, 0::2] + y[1::2, 0::2] + y[0::2, 1::2] + y[1::2, 1::2]
             + 2) >> 2
+    n = 2 * FP.SEARCH_RAD + 1
     for bw, plane, (ch, cw), cen in ((8, half, (540, 960), False),
-                                     (16, y, (1080, 1920), True)):
+                                     (16, y, (1080, 1920), True),
+                                     (8, half, (540, 960), True),
+                                     (16, y, (1080, 1920), False)):
         B = 8160
         by, bx = TI._origins(B, 120, bw, str(dev))
-        src = TI._blocks(t(np.roll(plane, (3, -5), (0, 1))), bw).contiguous()
-        kw = {}
-        if cen:
-            kw = dict(cy=t(rng.integers(-32, 33, B)),
-                      cx=t(rng.integers(-32, 33, B)))
-        a = (src, t(plane), by, bx, ch, cw, bw)
-        err = max(err, compare(f"KE bw{bw}", FP.fullpel_search(*a, **kw),
-                               FP.fullpel_search_plain(*a, **kw)))
-        if cen:
-            times = (cuda_time(lambda: FP.fullpel_search(*a, **kw), 10),
-                     cuda_time(lambda: FP.fullpel_search_plain(*a, **kw), 2))
-            # 33 x 33 offsets, 3 operations per pixel of each SSD
-            n = 2 * FP.SEARCH_RAD + 1
-            bnd = bound(nbytes(a, kw, FP.fullpel_search(*a, **kw)),
-                        3 * n * n * B * bw * bw)
+        for bits in (8, 10):
+            pl = plane if bits == 8 else plane * 4 + 3
+            src = TI._blocks(t(np.roll(pl, (3, -5), (0, 1))), bw)
+            src = src.contiguous()
+            kw = {}
+            if cen:
+                kw = dict(cy=t(rng.integers(-48, 49, B)),
+                          cx=t(rng.integers(-48, 49, B)))
+            a = (src, t(pl), by, bx, ch, cw, bw)
+            tag = f"bw{bw}{' centres' if cen else ''}{' 10-bit' * (bits > 8)}"
+            err = max(err, compare(f"KE {tag}", FP.fullpel_search(*a, **kw),
+                                   FP.fullpel_search_plain(*a, **kw)))
+            if bits == 8 and (bw == 16) == cen:
+                # 33 x 33 offsets, 3 operations per pixel of each SSD
+                ke_t[bw] = (
+                    cuda_time(lambda: FP.fullpel_search(*a, **kw), 10),
+                    cuda_time(lambda: FP.fullpel_search_plain(*a, **kw), 2),
+                    device_ms(lambda: FP.fullpel_search(*a, **kw), 20,
+                              "ke_strip_kernel"),
+                    bound(nbytes(a, kw, FP.fullpel_search(*a, **kw)),
+                          3 * n * n * B * bw * bw))
     results.append({"name": "fullpel_ssd", "route": "cuda",
                     "source": "aom_av1_psy_tpu_torch/csrc/fullpel.cu",
                     "replaces": "aom_av1_psy_tpu/encoder/tpu_inter.py:106",
-                    "max_abs_err": err, "ms": times[0], "plain_ms": times[1],
-                    **bnd, "library_ms": None,
+                    "max_abs_err": err, "ms": ke_t[16][0],
+                    "plain_ms": ke_t[16][1], **ke_t[16][3],
+                    "device_ms": ke_t[16][2], "bw8_ms": ke_t[8][0],
+                    "bw8_plain_ms": ke_t[8][1], "bw8_device_ms": ke_t[8][2],
+                    "bw8_bound_ms": ke_t[8][3]["bound_ms"],
+                    "library_ms": None,
                     "library_none": "no single PyTorch call takes the integer"
                                     " SSD argmin over a window",
-                    "timed_at": "bw16 B=8160 with centres, 1088x1920"})
+                    "timed_at": "bw16 B=8160 with centres, 1088x1920 (bw8_*:"
+                                " B=8160 on the 544x960 half plane)"})
     log(f"[3b] KE fullpel_ssd exact at bw8 B=8160 (544x960) and bw16 "
-        f"B=8160 with centres (flat region: ties); bw16: kernel "
-        f"{times[0]:.4f} ms, plain {times[1]:.4f} ms")
+        f"B=8160, with and without centres (to +-48: windows past every "
+        f"border of the crop), 8-bit (words) and 10-bit (32-bit strips), "
+        f"flat region (ties); "
+        + "; ".join(f"bw{k}: kernel {v[0]:.4f} ms (device {v[2]} ms), plain "
+                    f"{v[1]:.4f} ms, bound {v[3]['bound_ms']:.4f} ms "
+                    f"({v[3]['bound_by']})" for k, v in sorted(ke_t.items())))
 
     # ---- KF: 1088x1920 luma, 544x960 chroma, pri = 0 / sec = 0 mixes ----
     from aom_av1_psy_tpu_torch.ops.cdef import find_dir_blocks
@@ -1890,7 +1977,8 @@ def profile_p_frame(dev, frames, encs):
         wall = time.perf_counter() - t0
     _device_rows("6b", prof, wall, f"plan {enc.timings['plan_s']:.4f} s, "
                  f"pack {enc.timings['pack_s']:.4f} s")
-    for kernel, key in (("KD", "kd_kernel"), ("KE", "ke_kernel")):
+    for kernel, key in (("KD", "kd_kernel"), ("KE", "ke_strip_kernel"),
+                        ("KC", "kc_tile_kernel")):
         rows = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA
                 and key in e.key]

@@ -1,6 +1,8 @@
 """Kernels KD / KE / KF of ``aom_av1_psy_tpu_torch`` against their plain
-PyTorch versions on a CUDA device, and the P-frame path on CUDA against the
-CPU plain path. Tolerance: exact equality (integer outputs only).
+PyTorch versions on a CUDA device (KE also at the clamped borders, on ties,
+on 10-bit samples and at each launch shape), and the P-frame path on CUDA
+against the CPU plain path. Tolerance: exact equality (integer outputs
+only).
 
 Every test needs the card: it carries the ``gpu`` marker and skips where
 ``torch.cuda.is_available()`` is false. The file imports nothing of jax
@@ -103,6 +105,39 @@ def test_fullpel_kernel_matches_plain(dev, bw, centres):
     for g, w in zip(FP.fullpel_search(*a, **kw),
                     FP.fullpel_search_plain(*a, **kw)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("bits", [8, 10])
+@pytest.mark.parametrize("centres", [False, True])
+@pytest.mark.parametrize("bw", [8, 16])
+def test_fullpel_kernel_edges_match_plain(dev, bw, centres, bits):
+    """KE with blocks over the whole plane, past a crop smaller than it,
+    with centres up to +-48, so the windows clamp at all four borders; a flat patch where every offset
+    ties; 10-bit samples (up to 1023) take the 32-bit strips, 8-bit the
+    words. One launch per call, counted under its block width."""
+    c = _on(dev)
+    rng = np.random.default_rng(300 + 10 * bw + 2 * int(centres) + bits)
+    H, W, top = 96, 160, (1 << bits) - 1
+    plane = rng.integers(0, top + 1, (H, W)).astype(np.int32)
+    plane[:40, :56] = 40                                  # ties
+    plane[56:, 120:] = top                                # the largest SSD
+    B = (H // bw) * (W // bw)
+    by, bx = TI._origins(B, W // bw, bw, str(dev))
+    src = np.clip(np.roll(plane, (1, -2), (0, 1))
+                  + rng.integers(-2, 3, (H, W)), 0, top).astype(np.int32)
+    src = TI._blocks(c(src), bw).contiguous()
+    src[:2] = 40                                          # flat on flat
+    kw = {}
+    if centres:
+        kw = dict(cy=c(rng.integers(-48, 49, B).astype(np.int32)),
+                  cx=c(rng.integers(-48, 49, B).astype(np.int32)))
+    a = (src, c(plane), by, bx, 88, 150, bw)
+    want = FP.fullpel_search_plain(*a, **kw)
+    n0, v0 = FP.KE.launches, FP.KE.variants[f"bw{bw}"]
+    for got, w in zip(FP.fullpel_search(*a, **kw), want):
+        assert torch.equal(got, w)
+    assert FP.KE.launches == n0 + 1
+    assert FP.KE.variants[f"bw{bw}"] == v0 + 1
 
 
 @pytest.mark.parametrize("pri,sec", [(4, 2), (0, 2), (6, 0), (0, 0)])

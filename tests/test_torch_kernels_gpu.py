@@ -1,9 +1,10 @@
 """Kernels KA / KB / KC of ``aom_av1_psy_tpu_torch`` against their plain
 PyTorch versions on a CUDA device, at the shapes of one 1080p anti-diagonal
 step (KA and KB at 4x4 too, and KB with the skip decision off, as the
-uniform grid runs them), and whole KEY frames on the card against the CPU
-plain path. Tolerance: exact equality (integer outputs; the float32
-skip-RD outputs are computed in the same order).
+uniform grid runs them; KC also on all-zero, duplicated and level-63
+ladders and on planes no multiple of its tile), and whole KEY frames on
+the card against the CPU plain path. Tolerance: exact equality (integer
+outputs; the float32 skip-RD outputs are computed in the same order).
 
 Every test needs the card: it carries the ``gpu`` marker and skips where
 ``torch.cuda.is_available()`` is false. The file imports nothing of jax
@@ -132,6 +133,39 @@ def test_lpf_ladder_kernel_matches_plain(dev, luma):
     before = DT.KC.launches
     DT.lpf_ladder(*a)
     assert DT.KC.launches == before + 1
+
+
+@pytest.mark.parametrize("cands", [[0, 0, 0], [14, 14, 7, 7], [63],
+                                   [0, 63, 63, 1, 2, 40]])
+@pytest.mark.parametrize("luma", [True, False])
+@pytest.mark.parametrize("hb,wb,h,w", [(208, 336, 198, 330),
+                                       (120, 200, 100, 170)])
+def test_lpf_ladder_kernel_ladders_and_sizes(dev, hb, wb, h, w, luma, cands):
+    """KC on all-zero and duplicated ladders and at level 63, on planes
+    whose sizes are no multiple of its tile, cropped below the buffer; with
+    the source (the sums) and without it at L = 1 per level (lpf_apply's
+    call). One launch per call."""
+    c = _on(dev)
+    rng = np.random.default_rng(500 + hb + 7 * len(cands) + int(luma))
+    split16 = rng.random((-(-hb // 16), -(-wb // 16))) < .5
+    cell = 16 if luma else 8
+    if not luma:
+        hb, wb, h, w = hb // 2, wb // 2, (h + 1) // 2, (w + 1) // 2
+    blocks = rng.integers(0, 256, (-(-hb // 8), -(-wb // 8)))
+    buf = np.kron(blocks, np.ones((8, 8), np.int64))[:hb, :wb]
+    buf = (buf + rng.integers(0, 3, (hb, wb))).astype(np.int32)
+    src = rng.integers(0, 256, (hb, wb)).astype(np.int32)
+    a = (c(buf), c(split16), c(np.array(cands, np.int32)), c(src), w, h,
+         cell, luma)
+    before = DT.KC.launches
+    for g, want in zip(DT.lpf_ladder(*a), DT.lpf_ladder_plain(*a)):
+        assert torch.equal(g, want)
+    for lvl in cands:
+        b = (a[0], a[1], c(np.array([lvl], np.int32)), None) + a[4:]
+        got, sse = DT.lpf_ladder(*b)
+        assert sse is None
+        assert torch.equal(got, DT.lpf_ladder_plain(*b)[0])
+    assert DT.KC.launches == before + 1 + len(cands)
 
 
 def test_lpf_apply_kernel_matches_plain(dev):

@@ -18,10 +18,17 @@ order A B B A (``--rounds`` times):
   call);
 - KD's ``mc_8tap`` at bw 16, K = 9, B = 8160, SAD only (events and device
   time);
+- KE's ``fullpel_search`` at B = 8160, bw 16 with centres on the 1088x1920
+  luma and bw 8 on its half-resolution plane, and KC's ``lpf_ladder`` at
+  1088x1920 luma and 544x960 chroma, 6 levels with the source (events, and
+  the device time of every kernel and memset in the profiled window: the
+  two checkouts' kernels have other names);
 - the 1080p P-frame: each P-frame of ``make_gop(1920, 1080, 5)`` at q100
   re-encoded alone from the GOP's chain, twice: the median ``plan_s`` and
-  frame time, KD's launches per P-frame, and KD's launches and device
-  time summed over one P-frame under the profiler.
+  frame time, KD's launches per P-frame, and KD's, KE's and KC's launches
+  and device time summed over one P-frame under the profiler;
+- one untiled 1080p KEY frame under the profiler: KC's launches and device
+  time, and the device kernels and copies of the frame.
 Only entry points that both checkouts have are timed. Both checkouts
 build their kernels into their own ``build/`` at first use.
 
@@ -188,6 +195,38 @@ kd = lambda: MC.mc_8tap(y, gy, gx, qr, qc, 16, 1080, 1920, kern, src=s16,
 out["kd_ms"] = events_ms(kd, 20)
 out["kd_device_ms"] = device_ms(kd, 20, "kd_kernel")
 
+# KE at the P-frame's two levels, KC at the KEY frame's planes
+from aom_av1_psy_tpu_torch.ops import deblock_torch as DT
+from aom_av1_psy_tpu_torch.ops import fullpel as FP
+half = (y[0::2, 0::2] + y[1::2, 0::2] + y[0::2, 1::2] + y[1::2, 1::2]
+        + 2) >> 2
+for bw, plane, (ch, cw), cen in ((8, half, (540, 960), False),
+                                 (16, y, (1080, 1920), True)):
+    gy, gx = TIN._origins(B, 120, bw, "cuda")
+    s_b = TIN._blocks(torch.roll(plane, (3, -5), (0, 1)), bw).contiguous()
+    kw = {}
+    if cen:
+        kw = {k: torch.as_tensor(rng.integers(-32, 33, B).astype(np.int32),
+                                 device="cuda") for k in ("cy", "cx")}
+    ke = lambda: FP.fullpel_search(s_b, plane, gy, gx, ch, cw, bw, **kw)
+    out[f"ke_bw{bw}_ms"] = events_ms(ke, 20)
+    out[f"ke_bw{bw}_device_ms"] = device_ms(ke, 20, "")
+cands = torch.tensor([0, 7, 12, 14, 16, 28], dtype=torch.int32,
+                     device="cuda")
+split16 = torch.as_tensor(rng.random((68, 120)) < .5, device="cuda")
+for pl, (hb, wb, cell, luma, w, h) in zip(
+        frame.planes(), ((1088, 1920, 16, True, 1920, 1080),
+                         (544, 960, 8, False, 960, 540))):
+    srcp = np.zeros((hb, wb), np.int32)
+    srcp[:pl.shape[0], :pl.shape[1]] = pl
+    recon = (srcp // 6) * 6 + rng.integers(0, 3, srcp.shape)
+    a = (torch.as_tensor(recon.astype(np.int32), device="cuda"), split16,
+         cands, torch.as_tensor(srcp, device="cuda"), w, h, cell, luma)
+    kc = lambda: DT.lpf_ladder(*a)
+    tag = "luma" if luma else "chroma"
+    out[f"kc_{tag}_ms"] = events_ms(kc, 20)
+    out[f"kc_{tag}_device_ms"] = device_ms(kc, 20, "")
+
 # the 1080p P-frame, re-encoded alone from the GOP's chain
 from aom_av1_psy_tpu_torch.encoder.tpu_interframe import (
     GpuInterFrameEncoder, _ref_chain_planes, encode_video)
@@ -218,12 +257,36 @@ with profile(activities=[ProfilerActivity.CPU,
                          _ref_chain_planes(encs[1]), 1920, 1080,
                          prev_fc=encs[1].saved_fc, device="cuda").encode()
     torch.cuda.synchronize()
-rows = [e for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-        and "kd_kernel" in e.key]
-out["kd_p_frame_device_ms"] = sum(e.self_device_time_total
-                                  for e in rows) / 1e3
-out["kd_p_frame_launches"] = sum(e.count for e in rows)
+# the kernels by name in either checkout
+NAMES = {"kd": ("::kd_kernel<",),
+         "ke": ("::ke_kernel<", "::ke_strip_kernel<"),
+         "kc": ("::copy_kernel(", "::edge_kernel<", "::sse_kernel(",
+                "::kc_tile_kernel<")}
+
+
+def by_name(prof, key):
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and any(n in e.key for n in NAMES[key])]
+    return (sum(e.self_device_time_total for e in rows) / 1e3,
+            sum(e.count for e in rows))
+
+
+for k in ("kd", "ke", "kc"):
+    out[f"{k}_p_frame_device_ms"], out[f"{k}_p_frame_launches"] = \
+        by_name(prof, k)
+# one untiled KEY frame under the profiler
+with profile(activities=[ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA]) as prof:
+    GpuFrameEncoder(frame, EncoderConfig(base_q_idx=100),
+                    device="cuda").encode()
+    torch.cuda.synchronize()
+out["kc_key_frame_device_ms"], out["kc_key_frame_launches"] = \
+    by_name(prof, "kc")
+out["key_frame_device_ops"] = sum(
+    e.count for e in prof.key_averages()
+    if e.device_type == torch.autograd.DeviceType.CUDA
+    and e.self_device_time_total > 0)
 print(json.dumps(out))
 """
 
@@ -262,8 +325,13 @@ def main() -> int:
         for k in ("kn_sad_ms", "pairwise_ms", "kj_ms", "kj_device_ms",
                   "tf_motion_s", "kj_launches_per_motion_inputs", "kd_ms",
                   "kd_device_ms", "p_plan_s", "p_frame_s",
-                  "kd_launches_per_p_frame", "kd_p_frame_device_ms",
-                  "kd_p_frame_launches") + tuple(
+                  "kd_launches_per_p_frame", "ke_bw8_ms",
+                  "ke_bw8_device_ms", "ke_bw16_ms", "ke_bw16_device_ms",
+                  "kc_luma_ms", "kc_luma_device_ms", "kc_chroma_ms",
+                  "kc_chroma_device_ms", "kc_key_frame_device_ms",
+                  "kc_key_frame_launches", "key_frame_device_ops") + tuple(
+                f"{k}_p_frame_{m}" for k in ("kd", "ke", "kc")
+                for m in ("device_ms", "launches")) + tuple(
                 f"kb_bs{bs}{m}" for bs in (16, 32, 8)
                 for m in ("_ms", "_device_ms")):
             vals = [x[k] for x in lines if x[k] is not None]
