@@ -46,7 +46,10 @@ Device work runs as plain torch ops plus eleven hand-written CUDA kernels
   search with the reference's first-index ties, on KJ's strip engine
   (``csrc/strips.cuh``: strips of 12 offsets in registers, 8-bit words
   where the staged values allow);
-- KF ``cdef_filter`` (``ops/cdef_torch.py``): the frame CDEF apply;
+- KF ``cdef_filter`` (``ops/cdef_torch.py``): the frame CDEF pass, one
+  launch per frame: the normative direction search, the three planes
+  and the A/B gate's exact squared errors, one CTA per 64 x 64 luma
+  tile staged with its 2-px halo;
 - KG ``gauss_blur``, KH ``unsharp_apply``, KI ``vif_scale`` / ``vif_down2``
   (``encoder/tune_vmaf.py``): the tune_vmaf blur (with exact moment sums),
   the unsharp mask and the VIF pyramid;

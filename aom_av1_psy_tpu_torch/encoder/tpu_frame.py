@@ -141,6 +141,7 @@ class GpuFrameEncoder:
             for p in (1, 2):
                 self.srcp.append(_pad_plane(planes[p].astype(np.int32),
                                             ph32 // 2, pw32 // 2))
+        self._srcs_dev = None
 
         from ..ec import costs as EC_costs
         self.rdmult = EC_costs.compute_rd_mult(cfg.base_q_idx)
@@ -296,11 +297,12 @@ class GpuFrameEncoder:
                 cdef_fixed_strengths(fh, self.cfg.base_q_idx)
         if seq.enable_cdef and self.use_part:
             # the reference chain is made post-CDEF like the decoder's,
-            # with host-exact directions (and the A/B gate for cdef_fixed)
+            # with the normative directions (and the A/B gate for
+            # cdef_fixed)
             self.ref_planes_dev = apply_cdef_refs(
                 self.ref_planes_dev, self.mi_skip, fh, self.mi_rows,
                 self.mi_cols, self.nplanes,
-                srcs=None if self.cfg.search_cdef else self.srcp)
+                srcs=None if self.cfg.search_cdef else self.device_sources())
         # end-of-frame entropy state, counter-reset as the decoder's
         # _update_ref_slots does (a following INTER frame forwards it)
         fc.reset_counters()
@@ -469,6 +471,14 @@ class GpuFrameEncoder:
                               dim=1) for p in range(self.nplanes)]
         return list(self.plan["recon_dev"])
 
+    def device_sources(self) -> tuple:
+        """The source planes on the device, uploaded once per frame and
+        shared by the loop-filter pick and the CDEF gate."""
+        if self._srcs_dev is None:
+            self._srcs_dev = tuple(convert.plane(p, self.device)
+                                   for p in self.srcp[: self.nplanes])
+        return self._srcs_dev
+
     def _lpf_device(self, fh: FrameHeader) -> None:
         """Pick + apply the loop filter on the device. With
         ``cfg.search_lpf`` a 6-rung ladder around the q-derived first guess
@@ -483,10 +493,8 @@ class GpuFrameEncoder:
             cands = torch.tensor([0, g // 2, max(g - 2, 0), g,
                                   min(g + 2, 63), min(g * 2, 63)],
                                  dtype=torch.int32, device=dev)
-            srcs = tuple(convert.plane(p, dev)
-                         for p in self.srcp[: self.nplanes])
             levels, outs = DT.lpf_pick_and_filter(
-                tuple(recs), srcs, split16, cands, w=w, h=h,
+                tuple(recs), self.device_sources(), split16, cands, w=w, h=h,
                 nplanes=self.nplanes)
             lv = [int(x) for x in levels.cpu().numpy()]
             fh.lf.filter_level = (lv[0], lv[0])
@@ -847,18 +855,20 @@ def cdef_fixed_strengths(fh: FrameHeader, q: int) -> None:
 def apply_cdef_refs(planes_dev, mi_skip, fh: FrameHeader, mi_rows: int,
                     mi_cols: int, nplanes: int, srcs=None):
     """Apply the frame's CDEF to the (post-LPF) reference planes on the
-    device (``ops/cdef_torch.cdef_apply_fused``, kernel KF), with the
-    NORMATIVE direction search on the host (``ops/cdef.find_dir_blocks``,
-    exact int64, after one device->host copy of luma). Returns new device
-    planes. Carried over from the reference (``tpu_frame.py:896-946``).
+    device: one frame pass (``ops/cdef_torch.cdef_frame``, kernel KF) that
+    finds the NORMATIVE directions (exact integer costs), filters the
+    planes and, with ``srcs``, sums the gate's squared errors. No plane
+    goes to the host; ``skip8`` goes up once. Returns new device planes.
+    Carried over from the reference (``tpu_frame.py:896-946``), whose
+    direction search runs on the host.
 
-    When ``srcs`` (source planes) are given, the strengths are A/B gated:
-    if the filtered frame's source error is not clearly lower, the
-    strengths are zeroed in ``fh`` and the input planes returned. The
-    reference sums each plane's squared error in float32; here each is
-    exact (int64), converted to float32, and the planes are added in the
+    When ``srcs`` (source planes: tensors on the planes' device, or numpy)
+    are given, the strengths are A/B gated: if the filtered frame's source
+    error is not clearly lower, the strengths are zeroed in ``fh`` and the
+    input planes returned. The reference sums each plane's squared error
+    in float32; here each is exact (int64, one device->host copy of the 2 x
+    nplanes sums), converted to float32, and the planes are added in the
     reference's order before ``e1 < 0.98 * e0`` in float32."""
-    from ..ops.cdef import find_dir_blocks
     from ..ops import cdef_torch as CT
     c = fh.cdef
     ysec = c.y_sec[0] + (c.y_sec[0] == 3)
@@ -866,37 +876,23 @@ def apply_cdef_refs(planes_dev, mi_skip, fh: FrameHeader, mi_rows: int,
     if c.y_pri[0] == 0 and ysec == 0 and c.uv_pri[0] == 0 and usec == 0:
         return planes_dev
     dev = planes_dev[0].device
-    mh, mw = mi_rows * 4, mi_cols * 4
-    nbr, nbc = mh // 8, mw // 8
-    y_host = planes_dev[0][:mh, :mw].cpu().numpy()
-    yb = y_host.reshape(nbr, 8, nbc, 8).transpose(0, 2, 1, 3) \
-        .reshape(-1, 8, 8)
-    dirs, var = find_dir_blocks(yb, 0)
+    nbr, nbc = mi_rows // 2, mi_cols // 2
     sk = np.ones((nbr * 2, nbc * 2), np.int32)
     sk[:mi_rows, :mi_cols] = mi_skip
     skip8 = sk.reshape(nbr, 2, nbc, 2).all((1, 3))
-    outs = CT.cdef_apply_fused(
-        tuple(planes_dev[:nplanes]), torch.as_tensor(skip8, device=dev),
-        torch.as_tensor(dirs.astype(np.int32), device=dev),
-        torch.as_tensor(var.astype(np.int32), device=dev),
-        c.y_pri[0], ysec, c.uv_pri[0], usec, c.damping,
-        mi_rows=mi_rows, mi_cols=mi_cols, nplanes=nplanes)
     if srcs is not None:
-        dims = [(mh, mw)] + [(mh // 2, mw // 2)] * (nplanes - 1)
-        src_d = [convert.plane(s[:sh, :sw], dev)
-                 for s, (sh, sw) in zip(srcs, dims)]
-
-        def sq_err(pl, src):
-            d = (pl[:src.shape[0], :src.shape[1]] - src).to(torch.int64)
-            return (d * d).sum()
-
-        errs = torch.stack([sq_err(p, s) for p, s in zip(planes_dev, src_d)]
-                           + [sq_err(p, s) for p, s in zip(outs, src_d)])
-        e = errs.cpu().numpy().astype(np.float32)
-        e0, e1 = e[0], e[nplanes]
+        srcs = tuple(s if torch.is_tensor(s) else convert.plane(s, dev)
+                     for s in srcs[:nplanes])
+    outs, _, _, sums = CT.cdef_frame(
+        tuple(planes_dev[:nplanes]), torch.as_tensor(skip8, device=dev),
+        c.y_pri[0], ysec, c.uv_pri[0], usec, c.damping, mi_rows=mi_rows,
+        mi_cols=mi_cols, nplanes=nplanes, srcs=srcs)
+    if srcs is not None:
+        e = sums.cpu().numpy().astype(np.float32)
+        e0, e1 = e[0, 0], e[1, 0]
         for i in range(1, nplanes):
-            e0 = e0 + e[i]
-            e1 = e1 + e[nplanes + i]
+            e0 = e0 + e[0, i]
+            e1 = e1 + e[1, i]
         # require a clear win: marginal filtering denoises the recon at
         # the cost of re-coding that noise in every following frame
         if not e1 < np.float32(0.98) * e0:

@@ -52,7 +52,6 @@ from ..normative.enums import BlockSize, TxSize
 from ..normative.txsize import (TXSIZE_LOG2_MINUS4, TXSIZE_SQR,
                                 txsize_entropy_ctx)
 from ..utils.frame import Frame
-from .. import convert
 from ..device import resolve_device
 from ..ops import deblock_torch as DT
 from . import temporal_filter as TF
@@ -135,6 +134,7 @@ class GpuInterFrameEncoder:
             for p in (1, 2):
                 self.srcp.append(_pad_plane(planes[p].astype(np.int32),
                                             ph32 // 2, pw32 // 2))
+        self._srcs_dev = None
         self.ref_planes_dev = list(ref_planes)
         self.crop_w, self.crop_h = crop_w, crop_h
         # slot plumbing (ARF group structure)
@@ -239,18 +239,25 @@ class GpuInterFrameEncoder:
             self._lpf_device(fh)
         else:
             self.ref_planes_out = list(plan["recon_dev"])
+        t2 = time.perf_counter()
         if getattr(self.seq, "enable_cdef", False) and not self.zero_lpf:
             self.ref_planes_out = apply_cdef_refs(
                 self.ref_planes_out, self._mi_skip_map(), fh,
-                self.mi_rows, self.mi_cols, self.nplanes, srcs=self.srcp)
+                self.mi_rows, self.mi_cols, self.nplanes,
+                srcs=self.device_sources())
+        t3 = time.perf_counter()
         tile_data = self._pack_script(plan, fc, fh)
         # end-of-frame context save (decoder/obu.py:_update_ref_slots):
         # the script adapted fc's tables in place; reset the per-row
         # adaptation counters exactly as the decoder does before storing
         fc.reset_counters()
         self.saved_fc = fc
-        self.timings = {"plan_s": t1 - t0,
-                        "pack_s": time.perf_counter() - t1}
+        t4 = time.perf_counter()
+        self.timings = {"plan_s": t1 - t0, "pack_s": t4 - t1}
+        # pack_s, split: the LPF pick (KC), apply_cdef_refs (KF and its one
+        # wait for the gate's sums), the symbol script and the native coder
+        self.pack_stages = {"lpf_s": t2 - t1, "cdef_s": t3 - t2,
+                            "script_s": t4 - t3}
         w = BitWriter()
         write_frame_header(w, seq, fh)
         w.byte_align()
@@ -276,6 +283,8 @@ class GpuInterFrameEncoder:
                          4, 1)[: self.mi_rows, : self.mi_cols]
 
     # ------------------------------------------------------------------
+    device_sources = GpuFrameEncoder.device_sources
+
     def _lpf_device(self, fh) -> None:
         """Pick + apply the loop filter on the device for this inter frame
         (``ops/deblock_torch``, kernel KC): the ladder around the inter
@@ -290,9 +299,9 @@ class GpuInterFrameEncoder:
         cands = torch.tensor([0, g // 2, max(g - 2, 0), g, min(g + 2, 63),
                               min(g * 2, 63)], dtype=torch.int32, device=dev)
         recs = tuple(self.plan["recon_dev"][: self.nplanes])
-        srcs = tuple(convert.plane(p, dev) for p in self.srcp[: self.nplanes])
         levels, outs = DT.lpf_pick_and_filter(
-            recs, srcs, split16, cands, w=w, h=h, nplanes=self.nplanes)
+            recs, self.device_sources(), split16, cands, w=w, h=h,
+            nplanes=self.nplanes)
         lv = [int(x) for x in levels.cpu().numpy()]
         fh.lf.filter_level = (lv[0], lv[0])
         fh.lf.filter_level_u = lv[1]

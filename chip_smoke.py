@@ -42,7 +42,15 @@ exit code is not 0):
    (B = 8160), with and without centres (to +-48: windows past every
    border of the crop), on 8-bit (words) and 10-bit (32-bit strips)
    samples, bw 16 with centres and bw 8 without timed with events,
-   ``device_ms`` and their bounds;
+   ``device_ms`` and their bounds; KF's direction search (the frame pass
+   on the luma alone) at 1080x1920 against numpy ``find_dir_blocks`` and
+   ``find_dir_plain``, and on the extreme blocks of
+   ``tests/cdef_cases.py``; KF's frame pass
+   ``cdef_frame`` at 1088x1920 / 544x960 for six strength mixes, three
+   planes with and without the sources and luma alone; the per-plane
+   ``cdef_filter`` at five (pri, sec) mixes; each timed with events,
+   ``device_ms``, its plain version and its bound (the search also
+   against numpy);
 3c. KA and KB at 4x4 (KB with the sinpi ADST4 and the skip decision off)
    and KB with the skip off at 8x8, at the uniform grid's shapes (640x360:
    chroma B = 2 x 45; 1080p BLOCK_8X8: luma B = 135, chroma B = 270), and
@@ -112,9 +120,11 @@ exit code is not 0):
    all through ``txq_step``);
 5b. the main path of slice 2: ``encode_video(make_gop(1920, 1080, 5),
    EncoderConfig(base_q_idx=100))`` twice (the first run warms up), the
-   counts set to 0 just before the second and read just after; per-frame
-   bytes, times and filter strengths; each P-frame re-encoded alone from
-   the GOP's chain for its wall time; the whole GOP on the CPU plain path
+   counts set to 0 just before the second and read just after (KF only
+   as the frame pass, at most 2 launches per frame); per-frame bytes,
+   times (the P-frame's pack split into the LPF pick, CDEF and the symbol
+   script with the native coder) and filter strengths; each P-frame
+   re-encoded alone from the GOP's chain for its wall time; the whole GOP on the CPU plain path
    must give the same packets;
 5c. the tiled KEY path: the phase-5 frame with ``tile_cols_log2=1`` (two
    15-SB tiles batched through one wavefront of 63 diagonals) — a first
@@ -159,7 +169,8 @@ exit code is not 0):
    counts set to 0 before the 3 runs and read after;
 6. / 6b. a profiler window over one steady 1080p KEY frame and one steady
    1080p P-frame (device busy time by kernel; KC's launches and device
-   time in the KEY frame; 6b also KD's, KE's and KC's in the P-frame).
+   time in the KEY frame; 6b also KD's, KE's, KC's and KF's in the
+   P-frame, and its pack split).
 
 ``--only-kernels`` stops after phase 3g. The second-to-last line is
 ``{"kernels": [...]}``: ``launches`` from the GOP of phase 5b (for the
@@ -1755,39 +1766,128 @@ def check_inter_kernels(dev):
                     f"{v[1]:.4f} ms, bound {v[3]['bound_ms']:.4f} ms "
                     f"({v[3]['bound_by']})" for k, v in sorted(ke_t.items())))
 
-    # ---- KF: 1088x1920 luma, 544x960 chroma, pri = 0 / sec = 0 mixes ----
+    # ---- KF: the direction search at 1088x1920 (and on the extreme
+    # blocks), the frame pass (3 planes, the sources, phase 3b's mixes) and
+    # the per-plane entry, against their plain versions ----
     from aom_av1_psy_tpu_torch.ops.cdef import find_dir_blocks
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from cdef_cases import as_plane, extreme_blocks
     mh, mw = 1080, 1920
+    yd = t(y)
     yb = y[:mh, :mw].reshape(135, 8, 240, 8).transpose(0, 2, 1, 3) \
         .reshape(-1, 8, 8)
+    t0 = time.perf_counter()
     dirs, var = find_dir_blocks(yb, 0)
+    numpy_ms = 1e3 * (time.perf_counter() - t0)
     dirs, var = t(dirs), t(var.astype(np.int32))
+
+    def search(plane, ph, pw):
+        """The frame pass on one plane with every block all-skip (the
+        search, and the plane copied): its directions and variances."""
+        skip = torch.ones((ph // 8, pw // 8), dtype=torch.bool, device=dev)
+        return CT.cdef_frame((plane,), skip, 1, 1, 0, 0, 4, mi_rows=ph // 4,
+                             mi_cols=pw // 4, nplanes=1)[1:3]
+
+    err = compare("KF search vs numpy", search(yd, mh, mw), (dirs, var))
+    err = max(err, compare("KF search", search(yd, mh, mw),
+                           CT.find_dir_plain(yd, mh, mw)))
+    xb = extreme_blocks()
+    xd, xv = find_dir_blocks(xb, 0)
+    err = max(err, compare("KF search extreme blocks",
+                           search(t(as_plane(xb)), 8, 8 * len(xb)),
+                           (t(xd), t(xv.astype(np.int32)))))
+    dir_t = (cuda_time(lambda: search(yd, mh, mw), 20),
+             cuda_time(lambda: CT.find_dir_plain(yd, mh, mw), 3),
+             device_ms(lambda: search(yd, mh, mw), 20, "kf_tile_kernel"))
+    # the luma read and written (copied), the directions and variances
+    # written; 15 line sums of 8 directions (2 operations a pixel and
+    # direction), ~60 operations per block for the costs and the argmax
+    dir_bnd = bound(2 * nbytes(yd) + 2 * dirs.numel() * 4,
+                    16 * mh * mw + 60 * dirs.numel())
     touched = t(rng.random(dirs.shape[0]) < .7, torch.bool)
-    err, times = 0.0, None
+    skip8 = ~touched.reshape(135, 240)
+    planes = (yd, t(uv), t(np.roll(uv, 5, 1)))
+    srcs = [t(np.clip(np.asarray(p.cpu()) + rng.integers(-9, 10, p.shape),
+                      0, 255)) for p in planes]
+    for st in ((4, 2, 3, 2, 5), (0, 2, 0, 2, 5), (5, 0, 4, 0, 5),
+               (0, 0, 0, 0, 5), (15, 4, 12, 4, 6), (1, 1, 0, 1, 4)):
+        for npl, sr in ((3, srcs), (3, None), (1, srcs[:1])):
+            kw = dict(mi_rows=mh // 4, mi_cols=mw // 4, nplanes=npl,
+                      srcs=sr)
+            got = CT.cdef_frame(planes, skip8, *st, **kw)
+            want = CT.cdef_frame_plain(planes, skip8, *st, **kw)
+            tag = f"KF frame {st} nplanes {npl}{' srcs' * (sr is not None)}"
+            err = max(err, compare(tag, got[0] + got[1:3],
+                                   want[0] + want[1:3]))
+            if sr is not None:
+                err = max(err, compare(tag + " sums", got[3], want[3]))
+    kw = dict(mi_rows=mh // 4, mi_cols=mw // 4, nplanes=3, srcs=srcs)
+    st = (1, 1, 0, 1, 4)                       # the P-frame's at q100
+    frame = lambda: CT.cdef_frame(planes, skip8, *st, **kw)
+    frame_t = (cuda_time(frame, 20),
+               cuda_time(lambda: CT.cdef_frame_plain(planes, skip8, *st,
+                                                     **kw), 3),
+               device_ms(frame, 20, "kf_tile_kernel"))
+    # the planes read and written, the sources, the block maps; 12 taps of
+    # ~11 operations per filtered pixel and the search's ~16
+    npx = mh * mw * 3 // 2
+    frame_bnd = bound(nbytes(planes, frame(), srcs, skip8),
+                      150 * npx + 16 * mh * mw)
     for pri, sec in ((4, 2), (0, 2), (5, 0), (0, 0), (15, 4)):
-        for plane, bs, v, dmp in ((y, 8, var, 5), (uv, 4, None, 4)):
+        for plane, bs, v, dmp in ((yd, 8, var, 5), (t(uv), 4, None, 4)):
             ph, pw = (mh, mw) if bs == 8 else (mh // 2, mw // 2)
-            a = (t(plane), ph, pw, bs, touched, dirs, v, pri, sec, dmp)
+            a = (plane, ph, pw, bs, touched, dirs, v, pri, sec, dmp)
             err = max(err, compare(f"KF bs{bs} pri{pri} sec{sec}",
                                    CT.cdef_filter(*a),
                                    CT.cdef_filter_plain(*a)))
             if bs == 8 and pri == 4:
-                times = (cuda_time(lambda: CT.cdef_filter(*a), 20),
-                         cuda_time(lambda: CT.cdef_filter_plain(*a), 3))
-                # 12 taps of ~8 operations (constrain, min/max) per pixel
-                bnd = bound(nbytes(a, CT.cdef_filter(*a)), 100 * ph * pw)
+                plane_t = (cuda_time(lambda: CT.cdef_filter(*a), 20),
+                           cuda_time(lambda: CT.cdef_filter_plain(*a), 3),
+                           device_ms(lambda: CT.cdef_filter(*a), 20,
+                                     "kf_tile_kernel"))
+                plane_bnd = bound(nbytes(a, CT.cdef_filter(*a)),
+                                  150 * ph * pw)
     results.append({"name": "cdef_filter", "route": "cuda",
                     "source": "aom_av1_psy_tpu_torch/csrc/cdef.cu",
                     "replaces": "aom_av1_psy_tpu/ops/cdef_jax.py:144",
-                    "max_abs_err": err, "ms": times[0], "plain_ms": times[1],
-                    **bnd, "library_ms": None,
+                    "max_abs_err": err, "ms": frame_t[0],
+                    "plain_ms": frame_t[1], "device_ms": frame_t[2],
+                    **frame_bnd, "library_ms": None,
                     "library_none": "no single PyTorch call runs the CDEF "
-                                    "direction-adaptive filter",
-                    "timed_at": "luma 1088x1920 (1080x1920 filtered), pri 4 "
-                                "sec 2"})
-    log(f"[3b] KF cdef_filter exact on 1088x1920 / 544x960 with (pri, sec) "
-        f"in (4,2) (0,2) (5,0) (0,0) (15,4); luma: kernel {times[0]:.4f} "
-        f"ms, plain {times[1]:.4f} ms")
+                                    "direction search and filter",
+                    "timed_at": "the frame pass cdef_frame: 1088x1920 luma "
+                                "(1080x1920 filtered), 544x960 chroma, the "
+                                "sources, 70 % of the blocks touched, "
+                                "(1, 1, 0, 1, 4)",
+                    "search_ms": dir_t[0], "search_plain_ms": dir_t[1],
+                    "search_device_ms": dir_t[2],
+                    "search_bound_ms": dir_bnd["bound_ms"],
+                    "search_numpy_ms": numpy_ms,
+                    "search_timed_at": "the frame pass on the 1088x1920 "
+                                       "luma alone, every block all-skip "
+                                       "(search_plain_ms: find_dir_plain)",
+                    "plane_ms": plane_t[0], "plane_plain_ms": plane_t[1],
+                    "plane_device_ms": plane_t[2],
+                    "plane_bound_ms": plane_bnd["bound_ms"],
+                    "plane_timed_at": "cdef_filter luma 1088x1920, pri 4 "
+                                      "sec 2"})
+    log(f"[3b] KF exact: the direction search at 1080x1920 (== numpy "
+        f"find_dir_blocks, == find_dir_plain) and on {len(xb)} extreme "
+        f"blocks; the frame pass at "
+        f"1088x1920 / 544x960 with (y_pri, y_sec, uv_pri, uv_sec, damping) "
+        f"in (4,2,3,2,5) (0,2,0,2,5) (5,0,4,0,5) (0,0,0,0,5) (15,4,12,4,6) "
+        f"(1,1,0,1,4), 3 planes with and without the sources, luma alone; "
+        f"cdef_filter at (pri, sec) (4,2) (0,2) (5,0) (0,0) (15,4)")
+    log(f"[3b] KF frame pass (1,1,0,1,4) with sources: kernel "
+        f"{frame_t[0]:.4f} ms (device {frame_t[2]} ms), plain "
+        f"{frame_t[1]:.4f} ms, bound {frame_bnd['bound_ms']:.4f} ms "
+        f"({frame_bnd['bound_by']}); the search (luma alone, every block "
+        f"all-skip): kernel {dir_t[0]:.4f} ms (device {dir_t[2]} ms), "
+        f"find_dir_plain {dir_t[1]:.4f} ms, numpy find_dir_blocks "
+        f"{numpy_ms:.1f} ms, bound "
+        f"{dir_bnd['bound_ms']:.5f} ms; cdef_filter luma (4, 2): kernel "
+        f"{plane_t[0]:.4f} ms (device {plane_t[2]} ms), plain "
+        f"{plane_t[1]:.4f} ms, bound {plane_bnd['bound_ms']:.4f} ms")
 
     # ---- KB at the P-frame's batches: B=8160 bs16, B=2040 bs32 ----
     rt = {k: tuple(t(x, torch.float32) for x in v)
@@ -1900,13 +2000,23 @@ def gop_main_path(dev, kernels):
     for name, n in counts.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} never launched in the GOP")
+    # KF: the frame pass (direction search fused) and no other entry, at
+    # most 2 launches per frame
+    if counts.get("cdef frame search", 0) != counts["cdef"] or \
+            counts["cdef"] > 2 * len(frames):
+        raise AssertionError(f"1080p GOP: KF launches {counts['cdef']}, "
+                             f"frame passes "
+                             f"{counts.get('cdef frame search', 0)}")
     if pk != warm:
         raise AssertionError("1080p GOP: second run differs from the first")
     for i, (p, e) in enumerate(zip(pk, encs)):
         c = e.fh.cdef
         log(f"[5b] frame {i} {'KEY' if i == 0 else 'P'}: {len(p)} bytes, "
             f"plan {e.timings['plan_s']:.4f} s, pack "
-            f"{e.timings['pack_s']:.4f} s, lf {e.fh.lf.filter_level} "
+            f"{e.timings['pack_s']:.4f} s"
+            + (" (LPF {lpf_s:.4f}, CDEF {cdef_s:.4f}, script + native "
+               "coder {script_s:.4f})".format(**e.pack_stages) if i else "")
+            + f", lf {e.fh.lf.filter_level} "
             f"{e.fh.lf.filter_level_u} {e.fh.lf.filter_level_v}, cdef "
             f"y {c.y_pri[0]}/{c.y_sec[0]} uv {c.uv_pri[0]}/{c.uv_sec[0]}"
             + (f", interp {e.fh.interp_filter}" if i else ""))
@@ -1951,7 +2061,10 @@ def gop_main_path(dev, kernels):
         f"{statistics.median(e.timings['plan_s'] for e in encs[1:]):.4f} s, "
         f"pack+lpf+cdef "
         f"{statistics.median(e.timings['pack_s'] for e in encs[1:]):.4f} "
-        f"s), last-frame luma PSNR {psnr:.3f} dB; GOP == CPU plain path "
+        f"s: " + ", ".join(
+            f"{k} {statistics.median(e.pack_stages[k] for e in encs[1:]):.4f}"
+            for k in ("lpf_s", "cdef_s", "script_s"))
+        + f"), last-frame luma PSNR {psnr:.3f} dB; GOP == CPU plain path "
         f"(CPU GOP {cpu_s:.1f} s)")
     log(f"[5b] launches in the GOP: {json.dumps(counts)}")
     rate = sum(map(len, pk)) * 8 * 30.0 / len(pk)
@@ -1975,10 +2088,13 @@ def profile_p_frame(dev, frames, encs):
         enc.encode()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    _device_rows("6b", prof, wall, f"plan {enc.timings['plan_s']:.4f} s, "
-                 f"pack {enc.timings['pack_s']:.4f} s")
+    tm = {**enc.timings, **enc.pack_stages}
+    _device_rows("6b", prof, wall, f"plan {tm['plan_s']:.4f} s, "
+                 f"pack {tm['pack_s']:.4f} s (LPF {tm['lpf_s']:.4f}, CDEF "
+                 f"host {tm['cdef_s']:.4f}, script + native coder "
+                 f"{tm['script_s']:.4f})")
     for kernel, key in (("KD", "kd_kernel"), ("KE", "ke_strip_kernel"),
-                        ("KC", "kc_tile_kernel")):
+                        ("KC", "kc_tile_kernel"), ("KF", "kf_tile_kernel")):
         rows = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA
                 and key in e.key]

@@ -23,10 +23,19 @@ order A B B A (``--rounds`` times):
   1088x1920 luma and 544x960 chroma, 6 levels with the source (events, and
   the device time of every kernel and memset in the profiled window: the
   two checkouts' kernels have other names);
+- KF at the 1080p P-frame's planes and strengths (1, 1, 0, 1, 4):
+  ``cdef_apply_fused`` with the directions given (events and the device
+  time of every KF kernel), and where the checkout has it the frame pass
+  ``cdef_frame`` with the search and the sources (device time);
 - the 1080p P-frame: each P-frame of ``make_gop(1920, 1080, 5)`` at q100
-  re-encoded alone from the GOP's chain, twice: the median ``plan_s`` and
-  frame time, KD's launches per P-frame, and KD's, KE's and KC's launches
-  and device time summed over one P-frame under the profiler;
+  re-encoded alone from the GOP's chain, twice: the median ``plan_s``,
+  ``pack_s`` and frame time, the pack's stages by wrappers around them
+  (``apply_cdef_refs``, the host ``find_dir_blocks`` inside it, the LPF
+  pick ``_lpf_device``, ``_pack_script`` and, inside it, the MV-reference
+  walk ``_mv_ops`` and the native coder ``native_run_script``: the
+  median over P-frames of each one's ms per P-frame), KD's
+  launches per P-frame, and KD's, KE's, KC's and KF's launches and device
+  time summed over one P-frame under the profiler;
 - one untiled 1080p KEY frame under the profiler: KC's launches and device
   time, and the device kernels and copies of the frame.
 Only entry points that both checkouts have are timed. Both checkouts
@@ -227,14 +236,63 @@ for pl, (hb, wb, cell, luma, w, h) in zip(
     out[f"kc_{tag}_ms"] = events_ms(kc, 20)
     out[f"kc_{tag}_device_ms"] = device_ms(kc, 20, "")
 
-# the 1080p P-frame, re-encoded alone from the GOP's chain
+# KF at the 1080p P-frame's planes: the frame with the directions given
+# (both checkouts), and the frame pass with the search and the sources
+from aom_av1_psy_tpu_torch.ops import cdef_torch as CT
+from aom_av1_psy_tpu_torch.ops.cdef import find_dir_blocks
+yb = y[:1080].cpu().numpy().reshape(135, 8, 240, 8).transpose(0, 2, 1, 3)
+dirs, var = find_dir_blocks(yb.reshape(-1, 8, 8), 0)
+dirs = torch.as_tensor(dirs.astype(np.int32), device="cuda")
+var = torch.as_tensor(var.astype(np.int32), device="cuda")
+skip8 = torch.as_tensor(rng.random((135, 240)) < .3, device="cuda")
+uvp = torch.zeros((544, 960), dtype=torch.int32, device="cuda")
+uvp[:540] = planes[1][1]
+cplanes = (y, uvp, uvp.roll(5, 1).contiguous())
+kf = lambda: CT.cdef_apply_fused(cplanes, skip8, dirs, var, 1, 1, 0, 1, 4,
+                                 mi_rows=270, mi_cols=480, nplanes=3)
+out["kf_frame_ms"] = events_ms(kf, 20)
+out["kf_frame_device_ms"] = device_ms(kf, 20, "kf_")
+out["kf_frame_pass_device_ms"] = None
+if hasattr(CT, "cdef_frame"):
+    srcs = [p.roll(3, 0).contiguous() for p in cplanes]
+    kfs = lambda: CT.cdef_frame(cplanes, skip8, 1, 1, 0, 1, 4, mi_rows=270,
+                                mi_cols=480, nplanes=3, srcs=srcs)
+    out["kf_frame_pass_device_ms"] = device_ms(kfs, 20, "kf_")
+
+# the 1080p P-frame, re-encoded alone from the GOP's chain; the pack's
+# stages timed by wrappers around the functions (the same in both
+# checkouts), summed per P-frame
+import collections
+from aom_av1_psy_tpu_torch.encoder import tpu_interframe as TIF
+from aom_av1_psy_tpu_torch.ops import cdef as HCD
 from aom_av1_psy_tpu_torch.encoder.tpu_interframe import (
     GpuInterFrameEncoder, _ref_chain_planes, encode_video)
 cfg = EncoderConfig(base_q_idx=100)
 _, encs = encode_video(gop, cfg, device="cuda")
 torch.cuda.synchronize()
+STAGES = ("cdef", "find_dir", "_lpf_device", "_pack_script", "_mv_ops",
+          "native_run_script")
+stage_s = collections.defaultdict(list)
+frame_s = collections.Counter()
+
+
+def timed(name, fn):
+    def wrapper(*a, **k):
+        t0 = time.perf_counter()
+        r = fn(*a, **k)
+        frame_s[name] += time.perf_counter() - t0
+        return r
+    return wrapper
+
+
+TIF.apply_cdef_refs = timed("cdef", TIF.apply_cdef_refs)
+TIF.native_run_script = timed("native_run_script", TIF.native_run_script)
+HCD.find_dir_blocks = timed("find_dir", HCD.find_dir_blocks)
+for m in ("_lpf_device", "_pack_script", "_mv_ops"):
+    setattr(GpuInterFrameEncoder, m,
+            timed(m, getattr(GpuInterFrameEncoder, m)))
 MC.KD.reset()
-plans, walls = [], []
+plans, packs, walls = [], [], []
 for _ in range(2):
     for i in range(1, len(gop)):
         prev = encs[i - 1]
@@ -246,9 +304,20 @@ for _ in range(2):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         plans.append(enc.timings["plan_s"])
+        packs.append(enc.timings["pack_s"])
+        for name in STAGES:
+            stage_s[name].append(frame_s[name])
+        frame_s.clear()
 out["p_plan_s"] = statistics.median(plans)
+out["p_pack_s"] = statistics.median(packs)
 out["p_frame_s"] = statistics.median(walls)
 out["kd_launches_per_p_frame"] = MC.KD.launches / len(plans)
+for name, key in (("cdef", "p_cdef_host_ms"), ("find_dir", "p_find_dir_ms"),
+                  ("_lpf_device", "p_lpf_host_ms"),
+                  ("_pack_script", "p_script_ms"),
+                  ("_mv_ops", "p_mv_ops_ms"),
+                  ("native_run_script", "p_native_coder_ms")):
+    out[key] = 1e3 * statistics.median(stage_s[name])
 # KD's device time summed over one P-frame, under the profiler
 from torch.profiler import ProfilerActivity, profile
 with profile(activities=[ProfilerActivity.CPU,
@@ -258,7 +327,8 @@ with profile(activities=[ProfilerActivity.CPU,
                          prev_fc=encs[1].saved_fc, device="cuda").encode()
     torch.cuda.synchronize()
 # the kernels by name in either checkout
-NAMES = {"kd": ("::kd_kernel<",),
+NAMES = {"kf": ("::kf_kernel(", "::kf_tile_kernel("),
+         "kd": ("::kd_kernel<",),
          "ke": ("::ke_kernel<", "::ke_strip_kernel<"),
          "kc": ("::copy_kernel(", "::edge_kernel<", "::sse_kernel(",
                 "::kc_tile_kernel<")}
@@ -272,7 +342,7 @@ def by_name(prof, key):
             sum(e.count for e in rows))
 
 
-for k in ("kd", "ke", "kc"):
+for k in ("kd", "ke", "kc", "kf"):
     out[f"{k}_p_frame_device_ms"], out[f"{k}_p_frame_launches"] = \
         by_name(prof, k)
 # one untiled KEY frame under the profiler
@@ -329,8 +399,12 @@ def main() -> int:
                   "ke_bw8_device_ms", "ke_bw16_ms", "ke_bw16_device_ms",
                   "kc_luma_ms", "kc_luma_device_ms", "kc_chroma_ms",
                   "kc_chroma_device_ms", "kc_key_frame_device_ms",
-                  "kc_key_frame_launches", "key_frame_device_ops") + tuple(
-                f"{k}_p_frame_{m}" for k in ("kd", "ke", "kc")
+                  "kc_key_frame_launches", "key_frame_device_ops",
+                  "kf_frame_ms", "kf_frame_device_ms",
+                  "kf_frame_pass_device_ms", "p_pack_s", "p_cdef_host_ms",
+                  "p_find_dir_ms", "p_lpf_host_ms", "p_script_ms",
+                  "p_mv_ops_ms", "p_native_coder_ms") + tuple(
+                f"{k}_p_frame_{m}" for k in ("kd", "ke", "kc", "kf")
                 for m in ("device_ms", "launches")) + tuple(
                 f"kb_bs{bs}{m}" for bs in (16, 32, 8)
                 for m in ("_ms", "_device_ms")):
