@@ -6,14 +6,16 @@ motion search, the noise estimate and the KEY-frame filter.
 --tune-content=psy forces filter strength 2 and +2 frames for non-KF
 (temporal_filter.c:815-831, :1060-1075; see encoder/psy.PsyConfig).
 
-Per non-centre frame of a span, everything is batched over the 32x32 luma
-blocks: one full-pel search (``ops/mvsearch.full_pel_plane_search``, kernel
-KJ's plane entry, which reads each block's window where it lies in the
-frame padded with 128; one launch per block shape), the clamped gather of
-the prediction, the per-subblock integer MSEs (torch), then one launch of
-kernel KK ``tf_weight_accum`` (``csrc/temporal_filter.cu``), which replaces
-the reference's host ``apply_temporal_filter`` (``:33-94``) over every
-block of the frame. The centre frame takes KK with zero MVs and MSEs.
+Per span, everything is batched over the 32x32 luma blocks: per
+non-centre frame one full-pel search (``ops/mvsearch.full_pel_plane_search``,
+kernel KJ's plane entry, which reads each block's window where it lies in
+the frame padded with 128; one launch per block shape), then one launch of
+kernel KK ``tf_span_filter`` (``csrc/temporal_filter.cu``) for the whole
+span, which replaces the reference's host ``apply_temporal_filter``
+(``:33-94``) over every block of every frame, with the clamped prediction
+origins, the per-subblock integer MSEs and the final rounding around it
+(``:145-181``), and writes the filtered uint8 planes. The centre frame
+takes MV 0.
 
 Exactness (each held by ``tests/test_torch_temporal_filter.py``):
 - the 5x5 window clamps at the BLOCK's border (``_window_sum`` pads the
@@ -30,17 +32,21 @@ Exactness (each held by ``tests/test_torch_temporal_filter.py``):
   the host's ``np.hypot`` (``:57-62``) as a per-frame table indexed by the
   full-pel MV, never from a device ``hypot`` or ``sqrt``;
 - the search windows hold 128 outside the frame (``:131-137``); the
-  prediction's origin is clamped with an arithmetic ``>>`` (``:145-148``).
+  prediction's origin is clamped with an arithmetic ``>>`` (``:145-148``);
+- the subblock MSEs keep the reference's windows (``max(h // 2, 1)`` rows,
+  ``max(w // 2, 1)`` columns; an odd last row or column is left out) and
+  its floor division (``:156-162``).
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..kernels.build import CudaKernel, D, I, P
+from ..kernels.build import CudaKernel, D, I, P, need
 from ..ops import mvsearch as MV
 
 TF_WINDOW_LENGTH = 5
@@ -55,14 +61,28 @@ TF_QINDEX_CUTOFF = 128
 SEARCH_RAD = 16          # full-pel radius of the per-block search (:129)
 FILL = 128               # the search window outside the frame (:131)
 
+MAX_FRAMES = 16           # the span kernel's frames (csrc kKKMaxFrames)
+
+
+class _KKArgs(ctypes.Structure):
+    """``csrc/temporal_filter.cu``'s ``KKArgs``, field for field."""
+    _fields_ = ([("planes", P * (3 * MAX_FRAMES)), ("out", P * 3)]
+                + [(f, P) for f in ("mvs", "dtab", "thresholds")]
+                + [("decay", D * 3), ("wf", D), ("inv", D)]
+                + [(f, I) for f in ("n", "center", "H", "W", "Hc", "Wc",
+                                    "nbx", "mb", "rad", "ss_x", "ss_y")])
+
+
 KK = CudaKernel("temporal_filter", {
-    # ref0..2, pred0..2, accum0..2, count0..2, H, W, Hc, Wc, B, nbx, mb,
-    # ss_x, ss_y, org, mses, dfac, decay0..2, weight_factor, inv_factor
-    # ..., thresholds
-    "tf_weight_accum": [P] * 12 + [I] * 9 + [P, P, P] + [D] * 5 + [P],
+    "tf_span_filter": [ctypes.POINTER(_KKArgs)],
     # scaled, n, thresholds, weight
     "tf_weight_sweep": [P, I, P, P],
+    # n, out
+    "tf_div_sweep": [I, P],
 })
+# the largest window total the span pass divides: 25 luma and 4 co-located
+# luma squared errors of 8-bit samples (a chroma pixel at 4:2:0)
+MAX_TOTAL = 29 * 255 * 255
 
 
 def filter_params(q_factor: int, filter_strength: int, noise_levels):
@@ -104,8 +124,16 @@ def distance_table(radius: int, frame_width: int, frame_height: int):
     return out
 
 
+@functools.cache
+def _dtab_on(frame_width: int, frame_height: int, device: str):
+    """``distance_table`` at SEARCH_RAD on ``device``, made once per frame
+    size and device."""
+    return torch.as_tensor(distance_table(SEARCH_RAD, frame_width,
+                                          frame_height), device=device)
+
+
 # ---------------------------------------------------------------------------
-# Kernel KK and its plain version
+# The weighting (KK's plain version works frame by frame through it)
 # ---------------------------------------------------------------------------
 
 def _grid(H: int, W: int, mb: int):
@@ -202,6 +230,20 @@ def tf_weight(scaled):
     return out
 
 
+def divide_totals(n: int, device):
+    """(MAX_TOTAL + 1,) float64: t / n for every window total t, as the span
+    pass divides it. CPU: the IEEE quotient (numpy's ``/``, the reference's
+    ``total / num_ref_pixels``); CUDA: KK's own division (a product by
+    1 / n corrected by its exact residual, entry ``tf_div_sweep``), which
+    the tests hold against the quotient at every total and n."""
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return torch.arange(MAX_TOTAL + 1, dtype=torch.float64) / n
+    out = torch.empty(MAX_TOTAL + 1, dtype=torch.float64, device=dev)
+    KK.launch("tf_div_sweep", n, out.data_ptr(), variant="div sweep")
+    return out
+
+
 def weight_boundary_values(ulps: int = 50) -> np.ndarray:
     """float64 ``scaled`` values at every truncation boundary of the
     weight: for k = 1..1000 the 2 * ulps + 1 values within ``ulps`` ulp of
@@ -221,8 +263,9 @@ def weight_boundary_values(ulps: int = 50) -> np.ndarray:
 
 def tf_weight_accum_plain(ref, pred, org, mses, dfac, params, ss_x: int,
                           ss_y: int, mb: int, accum, count) -> None:
-    """Plain version of KK: every block of one frame's weighted
-    accumulation (``apply_temporal_filter`` of each block).
+    """Every block of one frame's weighted accumulation
+    (``apply_temporal_filter`` of each block), the step of
+    ``tf_span_filter_plain`` for each frame of a span.
 
     ref / pred: the centre frame's and this frame's three planes (integer
     tensors); org (B, 3, 2): each block's prediction origin (row, col) in
@@ -280,64 +323,14 @@ def tf_weight_accum_plain(ref, pred, org, mses, dfac, params, ss_x: int,
             count[p][rows, cols] += weight
 
 
-def tf_weight_accum(ref, pred, org, mses, dfac, params, ss_x: int,
-                    ss_y: int, mb: int, accum, count) -> None:
-    """``tf_weight_accum_plain``'s accumulation. CPU tensors: the plain
-    version; CUDA tensors: kernel KK (int32 planes, int64 accum / count,
-    one launch for every block of the frame)."""
-    if ref[0].device.type == "cpu":
-        tf_weight_accum_plain(ref, pred, org, mses, dfac, params, ss_x, ss_y,
-                              mb, accum, count)
-        return
-    weight_factor, inv_factor, decay = params
-    H, W = ref[0].shape
-    Hc, Wc = ref[1].shape
-    nby, nbx = -(-H // mb), -(-W // mb)
-    B = nby * nbx
-    if not 0 < mb <= 32:
-        raise ValueError(f"KK: block size {mb} above 32")
-    for t, dt in [(t, torch.int32) for t in (*ref, *pred)] + \
-            [(t, torch.int64) for t in (*accum, *count)]:
-        if t.device.type != "cuda" or t.dtype != dt or \
-                not t.is_contiguous():
-            raise ValueError(f"KK plane: want contiguous {dt} on cuda, got "
-                             f"{t.dtype} on {t.device}")
-    for t, shape in ((ref[0], (H, W)), (pred[0], (H, W)), (accum[0], (H, W)),
-                     (count[0], (H, W))) + tuple(
-            (t, (Hc, Wc)) for t in (*ref[1:], *pred[1:], *accum[1:],
-                                    *count[1:])):
-        if tuple(t.shape) != shape:
-            raise ValueError(f"KK plane {tuple(t.shape)}, want {shape}")
-    org = org.to(torch.int32).contiguous()
-    mses = mses.to(torch.int64).contiguous()
-    dfac = dfac.to(torch.float64).contiguous()
-    for t, shape in ((org, (B, 3, 2)), (mses, (B, 4)), (dfac, (B, 4))):
-        if t.device.type != "cuda" or tuple(t.shape) != shape:
-            raise ValueError(f"KK input {tuple(t.shape)} on {t.device}, "
-                             f"want {shape} on cuda")
-    KK.launch("tf_weight_accum",
-              *(t.data_ptr() for t in (*ref, *pred, *accum, *count)),
-              H, W, Hc, Wc, B, nbx, mb, ss_x, ss_y, org.data_ptr(),
-              mses.data_ptr(), dfac.data_ptr(), *decay, weight_factor,
-              inv_factor, _thresholds_on(str(ref[0].device)).data_ptr())
-
-
 # ---------------------------------------------------------------------------
-# The frame loop
+# The span's block grid and search
 # ---------------------------------------------------------------------------
-
-def upload(frames, device):
-    """Each frame's planes (numpy or tensors) as int32 tensors on
-    ``device``."""
-    dev = resolve_device(device)
-    return [[torch.as_tensor(p, device=dev).to(torch.int32) for p in f]
-            for f in frames]
-
 
 class SpanGrid:
     """The 32x32 block grid of one span on the device, with the centre
-    frame's luma blocks grouped by shape, and the inputs of KJ and KK for
-    each frame of the span."""
+    frame's luma blocks grouped by shape: KJ's inputs for each frame of the
+    span, and the per-block inputs of the weighting."""
 
     def __init__(self, center, mb: int = 32, ss_x: int = 1, ss_y: int = 1):
         self.center, self.mb = center, mb
@@ -356,8 +349,7 @@ class SpanGrid:
         self.origins = {hw: (self.by[ids].to(torch.int32),
                              self.bx[ids].to(torch.int32))
                         for hw, ids in self.groups}
-        self.dtab = torch.as_tensor(distance_table(SEARCH_RAD, W, H),
-                                    device=dev)
+        self.dtab = _dtab_on(W, H, str(dev))
         self.shifts = [(0, 0), (ss_y, ss_x), (ss_y, ss_x)]
 
     def centre_inputs(self):
@@ -379,19 +371,23 @@ class SpanGrid:
         return padded
 
     def motion_inputs(self, f):
-        """(org, mses, dfac) of a non-centre frame ``f`` (three planes):
-        the search (KJ's plane entry, one launch per block shape, reading
-        each window in the padded frame), the prediction's clamped origin
-        in each plane and the subblock MSEs."""
+        """(B, 2) int32 full-pel MVs (dy, dx) of a non-centre frame ``f``
+        (three planes; its luma is searched): KJ's plane entry, one launch
+        per block shape, reading each window in the padded frame."""
         padded = self.padded(f[0])
-        dy = torch.empty(self.B, dtype=torch.int64, device=f[0].device)
-        dx = torch.empty_like(dy)
+        mv = torch.empty((self.B, 2), dtype=torch.int32, device=padded.device)
         for hw, ids in self.groups:
-            mv, _ = MV.full_pel_plane_search(self.src[hw], padded,
-                                             *self.origins[hw], SEARCH_RAD)
-            dy[ids] = mv[:, 0].long()
-            dx[ids] = mv[:, 1].long()
-        # the prediction's origin in each plane, clamped to the plane
+            mv[ids] = MV.full_pel_plane_search(self.src[hw], padded,
+                                               *self.origins[hw],
+                                               SEARCH_RAD)[0]
+        return mv
+
+    def weight_inputs(self, f, mv):
+        """(org, mses, dfac) of a non-centre frame ``f`` with block MVs
+        ``mv`` (B, 2): the prediction's origin in each plane, clamped to
+        the plane; the subblock MSEs of the luma prediction; each block's
+        distance factor."""
+        dy, dx = mv[:, 0].long(), mv[:, 1].long()
         org = []
         for p, (sy, sx) in enumerate(self.shifts):
             ph, pw = f[p].shape
@@ -417,6 +413,104 @@ class SpanGrid:
         return org, mses, dfac
 
 
+# ---------------------------------------------------------------------------
+# Kernel KK and its plain version: one span
+# ---------------------------------------------------------------------------
+
+def _round(accum, count):
+    """The filtered planes: ``(accum + count // 2) // max(count, 1)``,
+    clamped, as uint8 (``:177-181``)."""
+    out = []
+    for a, n in zip(accum, count):
+        c = n.clamp(min=1)
+        out.append(((a + (c >> 1)) // c).clamp(0, 255).to(torch.uint8))
+    return out
+
+
+def tf_span_filter_plain(center_idx: int, planes, mvs, params,
+                         ss_x: int = 1, ss_y: int = 1, mb: int = 32):
+    """Plain version of KK: the filtered (y, u, v) uint8 planes of
+    ``planes[center_idx]``.
+
+    planes: the span's frames, each three integer planes; mvs (N, B, 2):
+    each frame's full-pel (dy, dx) per block (block b at ((b // nbx) * mb,
+    (b % nbx) * mb) of the luma plane, cut to the frame), |dy|, |dx| <=
+    SEARCH_RAD; the centre's row is not read (MV 0, MSEs 0); params:
+    ``filter_params``'s triple. Frame by frame: the prediction's origins,
+    the subblock MSEs and the distance factors (``SpanGrid.weight_inputs``),
+    ``tf_weight_accum_plain`` into int64 sums, then the rounding."""
+    center = planes[center_idx]
+    grid = SpanGrid(center, mb, ss_x, ss_y)
+    accum = [torch.zeros(p.shape, dtype=torch.int64, device=p.device)
+             for p in center]
+    count = [torch.zeros_like(a) for a in accum]
+    for fi, f in enumerate(planes):
+        inputs = grid.centre_inputs() if fi == center_idx else \
+            grid.weight_inputs(f, mvs[fi])
+        tf_weight_accum_plain(center, f, *inputs, params, ss_x, ss_y, mb,
+                              accum, count)
+    return _round(accum, count)
+
+
+def tf_span_filter(center_idx: int, planes, mvs, params, ss_x: int = 1,
+                   ss_y: int = 1, mb: int = 32):
+    """``tf_span_filter_plain``'s planes. CPU tensors: the plain version;
+    CUDA tensors: kernel KK, one launch for the span (each frame's three
+    int32 planes of 8-bit samples, int32 mvs (N, B, 2); int32 sums, exact
+    while N * 1000 * 255 < 2^31)."""
+    if planes[center_idx][0].device.type == "cpu":
+        return tf_span_filter_plain(center_idx, planes, mvs, params, ss_x,
+                                    ss_y, mb)
+    n = len(planes)
+    if not 0 <= center_idx < n or n > MAX_FRAMES:
+        raise ValueError(f"KK: {n} frames (at most {MAX_FRAMES}), centre "
+                         f"{center_idx}")
+    if n * TF_WEIGHT_SCALE * 255 >= 2 ** 31:
+        raise ValueError(f"KK: {n} frames overflow the int32 sums")
+    if not 0 < mb <= 32 or ss_x not in (0, 1) or ss_y not in (0, 1):
+        raise ValueError(f"KK: block size {mb} (at most 32), subsampling "
+                         f"{ss_x}, {ss_y}")
+    y = planes[center_idx][0]
+    di = y.get_device()
+    H, W = y.shape
+    Hc, Wc = planes[center_idx][1].shape
+    if Hc < H >> ss_y or Wc < W >> ss_x or H * W >= 2 ** 31:
+        raise ValueError(f"KK: luma {H}x{W} (below 2^31 pixels), chroma "
+                         f"{Hc}x{Wc} (at least the luma subsampled)")
+    nbx = -(-W // mb)
+    B = -(-H // mb) * nbx
+    weight_factor, inv_factor, decay = params
+    out = [torch.empty(s, dtype=torch.uint8, device=y.device)
+           for s in ((H, W), (Hc, Wc), (Hc, Wc))]
+    a = _KKArgs(mvs=need(mvs, torch.int32, (n, B, 2), di, "KK mvs"),
+                dtab=_dtab_on(W, H, str(y.device)).data_ptr(),
+                thresholds=_thresholds_on(str(y.device)).data_ptr(),
+                wf=weight_factor, inv=inv_factor, n=n, center=center_idx,
+                H=H, W=W, Hc=Hc, Wc=Wc, nbx=nbx, mb=mb, rad=SEARCH_RAD,
+                ss_x=ss_x, ss_y=ss_y)
+    a.decay[:] = decay
+    a.out[:] = [t.data_ptr() for t in out]
+    for f, frame in enumerate(planes):
+        for p, (t, shape) in enumerate(zip(frame, ((H, W), (Hc, Wc),
+                                                   (Hc, Wc)), strict=True)):
+            a.planes[3 * f + p] = need(t, torch.int32, shape, di,
+                                       f"KK frame {f} plane {p}")
+    KK.launch("tf_span_filter", ctypes.byref(a), variant="span")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The frame loop
+# ---------------------------------------------------------------------------
+
+def upload(frames, device):
+    """Each frame's planes (numpy or tensors) as int32 tensors on
+    ``device``."""
+    dev = resolve_device(device)
+    return [[torch.as_tensor(p, device=dev).to(torch.int32) for p in f]
+            for f in frames]
+
+
 def temporal_filter_frames(frames, center_idx: int, q_factor: int,
                            strength: int, noise_levels=(1.0, 1.0, 1.0),
                            ss_x: int = 1, ss_y: int = 1, mb: int = 32,
@@ -425,25 +519,19 @@ def temporal_filter_frames(frames, center_idx: int, q_factor: int,
     against its neighbors with full-pel 32x32 motion compensation
     (dense-grid search) and the normative weighting kernel. ``frames``
     holds each frame's (y, u, v) planes, numpy or tensors (``upload``).
-    Returns the filtered (y, u, v) planes (uint8 numpy)."""
+    Returns the filtered (y, u, v) planes (uint8 numpy): KJ's search per
+    non-centre frame, then one KK launch for the span."""
     planes = upload(frames, device)
-    center = planes[center_idx]
-    grid = SpanGrid(center, mb, ss_x, ss_y)
-    accum = [torch.zeros(p.shape, dtype=torch.int64, device=p.device)
-             for p in center]
-    count = [torch.zeros_like(a) for a in accum]
-    params = filter_params(q_factor, strength, noise_levels)
+    grid = SpanGrid(planes[center_idx], mb, ss_x, ss_y)
+    mvs = torch.zeros((len(planes), grid.B, 2), dtype=torch.int32,
+                      device=grid.by.device)
     for fi, f in enumerate(planes):
-        inputs = grid.centre_inputs() if fi == center_idx else \
-            grid.motion_inputs(f)
-        tf_weight_accum(center, f, *inputs, params, ss_x, ss_y, mb, accum,
-                        count)
-    out = []
-    for a, n in zip(accum, count):
-        c = n.clamp(min=1)
-        out.append(((a + (c >> 1)) // c).clamp(0, 255).to(torch.uint8)
-                   .cpu().numpy())
-    return out
+        if fi != center_idx:
+            mvs[fi] = grid.motion_inputs(f)
+    out = tf_span_filter(center_idx, planes, mvs,
+                         filter_params(q_factor, strength, noise_levels),
+                         ss_x, ss_y, mb)
+    return [p.cpu().numpy() for p in out]
 
 
 def estimate_noise_level(plane, edge_thresh: int = 50, bd: int = 8,

@@ -60,18 +60,23 @@ exit code is not 0):
 3d. KG (with and without the moments), KH and KI (the four VIF scales, and
    its ``vif_down2`` entry) against their plain versions at the 1080p
    shapes: KG, KH and down2 exact, KI within a relative 1e-4; kernel,
-   plain and (KI, down2) library-call times;
-3e. KJ (the temporal filter's full-pel SAD search) and KK (its weighting
-   and accumulation) at the shapes of one 1080p ARF span
-   (``make_gop(1920, 1080, 5)``, centre 2): KJ exact on the 32x32 blocks
-   and on the 24-tall bottom row through both entries (the windows cut
-   from the padded frame, and the plane entry reading them where they
-   lie), ``full_pel_hierarchical`` (radius 16, step 4) equal to the CPU
-   plain path, KJ's strip-tiling edge cases (``_kj_edge_cases``), KK exact
-   against the plain version on the card and on CPU tensors; kernel
-   (events and ``device_ms``, both entries), plain and bound times; KK's
-   weight against ``np.exp`` at every truncation boundary (101 values
-   within 50 ulp of each of the 1000, and 0 and 7);
+   plain and (KI, down2) library-call times, and the profiler's device
+   time of KG and KH;
+3e. KJ (the temporal filter's full-pel SAD search) and KK (its span
+   pass: weighting, accumulation and rounding of every frame of a span)
+   at 1080p: KJ at the shapes of one ARF span (``make_gop(1920, 1080,
+   5)``, centre 2), exact on the 32x32 blocks and on the 24-tall bottom
+   row through both entries (the windows cut from the padded frame, and
+   the plane entry reading them where they lie), ``full_pel_hierarchical``
+   (radius 16, step 4) equal to the CPU plain path, KJ's strip-tiling edge
+   cases (``_kj_edge_cases``); KK's ``tf_span_filter`` exact against the
+   plain version at the KEY span of phase 5b (3 frames, centre 0, also on
+   CPU tensors) and the first ARF span of phase 5g (5 frames, centre 2);
+   kernel (events and ``device_ms``), plain and bound times (bytes, and
+   the integer and float64 operations); KK's weight against ``np.exp`` at
+   every truncation boundary (101 values within 50 ulp of each of the
+   1000, and 0 and 7), and its division of the window totals against
+   numpy's at every total (0 to 29 * 255^2) and divisor (25, 26, 27, 29);
 3f. KL (subpel prediction), KM (the 49-point subpel refine), KN (the
    metric reducers) and KO (8x8 Hadamard / satd) against their plain
    versions at the 1080p P-frame's block grid (16x16, B = 8160): KL at
@@ -1071,12 +1076,15 @@ def check_tune_vmaf_kernels(dev):
                       (want, TV.blur_moments_plain(y, want))))
     times = (cuda_time(lambda: TV.gaussian_blur(y, moments=True), 50),
              cuda_time(lambda: TV.blur_moments_plain(
-                 y, TV.gaussian_blur_plain(y)), 5))
+                 y, TV.gaussian_blur_plain(y)), 5),
+             device_ms(lambda: TV.gaussian_blur(y, moments=True), 20,
+                       "kg_kernel"))
     plain_blur = cuda_time(lambda: TV.gaussian_blur(y), 50)
     # 2 x 8 taps of 2 operations, rounding and clip, 6 for the moments
     results.append({"name": "gauss_blur", "route": "cuda", "source": src,
                     "replaces": f"{ref}:49", "max_abs_err": err,
                     "ms": times[0], "plain_ms": times[1],
+                    "device_ms": times[2],
                     **bound(nbytes(y, got, mom), 48 * H * W),
                     "library_ms": None,
                     "library_none": "no single PyTorch call rounds the "
@@ -1084,7 +1092,8 @@ def check_tune_vmaf_kernels(dev):
                     "timed_at": "1080x1920 uint8 with the moments (the "
                                 "encoder's call)"})
     log(f"[3d] KG gauss_blur exact (uint8, int32; blur and moments) at "
-        f"1080x1920: with moments kernel {times[0]:.4f} ms, plain "
+        f"1080x1920: with moments kernel {times[0]:.4f} ms (device "
+        f"{times[2]} ms), plain "
         f"{times[1]:.4f} ms; blur alone {plain_blur:.4f} ms")
 
     # ---- KH: the reference's 1080p amount and the ceiling ----
@@ -1094,17 +1103,21 @@ def check_tune_vmaf_kernels(dev):
         err = max(err, compare(f"KH a={a}", out, TV.unsharp_plain(y, want,
                                                                   a)))
     times = (cuda_time(lambda: TV.unsharp(y, want, 0.18498), 50),
-             cuda_time(lambda: TV.unsharp_plain(y, want, 0.18498), 10))
+             cuda_time(lambda: TV.unsharp_plain(y, want, 0.18498), 10),
+             device_ms(lambda: TV.unsharp(y, want, 0.18498), 20,
+                       "kh_kernel"))
     results.append({"name": "unsharp_apply", "route": "cuda", "source": src,
                     "replaces": f"{ref}:74", "max_abs_err": err,
                     "ms": times[0], "plain_ms": times[1],
+                    "device_ms": times[2],
                     **bound(nbytes(y, want, out), 8 * H * W),
                     "library_ms": None,
                     "library_none": "no single PyTorch call rounds a*d and s "
                                     "+ a*d apart and clips",
                     "timed_at": "1080x1920, a = 0.18498"})
     log(f"[3d] KH unsharp_apply exact at 1080x1920 (a = 0.18498, 0.3, "
-        f"0.04742): kernel {times[0]:.4f} ms, plain {times[1]:.4f} ms")
+        f"0.04742): kernel {times[0]:.4f} ms (device {times[2]} ms), plain "
+        f"{times[1]:.4f} ms")
 
     # ---- KI: the four scales of vif_lite(source, blur), and down2 ----
     r, d = y.to(torch.float32), want.to(torch.float32)
@@ -2002,6 +2015,9 @@ def gop_main_path(dev, kernels):
             raise AssertionError(f"kernel {name} never launched in the GOP")
     # KF: the frame pass (direction search fused) and no other entry, at
     # most 2 launches per frame
+    if counts["temporal_filter"] != 1:
+        raise AssertionError(f"1080p GOP: {counts['temporal_filter']} KK "
+                             f"launches for one filtered KEY frame")
     if counts.get("cdef frame search", 0) != counts["cdef"] or \
             counts["cdef"] > 2 * len(frames):
         raise AssertionError(f"1080p GOP: KF launches {counts['cdef']}, "
@@ -2067,6 +2083,8 @@ def gop_main_path(dev, kernels):
         + f"), last-frame luma PSNR {psnr:.3f} dB; GOP == CPU plain path "
         f"(CPU GOP {cpu_s:.1f} s)")
     log(f"[5b] launches in the GOP: {json.dumps(counts)}")
+    log(f"[5b] KK span launches per filtered KEY frame: "
+        f"{counts['temporal_filter']}")
     rate = sum(map(len, pk)) * 8 * 30.0 / len(pk)
     return counts, frames, encs, rate
 
@@ -2173,13 +2191,15 @@ def _kj_edge_cases(dev):
 
 
 def check_tf_kernels(dev):
-    """Phase 3e: KJ and KK against their plain versions at the shapes of
-    one 1080p ARF span (``make_gop(1920, 1080, 5)``, centre 2): KJ on the
-    full 32x32 blocks and on the 24-tall bottom row, ``full_pel_
+    """Phase 3e: KJ and KK against their plain versions at 1080p: KJ at
+    the shapes of one ARF span (``make_gop(1920, 1080, 5)``, centre 2) on
+    the full 32x32 blocks and on the 24-tall bottom row, ``full_pel_
     hierarchical`` (radius 16, step 4) on the same blocks against the plain
-    path on CPU tensors, KK against the plain version on the card and on
-    CPU tensors, and KK's weight against ``np.exp`` at every truncation
-    boundary. Exact equality throughout."""
+    path on CPU tensors; KK's span pass at the KEY span of phase 5b and the
+    first ARF span of phase 5g against the plain version on the card (the
+    KEY span also on CPU tensors); KK's weight against ``np.exp`` at every
+    truncation boundary and its division at every window total. Exact
+    equality throughout."""
     import numpy as np
     import torch
     from aom_av1_psy_tpu_torch.encoder import temporal_filter as TF
@@ -2249,55 +2269,86 @@ def check_tf_kernels(dev):
         f"{kj_t[3]:.4f} ms (device {kj_t[4]} ms), plain {kj_t[1]:.4f} ms, "
         f"bound {kj_bnd['bound_ms']:.4f} ms ({kj_bnd['bound_by']})")
 
-    # ---- KK: frame 0's accumulation; on the card and on CPU tensors ----
-    inputs = grid.motion_inputs(planes[0])
-    params = TF.filter_params(75, 2, (1.3, 0.5, 0.5))
-    center = grid.center
-
-    def run(fn, ref, pred, ins, device):
-        acc = [torch.zeros(p.shape, dtype=torch.int64, device=device)
-               for p in ref]
-        cnt = [torch.zeros_like(a) for a in acc]
-        fn(ref, pred, *ins, params, 1, 1, 32, acc, cnt)
-        return tuple(acc + cnt)
-
-    got = run(TF.tf_weight_accum, center, planes[0], inputs, dev)
-    err = compare("KK", got, run(TF.tf_weight_accum_plain, center, planes[0],
-                                 inputs, dev))
-    cpu = [[p.cpu() for p in ps] for ps in (center, planes[0])]
-    err = max(err, compare("KK vs CPU plain", tuple(x.cpu() for x in got),
-                           run(TF.tf_weight_accum, *cpu,
-                               [x.cpu() for x in inputs], "cpu")))
-    if int(got[3].max()) <= 0:
-        raise AssertionError("KK: every weight is 0")
-    # timed as the filter calls it: accumulating into planes that exist
-    acc = [torch.zeros(p.shape, dtype=torch.int64, device=dev)
-           for p in center]
-    cnt = [torch.zeros_like(a) for a in acc]
-    kk_t = tuple(cuda_time(lambda: fn(center, planes[0], *inputs, params, 1,
-                                      1, 32, acc, cnt), iters)
-                 for fn, iters in ((TF.tf_weight_accum, 20),
-                                   (TF.tf_weight_accum_plain, 3)))
-    npix = sum(p.numel() for p in center)
-    # per pixel: 25 window adds, 4 luma adds and ~20 index and clamp
-    # operations (integer); ~10 float64 operations and the 10 compares of
-    # the weight's threshold search
-    kk_bnd = bound(nbytes(center, planes[0], inputs, got, got), 50 * npix,
-                   20 * npix)
-    results.append({"name": "tf_weight_accum", "route": "cuda",
+    # ---- KK: the span pass at the 5b KEY span and the 5g ARF span ----
+    from aom_av1_psy_tpu_torch.normative import tables
+    spans = {}
+    for tag, n_gop, lo, hi, c, q_idx, strength in (
+            ("key", 5, 0, 3, 0, 40, 1), ("arf", 9, 2, 7, 2, 100, 2)):
+        # the KEY span of filter_key_frame (q 100 - 60, strength 1) and
+        # the first ARF span of encode_video_arf (group 4: frames 2-6,
+        # centre 4; strength 2 at the group's q)
+        span = testframes.make_gop(1920, 1080, n_gop)[lo:hi]
+        sp = TF.upload([f.planes() for f in span], dev)
+        sgrid = TF.SpanGrid(sp[c])
+        mvs = torch.zeros((len(sp), sgrid.B, 2), dtype=torch.int32,
+                          device=dev)
+        for fi, f in enumerate(sp):
+            if fi != c:
+                mvs[fi] = sgrid.motion_inputs(f)
+        noise = [max(TF.estimate_noise_level(p), 0.0) for p in sp[c]]
+        params = TF.filter_params(max(1, tables.ac_quant(q_idx) // 4),
+                                  strength, noise)
+        args = (c, sp, mvs, params)
+        got = TF.tf_span_filter(*args)
+        err = compare(f"KK {tag} span", tuple(got),
+                      tuple(TF.tf_span_filter_plain(*args)))
+        if tag == "key":
+            err = max(err, compare(
+                "KK key span vs CPU plain", tuple(x.cpu() for x in got),
+                tuple(TF.tf_span_filter(c, [[p.cpu() for p in f]
+                                            for f in sp], mvs.cpu(),
+                                        params))))
+        else:
+            # weights near 1000 (q factor 30000), where every frame counts
+            hi_q = (c, sp, mvs, TF.filter_params(30000, strength, noise))
+            got_hi = TF.tf_span_filter(*hi_q)
+            err = max(err, compare("KK arf span q 30000", tuple(got_hi),
+                                   tuple(TF.tf_span_filter_plain(*hi_q))))
+            if torch.equal(got_hi[0], sp[c][0].to(torch.uint8)):
+                raise AssertionError("KK arf span at q 30000: the luma is "
+                                     "unfiltered")
+        changed = [float((o != p).double().mean()) for o, p in zip(got, sp[c])]
+        npix = sum(p.numel() for p in sp[c])
+        # per pixel and non-centre frame: the difference and square, 10
+        # separable window adds, 4 luma adds (chroma), the accumulation;
+        # 11 float64 operations (conversions, the divide, 4 products, the
+        # sum, the clamp and the threshold compares); the rounding per pixel
+        k = len(sp) - 1
+        spans[tag] = {
+            "err": err, "frames": len(sp), "changed": changed,
+            "ms": cuda_time(lambda: TF.tf_span_filter(*args), 20),
+            "device_ms": device_ms(lambda: TF.tf_span_filter(*args), 20,
+                                   "kk_span_kernel"),
+            "plain_ms": cuda_time(lambda: TF.tf_span_filter_plain(*args),
+                                  3),
+            **bound(nbytes(sp, mvs, got), (20 * k + 5) * npix,
+                    11 * k * npix)}
+    arf, key = spans["arf"], spans["key"]
+    results.append({"name": "tf_span_filter", "route": "cuda",
                     "source": "aom_av1_psy_tpu_torch/csrc/temporal_filter.cu",
                     "replaces": "aom_av1_psy_tpu/encoder/temporal_filter.py"
                                 ":33 (host numpy, not a TPU program)",
-                    "max_abs_err": err, "ms": kk_t[0], "plain_ms": kk_t[1],
-                    **kk_bnd, "library_ms": None,
+                    "max_abs_err": max(arf["err"], key["err"]),
+                    "ms": arf["ms"], "plain_ms": arf["plain_ms"],
+                    "device_ms": arf["device_ms"],
+                    "bound_ms": arf["bound_ms"], "bound_by": arf["bound_by"],
+                    "library_ms": None,
                     "library_none": "no single PyTorch call weights and "
                                     "accumulates the temporal filter",
-                    "timed_at": "one 1080p frame of the span, B=2040, "
-                                "accumulating into int64 accum/count"})
-    log(f"[3e] KK tf_weight_accum exact against the plain version on the "
-        f"card and on CPU tensors (1080p, strength 2); kernel "
-        f"{kk_t[0]:.4f} ms, plain {kk_t[1]:.4f} ms, bound "
-        f"{kk_bnd['bound_ms']:.4f} ms ({kk_bnd['bound_by']})")
+                    "timed_at": "the 1080p ARF span of 5g (5 frames, "
+                                "centre 2, B=2040); span_key_*: the 1080p "
+                                "KEY span of 5b (3 frames, centre 0)",
+                    **{f"span_{t}_{m}": spans[t][m] for t in ("key", "arf")
+                       for m in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                 "bound_by")}})
+    for tag, sp in spans.items():
+        log(f"[3e] KK tf_span_filter exact against the plain version at the "
+            f"1080p {tag.upper()} span ({sp['frames']} frames"
+            + (", and on CPU tensors" if tag == "key" else ", and at q 30000")
+            + f"; share of pixels the filter changed, y u v: "
+            f"{[round(x, 5) for x in sp['changed']]}): kernel {sp['ms']:.4f} ms (device {sp['device_ms']} ms), "
+            f"plain {sp['plain_ms']:.4f} ms, bound {sp['bound_ms']:.4f} ms "
+            f"({sp['bound_by']})")
 
     # ---- KK's weight against np.exp at every truncation boundary ----
     sweep = TF.weight_boundary_values()
@@ -2313,6 +2364,18 @@ def check_tf_kernels(dev):
     log(f"[3e] KK's weight == (np.exp(-s) * 1000).astype(int64) at all "
         f"{sweep.size} boundary values (101 within 50 ulp of each of the "
         f"1000 truncation boundaries, and 0 and 7): no flip")
+
+    # ---- KK's division of the window totals against numpy's ----
+    totals = np.arange(TF.MAX_TOTAL + 1, dtype=np.float64)
+    for n in (25, 26, 27, 29):
+        got = TF.divide_totals(n, dev).cpu().numpy()
+        flips = np.nonzero(got != totals / n)[0]
+        if flips.size:
+            raise AssertionError(
+                f"KK: total / {n} differs from numpy's at {flips.size} "
+                f"totals, the first {flips[:5].tolist()}")
+    log(f"[3e] KK's total / n == numpy's at every total 0..{TF.MAX_TOTAL} "
+        f"for n = 25, 26, 27, 29")
     return results
 
 
@@ -3009,6 +3072,9 @@ def arf_gop_path(dev, kernels):
     if pk != warm or len(pk) != 11:
         raise AssertionError(f"1080p ARF GOP: {len(pk)} packets, second run "
                              f"equal to the first: {pk == warm}")
+    if counts["temporal_filter"] != 3:
+        raise AssertionError(f"1080p ARF GOP: {counts['temporal_filter']} KK "
+                             f"launches for 3 filtered spans")
     shown = displayed_encoders(encs)
     src = np.asarray(frames[4].planes()[0], np.float64)
     rec = _ref_chain_planes(shown[4])[0].cpu().numpy()[:1080, :1920]
@@ -3027,6 +3093,8 @@ def arf_gop_path(dev, kernels):
         f"s; display frame 4 (the first ARF) luma PSNR {psnr:.3f} dB; "
         f"second run == first")
     log(f"[5g] launches in the ARF GOP: {json.dumps(counts)}")
+    log(f"[5g] KK span launches in the ARF GOP: {counts['temporal_filter']} "
+        f"(the filtered KEY frame and 2 ARF spans)")
     return counts
 
 
@@ -3174,7 +3242,7 @@ def main() -> int:
            "vif_scale": ("tune_vmaf vif_scale",),
            "vif_down2": ("tune_vmaf vif_down2",)}
     total = {"lpf_ladder": KC, "mc_8tap": KD, "fullpel_ssd": KE,
-             "cdef_filter": KF, "fullpel_sad": KJ, "tf_weight_accum": KK,
+             "cdef_filter": KF, "fullpel_sad": KJ, "tf_span_filter": KK,
              "subpel_predict": KL, "subpel_refine49": KM,
              "block_reduce": KN, "satd8x8": KO, "analyze_blocks": KP,
              "palette_indices": KQ}
@@ -3197,6 +3265,10 @@ def main() -> int:
     for r in tf_results:
         r["launches"] = n(r["name"], arf_counts)
         r["launches_from"] = "5g: the 1080p ARF GOP (9 frames, group 4)"
+        if r["name"] == "tf_span_filter":
+            # 5b's IPPP GOP filters one KEY frame
+            r["launches_per_filtered_key_frame"] = n(r["name"], counts)
+            r["launches_per_arf_gop"] = n(r["name"], arf_counts)
     for r in k13b_results:
         r["launches"] = n(r["name"], chain_counts)
         r["launches_from"] = "5i: 3 timed runs of the 1080p subpel chain"

@@ -4,7 +4,8 @@ version (``cut`` + ``sad_argmin_plain``, on CPU tensors), against the
 (src, win) entry ``full_pel_grid_search`` on the windows cut out, against
 the reference's ``full_pel_grid_search`` (its jnp branch, on the CPU) on
 windows built as the reference's temporal filter builds them (128 outside
-the frame), and ``SpanGrid.motion_inputs`` against the former window path
+the frame), and ``SpanGrid.motion_inputs`` (the search), with
+``SpanGrid.weight_inputs`` after it, against the former window path
 written out here: the (B, h + 32, w + 32) windows cut from the padded frame
 and searched through the (src, win) entry.
 Cases: 32x32, 32x24, 24x32 and 24x24 blocks, radius 16 (and 2 / 6 on a
@@ -199,7 +200,7 @@ def test_motion_inputs_equal_the_former_window_path(w, h, seed):
     grid = TF.SpanGrid(planes[2])
     n0 = MV.KJ.launches
     for fi in (0, 1, 3, 4):
-        got = grid.motion_inputs(planes[fi])
+        got = grid.weight_inputs(planes[fi], grid.motion_inputs(planes[fi]))
         want = _former_motion_inputs(grid, planes[fi])
         for g, w_ in zip(got, want):
             assert g.dtype == w_.dtype and torch.equal(g, w_)

@@ -1,5 +1,5 @@
-"""Port parity of the temporal filter: the plain version of kernel KK
-(``tf_weight_accum_plain``) on libaom's four golden blocks
+"""Port parity of the temporal filter: the per-frame weighting of kernel
+KK's plain version (``tf_weight_accum_plain``) on libaom's four golden blocks
 (``av1_apply_temporal_filter_c``, ``tests/golden/golden_tf.npz``) and
 against the reference's per-block ``apply_temporal_filter`` on a frame of
 partial blocks with sub-pel subblock MVs; ``temporal_filter_frames`` at
@@ -56,7 +56,7 @@ def test_golden_blocks_through_plain_kk(golden, c):
         np.float64))
     accum = _zeros([(32, 32), (16, 16), (16, 16)])
     count = _zeros([(32, 32), (16, 16), (16, 16)])
-    TF.tf_weight_accum(rs, ps, torch.zeros((1, 3, 2), dtype=torch.int32),
+    TF.tf_weight_accum_plain(rs, ps, torch.zeros((1, 3, 2), dtype=torch.int32),
                        _t(g[f"tf{c}_mses"][None], torch.int64),
                        torch.tensor([dfac], dtype=torch.float64), params, 1,
                        1, 32, accum, count)
@@ -107,7 +107,7 @@ def test_plain_kk_equals_reference_blocks(q, strength):
                          for m in mvs], dtype=torch.float64)
     accum = _zeros([r.shape for r in ref])
     count = _zeros([r.shape for r in ref])
-    TF.tf_weight_accum([_t(r) for r in ref], [_t(p) for p in pred], _t(org),
+    TF.tf_weight_accum_plain([_t(r) for r in ref], [_t(p) for p in pred], _t(org),
                        _t(mses, torch.int64), dfac,
                        TF.filter_params(q, strength, noise), 1, 1, 32, accum,
                        count)

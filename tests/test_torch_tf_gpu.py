@@ -1,8 +1,10 @@
 """Kernels KJ (``fullpel_sad``, both entries: the caller's windows and the
-windows read where they lie in a plane) and KK (``tf_weight_accum``) of
-``aom_av1_psy_tpu_torch`` against their plain PyTorch versions on a CUDA
-device (KK also against the plain version on CPU tensors), and the
-temporal filter and the ARF GOP on CUDA against the CPU plain path.
+windows read where they lie in a plane) and KK (``tf_span_filter``, one
+pass per span, and its weight) of ``aom_av1_psy_tpu_torch`` against their
+plain PyTorch versions on a CUDA device (KK also against the plain version
+on CPU tensors, on the spans of ``tests/tf_span_cases.py`` and on 1080p
+spans of 3 and 5 frames), and the temporal filter and the ARF GOP on CUDA
+against the CPU plain path.
 Tolerance: exact equality (integer outputs; KK's float64 weights are
 truncated to integers, so a difference would be a flip, not noise).
 
@@ -22,6 +24,7 @@ from aom_av1_psy_tpu_torch.encoder.frame import EncoderConfig
 from aom_av1_psy_tpu_torch.encoder.tpu_interframe import encode_video_arf
 from aom_av1_psy_tpu_torch.ops import mvsearch as MV
 from aom_av1_psy_tpu_torch.utils import testframes
+from tf_span_cases import CASES, SIZES, case_id, panning
 
 pytestmark = pytest.mark.gpu
 
@@ -142,60 +145,56 @@ def test_kj_hierarchical_matches_plain(dev, h, w):
         assert torch.equal(g.cpu(), w_)
 
 
-def _kk_case(seed, H=80, W=112):
-    rng = np.random.default_rng(seed)
-    ref = [rng.integers(0, 256, s).astype(np.int32)
-           for s in ((H, W), (H // 2, W // 2), (H // 2, W // 2))]
-    pred = [np.clip(r + rng.integers(-6, 7, r.shape), 0, 255).astype(np.int32)
-            for r in ref]
-    nby, nbx = -(-H // 32), -(-W // 32)
-    B = nby * nbx
-    org = np.zeros((B, 3, 2), np.int32)
-    for b in range(B):
-        by, bx = (b // nbx) * 32, (b % nbx) * 32
-        h, w = min(32, H - by), min(32, W - bx)
-        d = rng.integers(-2, 3, 2) if b % 2 else (0, 0)
-        for p, s in enumerate((0, 1, 1)):
-            # the block's own position (odd blocks moved by up to 2 px)
-            ph, pw = ref[p].shape
-            org[b, p] = (np.clip((by >> s) + d[0], 0, ph - (h >> s)),
-                         np.clip((bx >> s) + d[1], 0, pw - (w >> s)))
-    mvs = rng.integers(-40, 41, (B, 4, 2))
-    dfac = np.array([[TF.d_factor(r, c, W, H) for r, c in m] for m in mvs])
-    return (ref, pred, org, rng.integers(0, 60, (B, 4)), dfac,
-            TF.filter_params(250, 2, (1.5, 0.6, 2.2)))
+def _span(planes, center, strength, q, noise=(2.2, 0.7, 1.4)):
+    """The span's MVs (the search on the planes' device) and params."""
+    grid = TF.SpanGrid(planes[center])
+    mvs = torch.zeros((len(planes), grid.B, 2), dtype=torch.int32,
+                      device=grid.by.device)
+    for fi, f in enumerate(planes):
+        if fi != center:
+            mvs[fi] = grid.motion_inputs(f)
+    return mvs, TF.filter_params(q, strength, noise)
 
 
-def _kk_run(case, device):
-    ref, pred, org, mses, dfac, params = case
-    t = lambda a, dt=torch.int32: torch.as_tensor(a).to(device, dt)
-    accum = [torch.zeros(r.shape, dtype=torch.int64, device=device)
-             for r in ref]
-    count = [torch.zeros_like(a) for a in accum]
-    TF.tf_weight_accum([t(r) for r in ref], [t(p) for p in pred], t(org),
-                       t(mses, torch.int64), t(dfac, torch.float64), params,
-                       1, 1, 32, accum, count)
-    return [x.cpu() for x in accum + count]
-
-
-@pytest.mark.parametrize("seed", [0, 1])
-def test_kk_matches_plain_on_card_and_cpu(dev, seed):
-    case = _kk_case(seed)
+def _span_pass_exact(planes, center, strength, q, cpu_too=True):
+    """KK's span pass on the card against its plain version on the card
+    (and on CPU tensors): exact, one launch."""
+    mvs, params = _span(planes, center, strength, q)
     n0 = TF.KK.launches
-    got = _kk_run(case, dev)
+    got = TF.tf_span_filter(center, planes, mvs, params)
+    torch.cuda.synchronize()
     assert TF.KK.launches == n0 + 1
-    want_cpu = _kk_run(case, "cpu")
-    ref, pred, org, mses, dfac, params = case
-    t = lambda a, dt=torch.int32: torch.as_tensor(a).to(dev, dt)
-    accum = [torch.zeros(r.shape, dtype=torch.int64, device=dev) for r in ref]
-    count = [torch.zeros_like(a) for a in accum]
-    TF.tf_weight_accum_plain([t(r) for r in ref], [t(p) for p in pred],
-                             t(org), t(mses, torch.int64),
-                             t(dfac, torch.float64), params, 1, 1, 32, accum,
-                             count)
-    for g, c, d in zip(got, want_cpu, [x.cpu() for x in accum + count]):
-        assert torch.equal(g, c) and torch.equal(g, d)
-    assert got[3].max() > 0
+    want = TF.tf_span_filter_plain(center, planes, mvs, params)
+    for g, w in zip(got, want, strict=True):
+        assert g.is_cuda and g.dtype == torch.uint8 and torch.equal(g, w)
+    if cpu_too:
+        cpu = TF.tf_span_filter(center, [[p.cpu() for p in f]
+                                         for f in planes], mvs.cpu(), params)
+        for g, w in zip(got, cpu):
+            assert torch.equal(g.cpu(), w)
+    return got
+
+
+@pytest.mark.parametrize("n,center,strength,q,size", CASES,
+                         ids=[case_id(c) for c in CASES])
+def test_span_pass_matches_plain(dev, n, center, strength, q, size):
+    w, h = SIZES[size]
+    planes = TF.upload(panning(n, w, h, seed=n * 10 + center), dev)
+    _span_pass_exact(planes, center, strength, q)
+
+
+@pytest.mark.parametrize("n,center,strength,q", [(3, 0, 1, 11),
+                                                 (5, 2, 2, 28)])
+def test_span_pass_matches_plain_1080p(dev, n, center, strength, q):
+    """The 1080p KEY span (3 frames, centre first, strength 1, the q factor
+    of base_q_idx 40) and a 5-frame ARF span (centre 2, strength 2, the q
+    factor of base_q_idx 100) of ``make_gop(1920, 1080, ...)``."""
+    frames = testframes.make_gop(1920, 1080, n, seed=3)
+    planes = TF.upload([f.planes() for f in frames], dev)
+    _span_pass_exact(planes, center, strength, q, cpu_too=False)
+    # and with weights near 1000 (q factor 30000), where every frame counts
+    got = _span_pass_exact(planes, center, strength, 30000, cpu_too=False)
+    assert not torch.equal(got[0], planes[center][0].to(torch.uint8))
 
 
 def test_filter_frames_on_card_match_cpu(dev):
@@ -204,8 +203,8 @@ def test_filter_frames_on_card_match_cpu(dev):
     n0 = (MV.KJ.launches, TF.KK.launches)
     got = TF.temporal_filter_frames(frames, 2, 250, 2, device=dev, **kw)
     # 4 reference frames x 4 block shapes (32/16 wide, 32/16 tall); KK
-    # once per frame of the span
-    assert (MV.KJ.launches - n0[0], TF.KK.launches - n0[1]) == (16, 5)
+    # once for the span
+    assert (MV.KJ.launches - n0[0], TF.KK.launches - n0[1]) == (16, 1)
     want = TF.temporal_filter_frames(frames, 2, 250, 2, device="cpu", **kw)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
@@ -234,3 +233,16 @@ def test_kk_weight_equals_numpy_at_every_boundary(dev):
     flips = np.nonzero(got != want)[0]
     assert flips.size == 0, [(repr(s[i]), int(got[i]), int(want[i]))
                              for i in flips[:10]]
+
+
+@pytest.mark.parametrize("n", [25, 26, 27, 29])
+def test_span_divide_equals_numpy_at_every_total(dev, n):
+    """KK's total / n (a product corrected by its exact residual) against
+    numpy's IEEE quotient at every window total 0..29 * 255^2, for the
+    luma's 25 and each chroma subsampling's 25 + (1 << (ss_x + ss_y))."""
+    want = np.arange(TF.MAX_TOTAL + 1, dtype=np.float64) / n
+    n0 = TF.KK.launches
+    got = TF.divide_totals(n, dev).cpu().numpy()
+    assert TF.KK.launches == n0 + 1
+    flips = np.nonzero(got != want)[0]
+    assert flips.size == 0, flips[:10].tolist()

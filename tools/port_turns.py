@@ -3,6 +3,17 @@
 
 Times, for checkout A and checkout B, each turn a fresh process, in the
 order A B B A (``--rounds`` times):
+- the temporal filter at 1080p: ``filter_key_frame`` of the KEY span of
+  ``encode_video(make_gop(1920, 1080, 5))`` (frames 0-2, q 40; host clock
+  to a synchronize, median of 15 after a first), and under the profiler
+  over one call KK's launches and device time (every KK kernel in the
+  window), KJ's device time and the device kernels and copies by name;
+  ``SpanGrid.motion_inputs`` for frame 0 of a 5-frame span (median of 25
+  after a first; KJ's launches per call) beside the search alone (the
+  padded frame, KJ's plane entry per block shape, the MVs in block order),
+  so that the rest of the parent's ``motion_inputs`` (origins, MSEs,
+  distance factors) is their difference; with ``--tf-only`` a turn stops
+  here;
 - the 1080p KEY frame's plan (untiled, two tile columns, the
   ``BLOCK_8X8`` uniform grid: a first frame, then the median of 3 steady
   frames, with KA's and KB's launches per frame);
@@ -12,10 +23,7 @@ order A B B A (``--rounds`` times):
   B = 8160: CUDA events and the profiler's device time of KB's kernel);
 - KJ's ``full_pel_grid_search`` at the 1980 full 32x32 blocks of a 1080p
   frame, radius 16, on 64x64 windows cut from the frame padded with 128
-  (events and device time), and the temporal filter's
-  ``SpanGrid.motion_inputs`` for one 1080p frame of a 5-frame span (host
-  clock to a synchronize, median of 25 after a first; KJ's launches per
-  call);
+  (events and device time);
 - KD's ``mc_8tap`` at bw 16, K = 9, B = 8160, SAD only (events and device
   time);
 - KE's ``fullpel_search`` at B = 8160, bw 16 with centres on the 1088x1920
@@ -41,7 +49,7 @@ order A B B A (``--rounds`` times):
 Only entry points that both checkouts have are timed. Both checkouts
 build their kernels into their own ``build/`` at first use.
 
-    python3 tools/port_turns.py PARENT_DIR CHANGE_DIR [--rounds 1]
+    python3 tools/port_turns.py PARENT_DIR CHANGE_DIR [--rounds 1] [--tf-only]
 
 Prints the card (name, power limit), one JSON line per turn, and the
 medians per checkout as the last line. Needs a CUDA device.
@@ -71,9 +79,75 @@ from aom_av1_psy_tpu_torch.ops.intra_pred import KA
 from aom_av1_psy_tpu_torch.ops.txq import KB
 from aom_av1_psy_tpu_torch.utils import testframes
 
+out = {"tree": sys.argv[1]}
+from torch.profiler import ProfilerActivity, profile
+from aom_av1_psy_tpu_torch.encoder import temporal_filter as TF
+from aom_av1_psy_tpu_torch.ops import mvsearch as MV
+
+
+def host_s(fn, n=25):
+    # host clock to a synchronize: the median of n runs after a first
+    walls = []
+    for _ in range(n + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return statistics.median(walls[1:])
+
+
+# the temporal filter: the 1080p KEY span of encode_video (filter_key_frame
+# at q 100 - 60: frames 0-2, centre 0) and SpanGrid.motion_inputs for frame
+# 0 of a 5-frame span (centre 2), split into the search alone (the padded
+# frame, KJ's plane entry per block shape, the MVs in block order: what
+# both checkouts run) and the rest
+gop = testframes.make_gop(1920, 1080, 5)
+planes = TF.upload([f.planes() for f in gop], "cuda")
+grid = TF.SpanGrid(planes[2])
+
+
+def tf_search(f):
+    padded = grid.padded(f[0])
+    mv = torch.empty((grid.B, 2), dtype=torch.int32, device="cuda")
+    for hw, ids in grid.groups:
+        mv[ids] = MV.full_pel_plane_search(grid.src[hw], padded,
+                                           *grid.origins[hw], 16)[0]
+    return mv
+
+
+MV.KJ.reset()
+out["tf_motion_s"] = host_s(lambda: grid.motion_inputs(planes[0]))
+out["kj_launches_per_motion_inputs"] = MV.KJ.launches / 26
+out["tf_search_s"] = host_s(lambda: tf_search(planes[0]))
+key_tf = lambda: TF.filter_key_frame(gop, 0, 40, device="cuda")
+out["tf_key_s"] = host_s(key_tf, 15)
+TF.KK.reset()
+with profile(activities=[ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA]) as prof:
+    key_tf()
+    torch.cuda.synchronize()
+dev_rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+kk_rows = [e for e in dev_rows
+           if "::kk_kernel(" in e.key or "::kk_span_kernel<" in e.key]
+out["tf_key_kk_launches"] = TF.KK.launches
+out["tf_key_kk_device_ms"] = sum(e.self_device_time_total
+                                 for e in kk_rows) / 1e3
+out["tf_key_kj_device_ms"] = sum(e.self_device_time_total for e in dev_rows
+                                 if "::kj_kernel" in e.key) / 1e3
+out["tf_key_device_ops"] = sum(e.count for e in dev_rows)
+out["tf_key_device_ms"] = sum(e.self_device_time_total
+                              for e in dev_rows) / 1e3
+out["tf_key_ops_by_name"] = {e.key[:60]: e.count for e in sorted(
+    dev_rows, key=lambda e: -e.count)[:16]}
+if sys.argv[2:] == ["tf"]:
+    print(json.dumps(out))
+    sys.exit(0)
+
 build_all((KA, KB, KC, ME.KN))
 frame = testframes.make_frame(1920, 1080)
-out = {"tree": sys.argv[1]}
 for name, cfg in (("untiled", EncoderConfig(base_q_idx=100)),
                   ("tiled", EncoderConfig(base_q_idx=100, tile_cols_log2=1)),
                   ("bs8", EncoderConfig(base_q_idx=100, block_size=3))):
@@ -148,12 +222,7 @@ for bs, B, key in ((16, 8160, "y16"), (32, 2040, "y32"), (8, 8160, "uv8")):
     out[f"kb_bs{bs}_ms"] = events_ms(lambda: TQ.txq_recon_skip(*a), 20)
     out[f"kb_bs{bs}_device_ms"] = device_ms(lambda: TQ.txq_recon_skip(*a))
 
-# KJ and the temporal filter's search inputs: frame 0 of a 1080p span
-from aom_av1_psy_tpu_torch.encoder import temporal_filter as TF
-from aom_av1_psy_tpu_torch.ops import mvsearch as MV
-gop = testframes.make_gop(1920, 1080, 5)
-planes = TF.upload([f.planes() for f in gop], "cuda")
-grid = TF.SpanGrid(planes[2])
+# KJ at the 1980 full 32x32 blocks of frame 0 of the span
 
 
 def cut(plane, r0, c0, h, w):
@@ -173,16 +242,6 @@ win = cut(padded, by, bx, 64, 64).contiguous()
 kj = lambda: MV.full_pel_grid_search(src, win, 16)
 out["kj_ms"] = events_ms(kj, 20)
 out["kj_device_ms"] = device_ms(kj, 20, "kj_kernel")
-MV.KJ.reset()
-walls = []
-for _ in range(26):
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    grid.motion_inputs(planes[0])
-    torch.cuda.synchronize()
-    walls.append(time.perf_counter() - t0)
-out["tf_motion_s"] = statistics.median(walls[1:])
-out["kj_launches_per_motion_inputs"] = MV.KJ.launches / 26
 
 # KD at the subpel step's shape
 from aom_av1_psy_tpu_torch.encoder import tpu_inter as TIN
@@ -363,6 +422,7 @@ print(json.dumps(out))
 
 def main() -> int:
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
+    parts = ["tf"] if "--tf-only" in sys.argv else []
     rounds = 1
     if "--rounds" in sys.argv:
         rounds = int(sys.argv[sys.argv.index("--rounds") + 1])
@@ -378,7 +438,8 @@ def main() -> int:
     runs = {t: [] for t in trees}
     for _ in range(rounds):
         for t in (trees[0], trees[1], trees[1], trees[0]):
-            p = subprocess.run([sys.executable, "-c", CHILD, t], cwd=t,
+            p = subprocess.run([sys.executable, "-c", CHILD, t, *parts],
+                               cwd=t,
                                capture_output=True, text=True, timeout=900)
             if p.returncode != 0:
                 print(p.stdout[-2000:], p.stderr[-4000:], file=sys.stderr)
@@ -389,11 +450,14 @@ def main() -> int:
     med = {}
     for t, lines in runs.items():
         med[t] = {f"{k} {m}": statistics.median(x[k][m] for x in lines)
-                  for k in ("untiled", "tiled", "bs8")
+                  for k in ("untiled", "tiled", "bs8") if k in lines[0]
                   for m in ("plan_s", "frame_s", "ka_launches_per_frame",
                             "kb_launches_per_frame")}
-        for k in ("kn_sad_ms", "pairwise_ms", "kj_ms", "kj_device_ms",
-                  "tf_motion_s", "kj_launches_per_motion_inputs", "kd_ms",
+        for k in ("tf_motion_s", "tf_search_s", "tf_key_s",
+                  "tf_key_kk_launches", "tf_key_kk_device_ms",
+                  "tf_key_kj_device_ms", "tf_key_device_ops",
+                  "tf_key_device_ms", "kn_sad_ms", "pairwise_ms", "kj_ms",
+                  "kj_device_ms", "kj_launches_per_motion_inputs", "kd_ms",
                   "kd_device_ms", "p_plan_s", "p_frame_s",
                   "kd_launches_per_p_frame", "ke_bw8_ms",
                   "ke_bw8_device_ms", "ke_bw16_ms", "ke_bw16_device_ms",
@@ -408,7 +472,7 @@ def main() -> int:
                 for m in ("device_ms", "launches")) + tuple(
                 f"kb_bs{bs}{m}" for bs in (16, 32, 8)
                 for m in ("_ms", "_device_ms")):
-            vals = [x[k] for x in lines if x[k] is not None]
+            vals = [x[k] for x in lines if x.get(k) is not None]
             med[t][k] = statistics.median(vals) if vals else None
     print(json.dumps({"medians": med}))
     return 0
