@@ -12,9 +12,12 @@ is the multi-scale VIF that ``tools/quality.py`` reports; ``motion_score`` /
 Kernels (``csrc/tune_vmaf.cu``), each with its plain PyTorch version here;
 a CPU tensor takes the plain version, a CUDA tensor the kernel:
 - KG ``gauss_blur``: the 8-tap blur, exact integers, optionally with the
-  int64 sums that ``hf`` needs;
+  int64 sums that ``hf`` needs; a CTA per band of ``KG_BAND`` columns, a
+  warp per strip of ``KG_ROWS`` rows of it, each strip blurred from its own
+  edge-replicated halo;
 - KH ``unsharp_apply``: ``clip(floor(fl32(s + fl32(a * (s - b))) + 0.5))``;
-- KI ``vif_scale`` (one VIF scale's two log2 sums) and ``vif_down2``.
+- KI ``vif_scale`` (one VIF scale's two log2 sums, the box sums separable
+  and unscaled in float64) and ``vif_down2``.
 
 Parity with the reference. The blur and the sharpened plane are exact.
 ``hf`` is the reference's float32 ratio of two ``jnp.var``, whose reduction
@@ -47,6 +50,10 @@ GAUSS_KERNEL = (0, 8, 30, 52, 30, 8, 0, 0)
 HF_TARGET = 0.03       # Gaussian-residual energy ratio of "sharp enough"
 MAX_AMOUNT = 0.3       # the reference search's practical ceiling
 VIF_WIN = 9
+# KG's partition (csrc/tune_vmaf.cu kBand, kRows): a CTA's band of columns
+# and a warp's strip of rows in it
+KG_BAND = 128
+KG_ROWS = 8
 
 TV = CudaKernel("tune_vmaf", {
     # src, src_u8, H, W, out, moments (or null)

@@ -59,9 +59,11 @@ exit code is not 0):
    equality, with both times;
 3d. KG (with and without the moments), KH and KI (the four VIF scales, and
    its ``vif_down2`` entry) against their plain versions at the 1080p
-   shapes: KG, KH and down2 exact, KI within a relative 1e-4; kernel,
-   plain and (KI, down2) library-call times, and the profiler's device
-   time of KG and KH;
+   shapes: KG, KH and down2 exact, KI within a relative 1e-4; KG also at
+   its strips' edge sizes (uint8 and int32) and KI at odd sizes and on
+   float32 values off the pyramid's grid; kernel, plain and (KI, down2)
+   library-call times, and the profiler's device time of KG, KH, KI (at
+   scale 0 and summed over the four scales) and ``vif_down2``;
 3e. KJ (the temporal filter's full-pel SAD search) and KK (its span
    pass: weighting, accumulation and rounding of every frame of a span)
    at 1080p: KJ at the shapes of one ARF span (``make_gop(1920, 1080,
@@ -1055,6 +1057,7 @@ def check_tune_vmaf_kernels(dev):
     """Phase 3d: KG (with and without the moments), KH, and KI with its
     down2 entry against their plain versions at the 1080p tune_vmaf and VIF
     shapes: KG, KH and down2 exact, KI's two sums within VIF_RTOL."""
+    import numpy as np
     import torch
     import torch.nn.functional as F
     from aom_av1_psy_tpu_torch.encoder import tune_vmaf as TV
@@ -1078,7 +1081,7 @@ def check_tune_vmaf_kernels(dev):
              cuda_time(lambda: TV.blur_moments_plain(
                  y, TV.gaussian_blur_plain(y)), 5),
              device_ms(lambda: TV.gaussian_blur(y, moments=True), 20,
-                       "kg_kernel"))
+                       "kg_strip_kernel"))
     plain_blur = cuda_time(lambda: TV.gaussian_blur(y), 50)
     # 2 x 8 taps of 2 operations, rounding and clip, 6 for the moments
     results.append({"name": "gauss_blur", "route": "cuda", "source": src,
@@ -1095,6 +1098,23 @@ def check_tune_vmaf_kernels(dev):
         f"1080x1920: with moments kernel {times[0]:.4f} ms (device "
         f"{times[2]} ms), plain "
         f"{times[1]:.4f} ms; blur alone {plain_blur:.4f} ms")
+    # the strips' edges: a lane's 4 columns, a band of TV.KG_BAND columns,
+    # a warp's TV.KG_ROWS rows and a CTA's eight warps
+    rng = np.random.default_rng(SEED + 14)
+    sizes = [(h, w) for h in (1, 7, 8, 9, 16, 17, 64, 65)
+             for w in (1, 3, 5, 127, 128, 129, 130)]
+    for h, w in sizes:
+        yy = torch.as_tensor(rng.integers(0, 256, (h, w)).astype(np.uint8),
+                             device=dev)
+        yb = TV.gaussian_blur_plain(yy)
+        for t in (yy, yy.to(torch.int32)):
+            compare(f"KG {h}x{w} {t.dtype}", TV.gaussian_blur(t), yb)
+            compare(f"KG {h}x{w} {t.dtype} + moments",
+                    TV.gaussian_blur(t, moments=True),
+                    (yb, TV.blur_moments_plain(t, yb)))
+    log(f"[3d] KG exact at the {len(sizes)} strip-edge sizes "
+        f"(heights 1-65, widths 1-130; uint8 and int32, with and without "
+        f"the moments)")
 
     # ---- KH: the reference's 1080p amount and the ceiling ----
     err = 0.0
@@ -1124,11 +1144,14 @@ def check_tune_vmaf_kernels(dev):
     err, rel, k_err = 0.0, 0.0, 0.0
     k3 = torch.tensor([[1, 2, 1], [2, 4, 2], [1, 2, 1]], dtype=torch.float32,
                       device=dev)[None, None] / 16.0
+    ki_dev = []
     for s in range(4):
         got, ref_sums = TV.vif_scale_sums(r, d), TV.vif_scale_plain(r, d)
         rel = max(rel, float(((got - ref_sums).abs()
                               / ref_sums.abs().clamp(min=1e-30)).max()))
         err = max(err, max_abs_err(got, ref_sums))
+        ki_dev.append(device_ms(lambda: TV.vif_scale_sums(r, d), 20,
+                                "ki_tile_kernel"))
         if s == 0:
             Ho, Wo = r.shape[0] - 8, r.shape[1] - 8
             # what the function needs per output pixel: the three products,
@@ -1149,29 +1172,51 @@ def check_tune_vmaf_kernels(dev):
             d2_t = (cuda_time(lambda: TV.down2(r), 50),
                     cuda_time(lambda: TV.down2_plain(r), 20),
                     cuda_time(lambda: F.conv2d(r[None, None], k3, stride=2,
-                                               padding=1), 50))
+                                               padding=1), 50),
+                    device_ms(lambda: TV.down2(r), 20, "vif_down2_kernel"))
             d2_bnd = bound(nbytes(r, nr), 18 * nr.numel())
         r, d = nr, TV.down2(d)
+    # odd sizes (the 9 x 9 minimum, one past a 24 x 32 output tile) and
+    # float32 values off the pyramid's grid
+    for h, w, scale in ((9, 9, 1.0), (9, 41, 1.0), (37, 53, 1.0),
+                        (41, 33, 1.0), (1080, 1920, 100.0)):
+        if scale == 1.0:
+            a = torch.as_tensor(rng.integers(0, 256, (h, w)), device=dev,
+                                dtype=torch.float32)
+            b = TV.gaussian_blur_plain(a.to(torch.uint8)).to(torch.float32)
+        else:
+            a, b = (torch.as_tensor(rng.standard_normal((h, w)) * scale,
+                                    device=dev, dtype=torch.float32)
+                    for _ in range(2))
+        got, ref_sums = TV.vif_scale_sums(a, b), TV.vif_scale_plain(a, b)
+        rel = max(rel, float(((got - ref_sums).abs()
+                              / ref_sums.abs().clamp(min=1e-30)).max()))
     if rel > VIF_RTOL:
         raise AssertionError(f"KI: relative error {rel:.3g} above "
                              f"{VIF_RTOL}")
     results.append({"name": "vif_scale", "route": "cuda", "source": src,
                     "replaces": f"{ref}:94", "max_abs_err": err,
                     "max_rel_err": rel, "ms": ki_t[0], "plain_ms": ki_t[1],
+                    "device_ms": ki_dev[0],
+                    "device_ms_4_scales": (sum(ki_dev) if None not in ki_dev
+                                           else None),
                     **ki_bnd, "library_ms": ki_lib,
                     "library_call": "conv2d of the five box moments (9x9, "
                                     "TF32 off)",
                     "timed_at": "scale 0, 1080x1920 float32"})
     results.append({"name": "vif_down2", "route": "cuda", "source": src,
                     "replaces": f"{ref}:111", "max_abs_err": k_err,
-                    "ms": d2_t[0], "plain_ms": d2_t[1], **d2_bnd,
+                    "ms": d2_t[0], "plain_ms": d2_t[1],
+                    "device_ms": d2_t[3], **d2_bnd,
                     "library_ms": d2_t[2],
                     "library_call": "conv2d 3x3, stride 2, padding 1",
                     "timed_at": "1080x1920 -> 540x960 float32"})
-    log(f"[3d] KI vif_scale within {VIF_RTOL} at the four scales "
-        f"(max relative {rel:.3g}, max abs {err:.4g}): scale 0 kernel "
-        f"{ki_t[0]:.4f} ms, plain {ki_t[1]:.4f} ms, box-moment conv2d "
-        f"{ki_lib:.4f} ms; vif_down2 exact: kernel {d2_t[0]:.4f} ms, plain "
+    log(f"[3d] KI vif_scale within {VIF_RTOL} at the four scales, at odd "
+        f"sizes and off the grid (max relative {rel:.3g}, max abs "
+        f"{err:.4g} at 1080p): scale 0 kernel {ki_t[0]:.4f} ms (device "
+        f"{ki_dev[0]} ms; scales 0-3 {ki_dev}), plain {ki_t[1]:.4f} ms, "
+        f"box-moment conv2d {ki_lib:.4f} ms; vif_down2 exact: kernel "
+        f"{d2_t[0]:.4f} ms (device {d2_t[3]} ms), plain "
         f"{d2_t[1]:.4f} ms, strided conv2d {d2_t[2]:.4f} ms (max abs "
         f"difference from the kernel {lib_err:.3g})")
     return results

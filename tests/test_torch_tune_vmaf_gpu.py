@@ -58,6 +58,37 @@ def test_blur_kernel_matches_plain(dev, h, w):
         assert torch.equal(mom, TT.blur_moments_plain(t, want))
 
 
+@pytest.mark.parametrize("h", [1, 7, 8, 9, 16, 17, 64, 65])
+@pytest.mark.parametrize("w", [1, 3, 5, 127, 128, 129])
+def test_blur_kernel_at_strip_edges(dev, h, w):
+    """KG's partition at its edges: a lane's 4 columns, a band of
+    ``KG_BAND`` columns, a warp's ``KG_ROWS`` rows, a CTA's eight warps."""
+    y = np.random.default_rng(h * 1000 + w).integers(0, 256, (h, w)) \
+        .astype(np.uint8)
+    y[: (h + 3) // 4, : (w + 3) // 4] = 255
+    for t in (torch.as_tensor(y, device=dev),
+              torch.as_tensor(y.astype(np.int32), device=dev)):
+        want = TT.gaussian_blur_plain(t)
+        assert torch.equal(TT.gaussian_blur(t), want)
+        got, mom = TT.gaussian_blur(t, moments=True)
+        assert torch.equal(got, want)
+        assert torch.equal(mom, TT.blur_moments_plain(t, want))
+
+
+def test_blur_kernel_off_its_word(dev):
+    """A source that does not start on its word takes the per-pixel loads."""
+    y = torch.as_tensor(_luma(65, 129, seed=5).reshape(-1)[1:1 + 64 * 128]
+                        .reshape(64, 128))
+    for t in (y.to(dev), y.to(torch.int32).to(dev)):
+        flat = torch.zeros(t.numel() + 1, dtype=t.dtype, device=dev)
+        off = flat[1:].view(64, 128)
+        off.copy_(t)
+        want = TT.gaussian_blur_plain(off)
+        got, mom = TT.gaussian_blur(off, moments=True)
+        assert torch.equal(got, want)
+        assert torch.equal(mom, TT.blur_moments_plain(off, want))
+
+
 def test_unsharp_kernel_matches_plain(dev):
     y = torch.as_tensor(_luma(1080, 1920), device=dev)
     b = TT.gaussian_blur_plain(y)
@@ -80,6 +111,30 @@ def test_vif_kernels_match_plain(dev):
         nr = TT.down2(r)
         assert torch.equal(nr, TT.down2_plain(r))
         r, d = nr, TT.down2(d)
+
+
+@pytest.mark.parametrize("h,w", [(9, 9), (9, 41), (37, 53), (41, 33),
+                                 (73, 57)])
+def test_vif_kernel_at_odd_sizes(dev, h, w):
+    """The 9 x 9 minimum, one past a 24 x 32 output tile (41 x 33) and two
+    tiles and one (73 x 57)."""
+    y = torch.as_tensor(_luma(h, w, seed=w), device=dev)
+    r, d = y.to(torch.float32), TT.gaussian_blur_plain(y).to(torch.float32)
+    torch.testing.assert_close(TT.vif_scale_sums(r, d),
+                               TT.vif_scale_plain(r, d), rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("h,w", [(61, 83), (1080, 1920)])
+def test_vif_kernel_off_the_grid(dev, h, w):
+    """float32 values off the pyramid's grid: normals times 100."""
+    rng = np.random.default_rng(h)
+    n1, n2 = (rng.standard_normal((h, w)) for _ in range(2))
+    r = torch.as_tensor(n1 * 100.0, dtype=torch.float32, device=dev)
+    for d in (n2 * 100.0, 70.0 * n1 + 30.0 * n2):
+        d = torch.as_tensor(d, dtype=torch.float32, device=dev)
+        torch.testing.assert_close(TT.vif_scale_sums(r, d),
+                                   TT.vif_scale_plain(r, d), rtol=1e-4,
+                                   atol=0)
 
 
 def test_tune_vmaf_key_frame_on_card_equals_cpu(dev):

@@ -46,10 +46,20 @@ order A B B A (``--rounds`` times):
   time summed over one P-frame under the profiler;
 - one untiled 1080p KEY frame under the profiler: KC's launches and device
   time, and the device kernels and copies of the frame.
+With ``--vmaf-only`` a turn times the tune_vmaf kernels instead, and
+nothing else: at 1080p (``make_frame(1920, 1080)``'s luma and its blur),
+under the profiler, KG's device time per call (uint8 with the moments, the
+encoder's call), KI's at scale 0 and KI's and ``vif_down2``'s summed over
+the four scales of ``vif_lite`` (with their launches per call); and the
+walls of ``vif_lite(source, blur)`` (the source a numpy plane, the blur a
+tensor on the card, as phase 5f of ``chip_smoke.py`` passes its recon) and
+of ``frame_preprocessing(source)``, host clock to a synchronize, median of
+25 after a first.
 Only entry points that both checkouts have are timed. Both checkouts
 build their kernels into their own ``build/`` at first use.
 
-    python3 tools/port_turns.py PARENT_DIR CHANGE_DIR [--rounds 1] [--tf-only]
+    python3 tools/port_turns.py PARENT_DIR CHANGE_DIR [--rounds 1]
+        [--tf-only | --vmaf-only]
 
 Prints the card (name, power limit), one JSON line per turn, and the
 medians per checkout as the last line. Needs a CUDA device.
@@ -95,6 +105,45 @@ def host_s(fn, n=25):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     return statistics.median(walls[1:])
+
+
+def kernel_ms(fn, keys, iters=20):
+    # the profiler's device time (ms) and launches per call of fn, of the
+    # kernels whose name holds one of keys (either checkout's names)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and any(k in e.key for k in keys)]
+    return (sum(e.self_device_time_total for e in rows) / 1e3 / iters,
+            sum(e.count for e in rows) / iters)
+
+
+if sys.argv[2:] == ["vmaf"]:
+    from aom_av1_psy_tpu_torch.encoder import tune_vmaf as TV
+    y_np = testframes.make_frame(1920, 1080).planes()[0]
+    y = torch.as_tensor(y_np, device="cuda")
+    blur = TV.gaussian_blur(y)
+    r, d = y.to(torch.float32), blur.to(torch.float32)
+    out["kg_device_ms"], out["kg_launches"] = kernel_ms(
+        lambda: TV.gaussian_blur(y, moments=True), ("::kg_",))
+    out["ki_s0_device_ms"], _ = kernel_ms(lambda: TV.vif_scale_sums(r, d),
+                                          ("::ki_",))
+    out["vif_lite_ki_device_ms"], out["vif_lite_ki_launches"] = kernel_ms(
+        lambda: TV.vif_lite(r, d), ("::ki_",), 10)
+    out["vif_lite_down2_device_ms"], out["vif_lite_down2_launches"] = \
+        kernel_ms(lambda: TV.vif_lite(r, d),
+                  ("::kd_kernel(", "::vif_down2_kernel("), 10)
+    out["vif_lite_s"] = host_s(lambda: TV.vif_lite(y_np, blur))
+    out["frame_preprocessing_s"] = host_s(
+        lambda: TV.frame_preprocessing(y_np, "cuda"))
+    print(json.dumps(out))
+    sys.exit(0)
 
 
 # the temporal filter: the 1080p KEY span of encode_video (filter_key_frame
@@ -422,7 +471,8 @@ print(json.dumps(out))
 
 def main() -> int:
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
-    parts = ["tf"] if "--tf-only" in sys.argv else []
+    parts = (["tf"] if "--tf-only" in sys.argv else
+             ["vmaf"] if "--vmaf-only" in sys.argv else [])
     rounds = 1
     if "--rounds" in sys.argv:
         rounds = int(sys.argv[sys.argv.index("--rounds") + 1])
@@ -467,13 +517,18 @@ def main() -> int:
                   "kf_frame_ms", "kf_frame_device_ms",
                   "kf_frame_pass_device_ms", "p_pack_s", "p_cdef_host_ms",
                   "p_find_dir_ms", "p_lpf_host_ms", "p_script_ms",
-                  "p_mv_ops_ms", "p_native_coder_ms") + tuple(
+                  "p_mv_ops_ms", "p_native_coder_ms", "kg_device_ms",
+                  "kg_launches", "ki_s0_device_ms", "vif_lite_ki_device_ms",
+                  "vif_lite_ki_launches", "vif_lite_down2_device_ms",
+                  "vif_lite_down2_launches", "vif_lite_s",
+                  "frame_preprocessing_s") + tuple(
                 f"{k}_p_frame_{m}" for k in ("kd", "ke", "kc", "kf")
                 for m in ("device_ms", "launches")) + tuple(
                 f"kb_bs{bs}{m}" for bs in (16, 32, 8)
                 for m in ("_ms", "_device_ms")):
             vals = [x[k] for x in lines if x.get(k) is not None]
-            med[t][k] = statistics.median(vals) if vals else None
+            if vals:
+                med[t][k] = statistics.median(vals)
     print(json.dumps({"medians": med}))
     return 0
 
