@@ -37,16 +37,40 @@
 // c8 = 8 + 2 * dc for dr, dc in -3..3 (dr-major), each candidate predicted
 // from the window's region at (r8 >> 3, c8 >> 3) with phases
 // ((c8 & 7) << 1, (r8 & 7) << 1) through the facade path those phases
-// select, its SAD against the block, and the first-index argmin. The
-// prediction is av1conv::subpel_block (csrc/convolve.cuh), the code KL runs.
+// select (csrc/convolve.cuh's subpel_block, KL's code), its SAD against
+// the block, and the first-index argmin.
 //
-// What bounds it: at the 1080p P-frame's 16x16 grid (B = 8160) 49
-// predictions of up to 16 + 16 tap operations and a 3-operation SAD per
-// pixel, ~3.5 G integer operations against ~30 MB of windows and blocks:
-// operation bound (about 0.05 ms at 67 T/s). Design: one CTA per block; the
-// (h+9) x (w+9) window, the block, the intermediate and the prediction in
-// shared memory (dynamic); the candidates run in turn, each a predict and
-// a block-wide SAD; thread 0 takes the first-index argmin.
+// What bounds it: at the 1080p P-frame's 16x16 grid (B = 8160) the least
+// work is one x pass per column phase (6 of them, over h + 8 window rows)
+// and one 8-tap y pass or rounding per candidate output, with a
+// 3-operation SAD: ~2.5 G integer operations (2 a tap and ~4 for the
+// rounding and clip of each pass output) against ~30 MB of windows and
+// blocks, operation bound (about 0.037 ms at 67 T/s). As built, the 42
+// vertical passes' multiply-adds from registers are most of the
+// instructions; 83 registers a thread at 16x16 leave 21 warps an SM.
+//
+// Design. The lattice has seven column positions (fc, sc) = (c8 >> 3,
+// (c8 & 7) << 1), and so seven row positions. The x pass of column phase
+// dc over window rows 0..h+7 serves all seven candidates of that column:
+// the 2-D ones read rows fr..fr+h+6 of it (fr = r8 >> 3 in {0, 1}), and
+// the x-only one (dr = 0) reads rows 4..3+h through the identity
+// round2(acc, 3) == round2(acc + 2^(bd+6), 3) - 2^(bd+3) (2^(bd+6) is a
+// multiple of 8), so its output clip(round2(round2(acc, 3), 4)) is
+// clip(round2(im - 2^(bd+3), 4)). Column dc = 0 holds the raw window
+// column 4 + c instead: the y-only candidates and the copy.
+// A lane-task is (block, column phase, row chunk of R = min(h, 16) output
+// rows, column c): it keeps the R + 8 values of its column in registers,
+// then scores the 7 candidates of its column phase, each a sliding 8-tap
+// vertical pass over those registers (the rounding of the 2-D or the
+// y-only path by the column) and the SAD against the block's column c,
+// also held in registers. Lanes of consecutive columns sum each
+// candidate's SAD with warp shuffles (a segment of min(w, 32) lanes) and
+// add it into the block's 49 sums in shared memory at the dr-major index
+// (dr + 3) * 7 + (dc + 3); after the one barrier, a warp per block takes
+// the first-index argmin. There is no CTA barrier between candidates:
+// two per CTA, after staging and before the argmin. A CTA takes
+// nb = max(1, 256 / tasks) blocks (2 at 16x16); their windows, blocks and
+// both tap tables are staged in shared memory once.
 #include <limits.h>
 
 #include "convolve.cuh"
@@ -54,8 +78,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;   // KM
-constexpr int kMaxThreads = 512;  // KJ
+constexpr int kMaxThreads = 512;    // KJ
+constexpr int kKmMaxThreads = 512;  // KM: threads per CTA at most
+constexpr int kKmCtaTasks = 256;    // KM: lane-tasks a CTA aims at
 
 struct KJArgs {
   const int* src;      // (B, h, w)
@@ -226,43 +251,160 @@ AV1_EXPORT int fullpel_sad_plane(const int* src, const int* plane, int H,
 
 namespace {
 
-__global__ void __launch_bounds__(kThreads)
-    km_kernel(const int* __restrict__ src, const int* __restrict__ win, int w,
-              int h, const int* __restrict__ tabx,
-              const int* __restrict__ taby, int bd, int* best_idx,
-              int* best_sad) {
-  extern __shared__ int sm[];
-  const int ww = w + 9, wh = h + 9;
-  int* swin = sm;                  // (h+9, w+9)
-  int* sblk = swin + wh * ww;      // (h, w)
-  int* im = sblk + h * w;          // (h+7, w)
-  int* pred = im + (h + 7) * w;    // (h, w)
-  __shared__ int stab[256], sads[49], red[kThreads / 32];
-  const long long b = blockIdx.x;
-  const int* gw = win + b * wh * ww;
-  const int* gs = src + b * h * w;
-  for (int p = threadIdx.x; p < wh * ww; p += kThreads) swin[p] = gw[p];
-  for (int p = threadIdx.x; p < h * w; p += kThreads) sblk[p] = gs[p];
-  av1conv::load_taps(tabx, taby, stab);
-  __syncthreads();
-  for (int c = 0; c < 49; ++c) {
-    const int r8 = 8 + 2 * (c / 7 - 3), c8 = 8 + 2 * (c % 7 - 3);
-    const int sr = (r8 & 7) << 1, sc = (c8 & 7) << 1;
-    av1conv::subpel_block(swin + (r8 >> 3) * ww + (c8 >> 3), ww, w, h, sc,
-                          sr, stab + sc * 8, stab + 128 + sr * 8, bd, im,
-                          pred, w);
-    int s = 0;
-    for (int p = threadIdx.x; p < h * w; p += kThreads)
-      s += abs(pred[p] - sblk[p]);
-    s = block_sum(s, red);  // its barriers order pred's reads before reuse
-    if (threadIdx.x == 0) sads[c] = s;
+struct KMArgs {
+  const int* src;   // (B, h, w)
+  const int* win;   // (B, h + 9, w + 9)
+  long long B;
+  int w, h, bd;
+  int nb;           // blocks per CTA
+  int tasks;        // lane-tasks per block: 7 * (h / R) * w
+  const int* tabx;  // (16, 8) x taps of width w
+  const int* taby;  // (16, 8) y taps of height h
+  int* best_idx;
+  int* best_sad;
+};
+
+// The 7 SADs (one per dr, dr-major) of the lane-task of column phase
+// (fc, sc) at column c: `wc` is the window at (r0, c) (row stride ww),
+// `sb` the block at (r0, c) (row stride w); rows r0..r0+R-1 of the output.
+template <int R>
+__device__ __forceinline__ void km_column(const int* wc, int ww,
+                                          const int* sb, int w, int fc,
+                                          int sc, const int* stab, int bd,
+                                          int (&sad)[7]) {
+  using av1conv::kFilterBits;
+  using av1conv::kRound0;
+  const int maxv = (1 << bd) - 1;
+  int v[R + 8];
+  if (sc) {  // the x pass of the 2-D path, over R + 8 window rows
+    int kx[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) kx[k] = stab[sc * 8 + k];
+    const int off = (1 << (bd + kFilterBits - 1)) + (1 << (kRound0 - 1));
+    const int* p = wc + fc;
+#pragma unroll
+    for (int q = 0; q < R + 8; ++q) {
+      int acc = 0;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) acc += kx[k] * p[q * ww + k];
+      v[q] = (acc + off) >> kRound0;
+    }
+  } else {  // dc = 0: the raw column 4 + c
+#pragma unroll
+    for (int q = 0; q < R + 8; ++q) v[q] = wc[q * ww + 4];
   }
-  if (threadIdx.x == 0) {
-    int bi = 0;
-    for (int c = 1; c < 49; ++c)
-      if (sads[c] < sads[bi]) bi = c;
-    best_idx[b] = bi;
-    best_sad[b] = sads[bi];
+  int s[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) s[r] = sb[r * w];
+  // dr != 0: round2(acc + 2^ob, 11) - sub (2-D) or round2(acc, 7) (y only)
+  const int round1 = 2 * kFilterBits - kRound0;
+  const int ob = bd + 2 * kFilterBits - kRound0;
+  const int yadd = sc ? (1 << ob) + (1 << (round1 - 1))
+                      : 1 << (kFilterBits - 1);
+  const int ysh = sc ? round1 : kFilterBits;
+  const int ysub = sc ? (1 << (ob - round1)) + (1 << (ob - round1 - 1)) : 0;
+  // dr = 0: round2(im - 2^(bd+3), 4) (x only) or the raw value (copy)
+  const int xsh = sc ? kFilterBits - kRound0 : 0;
+  const int xadd = sc ? (1 << (xsh - 1)) - (1 << (bd + kFilterBits - 1 -
+                                                   kRound0))
+                      : 0;
+  const int lo = sc ? 0 : INT_MIN, hi = sc ? maxv : INT_MAX;
+#pragma unroll
+  for (int i = 0; i < 7; ++i) {
+    const int r8 = 2 + 2 * i, fr = r8 >> 3, sr = (r8 & 7) << 1;
+    int t = 0;
+    if (sr) {
+      int ky[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) ky[k] = stab[128 + sr * 8 + k];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        int acc = 0;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) acc += ky[k] * v[fr + r + k];
+        t += abs(clampi(((acc + yadd) >> ysh) - ysub, 0, maxv) - s[r]);
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        t += abs(clampi((v[4 + r] + xadd) >> xsh, lo, hi) - s[r]);
+    }
+    sad[i] = t;
+  }
+}
+
+template <int R>
+__global__ void __launch_bounds__(kKmMaxThreads) km_kernel(KMArgs a) {
+  extern __shared__ int sm[];
+  const int w = a.w, h = a.h, ww = w + 9, wsz = (h + 9) * ww, bsz = h * w;
+  int* stab = sm;                  // 256: x taps, then y taps
+  int* sads = stab + 256;          // (nb, 49), dr-major
+  int* swin = sads + a.nb * 49;    // (nb, h + 9, w + 9)
+  int* sblk = swin + a.nb * wsz;   // (nb, h, w)
+  const long long b0 = (long long)blockIdx.x * a.nb;
+  const int nblk = (int)(a.B - b0 < a.nb ? a.B - b0 : a.nb);
+  for (int i = threadIdx.x; i < 256; i += blockDim.x)
+    stab[i] = i < 128 ? a.tabx[i] : a.taby[i - 128];
+  for (int i = threadIdx.x; i < nblk * 49; i += blockDim.x) sads[i] = 0;
+  const int* gw = a.win + b0 * wsz;
+  for (int i = threadIdx.x; i < nblk * wsz; i += blockDim.x) swin[i] = gw[i];
+  const int* gs = a.src + b0 * bsz;
+  for (int i = threadIdx.x; i < nblk * bsz; i += blockDim.x) sblk[i] = gs[i];
+  __syncthreads();
+
+  // lane-tasks, column fastest: (block, column phase j, row chunk, c);
+  // a segment of seg lanes shares (block, j, chunk) (tasks and w are
+  // multiples of seg), so its lanes sum the same 7 candidates
+  const int seg = w < 32 ? w : 32, chunks = h / R;
+  const int valid_tasks = nblk * a.tasks, all_tasks = a.nb * a.tasks;
+  for (int base = 0; base < all_tasks; base += blockDim.x) {
+    const int t = base + threadIdx.x;
+    const bool valid = t < valid_tasks;
+    int sad[7] = {0, 0, 0, 0, 0, 0, 0};
+    int blk = 0, j = 0;
+    if (valid) {
+      blk = t / a.tasks;
+      const int u = t - blk * a.tasks, c = u % w, q = u / w;
+      const int r0 = q % chunks * R;
+      j = q / chunks;
+      const int c8 = 2 + 2 * j;
+      km_column<R>(swin + blk * wsz + r0 * ww + c, ww,
+                   sblk + blk * bsz + r0 * w + c, w, c8 >> 3,
+                   (c8 & 7) << 1, stab, a.bd, sad);
+    }
+#pragma unroll
+    for (int i = 0; i < 7; ++i)
+      for (int o = seg >> 1; o > 0; o >>= 1)
+        sad[i] += __shfl_xor_sync(0xffffffffu, sad[i], o);
+    if (valid && (threadIdx.x & (seg - 1)) == 0) {
+#pragma unroll
+      for (int i = 0; i < 7; ++i) atomicAdd(sads + blk * 49 + i * 7 + j,
+                                            sad[i]);
+    }
+  }
+  __syncthreads();
+
+  // a warp per block: the first-index argmin of the 49 sums
+  const int lane = threadIdx.x & 31;
+  for (int k = threadIdx.x >> 5; k < nblk; k += blockDim.x >> 5) {
+    const int* s = sads + k * 49;
+    int bs = s[lane], bi = lane;
+    if (lane + 32 < 49 && s[lane + 32] < bs) {
+      bs = s[lane + 32];
+      bi = lane + 32;
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      const int os = __shfl_xor_sync(0xffffffffu, bs, o);
+      const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+      if (os < bs || (os == bs && oi < bi)) {
+        bs = os;
+        bi = oi;
+      }
+    }
+    if (lane == 0) {
+      a.best_idx[b0 + k] = bi;
+      a.best_sad[b0 + k] = bs;
+    }
   }
 }
 
@@ -273,16 +415,23 @@ AV1_EXPORT int subpel_refine49(const int* src, const int* win, int B, int w,
                                int bd, int* best_idx, int* best_sad,
                                void* stream) {
   if (B <= 0) return 0;
-  if (w <= 0 || h <= 0 || w > 64 || h > 64 || bd < 8 || bd > 12)
+  const auto pow2 = [](int x) { return x >= 4 && x <= 64 && !(x & (x - 1)); };
+  if (!pow2(w) || !pow2(h) || bd < 8 || bd > 12)
     return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      sizeof(int) * ((size_t)(h + 9) * (w + 9) + (size_t)(3 * h + 7) * w);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        km_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  km_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      src, win, w, h, tabx, taby, bd, best_idx, best_sad);
+  const int R = h < 16 ? h : 16;
+  const int tasks = 7 * (h / R) * w;
+  const int nb = tasks >= kKmCtaTasks ? 1 : kKmCtaTasks / tasks;
+  int threads = (nb * tasks + 31) / 32 * 32;
+  if (threads > kKmMaxThreads) threads = kKmMaxThreads;
+  // at most 38.9 KB (64x64, one block a CTA): under the 48 KB a launch
+  // takes without opting in
+  const size_t smem = sizeof(int) *
+      (256 + (size_t)nb * (49 + (h + 9) * (w + 9) + h * w));
+  KMArgs a{src, win, B, w, h, bd, nb, tasks, tabx, taby, best_idx,
+           best_sad};
+  const int grid = (B + nb - 1) / nb;
+  void (*kern)(KMArgs) = R == 4 ? km_kernel<4>
+                         : R == 8 ? km_kernel<8> : km_kernel<16>;
+  kern<<<grid, threads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,5 @@
 // The 1-D pass of the square AV1 transforms, shared by kernels KB (txq.cu)
-// and KP (analyze.cu): the counterpart of the reference's jnp _run_stages
+// and KP (analyze.cu, through tx_stages on several vectors a lane): the counterpart of the reference's jnp _run_stages
 // (aom_av1_psy_tpu/ops/txfm.py:105) and the sinpi-based _fadst4 / _iadst4
 // (:129-182).
 //
@@ -117,6 +117,42 @@ __device__ __forceinline__ int pass_stages(const int* meta, int dct_prog,
   return adst && na > nd ? na : nd;
 }
 
+// Stages 0 .. nmax - 1 of the pass at table offset ``off`` with ``nst``
+// stages, on the V vectors whose element i this lane holds (lane i of
+// each group): one entry load serves all V. A stage s >= nst leaves the
+// values as they are (see tx_pass). NST > 0 compiles the walk for a pass
+// of exactly NST stages (nst and nmax are then NST), unrolled; the caller
+// checks the table against it.
+template <int BS, int V, int NST = 0>
+__device__ __forceinline__ void tx_stages(int (&x)[V], const int4* st,
+                                          int off, int nst, int nmax,
+                                          int cos_bit, int clamp_bit) {
+  const int i = threadIdx.x & (BS - 1);
+  const int rnd = 1 << (cos_bit - 1);
+  const int lo = clamp_bit ? -(1 << (clamp_bit - 1)) : 0;
+  const int hi = clamp_bit ? (1 << (clamp_bit - 1)) - 1 : 0;
+  auto stage = [&](int s, bool live) {
+    const int4 e = st[off + (live ? s : 0) * BS + i];
+    const int ia = e.x & 0xff, ib = (e.x >> 8) & 0xff;
+    const bool btf = e.x & (1 << 16), clp = (e.x & (1 << 17)) && clamp_bit;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int xa = __shfl_sync(kFull, x[v], ia, BS);
+      const int xb = __shfl_sync(kFull, x[v], ib, BS);
+      int y = add32(mul32(xa, e.y), mul32(xb, e.z));
+      if (btf) y = add32(y, rnd) >> cos_bit;
+      if (clp) y = clampi(y, lo, hi);
+      if (live) x[v] = y;
+    }
+  };
+  if (NST > 0) {
+#pragma unroll
+    for (int s = 0; s < NST; ++s) stage(s, true);
+  } else {
+    for (int s = 0; s < nmax; ++s) stage(s, s < nst);
+  }
+}
+
 // One 1-D pass of program ``prog`` over the vector this lane's group holds;
 // returns this lane's output element. Every lane of the warp must call it
 // with the same ``nmax`` (pass_stages): the shuffles run with the full
@@ -139,17 +175,7 @@ __device__ __forceinline__ int tx_pass(int x, const int4* st,
     a4 = adst4_lane(x0, x1, x2, x3, meta + 37 + 5 * prog, cos_bit, prog >= 4,
                     i);
   }
-  const int rnd = 1 << (cos_bit - 1);
-  const int lo = clamp_bit ? -(1 << (clamp_bit - 1)) : 0;
-  const int hi = clamp_bit ? (1 << (clamp_bit - 1)) - 1 : 0;
-  for (int s = 0; s < nmax; ++s) {
-    const int4 e = st[off + (s < nst ? s : 0) * BS + i];
-    const int xa = __shfl_sync(kFull, x, e.x & 0xff, BS);
-    const int xb = __shfl_sync(kFull, x, (e.x >> 8) & 0xff, BS);
-    int y = add32(mul32(xa, e.y), mul32(xb, e.z));
-    if (e.x & (1 << 16)) y = add32(y, rnd) >> cos_bit;
-    if ((e.x & (1 << 17)) && clamp_bit) y = clampi(y, lo, hi);
-    if (s < nst) x = y;
-  }
-  return (BS == 4 && nst < 0) ? a4 : x;
+  int v[1] = {x};
+  tx_stages<BS, 1>(v, st, off, nst, nmax, cos_bit, clamp_bit);
+  return (BS == 4 && nst < 0) ? a4 : v[0];
 }

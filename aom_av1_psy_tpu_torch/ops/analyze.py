@@ -30,7 +30,7 @@ from ..normative import txsize as TS
 from ..normative.enums import TX_HEIGHT, TX_WIDTH, TxSize
 from . import txfm as txfm_ops
 from .intra import SMOOTH_WEIGHT_LOG2_SCALE, smooth_weights
-from .txq import _programs
+from .txq import _programs, stage_table
 
 # candidate modes in the batched search (DC, V, H, SMOOTH, SMOOTH_V,
 # SMOOTH_H, PAETH) — the ones whose predictors are pure broadcasts
@@ -42,6 +42,25 @@ KP = CudaKernel("analyze", {
     "analyze_blocks": [P, I, P, P, P, P, I, I, P, I, I, I, P, P, P, P, P, P,
                        P, P],
 })
+
+# stages of the forward DCT program at each n that kernel KP's DCT pass is
+# unrolled over (csrc/analyze.cu, KPShape::kStages)
+KP_DCT_STAGES = {4: 3, 8: 5, 16: 7, 32: 9}
+
+
+@functools.cache
+def _kp_programs(n: int, device: str):
+    """``_programs(n, device)`` once the table's forward DCT programs
+    (columns, rows) are found to have the ``KP_DCT_STAGES[n]`` stages that
+    KP is compiled for, and no stage clamp."""
+    _, meta = stage_table(n)
+    for prog in (0, 2):
+        if meta[4 * prog + 1] != KP_DCT_STAGES[n] or meta[4 * prog + 3]:
+            raise ValueError(
+                f"KP: forward DCT program {prog} at n={n} has "
+                f"{meta[4 * prog + 1]} stages, clamp {meta[4 * prog + 3]}; "
+                f"the kernel runs {KP_DCT_STAGES[n]}, no clamp")
+    return _programs(n, device)
 
 
 def blockify(plane: torch.Tensor, n: int) -> torch.Tensor:
@@ -215,7 +234,7 @@ def _launch_kp(n: int, tx_size: int, dc_q: int, ac_q: int, plane=None,
                                              device=dev)
     if B == 0:
         return out
-    stages, meta = _programs(n, str(dev))
+    stages, meta = _kp_programs(n, str(dev))
     KP.launch("analyze_blocks", *ptrs, B, n,
               _smooth_weights_on(n, str(dev)).data_ptr(), dc_q, ac_q,
               TS.tx_scale(tx_size), _scan_on(tx_size, str(dev)).data_ptr(),

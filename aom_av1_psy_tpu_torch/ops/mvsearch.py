@@ -41,6 +41,8 @@ its phases select, the SAD and the first-index argmin.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -375,8 +377,8 @@ def batched_subpel_refine(src_blocks, ref_windows, mvs_fullpel,
     (int32 results either way)."""
     if torch.is_tensor(src_blocks):
         best, best_sad = subpel_refine49(src_blocks, ref_windows, interp)
-        mvtab = torch.as_tensor(_LATTICE49, device=src_blocks.device)
-        mv8 = mvs_fullpel.to(torch.int32) * 8 + mvtab[best]
+        mv8 = mvs_fullpel.to(torch.int32) * 8 + \
+            _lattice_on(str(src_blocks.device))[best]
         return mv8.to(torch.int32), best_sad.to(torch.int32)
     xp = _xp(src_blocks)
     B, h, w = src_blocks.shape
@@ -437,12 +439,20 @@ _LATTICE49 = np.array([(2 * dr, 2 * dc) for dr in range(-3, 4)
                        for dc in range(-3, 4)], np.int32)
 
 
+@functools.cache
+def _lattice_on(device: str) -> torch.Tensor:
+    """``_LATTICE49`` as an int32 tensor on ``device``, uploaded once (the
+    5i chain would otherwise copy it to the card at every call)."""
+    return torch.as_tensor(_LATTICE49, device=device)
+
+
 def subpel_refine49_plain(src_blocks, ref_windows,
-                          interp: int = C.EIGHTTAP_REGULAR):
+                          interp: int = C.EIGHTTAP_REGULAR, bd: int = 8):
     """Plain version of KM, whatever the tensors' device: the reference's
     49-candidate loop (``predict_subpel_plain`` per lattice point, int64
-    SADs). src_blocks (B, h, w), ref_windows (B, h+9, w+9). Returns (index
-    into the lattice (B,) int64, first on ties; SAD (B,) int64)."""
+    SADs) at bit depth ``bd``. src_blocks (B, h, w), ref_windows (B, h+9,
+    w+9). Returns (index into the lattice (B,) int64, first on ties; SAD
+    (B,) int64)."""
     B, h, w = src_blocks.shape
     src = src_blocks.to(torch.int64)
     sads = []
@@ -451,22 +461,25 @@ def subpel_refine49_plain(src_blocks, ref_windows,
         reg = ref_windows[:, r8 >> 3:(r8 >> 3) + h + 7,
                           c8 >> 3:(c8 >> 3) + w + 7]
         p = C.predict_subpel_plain(reg, w, h, (c8 & 7) << 1, (r8 & 7) << 1,
-                                   interp, interp)
+                                   interp, interp, bd)
         sads.append((p.to(torch.int64) - src).abs().sum((-1, -2)))
     sads = torch.stack(sads, 1)
     best = sads.argmin(1)
     return best, sads.gather(1, best[:, None])[:, 0]
 
 
-def subpel_refine49(src_blocks, ref_windows, interp: int = C.EIGHTTAP_REGULAR):
+def subpel_refine49(src_blocks, ref_windows, interp: int = C.EIGHTTAP_REGULAR,
+                    bd: int = 8):
     """``subpel_refine49_plain``'s (index, SAD). CPU tensors: the plain
     version; CUDA tensors: kernel KM (int32 blocks (B, h, w) with w, h in
-    {4, 8, 16, 32, 64}, windows (B, >= h+9, >= w+9))."""
+    {4, 8, 16, 32, 64}, windows (B, >= h+9, >= w+9), bd 8..12)."""
     if src_blocks.device.type == "cpu":
-        return subpel_refine49_plain(src_blocks, ref_windows, interp)
+        return subpel_refine49_plain(src_blocks, ref_windows, interp, bd)
     B, h, w = src_blocks.shape
     if w not in (4, 8, 16, 32, 64) or h not in (4, 8, 16, 32, 64):
         raise ValueError(f"KM: block {w}x{h} not in 4..64")
+    if not 8 <= bd <= 12:
+        raise ValueError(f"KM: bit depth {bd} not in 8..12")
     if ref_windows.shape[0] != B or ref_windows.shape[1] < h + 9 or \
             ref_windows.shape[2] < w + 9:
         raise ValueError(f"KM: windows {tuple(ref_windows.shape)} too small "
@@ -482,6 +495,6 @@ def subpel_refine49(src_blocks, ref_windows, interp: int = C.EIGHTTAP_REGULAR):
     idx = torch.empty((B,), dtype=torch.int32, device=src.device)
     sad = torch.empty((B,), dtype=torch.int32, device=src.device)
     KM.launch("subpel_refine49", src.data_ptr(), win.data_ptr(), B, w, h,
-              tx.data_ptr(), ty.data_ptr(), 8, idx.data_ptr(), sad.data_ptr(),
+              tx.data_ptr(), ty.data_ptr(), bd, idx.data_ptr(), sad.data_ptr(),
               variant=f"{w}x{h}")
     return idx.long(), sad.long()

@@ -2545,11 +2545,23 @@ def check_k13b_kernels(dev):
     km_t = (cuda_time(lambda: MV.subpel_refine49(src, win), 20),
             cuda_time(lambda: MV.subpel_refine49_plain(src, win), 3),
             device_ms(lambda: MV.subpel_refine49(src, win), 20, "km_kernel"))
-    # per block: 36 2-D, 12 one-pass and 1 copy candidate, and a 3-operation
-    # SAD of each
-    lat = torch.as_tensor(MV._LATTICE49 & 7)
-    km_ops = B * (_path_ops(lat[:, 1], lat[:, 0], 16, 16) + 49 * 256 * 3)
+    # the least work per block (h = w = 16). Sub-pel phases 4, 8 and 12
+    # each occur at the integer offsets 0 and 1, so one pass per phase over
+    # one more column (or row) serves both: an x pass per column phase over
+    # (h + 8) x (w + 1), a y pass per pair of phases over (h + 1) x (w + 1),
+    # a y-only pass per row phase over (h + 1) x w, the x-only rounding and
+    # clip (~4 per output) over h x (w + 1) per column phase, the copy, and
+    # a 3-operation SAD of each of the 49
+    h = w = 16
+    km_ops = B * (3 * (h + 8) * (w + 1) * 20 + 9 * (h + 1) * (w + 1) * 20
+                  + 3 * (h + 1) * w * 20 + 3 * h * (w + 1) * 4
+                  + 49 * h * w * 3)
     km_bnd = bound(nbytes(src, win, got), km_ops)
+    # the same function counted candidate by candidate (an x pass over h + 7
+    # rows for each of the 36 2-D ones), for comparison in the log
+    lat = torch.as_tensor(MV._LATTICE49 & 7)
+    km_bnd_each = bound(nbytes(src, win, got), B * (
+        _path_ops(lat[:, 1], lat[:, 0], h, w) + 49 * h * w * 3))
     results.append({"name": "subpel_refine49", "route": "cuda",
                     "source": "aom_av1_psy_tpu_torch/csrc/mvsearch.cu",
                     "replaces": "aom_av1_psy_tpu/ops/mvsearch.py:195",
@@ -2561,8 +2573,9 @@ def check_k13b_kernels(dev):
                                 "P-frame grid)"})
     log(f"[3f] KM subpel_refine49 exact (16x16 B=8160, 49 candidates); "
         f"kernel {km_t[0]:.4f} ms (device {km_t[2]} ms), plain "
-        f"{km_t[1]:.4f} ms, bound "
-        f"{km_bnd['bound_ms']:.4f} ms ({km_bnd['bound_by']})")
+        f"{km_t[1]:.4f} ms, bound {km_bnd['bound_ms']:.4f} ms "
+        f"({km_bnd['bound_by']}; one pass per sub-pel phase), "
+        f"{km_bnd_each['bound_ms']:.4f} ms counted per candidate")
 
     # ---- KN: every reducer at 16x16; sad / sse / variance at 8 and 4 ----
     err = 0.0
@@ -2873,6 +2886,12 @@ def check_k12_kernels(dev):
     n4 = (y, dq, aq, 4, SQUARE_TX[4])
     kp4 = (cuda_time(lambda: AN.analyze_plane(*n4), 10),
            device_ms(lambda: AN.analyze_plane(*n4), 10, "kp_kernel"))
+    # the device time of the plane entry at every n (luma; chroma at n = 8)
+    kp_by_n = {f"{tag} n={n}": device_ms(
+        lambda p=p, n=n: AN.analyze_plane(p, dq, aq, n, SQUARE_TX[n]), 10,
+        "kp_kernel")
+        for tag, p, n in (("y", y, 16), ("y", y, 32), ("y", y, 8),
+                          ("u", u, 8), ("y", y, 4))}
     results.append({"name": "analyze_blocks", "route": "cuda",
                     "source": "aom_av1_psy_tpu_torch/csrc/analyze.cu",
                     "replaces": "aom_av1_psy_tpu/ops/analyze.py:119-148; "
@@ -2881,6 +2900,7 @@ def check_k12_kernels(dev):
                     "device_ms": kp_t[2], **kp_bnd, "library_ms": None,
                     "library_none": "no single PyTorch call predicts, "
                                     "transforms and quantizes",
+                    "device_ms_by_n": kp_by_n,
                     "timed_at": "1080p luma (1088x1920 int32) n=16 B=8160 "
                                 f"q100; n=4 B=130560: {kp4[0]:.4f} ms "
                                 f"(device {kp4[1]} ms)"})
@@ -2888,7 +2908,8 @@ def check_k12_kernels(dev):
         f"({', '.join(shapes)}; q100 / q255); luma n=16: kernel "
         f"{kp_t[0]:.4f} ms (device {kp_t[2]} ms), plain {kp_t[1]:.4f} ms, "
         f"bound {kp_bnd['bound_ms']:.4f} ms ({kp_bnd['bound_by']}); n=4: "
-        f"{kp4[0]:.4f} ms (device {kp4[1]} ms)")
+        f"{kp4[0]:.4f} ms (device {kp4[1]} ms); device ms of the plane "
+        f"entry: {json.dumps(kp_by_n)}")
 
     # ---- KQ: the golden cases, N = 4096 / K = 8 dim 1, 1024 pairs dim 2 ----
     g = np.load(os.path.join(REPO, "tests", "golden", "golden_kmeans.npz"))

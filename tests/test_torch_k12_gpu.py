@@ -79,6 +79,54 @@ def test_kp_blocks_entry_matches_plain(dev, n):
         assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
 
 
+# blocks a CTA of KP takes at a time (KPShape<n>::G in csrc/analyze.cu)
+_KP_PER_CTA = {4: 32, 8: 32, 16: 8, 32: 1}
+
+
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
+def test_kp_small_batches_on_both_entries(dev, n):
+    """B = 1, 2, 3 and the blocks a CTA takes - 1, + 0, + 1 on the plane
+    entry (one block row and one block column) and on the blocks entry
+    with its totals."""
+    G = _KP_PER_CTA[n]
+    rng = np.random.default_rng(n + 77)
+    dq, aq = tables.dc_quant(100), tables.ac_quant(100)
+    step = batched_analyze_step(n, 100, device=dev)
+    plain = batched_analyze_step(n, 100, device="cpu")
+    for B in sorted({1, 2, 3, max(1, G - 1), G, G + 1}):
+        for shape in ((n, B * n), (B * n, n)):
+            p = rng.integers(0, 256, shape).astype(np.int32)
+            n0 = A.KP.launches
+            got = A.analyze_plane(torch.as_tensor(p, device=dev), dq, aq,
+                                  n=n, tx_size=SQUARE_TX[n])
+            assert A.KP.launches == n0 + 1
+            _equal(got, A.analyze_plane_plain(torch.as_tensor(p), dq, aq,
+                                              n=n, tx_size=SQUARE_TX[n]))
+        args = [rng.integers(0, 256, s).astype(np.uint8)
+                for s in ((B, n, n), (B, n), (B, n), (B,))]
+        got = step(*(torch.as_tensor(a, device=dev) for a in args))
+        want = plain(*(torch.as_tensor(a) for a in args))
+        for g, w in zip(got, want, strict=True):
+            assert g.dtype == w.dtype and torch.equal(g.cpu(), w), B
+
+
+@pytest.mark.parametrize("n,B", [(4, 130561), (8, 32641), (16, 8161),
+                                 (32, 2041), (16, 99)])
+def test_kp_totals_at_odd_batches(dev, n, B):
+    """The blocks entry at odd B, past one wave of the persistent grid at
+    the 1080p counts: per-block outputs and the two int32 totals."""
+    rng = np.random.default_rng(B)
+    args = [rng.integers(0, 256, s).astype(np.uint8)
+            for s in ((B, n, n), (B, n), (B, n), (B,))]
+    args[0][::7] = 0                                    # flat blocks: eob 0
+    got = batched_analyze_step(n, 100, device=dev)(
+        *(torch.as_tensor(a, device=dev) for a in args))
+    want = batched_analyze_step(n, 100, device="cpu")(
+        *(torch.as_tensor(a) for a in args))
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+
+
 def test_kp_totals_wrap_like_the_reference(dev):
     B, n = 1024, 32
     r, c = np.mgrid[0:n, 0:n]

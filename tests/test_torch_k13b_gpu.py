@@ -85,6 +85,55 @@ def test_km_matches_plain(dev, w, h):
     assert (want[1][:B // 2] == 0).all()
 
 
+def _km_blocks_per_cta(w, h):
+    """Blocks a CTA of KM takes (the launcher in csrc/mvsearch.cu): 256 //
+    its lane-tasks, 7 * (h / min(h, 16)) * w, at least 1."""
+    return max(1, 256 // (7 * (h // min(h, 16)) * w))
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("w,h", [(4, 4), (8, 8), (16, 16), (32, 32),
+                                 (64, 64), (4, 64), (64, 4), (16, 8)])
+def test_km_at_batches_off_its_blocks_per_cta(dev, w, h, bd):
+    """B = 1, 2, 3 and the blocks per CTA - 1, + 1, + 2 (a CTA with fewer
+    blocks than it takes), at bit depths 8 and 10, every interp filter."""
+    nb = _km_blocks_per_cta(w, h)
+    rng = np.random.default_rng(w * 3 + h + bd)
+    for B in sorted({1, 2, 3, max(1, nb - 1), nb + 1, nb + 2, 2 * nb + 1}):
+        win = rng.integers(0, 1 << bd, (B, h + 9, w + 9))
+        src = rng.integers(0, 1 << bd, (B, h, w))
+        for interp in range(4):
+            n0 = MV.KM.launches
+            got = MV.subpel_refine49(_t(src, dev), _t(win, dev), interp, bd)
+            assert MV.KM.launches == n0 + 1
+            want = MV.subpel_refine49_plain(_t(src, "cpu"), _t(win, "cpu"),
+                                            interp, bd)
+            for g, w_ in zip(got, want):
+                assert torch.equal(g.cpu(), w_), (B, interp)
+
+
+@pytest.mark.parametrize("w,h", [(8, 8), (16, 16), (64, 32)])
+def test_km_reads_wider_windows_through_the_wrapper(dev, w, h):
+    """Windows wider and taller than (h + 9, w + 9): the wrapper's slice
+    hands the kernel the (h + 9, w + 9) corner, as the plain version
+    reads it."""
+    rng = np.random.default_rng(w * h)
+    B = 37
+    win = rng.integers(0, 256, (B, h + 9 + 5, w + 9 + 11))
+    src = rng.integers(0, 256, (B, h, w))
+    got = MV.subpel_refine49(_t(src, dev), _t(win, dev))
+    want = MV.subpel_refine49_plain(_t(src, "cpu"), _t(win, "cpu"))
+    for g, w_ in zip(got, want):
+        assert torch.equal(g.cpu(), w_)
+    mv = rng.integers(-20, 21, (B, 2))
+    got = MV.batched_subpel_refine(_t(src, dev), _t(win, dev), _t(mv, dev))
+    want = MV.batched_subpel_refine(_t(src, "cpu"),
+                                    _t(win[:, :h + 9, :w + 9], "cpu"),
+                                    _t(mv, "cpu"))
+    for g, w_ in zip(got, want):
+        assert torch.equal(g.cpu(), w_)
+
+
 def test_subpel_refine_on_card_matches_cpu(dev):
     rng = np.random.default_rng(5)
     h = w = 16

@@ -55,11 +55,23 @@ walls of ``vif_lite(source, blur)`` (the source a numpy plane, the blur a
 tensor on the card, as phase 5f of ``chip_smoke.py`` passes its recon) and
 of ``frame_preprocessing(source)``, host clock to a synchronize, median of
 25 after a first.
+With ``--k13-only`` a turn times kernels KM and KP instead, and nothing
+else, at the 1080p shapes of ``chip_smoke.py`` 3f / 3g: under the
+profiler, KM's device time per call of ``subpel_refine49`` (B = 8160
+16x16 blocks of frame 1 of ``make_gop(1920, 1080, 2)``, 25x25 windows of
+frame 0 at random full-pel MVs) and KP's per call of ``analyze_plane``
+on ``make_frame(1920, 1080)``'s luma padded to 1088 rows at n = 16, 32, 8
+and 4 and its u plane padded to 544 rows at n = 8 (with the launches per
+call); the walls of the 5i subpel chain (the checkout's own
+``chip_smoke._subpel_chain``: KJ r16, KM, KL, KN, KO on the 16x16 grid)
+and of ``analyze_plane`` at n = 16, and of 5j's six KP calls (the three
+planes, ``batched_analyze_step`` whole and in halves), host clock to a
+synchronize, median of 25 after a first.
 Only entry points that both checkouts have are timed. Both checkouts
 build their kernels into their own ``build/`` at first use.
 
     python3 tools/port_turns.py PARENT_DIR CHANGE_DIR [--rounds 1]
-        [--tf-only | --vmaf-only]
+        [--tf-only | --vmaf-only | --k13-only]
 
 Prints the card (name, power limit), one JSON line per turn, and the
 medians per checkout as the last line. Needs a CUDA device.
@@ -109,7 +121,9 @@ def host_s(fn, n=25):
 
 def kernel_ms(fn, keys, iters=20):
     # the profiler's device time (ms) and launches per call of fn, of the
-    # kernels whose name holds one of keys (either checkout's names)
+    # kernels whose name holds one of keys (either checkout's names); None
+    # for both where the profiler recorded none of them (it drops a window
+    # now and then), so that the medians leave the turn out
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -120,8 +134,11 @@ def kernel_ms(fn, keys, iters=20):
     rows = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and any(k in e.key for k in keys)]
-    return (sum(e.self_device_time_total for e in rows) / 1e3 / iters,
-            sum(e.count for e in rows) / iters)
+    n = sum(e.count for e in rows)
+    if n == 0:
+        return None, None
+    return sum(e.self_device_time_total for e in rows) / 1e3 / iters, \
+        n / iters
 
 
 if sys.argv[2:] == ["vmaf"]:
@@ -142,6 +159,50 @@ if sys.argv[2:] == ["vmaf"]:
     out["vif_lite_s"] = host_s(lambda: TV.vif_lite(y_np, blur))
     out["frame_preprocessing_s"] = host_s(
         lambda: TV.frame_preprocessing(y_np, "cuda"))
+    print(json.dumps(out))
+    sys.exit(0)
+
+
+if sys.argv[2:] == ["k13"]:
+    # the checkout's own chip_smoke.py: the 5i chain and its cuts
+    import chip_smoke as CS
+    from aom_av1_psy_tpu_torch.ops import analyze as AN
+    from aom_av1_psy_tpu_torch.ops.txfm import SQUARE_TX
+    from aom_av1_psy_tpu_torch.parallel.mesh import batched_analyze_step
+
+    gop2 = testframes.make_gop(1920, 1080, 2)
+    y0, y1 = (CS._luma_1088(f, "cuda") for f in gop2)
+    by, bx = CS._grid(16, "cuda")
+    src = CS._cut(y1, by, bx, 16, 16)
+    mvs = torch.as_tensor(np.random.default_rng(6).integers(
+        -8, 9, (by.numel(), 2)).astype(np.int32), device="cuda")
+    win = CS._cut(y0, by + mvs[:, 0] - 4, bx + mvs[:, 1] - 4, 25, 25)
+    out["km_device_ms"], out["km_launches"] = kernel_ms(
+        lambda: MV.subpel_refine49(src, win), ("::km_kernel",))
+    out["chain_s"] = host_s(lambda: CS._subpel_chain(y0, y1))
+    planes = testframes.make_frame(1920, 1080).planes()
+    y = CS._pad_rows(planes[0], 1088, "cuda")
+    u, v = (CS._pad_rows(p, 544, "cuda") for p in planes[1:])
+    dq, aq = tables.dc_quant(100), tables.ac_quant(100)
+    for tag, p, n in (("y16", y, 16), ("y32", y, 32), ("y8", y, 8),
+                      ("u8", u, 8), ("y4", y, 4)):
+        out[f"kp_{tag}_device_ms"], out[f"kp_{tag}_launches"] = kernel_ms(
+            lambda: AN.analyze_plane(p, dq, aq, n, SQUARE_TX[n]),
+            ("::kp_kernel",), 10)
+    out["analyze_plane_s"] = host_s(
+        lambda: AN.analyze_plane(y, dq, aq, 16, SQUARE_TX[16]))
+    blocks, edges = AN.blockify(y, 16), AN._edges_from_source(y, 16)
+    step = batched_analyze_step(16, 100, device="cuda")
+    half = blocks.shape[0] // 2
+
+    def kp_path():
+        # 5j's KP calls: the three planes, the step whole and in halves
+        for p, n in ((y, 16), (u, 8), (v, 8)):
+            AN.analyze_plane(p, dq, aq, n, SQUARE_TX[n])
+        for sl in (slice(None), slice(None, half), slice(half, None)):
+            step(*(t[sl] for t in (blocks, *edges)))
+
+    out["analysis_kp_s"] = host_s(kp_path)
     print(json.dumps(out))
     sys.exit(0)
 
@@ -472,7 +533,8 @@ print(json.dumps(out))
 def main() -> int:
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
     parts = (["tf"] if "--tf-only" in sys.argv else
-             ["vmaf"] if "--vmaf-only" in sys.argv else [])
+             ["vmaf"] if "--vmaf-only" in sys.argv else
+             ["k13"] if "--k13-only" in sys.argv else [])
     rounds = 1
     if "--rounds" in sys.argv:
         rounds = int(sys.argv[sys.argv.index("--rounds") + 1])
@@ -521,7 +583,10 @@ def main() -> int:
                   "kg_launches", "ki_s0_device_ms", "vif_lite_ki_device_ms",
                   "vif_lite_ki_launches", "vif_lite_down2_device_ms",
                   "vif_lite_down2_launches", "vif_lite_s",
-                  "frame_preprocessing_s") + tuple(
+                  "frame_preprocessing_s", "km_device_ms", "km_launches",
+                  "chain_s", "analyze_plane_s", "analysis_kp_s") + tuple(
+                f"kp_{t}_{m}" for t in ("y16", "y32", "y8", "u8", "y4")
+                for m in ("device_ms", "launches")) + tuple(
                 f"{k}_p_frame_{m}" for k in ("kd", "ke", "kc", "kf")
                 for m in ("device_ms", "launches")) + tuple(
                 f"kb_bs{bs}{m}" for bs in (16, 32, 8)
