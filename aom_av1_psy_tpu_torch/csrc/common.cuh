@@ -21,6 +21,19 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
+// A 4-byte copy from device to shared memory that does not wait (the
+// thread's copies land at cp_async_wait_all).
+__device__ __forceinline__ void cp_async4(int* dst, const int* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
 // Block-wide reductions; every thread gets the result. `scratch` holds
 // one slot per warp (<= 32) and is reused after a barrier.
 template <typename T>

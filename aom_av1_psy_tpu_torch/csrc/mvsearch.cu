@@ -37,8 +37,9 @@
 // c8 = 8 + 2 * dc for dr, dc in -3..3 (dr-major), each candidate predicted
 // from the window's region at (r8 >> 3, c8 >> 3) with phases
 // ((c8 & 7) << 1, (r8 & 7) << 1) through the facade path those phases
-// select (csrc/convolve.cuh's subpel_block, KL's code), its SAD against
-// the block, and the first-index argmin.
+// select (the four paths of csrc/convolve.cuh, with KL's roundings), its
+// SAD against the block, and the first-index argmin. Blocks of every
+// power-of-two w, h in 4..128 (AV1's, up to 128x128).
 //
 // What bounds it: at the 1080p P-frame's 16x16 grid (B = 8160) the least
 // work is one x pass per column phase (6 of them, over h + 8 window rows)
@@ -70,7 +71,9 @@
 // the first-index argmin. There is no CTA barrier between candidates:
 // two per CTA, after staging and before the argmin. A CTA takes
 // nb = max(1, 256 / tasks) blocks (2 at 16x16); their windows, blocks and
-// both tap tables are staged in shared memory once.
+// both tap tables are staged in shared memory once (141.8 KB at 128x128,
+// one block a CTA: dynamic shared memory above 48 KB). A CTA has at most
+// 512 threads; its lane-tasks (7168 at 128x128) are taken 512 at a time.
 #include <limits.h>
 
 #include "convolve.cuh"
@@ -94,17 +97,6 @@ struct KJArgs {
   int* best_idx;
   int* best_sad;
 };
-
-__device__ __forceinline__ void cp_async4(int* dst, const int* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
 
 // Whether this thread's share of the staged values (rows wid, wid + nw, ...
 // of warp wid of nw, columns lane, lane + 32, ...) lies in 0..255 (the
@@ -415,7 +407,9 @@ AV1_EXPORT int subpel_refine49(const int* src, const int* win, int B, int w,
                                int bd, int* best_idx, int* best_sad,
                                void* stream) {
   if (B <= 0) return 0;
-  const auto pow2 = [](int x) { return x >= 4 && x <= 64 && !(x & (x - 1)); };
+  const auto pow2 = [](int x) {
+    return x >= 4 && x <= 128 && !(x & (x - 1));
+  };
   if (!pow2(w) || !pow2(h) || bd < 8 || bd > 12)
     return (int)cudaErrorInvalidValue;
   const int R = h < 16 ? h : 16;
@@ -423,8 +417,8 @@ AV1_EXPORT int subpel_refine49(const int* src, const int* win, int B, int w,
   const int nb = tasks >= kKmCtaTasks ? 1 : kKmCtaTasks / tasks;
   int threads = (nb * tasks + 31) / 32 * 32;
   if (threads > kKmMaxThreads) threads = kKmMaxThreads;
-  // at most 38.9 KB (64x64, one block a CTA): under the 48 KB a launch
-  // takes without opting in
+  // 38.9 KB at 64x64, 72.3 KB at 128x64 and 64x128, 141.8 KB at 128x128
+  // (one block a CTA)
   const size_t smem = sizeof(int) *
       (256 + (size_t)nb * (49 + (h + 9) * (w + 9) + h * w));
   KMArgs a{src, win, B, w, h, bd, nb, tasks, tabx, taby, best_idx,
@@ -432,6 +426,11 @@ AV1_EXPORT int subpel_refine49(const int* src, const int* win, int B, int w,
   const int grid = (B + nb - 1) / nb;
   void (*kern)(KMArgs) = R == 4 ? km_kernel<4>
                          : R == 8 ? km_kernel<8> : km_kernel<16>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
   kern<<<grid, threads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

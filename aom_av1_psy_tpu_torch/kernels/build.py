@@ -112,9 +112,10 @@ class CudaKernel:
                 f.argtypes = list(argtypes) + [P]
                 f.restype = I
                 self._fns[fn] = f
-            # the current device's current stream, as a raw handle
+            # the current device's current stream, as a raw handle (the
+            # device from torch's own getter: a launch finds CUDA set up)
             raw, device = torch._C._cuda_getCurrentRawStream, \
-                torch.cuda.current_device
+                torch._C._cuda_getDevice
             self._stream = lambda: raw(device())
             self._lib = lib
         return self._lib
@@ -136,7 +137,11 @@ class CudaKernel:
         """Call entry point ``fn``, which launches the kernel on the
         current CUDA stream; raise on a launch error. ``variant`` labels
         the launch in ``variants``."""
-        self.call(fn, *args)
+        if self._lib is None:
+            self.lib()
+        rc = self._fns[fn](*args, self._stream())
+        if rc != 0:
+            raise RuntimeError(f"{self.name}.{fn}: CUDA error {rc}")
         self.launches += 1
         self.variants[variant or fn] += 1
 

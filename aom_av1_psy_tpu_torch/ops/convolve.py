@@ -14,7 +14,10 @@ any device), on CUDA tensors kernel KL ``subpel_predict``
 (``csrc/convolve.cu``), with no fallback between them. KL takes a batch of
 (h+7, w+7) regions that each carry their own phases
 (``subpel_predict``); ``predict_subpel`` keeps the reference's scalar
-phases and broadcasts them.
+phases and broadcasts them. On the card KL takes every w and h in
+2..``KL_MAX`` = 128 (``check_kl_block``: AV1's blocks, the 2-wide chroma
+blocks of 4:2:0 and sizes that are not powers of two, as the reference
+does); a larger block raises.
 """
 from __future__ import annotations
 
@@ -37,6 +40,15 @@ SUBPEL_BITS = 4
 SUBPEL_MASK = 15
 
 EIGHTTAP_REGULAR, EIGHTTAP_SMOOTH, EIGHTTAP_SHARP, BILINEAR = 0, 1, 2, 3
+KL_MAX = 128      # AV1's largest block side
+
+
+def check_kl_block(w: int, h: int) -> None:
+    """Raise ``ValueError`` unless kernel KL takes (w, h) blocks on the
+    card: every w and h in 2..128."""
+    if not (2 <= w <= KL_MAX and 2 <= h <= KL_MAX):
+        raise ValueError(f"KL: block {w}x{h}: the card takes w and h in "
+                         f"2..{KL_MAX} (AV1 has no block above {KL_MAX})")
 
 
 @functools.cache
@@ -164,6 +176,7 @@ def predict_subpel(ref_padded, w: int, h: int, subpel_x: int, subpel_y: int,
         for v in (subpel_x, subpel_y):
             if not 0 <= v <= SUBPEL_MASK:
                 raise ValueError(f"KL: subpel phase {v} outside 0..15")
+        check_kl_block(w, h)
         lead = ref_padded.shape[:-2]
         reg = ref_padded[..., :h + 7, :w + 7].reshape(-1, h + 7, w + 7)
         B = reg.shape[0]
@@ -278,8 +291,8 @@ def subpel_predict(regions, w: int, h: int, subpel_x, subpel_y,
                    interp_y: int = EIGHTTAP_REGULAR, bd: int = 8):
     """Per-item subpel prediction, ``subpel_predict_plain``'s result. CPU
     tensors: the plain version; CUDA tensors: kernel KL, one launch for
-    the batch (int32 contiguous regions (B, h+7, w+7), w and h in
-    {4, 8, 16, 32, 64}, phases (B,) int32 in 0..15 on the same card)."""
+    the batch (int32 regions (B, h+7, w+7), w and h in 2..128, phases (B,)
+    int32 in 0..15 on the same card)."""
     if regions.device.type == "cpu":
         return subpel_predict_plain(regions, w, h, subpel_x, subpel_y,
                                     interp_x, interp_y, bd)
@@ -313,8 +326,7 @@ def _kl_taps(src, w, h, x_kernel, y_kernel, bd):
 
 def _launch_kl(regions, w, h, subpel_x, subpel_y, tabx, taby, bd):
     B = regions.shape[0]
-    if w not in (4, 8, 16, 32, 64) or h not in (4, 8, 16, 32, 64):
-        raise ValueError(f"KL: block {w}x{h} not in 4..64")
+    check_kl_block(w, h)
     if tuple(regions.shape) != (B, h + 7, w + 7):
         raise ValueError(f"KL: regions {tuple(regions.shape)}, want "
                          f"{(B, h + 7, w + 7)}")

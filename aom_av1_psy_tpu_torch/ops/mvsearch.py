@@ -468,16 +468,28 @@ def subpel_refine49_plain(src_blocks, ref_windows,
     return best, sads.gather(1, best[:, None])[:, 0]
 
 
+KM_MAX = 128      # AV1's largest block side
+
+
+def check_km_block(w: int, h: int) -> None:
+    """Raise ``ValueError`` unless kernel KM takes (w, h) blocks on the
+    card: every power-of-two w and h in 4..128 (its lane-tasks split a
+    block into row chunks of min(h, 16) and warp segments of min(w, 32))."""
+    for v in (w, h):
+        if not 4 <= v <= KM_MAX or v & (v - 1):
+            raise ValueError(f"KM: block {w}x{h}: the card takes w and h "
+                             f"that are powers of two in 4..{KM_MAX}")
+
+
 def subpel_refine49(src_blocks, ref_windows, interp: int = C.EIGHTTAP_REGULAR,
                     bd: int = 8):
     """``subpel_refine49_plain``'s (index, SAD). CPU tensors: the plain
-    version; CUDA tensors: kernel KM (int32 blocks (B, h, w) with w, h in
-    {4, 8, 16, 32, 64}, windows (B, >= h+9, >= w+9), bd 8..12)."""
+    version; CUDA tensors: kernel KM (int32 blocks (B, h, w) with w, h
+    powers of two in 4..128, windows (B, >= h+9, >= w+9), bd 8..12)."""
     if src_blocks.device.type == "cpu":
         return subpel_refine49_plain(src_blocks, ref_windows, interp, bd)
     B, h, w = src_blocks.shape
-    if w not in (4, 8, 16, 32, 64) or h not in (4, 8, 16, 32, 64):
-        raise ValueError(f"KM: block {w}x{h} not in 4..64")
+    check_km_block(w, h)
     if not 8 <= bd <= 12:
         raise ValueError(f"KM: bit depth {bd} not in 8..12")
     if ref_windows.shape[0] != B or ref_windows.shape[1] < h + 9 or \

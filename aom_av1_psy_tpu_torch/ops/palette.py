@@ -9,14 +9,21 @@ numpy arrays take the host branch (the reference's numpy code, int64).
 Torch tensors take the tensor branch, the counterpart of the reference's
 jnp branch: on CPU tensors the plain PyTorch version
 (``calc_indices_plain``), on CUDA tensors kernel KQ ``palette_indices``
-(``csrc/palette.cu``), with no fallback between them. Both sum the total
-exactly in int64, as the numpy branch does (the jnp branch sums in int32,
-since JAX runs without x64; it cannot wrap at 8-bit samples and N <= 4096).
-The tensor branch raises for K > 256, where a uint8 index cannot hold the
-centroid (the numpy branch casts and wraps, as the reference does).
+(``csrc/palette.cu``), with no fallback between them. Both read uint8,
+int16, int32 or int64 data and centroids (``KQ_DTYPES``; another dtype
+raises) and sum the total exactly in int64, as the numpy branch does (the
+jnp branch sums in int32, since JAX runs without x64; it cannot wrap at
+8-bit samples and N <= 4096). The tensor branch raises for K > 256, where
+a uint8 index cannot hold the centroid (the numpy branch casts and wraps,
+as the reference does). On the card one call is one KQ launch, which
+reads the data in its own type and stores the total into a mapped pinned
+host slot that the entry watches: no cast, no fill, no copy and no stream
+synchronisation.
 ``k_means`` is host numpy, as in the reference.
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -24,11 +31,18 @@ import torch
 from ..kernels.build import CudaKernel, I, P
 
 KQ = CudaKernel("palette", {
-    # data, centroids, N, K, dim, indices, total
-    "palette_indices": [P, P, I, I, I, P, P],
+    # data, dtype, vec, centroids, ctype, N, K, dim, indices, slot,
+    # scratch
+    "palette_indices": [P, I, I, P, I, ctypes.c_longlong, I, I, P, P, P],
+    # an array of two pointers: the slot and the scratch area
+    "palette_setup": [P],
 })
 
 MAX_K = 256
+# the integer types the tensor branch reads, by KQ's type code
+KQ_DTYPES = {torch.uint8: 0, torch.int16: 1, torch.int32: 2, torch.int64: 3}
+_VARIANT = (None, "dim1", "dim2")
+_SLOTS = {}     # device index -> (the total's view, the slot, scratch)
 
 
 def _xp(x):
@@ -49,10 +63,10 @@ def calc_indices(data, centroids, dim: int):
     to the first centroid."""
     xp = _xp(data)
     if xp is torch:
-        d, c = _tensor_inputs(data, centroids, dim)
-        if d.device.type == "cpu":
-            return calc_indices_plain(d, c, dim)
-        return _launch_kq(d, c, dim)
+        c = _tensor_inputs(data, centroids, dim)
+        if data.device.type == "cpu":
+            return calc_indices_plain(data, c, dim)
+        return _launch_kq(data, c, dim)
     d = xp.asarray(data).reshape(-1, dim).astype(xp.int64)
     c = xp.asarray(centroids).reshape(-1, dim).astype(xp.int64)
     diff = d[:, None, :] - c[None, :, :]
@@ -69,7 +83,9 @@ def calc_indices(data, centroids, dim: int):
 
 
 def _tensor_inputs(data, centroids, dim: int):
-    """(N, dim) and (K, dim) int64 tensors on data's device."""
+    """``centroids`` as a tensor on data's device, after the checks that
+    guard a launch: dim, device, dtype (``KQ_DTYPES``), whole points and
+    the number of centroids (1..256)."""
     if dim not in (1, 2):
         raise ValueError(f"dim must be 1 or 2, got {dim}")
     if not torch.is_tensor(centroids):
@@ -77,17 +93,31 @@ def _tensor_inputs(data, centroids, dim: int):
     if centroids.device != data.device:
         raise ValueError(f"centroids on {centroids.device}, data on "
                          f"{data.device}")
+    _check_points(data, centroids, dim)
+    return centroids
+
+
+def _check_points(data, centroids, dim: int) -> None:
+    for t, what in ((data, "data"), (centroids, "centroids")):
+        if t.dtype not in KQ_DTYPES:
+            raise ValueError(f"KQ {what}: dtype {t.dtype}, want one of "
+                             "uint8, int16, int32, int64")
+        if t.numel() % dim:
+            raise ValueError(f"KQ {what}: {t.numel()} values are not whole "
+                             f"points of dim {dim}")
+    if not 0 < centroids.numel() // dim <= MAX_K:
+        raise ValueError(f"K = {centroids.numel() // dim}: a uint8 index "
+                         f"holds 1..{MAX_K} centroids")
+
+
+def calc_indices_plain(data, centroids, dim: int):
+    """Plain version of kernel KQ on tensors of any device: data (N*dim,)
+    or (N, dim), centroids (K*dim,) or (K, dim), each of a ``KQ_DTYPES``
+    type -> (indices uint8 (N,), total int), the numpy branch's int64
+    arithmetic."""
+    _check_points(data, centroids, dim)
     d = data.reshape(-1, dim).to(torch.int64)
     c = centroids.reshape(-1, dim).to(torch.int64)
-    if not 0 < c.shape[0] <= MAX_K:
-        raise ValueError(f"K = {c.shape[0]}: a uint8 index holds 1..{MAX_K} "
-                         "centroids")
-    return d, c
-
-
-def calc_indices_plain(d, c, dim: int):
-    """Plain version of kernel KQ: (N, dim), (K, dim) int64 tensors ->
-    (indices uint8 (N,), total int), the numpy branch's arithmetic."""
     diff = d[:, None, :] - c[None, :, :]
     dist = diff[..., 0].abs() if dim == 1 else (diff * diff).sum(-1)
     idx = dist.argmin(1)                 # ties: the first centroid
@@ -96,18 +126,39 @@ def calc_indices_plain(d, c, dim: int):
     return idx.to(torch.uint8), total
 
 
-def _launch_kq(d, c, dim: int):
-    """Kernel KQ: one thread per point, the centroids in shared memory,
-    the total summed per CTA and added with one int64 atomic."""
-    d, c = d.contiguous(), c.contiguous()
-    n = d.shape[0]
-    idx = torch.empty((n,), dtype=torch.uint8, device=d.device)
-    total = torch.zeros((1,), dtype=torch.int64, device=d.device)
-    if n:
-        KQ.launch("palette_indices", d.data_ptr(), c.data_ptr(), n,
-                  c.shape[0], dim, idx.data_ptr(), total.data_ptr(),
-                  variant=f"dim{dim}")
-    return idx, int(total)
+def _slot(di: int):
+    """The device's mapped pinned slot for KQ's total (a ctypes view of the
+    total, the slot's address) and KQ's scratch area, made once per
+    device."""
+    s = _SLOTS.get(di)
+    if s is None:
+        buf = (ctypes.c_void_p * 2)()
+        KQ.call("palette_setup", ctypes.addressof(buf))
+        s = _SLOTS[di] = (ctypes.c_longlong.from_address(buf[0]), buf[0],
+                          buf[1])
+    return s
+
+
+def _launch_kq(data, cents, dim: int):
+    """Kernel KQ: one launch on the data as it is (16-byte vectors where it
+    is aligned and whole vectors); the kernel stores the total into the
+    device's pinned slot, and the entry returns once it is there."""
+    if not data.is_contiguous():
+        data = data.contiguous()
+    if not cents.is_contiguous():
+        cents = cents.contiguous()
+    n = data.numel() // dim
+    idx = data.new_empty((n,), dtype=torch.uint8)
+    if not n:
+        return idx, 0
+    host, slot, scratch = _slot(data.get_device())
+    ptr = data.data_ptr()
+    vec = int(ptr % 16 == 0 and data.numel() * data.element_size() % 16 == 0)
+    KQ.launch("palette_indices", ptr, KQ_DTYPES[data.dtype], vec,
+              cents.data_ptr(), KQ_DTYPES[cents.dtype], n,
+              cents.numel() // dim, dim, idx.data_ptr(), slot, scratch,
+              variant=_VARIANT[dim])
+    return idx, host.value
 
 
 def k_means(data, k: int, dim: int, max_itr: int = 50):

@@ -82,11 +82,15 @@ exit code is not 0):
 3f. KL (subpel prediction), KM (the 49-point subpel refine), KN (the
    metric reducers) and KO (8x8 Hadamard / satd) against their plain
    versions at the 1080p P-frame's block grid (16x16, B = 8160): KL at
-   every path and interp filter, also at 8x8 and 4x4; KN at 16x16, 8x8
-   and 4x4; KO on 4 x 8160 8x8 residuals; exact; kernel (CUDA events
-   around the wrapper, and ``device_ms``: the kernel alone under the
-   profiler; KN's also with the L2 flushed before each launch, and the
-   wrapper's host time per call), plain, bound and library times;
+   every path and interp filter, also at 8x8, 4x4, 32x32, 64x64, the
+   luma's whole 128x128 blocks, 12x20 (not a power of two) and 2x2 on the
+   chroma plane (4:2:0's 2-wide blocks), with its device time and bound
+   at each size; KM at 16x16 and at the luma's whole 128x128 and 128x64
+   blocks; KN at 16x16, 8x8 and 4x4; KO on 4 x 8160 8x8 residuals; exact;
+   kernel (CUDA events around the wrapper, and ``device_ms``: the kernel
+   alone under the profiler; KN's also with the L2 flushed before each
+   launch, and the wrapper's host time per call), plain, bound and
+   library times;
 3g. KP (the batched analysis: 7 predictions, SSE argmin, forward DCT,
    fp quantization, eob) and KQ (palette ``calc_indices``) against their
    plain versions on the card: KP at the 1080p KEY frame's shapes (the
@@ -94,8 +98,10 @@ exit code is not 0):
    32640 / 130560; the chroma planes padded to 544 rows at n = 8), on the
    plane entry at q100 and q255 and on the blocks entry with its totals;
    KQ on the golden k-means cases and at N = 4096 / K = 8 (dim 1) and
-   N = 1024 / K = 8 (dim 2); exact; kernel, ``device_ms``, plain and
-   bound times;
+   N = 1024 / K = 8 (dim 2) on int64, int32 (5j's tiles) and uint8 data,
+   and at N = 16384 (several CTAs); exact; kernel (per call, the total on
+   the host), ``device_ms``, plain and bound times, and the device
+   kernels and copies of one call on int32 data;
 4. closed loop at CIF (352x288), KEY frame: the CUDA stream equals the
    port's CPU (plain-path) stream byte for byte, and the in-repo decoder
    reconstructs the port's post-loop-filter planes exactly;
@@ -255,6 +261,22 @@ def device_ms(fn, iters, name):
             if e.device_type == torch.autograd.DeviceType.CUDA
             and name in e.key)
     return t / 1e3 / iters if t else None
+
+
+def device_ops(fn):
+    """The device kernels, copies and fills of one call of fn (after a
+    first), by name, from the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key[:80]: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0}
 
 
 def _host_us(fn, n=1000):
@@ -2449,6 +2471,16 @@ def _grid(bs, dev):
     return by.reshape(-1), bx.reshape(-1)
 
 
+def _whole_grid(plane, h, w):
+    """Origins (by, bx) of the whole (h, w) blocks of ``plane``."""
+    import torch
+    by, bx = torch.meshgrid(
+        torch.arange(0, plane.shape[0] - h + 1, h, device=plane.device),
+        torch.arange(0, plane.shape[1] - w + 1, w, device=plane.device),
+        indexing="ij")
+    return by.reshape(-1), bx.reshape(-1)
+
+
 def _cut(plane, r0, c0, h, w, ch=None, cw=None):
     """(B, h, w) patches at origins r0 / c0 (B,), each index clamped to
     [0, ch) x [0, cw) (default: the plane), as the host encoder clamps its
@@ -2471,14 +2503,31 @@ def _path_ops(sx, sy, w, h):
     return both * ((h + 7) * w + h * w) * 20 + one * h * w * 20
 
 
+def _km_ops(B, h, w):
+    """The least work of KM on B (h, w) blocks. Sub-pel phases 4, 8 and 12
+    each occur at the integer offsets 0 and 1, so one pass per phase over
+    one more column (or row) serves both: an x pass per column phase over
+    (h + 8) x (w + 1), a y pass per pair of phases over (h + 1) x (w + 1),
+    a y-only pass per row phase over (h + 1) x w, the x-only rounding and
+    clip (~4 per output) over h x (w + 1) per column phase, the copy, and
+    a 3-operation SAD of each of the 49."""
+    return B * (3 * (h + 8) * (w + 1) * 20 + 9 * (h + 1) * (w + 1) * 20
+                + 3 * (h + 1) * w * 20 + 3 * h * (w + 1) * 4
+                + 49 * h * w * 3)
+
+
 def check_k13b_kernels(dev):
     """Phase 3f: KL, KM, KN and KO against their plain versions on the card
     at the 1080p P-frame's block grid (``make_gop(1920, 1080, 2)``, the
     luma padded to 1088 rows): KL at every path (per-block random phases)
-    and interp filter at 16x16 (B = 8160), 8x8 and 4x4; KM on the 49-point
-    lattice at 16x16; KN's reducers at 16x16, and sad / sse / variance at
-    8x8 and 4x4; KO on the 4 x 8160 8x8 residuals of the 16x16 grid. Exact
-    equality; kernel, plain, bound and library times."""
+    and interp filter at 16x16 (B = 8160), 8x8, 4x4, 32x32, 64x64, the
+    luma's whole 128x128 blocks (B = 120), 12x20 (B = 8640) and 2x2 on the
+    u plane padded to 544 rows (B = 130560), with the device time and
+    bound at each size; KM on the 49-point lattice at 16x16 and at the
+    luma's whole 128x128 and 128x64 blocks; KN's reducers at 16x16, and
+    sad / sse / variance at 8x8 and 4x4; KO on the 4 x 8160 8x8 residuals
+    of the 16x16 grid. Exact equality; kernel, plain, bound and library
+    times."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -2495,21 +2544,37 @@ def check_k13b_kernels(dev):
     def t(a):
         return torch.as_tensor(np.asarray(a), device=dev).to(torch.int32)
 
-    # ---- KL: per-block phases (every path) x the four filters ----
+    # ---- KL: per-block phases (every path) x the four filters, at the
+    # square sizes of the luma grid, 12x20 and 2x2 on the chroma plane ----
+    # (the sizes after 4x4 draw from their own generator, so that the
+    # inputs of KM and of the sizes before stay as they were)
+    u0 = _pad_rows(frames[0].planes()[1], 544, dev)
+    wide = np.random.default_rng(SEED + 16)
     err, kl = 0.0, {}
-    for bs in (16, 8, 4):
-        by, bx = _grid(bs, dev)
+    for w, h, plane in ((16, 16, y0), (8, 8, y0), (4, 4, y0), (32, 32, y0),
+                        (64, 64, y0), (128, 128, y0), (12, 20, y0),
+                        (2, 2, u0)):
+        g = rng if w in (16, 8, 4) else wide
+        by, bx = _whole_grid(plane, h, w)
         B = by.numel()
-        d = t(rng.integers(-3, 4, (2, B)))
-        reg = _cut(y0, by + d[0] - 3, bx + d[1] - 3, bs + 7, bs + 7)
-        sx, sy = t(rng.integers(0, 16, B)), t(rng.integers(0, 16, B))
+        d = t(g.integers(-3, 4, (2, B)))
+        reg = _cut(plane, by + d[0] - 3, bx + d[1] - 3, h + 7, w + 7)
+        sx, sy = t(g.integers(0, 16, B)), t(g.integers(0, 16, B))
         for interp in range(4):
-            a = (reg, bs, bs, sx, sy, interp, interp)
+            a = (reg, w, h, sx, sy, interp, interp)
             got = CV.subpel_predict(*a)
-            err = max(err, compare(f"KL {bs}x{bs} interp {interp}", got,
+            err = max(err, compare(f"KL {w}x{h} interp {interp}", got,
                                    CV.subpel_predict_plain(*a)))
-        kl[bs] = (reg, sx, sy, got)
-    reg, sx, sy, pred16 = kl[16]
+        kl[w, h] = (reg, sx, sy, got)
+    kl_sizes = {}
+    for (w, h), (reg, sx, sy, got) in kl.items():
+        a = (reg, w, h, sx, sy)
+        kl_sizes[f"{w}x{h}"] = {
+            "B": reg.shape[0],
+            "device_ms": device_ms(lambda: CV.subpel_predict(*a), 20,
+                                   "kl_kernel"),
+            **bound(nbytes(reg, sx, sy, got), _path_ops(sx, sy, w, h))}
+    reg, sx, sy, pred16 = kl[16, 16]
     a = (reg, 16, 16, sx, sy)
     kl_t = (cuda_time(lambda: CV.subpel_predict(*a), 20),
             cuda_time(lambda: CV.subpel_predict_plain(*a), 3),
@@ -2523,12 +2588,17 @@ def check_k13b_kernels(dev):
                     "library_none": "no single PyTorch call rounds between "
                                     "the two passes and picks the path by "
                                     "phase",
+                    "device_ms_by_size": kl_sizes,
                     "timed_at": "B=8160 16x16, per-block random phases, "
                                 "EIGHTTAP_REGULAR (1080p P-frame grid)"})
     log(f"[3f] KL subpel_predict exact at every path and interp filter "
-        f"(16x16 B=8160, 8x8 B=32640, 4x4 B=130560); 16x16: kernel "
-        f"{kl_t[0]:.4f} ms (device {kl_t[2]} ms), plain {kl_t[1]:.4f} ms, "
-        f"bound {kl_bnd['bound_ms']:.4f} ms ({kl_bnd['bound_by']})")
+        f"({', '.join(f'{k} B={v['B']}' for k, v in kl_sizes.items())}); "
+        f"16x16: kernel {kl_t[0]:.4f} ms (device {kl_t[2]} ms), plain "
+        f"{kl_t[1]:.4f} ms, bound {kl_bnd['bound_ms']:.4f} ms "
+        f"({kl_bnd['bound_by']})")
+    log(f"[3f] KL device ms and bound by size: " + ", ".join(
+        f"{k} {v['device_ms']} [{v['bound_ms']:.4f} {v['bound_by']}]"
+        for k, v in kl_sizes.items()))
 
     # ---- KM: the 49-point lattice around a full-pel MV per block ----
     by, bx = _grid(16, dev)
@@ -2545,18 +2615,26 @@ def check_k13b_kernels(dev):
     km_t = (cuda_time(lambda: MV.subpel_refine49(src, win), 20),
             cuda_time(lambda: MV.subpel_refine49_plain(src, win), 3),
             device_ms(lambda: MV.subpel_refine49(src, win), 20, "km_kernel"))
-    # the least work per block (h = w = 16). Sub-pel phases 4, 8 and 12
-    # each occur at the integer offsets 0 and 1, so one pass per phase over
-    # one more column (or row) serves both: an x pass per column phase over
-    # (h + 8) x (w + 1), a y pass per pair of phases over (h + 1) x (w + 1),
-    # a y-only pass per row phase over (h + 1) x w, the x-only rounding and
-    # clip (~4 per output) over h x (w + 1) per column phase, the copy, and
-    # a 3-operation SAD of each of the 49
+    # AV1's largest blocks: the luma's whole 128x128 and 128x64 blocks
+    km_sizes = {}
+    for w, h in ((128, 128), (128, 64)):
+        by, bx = _whole_grid(y1, h, w)
+        Bw = by.numel()
+        srcw = _cut(y1, by, bx, h, w)
+        mvw = t(wide.integers(-8, 9, (Bw, 2)))
+        winw = _cut(y0, by + mvw[:, 0] - 4, bx + mvw[:, 1] - 4, h + 9,
+                    w + 9)
+        gotw = MV.subpel_refine49(srcw, winw)
+        err = max(err, compare(f"KM {w}x{h}", gotw,
+                               MV.subpel_refine49_plain(srcw, winw)))
+        a = (srcw, winw)
+        km_sizes[f"{w}x{h}"] = {
+            "B": Bw,
+            "device_ms": device_ms(lambda: MV.subpel_refine49(*a), 20,
+                                   "km_kernel"),
+            **bound(nbytes(srcw, winw, gotw), _km_ops(Bw, h, w))}
     h = w = 16
-    km_ops = B * (3 * (h + 8) * (w + 1) * 20 + 9 * (h + 1) * (w + 1) * 20
-                  + 3 * (h + 1) * w * 20 + 3 * h * (w + 1) * 4
-                  + 49 * h * w * 3)
-    km_bnd = bound(nbytes(src, win, got), km_ops)
+    km_bnd = bound(nbytes(src, win, got), _km_ops(B, h, w))
     # the same function counted candidate by candidate (an x pass over h + 7
     # rows for each of the 36 2-D ones), for comparison in the log
     lat = torch.as_tensor(MV._LATTICE49 & 7)
@@ -2569,20 +2647,24 @@ def check_k13b_kernels(dev):
                     "device_ms": km_t[2], **km_bnd, "library_ms": None,
                     "library_none": "no single PyTorch call predicts and "
                                     "scores a candidate lattice",
+                    "device_ms_by_size": km_sizes,
                     "timed_at": "B=8160 16x16 blocks, 25x25 windows (1080p "
                                 "P-frame grid)"})
     log(f"[3f] KM subpel_refine49 exact (16x16 B=8160, 49 candidates); "
         f"kernel {km_t[0]:.4f} ms (device {km_t[2]} ms), plain "
         f"{km_t[1]:.4f} ms, bound {km_bnd['bound_ms']:.4f} ms "
         f"({km_bnd['bound_by']}; one pass per sub-pel phase), "
-        f"{km_bnd_each['bound_ms']:.4f} ms counted per candidate")
+        f"{km_bnd_each['bound_ms']:.4f} ms counted per candidate; exact at "
+        f"AV1's largest blocks, device ms and bound: " + ", ".join(
+            f"{k} B={v['B']} {v['device_ms']} [{v['bound_ms']:.4f} "
+            f"{v['bound_by']}]" for k, v in km_sizes.items()))
 
     # ---- KN: every reducer at 16x16; sad / sse / variance at 8 and 4 ----
     err = 0.0
     for bs in (16, 8, 4):
         by, bx = _grid(bs, dev)
         B = by.numel()
-        a, b = _cut(y1, by, bx, bs, bs), kl[bs][3]
+        a, b = _cut(y1, by, bx, bs, bs), kl[bs, bs][3]
         for name in ("sad", "sse", "variance"):
             err = max(err, compare(f"KN {name} {bs}x{bs}",
                                    getattr(ME, name)(a, b),
@@ -2590,7 +2672,7 @@ def check_k13b_kernels(dev):
         if bs != 16:
             continue
         sad_in = (a, b)
-        refs = torch.stack([kl[16][3].roll(k, 0) for k in range(4)], 1)
+        refs = torch.stack([kl[16, 16][3].roll(k, 0) for k in range(4)], 1)
         cases = {
             "sad_x4": (a, refs),
             "block_error": (t(rng.integers(-4000, 4000, (B, 256))),
@@ -2838,9 +2920,11 @@ def check_k12_kernels(dev):
     n = 16 (B = 8160), 32 (2040), 8 (32640) and 4 (130560); the two chroma
     planes padded to 544 rows at n = 8), on the plane entry and on the
     blocks entry with its totals; KQ on the golden k-means cases and at
-    N = 4096 / K = 8 (dim 1) and N = 1024 / K = 8 (dim 2). Exact equality;
-    kernel (CUDA events around the wrapper, and ``device_ms``), plain and
-    bound times."""
+    N = 4096 / K = 8 (dim 1) and N = 1024 / K = 8 (dim 2) on int64, int32
+    and uint8 data, and at N = 16384 (dim 1). Exact equality; kernel (CUDA
+    events around the wrapper, with the total on the host, and
+    ``device_ms``), plain and bound times; the device kernels and copies
+    of one call on int32 data."""
     import numpy as np
     import torch
     from aom_av1_psy_tpu_torch.normative import tables
@@ -2946,6 +3030,30 @@ def check_k12_kernels(dev):
                                 "kq_kernel"),
                       bound(nbytes(d, c, got[0]) + 8, _palette_ops(n, 8, dim)))
     kq_t = timed[1]
+    # the data as 5j hands it (int32 tiles) and as 8-bit samples, K = 8
+    # int64 centroids as k_means makes them; N = 16384 takes four CTAs
+    by_type = {}
+    for dtype in (torch.int32, torch.uint8):
+        for dim, n in ((1, 4096), (2, 1024), (1, 16384)):
+            d = torch.as_tensor(rng.integers(0, 256, (n, dim)),
+                                device=dev).to(dtype)
+            c = torch.as_tensor(rng.integers(0, 256, (8, dim)), device=dev)
+            got = PAL.calc_indices(d, c, dim)
+            want = PAL.calc_indices_plain(d, c, dim)
+            tag = f"{str(dtype)[6:]} N={n} dim {dim}"
+            err = max(err, compare(f"KQ {tag}", got[0], want[0]))
+            if got[1] != want[1]:
+                raise AssertionError(f"KQ {tag}: total {got[1]} != "
+                                     f"{want[1]}")
+            by_type[tag] = {
+                "ms": cuda_time(lambda: PAL.calc_indices(d, c, dim), 20),
+                "device_ms": device_ms(lambda: PAL.calc_indices(d, c, dim),
+                                       20, "kq_kernel"),
+                **bound(nbytes(d, c, got[0]) + 8, _palette_ops(n, 8, dim))}
+    d32 = torch.as_tensor(rng.integers(0, 256, (4096, 1)),
+                          device=dev).to(torch.int32)
+    c64 = torch.as_tensor(rng.integers(0, 256, (8, 1)), device=dev)
+    one_call = device_ops(lambda: PAL.calc_indices(d32, c64, 1))
     results.append({"name": "palette_indices", "route": "cuda",
                     "source": "aom_av1_psy_tpu_torch/csrc/palette.cu",
                     "replaces": "aom_av1_psy_tpu/ops/palette.py:20",
@@ -2954,8 +3062,10 @@ def check_k12_kernels(dev):
                     "library_none": "torch.cdist gives the distances but not "
                                     "the first-index argmin and the total in "
                                     "one call",
-                    "timed_at": "N=4096 K=8 dim 1, with the total's copy to "
-                                f"the host; N=1024 K=8 dim 2: "
+                    "by_type": by_type,
+                    "device_ops_per_call_int32": one_call,
+                    "timed_at": "N=4096 K=8 dim 1 int64 data, with the total "
+                                f"on the host; N=1024 K=8 dim 2: "
                                 f"{timed[2][0]:.4f} ms (device "
                                 f"{timed[2][2]} ms), plain "
                                 f"{timed[2][1]:.4f} ms"})
@@ -2964,6 +3074,12 @@ def check_k12_kernels(dev):
         f"{kq_t[0]:.4f} ms (device {kq_t[2]} ms), plain {kq_t[1]:.4f} ms, "
         f"bound {kq_t[3]['bound_ms']:.6f} ms ({kq_t[3]['bound_by']}); "
         f"dim 2: kernel {timed[2][0]:.4f} ms, plain {timed[2][1]:.4f} ms")
+    log("[3g] KQ exact on int32 and uint8 data; ms per call (device ms) "
+        "[bound]: " + ", ".join(
+            f"{k} {v['ms']:.4f} ({v['device_ms']}) [{v['bound_ms']:.6f}]"
+            for k, v in by_type.items()))
+    log(f"[3g] KQ: the device kernels and copies of one calc_indices call "
+        f"on int32 data (N=4096 K=8 dim 1): {json.dumps(one_call)}")
     return results
 
 

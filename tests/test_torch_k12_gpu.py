@@ -4,7 +4,11 @@ device: KP at the 1080p KEY frame's shapes (the luma padded to 1088 rows
 at n = 4, 8, 16, 32; the chroma planes padded to 544 rows at n = 8), on
 its blocks entry with the totals (the wrapping checkerboard too); KQ at
 N = 4096, K = 8, dims 1 and 2, against the plain version and the numpy
-branch. Tolerance: exact equality (integer outputs).
+branch, and on each data type it reads (uint8, int16, int32, int64) at N
+up to 4096 (one CTA) and 16384 (several, the last adding the partials),
+with duplicate centroids, values past its 32-bit keys' range, data off a
+16-byte boundary and N that is not whole vectors. Tolerance: exact
+equality (integer outputs).
 
 Every test needs the card: it carries the ``gpu`` marker and skips where
 ``torch.cuda.is_available()`` is false. The file imports nothing of jax
@@ -163,3 +167,44 @@ def test_kq_raises_above_256_centroids(dev):
     data = torch.zeros(64, dtype=torch.int64, device=dev)
     with pytest.raises(ValueError, match="uint8"):
         P.calc_indices(data, torch.arange(257, device=dev), 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int16, torch.int32,
+                                   torch.int64])
+@pytest.mark.parametrize("dim", [1, 2])
+def test_kq_reads_each_dtype_at_every_n(dev, dtype, dim):
+    """N = 1, 4095 (not whole 16-byte vectors), 4096 (one CTA), 4097 and
+    16384 (several CTAs); 8-bit samples, then values past the 32-bit keys'
+    range [-1023, 1023] (the int64 distances), each with a duplicate
+    centroid; the data at an offset of one point (off a 16-byte boundary);
+    one launch a call."""
+    rng = np.random.default_rng(dim * 10 + KQ_CODE[dtype])
+    hi = {torch.uint8: 256, torch.int16: 32768, torch.int32: 1 << 24,
+          torch.int64: 1 << 40}[dtype]
+    lo = 0 if dtype == torch.uint8 else -hi
+    for n in (1, 4095, 4096, 4097, 16384):
+        for vlo, vhi in ((0, 256), (lo, hi)):
+            data = torch.as_tensor(rng.integers(vlo, vhi, (n + 1) * dim)) \
+                .to(dtype)
+            cents = torch.as_tensor(rng.integers(vlo, vhi, 8 * dim))
+            cents[dim:2 * dim] = cents[:dim]
+            for d in (data[:n * dim], data[dim:]):
+                for c in (cents, cents.to(dtype)):
+                    n0 = P.KQ.launches
+                    got = P.calc_indices(d.to(dev), c.to(dev), dim)
+                    assert P.KQ.launches == n0 + 1
+                    want = P.calc_indices_plain(d, c, dim)
+                    assert torch.equal(got[0].cpu(), want[0]), (n, vhi)
+                    assert got[1] == want[1], (n, vhi)
+                    assert 1 not in set(got[0].tolist())
+
+
+KQ_CODE = {torch.uint8: 0, torch.int16: 1, torch.int32: 2, torch.int64: 3}
+
+
+def test_kq_raises_on_other_dtypes(dev):
+    data = torch.zeros(64, dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        P.calc_indices(data, torch.arange(8, device=dev), 1)
+    with pytest.raises(ValueError, match="dtype"):
+        P.calc_indices(data.int(), torch.arange(8., device=dev), 1)

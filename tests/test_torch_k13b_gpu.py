@@ -38,8 +38,16 @@ def _t(a, dev, dtype=torch.int32):
     return torch.as_tensor(np.asarray(a)).to(dev, dtype)
 
 
+# sizes KL takes since its redesign: 2-wide chroma, sizes that are not
+# powers of two (strips of 32 columns with a partial last one, warps of
+# several blocks with idle lanes), AV1's largest blocks
+WIDE = [(2, 2), (2, 8), (12, 20), (20, 12), (40, 6), (100, 3), (128, 128),
+        (128, 64), (64, 128), (2, 128), (33, 33)]
+
+
 @pytest.mark.parametrize("interp", [0, 1, 2, 3])
-@pytest.mark.parametrize("w,h", [(s, s) for s in SIZES] + [(8, 4), (16, 64)])
+@pytest.mark.parametrize("w,h", [(s, s) for s in SIZES] + [(8, 4), (16, 64)]
+                         + WIDE)
 def test_kl_matches_plain_at_every_phase(dev, w, h, interp):
     rng = np.random.default_rng(w * 7 + h + interp)
     B = 256
@@ -60,7 +68,8 @@ def test_kl_matches_plain_at_every_phase(dev, w, h, interp):
 
 
 @pytest.mark.parametrize("w,h", [(4, 4), (8, 8), (16, 16), (32, 32),
-                                 (64, 64)])
+                                 (64, 64), (128, 128), (128, 64),
+                                 (64, 128), (4, 128), (128, 4)])
 def test_km_matches_plain(dev, w, h):
     rng = np.random.default_rng(w + 100)
     B = 64
@@ -93,7 +102,8 @@ def _km_blocks_per_cta(w, h):
 
 @pytest.mark.parametrize("bd", [8, 10])
 @pytest.mark.parametrize("w,h", [(4, 4), (8, 8), (16, 16), (32, 32),
-                                 (64, 64), (4, 64), (64, 4), (16, 8)])
+                                 (64, 64), (4, 64), (64, 4), (16, 8),
+                                 (128, 128), (128, 64)])
 def test_km_at_batches_off_its_blocks_per_cta(dev, w, h, bd):
     """B = 1, 2, 3 and the blocks per CTA - 1, + 1, + 2 (a CTA with fewer
     blocks than it takes), at bit depths 8 and 10, every interp filter."""
@@ -132,6 +142,23 @@ def test_km_reads_wider_windows_through_the_wrapper(dev, w, h):
                                     _t(mv, "cpu"))
     for g, w_ in zip(got, want):
         assert torch.equal(g.cpu(), w_)
+
+
+def test_kl_and_km_raise_outside_their_sizes_on_the_card(dev):
+    """KL raises above 128 and below 2, KM off the powers of two in 4..128,
+    before any launch: never a different result."""
+    n0 = (C.KL.launches, MV.KM.launches)
+    for w, h in ((129, 8), (8, 129), (1, 4), (256, 256)):
+        reg = torch.zeros((3, h + 7, w + 7), dtype=torch.int32, device=dev)
+        ph = torch.ones(3, dtype=torch.int32, device=dev)
+        with pytest.raises(ValueError, match="2..128"):
+            C.subpel_predict(reg, w, h, ph, ph)
+    for w, h in ((12, 16), (16, 24), (2, 8), (256, 16)):
+        src = torch.zeros((3, h, w), dtype=torch.int32, device=dev)
+        win = torch.zeros((3, h + 9, w + 9), dtype=torch.int32, device=dev)
+        with pytest.raises(ValueError, match="powers of two"):
+            MV.subpel_refine49(src, win)
+    assert (C.KL.launches, MV.KM.launches) == n0
 
 
 def test_subpel_refine_on_card_matches_cpu(dev):
@@ -225,7 +252,8 @@ def test_interframe_on_card_matches_cpu(dev):
             np.testing.assert_array_equal(p, q)
 
 
-@pytest.mark.parametrize("w,h", [(8, 8), (16, 4), (64, 32)])
+@pytest.mark.parametrize("w,h", [(8, 8), (16, 4), (64, 32), (2, 2),
+                                 (12, 20), (128, 128)])
 def test_convolve_paths_on_card_match_plain(dev, w, h):
     """``convolve_2d_sr`` / ``_x_sr`` / ``_y_sr`` on CUDA tensors run KL
     with the caller's kernels (one launch each)."""

@@ -8,8 +8,11 @@ golden cases of ``tests/golden/golden_kmeans.npz`` (dims 1 and 2, as
 index wins), and ``k_means`` against the reference's.
 
 JAX runs without x64, so the jnp branch sums in int32; at 8-bit samples
-and N <= 4096 that cannot wrap. Tolerance: exact equality (indices, their
-uint8 dtype and the integer totals)."""
+and N <= 4096 that cannot wrap. The tensor branch on uint8, int16, int32
+and int64 data (the types KQ reads as they are) at N = 4096 and 16384
+against the jnp branch; the dtypes the tensor branch takes.
+Tolerance: exact equality (indices, their uint8 dtype and the integer
+totals)."""
 import os
 
 import jax.numpy as jnp
@@ -108,3 +111,50 @@ def test_tensor_branch_takes_256_centroids_and_raises_above():
         P.calc_indices(torch.as_tensor(data), torch.arange(257), 1)
     with pytest.raises(TypeError):
         P.calc_indices(data.tolist(), cents, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int16, torch.int32,
+                                   torch.int64])
+@pytest.mark.parametrize("dim,n", [(1, 4096), (1, 16384), (2, 4096),
+                                   (2, 16384)])
+def test_tensor_branch_reads_each_dtype(dim, n, dtype):
+    """Data of each type KQ reads, centroids of another (int64 from
+    ``k_means``, int32, or the data's type), with a duplicate centroid:
+    the jnp branch's indices and total (8-bit samples: its int32 sum
+    cannot wrap at these N)."""
+    rng = np.random.default_rng(n + dim)
+    data = rng.integers(0, 256, n * dim)
+    cents = rng.integers(0, 256, 8 * dim)
+    cents[dim:2 * dim] = cents[:dim]                 # first index wins
+    want = RP.calc_indices(jnp.asarray(data), jnp.asarray(cents), dim)
+    for ctype in (torch.int64, torch.int32, dtype):
+        got = P.calc_indices(torch.as_tensor(data).to(dtype),
+                             torch.as_tensor(cents).to(ctype), dim)
+        _check(got, want)
+    assert 1 not in set(got[0].tolist())
+
+
+def test_tensor_branch_takes_exactly_four_integer_types():
+    """``calc_indices`` on tensors and its plain version take uint8, int16,
+    int32 and int64 data and centroids and raise on every other dtype (no
+    quiet cast), and on data that are not whole points."""
+    data = torch.arange(64)
+    cents = torch.tensor([3, 40])
+    for dt in (torch.bool, torch.int8, torch.uint16, torch.uint32,
+               torch.float16, torch.bfloat16, torch.float32, torch.float64,
+               torch.complex64):
+        for d, c in ((data.to(dt), cents), (data, cents.to(dt))):
+            for fn in (P.calc_indices, P.calc_indices_plain):
+                with pytest.raises(ValueError, match="dtype"):
+                    fn(d, c, 1)
+    for dt in P.KQ_DTYPES:
+        for fn in (P.calc_indices, P.calc_indices_plain):
+            idx, total = fn(data.to(dt), cents.to(dt), 1)
+            assert idx.dtype == torch.uint8 and isinstance(total, int)
+    assert set(P.KQ_DTYPES) == {torch.uint8, torch.int16, torch.int32,
+                                torch.int64}
+    with pytest.raises(ValueError, match="whole points"):
+        P.calc_indices(torch.arange(63), cents, 2)
+    meta = torch.zeros(64, dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError, match="dtype"):
+        P.calc_indices(meta, cents.to("meta"), 1)

@@ -6,7 +6,10 @@ tensors against the reference's jnp branch (the device program KM
 replaces) and its numpy branch: the reference's planted half- and
 quarter-pel cases (``tests/test_mvsearch.py:75-107``), flat blocks on which
 every candidate ties (the first-index rule), random blocks, and blocks
-planted at every lattice point, at 4x4 to 16x16 and every interp filter.
+planted at every lattice point, at 4x4 to 16x16 and at 128x128 and
+128x64 (AV1's largest blocks, which KM takes on the card since it was
+repaired), every interp filter; the block sizes KM's wrapper takes on the
+card.
 Tolerance: exact equality (MVs and SADs)."""
 import jax.numpy as jnp
 import numpy as np
@@ -74,7 +77,8 @@ def refine_cases(h, w, seed, interp=0, B=12):
 
 
 @pytest.mark.parametrize("interp", [0, 1, 2, 3])
-@pytest.mark.parametrize("h,w", [(4, 4), (8, 8), (16, 16), (8, 16)])
+@pytest.mark.parametrize("h,w", [(4, 4), (8, 8), (16, 16), (8, 16),
+                                 (128, 128), (64, 128)])
 def test_batched_refine_matches_jnp_and_numpy(h, w, interp):
     src, win, mvs = refine_cases(h, w, h * 10 + w + interp, interp)
     got = MV.batched_subpel_refine(t(src), t(win), t(mvs), interp)
@@ -111,3 +115,25 @@ def test_refine_first_index_on_flat_blocks():
     got = MV.subpel_refine(t(src), t(win), (0, 0))
     assert got == RMV.subpel_refine(src, win, (0, 0))
     assert got == ((-8 + 8 - 4 - 2 - 1, -8 + 8 - 4 - 2 - 1), 640)
+
+
+def test_card_sizes_are_the_powers_of_two_4_to_128():
+    """``check_km_block``, the predicate KM's wrapper applies on the card,
+    accepts every power-of-two w and h in 4..128 and raises, naming the
+    limit, on every other size; a meta tensor (the wrapper's kernel
+    branch) raises before any launch."""
+    pow2 = {4, 8, 16, 32, 64, 128}
+    for w in range(0, 260):
+        for h in range(0, 260, 4):
+            if w in pow2 and h in pow2:
+                MV.check_km_block(w, h)
+            else:
+                with pytest.raises(ValueError, match="powers of two"):
+                    MV.check_km_block(w, h)
+    n0 = MV.KM.launches
+    for h, w in ((12, 16), (128, 256), (2, 8)):
+        src = torch.zeros((2, h, w), dtype=torch.int32, device="meta")
+        win = torch.zeros((2, h + 9, w + 9), dtype=torch.int32, device="meta")
+        with pytest.raises(ValueError, match="powers of two in 4..128"):
+            MV.subpel_refine49(src, win)
+    assert MV.KM.launches == n0

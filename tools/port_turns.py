@@ -66,7 +66,16 @@ call); the walls of the 5i subpel chain (the checkout's own
 ``chip_smoke._subpel_chain``: KJ r16, KM, KL, KN, KO on the 16x16 grid)
 and of ``analyze_plane`` at n = 16, and of 5j's six KP calls (the three
 planes, ``batched_analyze_step`` whole and in halves), host clock to a
-synchronize, median of 25 after a first.
+synchronize, median of 25 after a first; KL's device time per call of
+``subpel_predict`` at B = 8160 16x16 (per-block random phases, regions of
+frame 0) and at the luma's 120 whole 128x128 blocks (where the checkout's
+KL takes them, else null); KQ's per call of ``calc_indices`` on a 4096
+point int32 block, K = 8, dim 1 (5j's luma call): the wall per call with
+the total on the host (median of 200 after a first), the device time
+and the device kernels and copies per call (every device row of the
+profiler); and the wall of 5j's whole analysis path (the checkout's own
+``chip_smoke._analysis_path`` on ``_palette_tiles``' centroids, median of
+7 after a first).
 Only entry points that both checkouts have are timed. Both checkouts
 build their kernels into their own ``build/`` at first use.
 
@@ -141,6 +150,23 @@ def kernel_ms(fn, keys, iters=20):
         n / iters
 
 
+def device_per_call(fn, iters=20):
+    # every device row of the profiler (kernels, copies, fills): device ms
+    # and rows per call
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    return sum(e.self_device_time_total for e in rows) / 1e3 / iters, \
+        sum(e.count for e in rows) / iters
+
+
 if sys.argv[2:] == ["vmaf"]:
     from aom_av1_psy_tpu_torch.encoder import tune_vmaf as TV
     y_np = testframes.make_frame(1920, 1080).planes()[0]
@@ -203,6 +229,46 @@ if sys.argv[2:] == ["k13"]:
             step(*(t[sl] for t in (blocks, *edges)))
 
     out["analysis_kp_s"] = host_s(kp_path)
+
+    # KL at 3f's 16x16 shape and at the whole 128x128 blocks
+    from aom_av1_psy_tpu_torch.ops import convolve as CV
+    from aom_av1_psy_tpu_torch.ops import palette as PAL
+    rng = np.random.default_rng(16)
+
+    def t32(a):
+        return torch.as_tensor(a.astype(np.int32), device="cuda")
+
+    for tag, bs in (("kl16", 16), ("kl128", 128)):
+        gy, gx = torch.meshgrid(torch.arange(0, 1088 - bs + 1, bs),
+                                torch.arange(0, 1920 - bs + 1, bs),
+                                indexing="ij")
+        gy, gx = gy.reshape(-1).cuda(), gx.reshape(-1).cuda()
+        B = gy.numel()
+        d = t32(rng.integers(-3, 4, (2, B)))
+        reg = CS._cut(y0, gy + d[0] - 3, gx + d[1] - 3, bs + 7, bs + 7)
+        sx, sy = t32(rng.integers(0, 16, B)), t32(rng.integers(0, 16, B))
+        try:
+            CV.subpel_predict(reg, bs, bs, sx, sy)
+        except ValueError:   # the parent's KL takes w, h <= 64
+            out[f"{tag}_device_ms"] = out[f"{tag}_launches"] = None
+            continue
+        out[f"{tag}_device_ms"], out[f"{tag}_launches"] = kernel_ms(
+            lambda: CV.subpel_predict(reg, bs, bs, sx, sy), ("::kl_kernel",))
+
+    # KQ: 5j's luma call (int32 tile, int64 centroids from k_means)
+    dq32 = t32(rng.integers(0, 256, (64, 64)))
+    cq = torch.as_tensor(rng.integers(0, 256, 8), device="cuda")
+    out["kq_call_ms"] = host_s(lambda: PAL.calc_indices(dq32, cq, 1),
+                               200) * 1e3
+    out["kq_device_ms"], out["kq_launches"] = kernel_ms(
+        lambda: PAL.calc_indices(dq32, cq, 1), ("::kq_kernel",))
+    out["kq_all_device_ms"], out["kq_device_ops_per_call"] = \
+        device_per_call(lambda: PAL.calc_indices(dq32, cq, 1))
+
+    # 5j's whole path
+    tiles, cents, _ = CS._palette_tiles([y, u, v], "cuda")
+    out["analysis_path_s"] = host_s(
+        lambda: CS._analysis_path([y, u, v], tiles, cents), 7)
     print(json.dumps(out))
     sys.exit(0)
 
@@ -584,7 +650,11 @@ def main() -> int:
                   "vif_lite_ki_launches", "vif_lite_down2_device_ms",
                   "vif_lite_down2_launches", "vif_lite_s",
                   "frame_preprocessing_s", "km_device_ms", "km_launches",
-                  "chain_s", "analyze_plane_s", "analysis_kp_s") + tuple(
+                  "chain_s", "analyze_plane_s", "analysis_kp_s",
+                  "kl16_device_ms", "kl16_launches", "kl128_device_ms",
+                  "kl128_launches", "kq_call_ms", "kq_device_ms",
+                  "kq_launches", "kq_all_device_ms",
+                  "kq_device_ops_per_call", "analysis_path_s") + tuple(
                 f"kp_{t}_{m}" for t in ("y16", "y32", "y8", "u8", "y4")
                 for m in ("device_ms", "launches")) + tuple(
                 f"{k}_p_frame_{m}" for k in ("kd", "ke", "kc", "kf")
