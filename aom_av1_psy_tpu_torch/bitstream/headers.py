@@ -549,11 +549,11 @@ def _read_global_motion_params(r: BitReader, ref_params, allow_hp: bool):
         params.wmmat[1] = _read_signed_refsubexpfin(
             r, (1 << trans_bits) + 1, MR.SUBEXPFIN_K,
             ref_params.wmmat[1] >> trans_prec_diff) * trans_dec_factor
-    if typ >= MR.ROTZOOM:
-        # the shear check (av1_get_shear_params) of a warped model; an
-        # identity or translation model always passes it
-        from ..errors import outside_the_port
-        raise outside_the_port("non-translational global motion")
+    if typ <= MR.AFFINE:
+        from ..ops.warp import get_shear_params
+        ok = get_shear_params(params)
+        if not ok:
+            params.invalid = True
     return params
 
 

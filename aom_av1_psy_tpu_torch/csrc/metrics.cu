@@ -16,14 +16,30 @@
 //
 // What bounds them: each reads its inputs once and does a few operations
 // per element: bytes bound (the 1080p 16x16 grid's two int32 planes,
-// 16 MB, about 5 us at 3.35 TB/s). Design: KN gives each item one warp
-// (8 items per 256-thread CTA); the lanes stride over the item's elements
-// and a warp shuffle adds the int64 partial sums, so no shared memory and
-// no atomics. KO gives each 8x8 block one thread that holds it in 64
-// registers. Both read their inputs in the caller's integer type
-// (uint8, int8, int16 or int32: a template on the element type), so the
-// wrapper launches no conversion kernel; KN takes its arguments as one
-// struct by pointer, which the entry point copies into the launch.
+// 16 MB, about 5 us at 3.35 TB/s; KO's 4 x 8160 int32 8x8 residuals,
+// 8.4 MB, 2.5 us). Design: KN gives each item one warp (8 items per
+// 256-thread CTA); the lanes stride over the item's elements and a warp
+// shuffle adds the int64 partial sums, so no shared memory and no
+// atomics. Both read their inputs in the caller's integer type (uint8,
+// int8, int16 or int32: a template on the element type), so the wrapper
+// launches no conversion kernel; KN takes its arguments as one struct by
+// pointer, which the entry point copies into the launch.
+//
+// KO gives each row of an 8x8 block one lane: 8 lanes a block, 4 blocks a
+// warp, 32 blocks a 256-thread CTA (1020 CTAs at B = 32640). A lane reads
+// its row with vector loads (two 16-byte loads at int32, one at int16, one
+// 8-byte load at 8 bits), so a warp reads 4 whole blocks that lie together
+// (1 KB at int32) in as few wavefronts as the bytes allow, and runs the
+// row butterflies in registers. The column butterflies are three
+// __shfl_xor_sync rounds (masks 1, 2, 4) among the block's 8 lanes: lane r
+// keeps mine + other where bit s of r is clear and takes other - mine
+// where it is set, which is the reference's in-place (j, j + s) ->
+// (sum, difference) order, in unsigned (wrapping) arithmetic. satd: each
+// lane sums its 8 |t| in int64, and three shuffle rounds add the block's
+// 8 lanes; the transform variant writes each lane's row with vector
+// stores. A pointer off the vector alignment takes per-element loads and
+// stores (kVec false); lanes of blocks past B load zeros, take part in the
+// shuffles and store nothing.
 #include "common.cuh"
 
 // The argument block of block_reduce (mirrored by ops/metrics._KNArgs).
@@ -164,29 +180,109 @@ __device__ __forceinline__ void wht8(unsigned int* v, int step) {
   }
 }
 
-template <typename T>
+// Row r of an 8x8 block as 8 unsigned (wrapping) int32 values. kVec: the
+// row lies on its vector alignment (32 bytes at int32, 16 at int16, 8 at
+// 8 bits); the words are split with sign or zero extension per type.
+__device__ __forceinline__ void ko_load(const int* p, unsigned int (&v)[8]) {
+  const int4 a = __ldcs(reinterpret_cast<const int4*>(p));
+  const int4 b = __ldcs(reinterpret_cast<const int4*>(p) + 1);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+__device__ __forceinline__ void ko_load(const short* p,
+                                        unsigned int (&v)[8]) {
+  const int4 a = __ldcs(reinterpret_cast<const int4*>(p));
+  const int w[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = (unsigned int)((int)((unsigned int)w[i] << 16) >> 16);
+    v[2 * i + 1] = (unsigned int)(w[i] >> 16);  // arithmetic shifts
+  }
+}
+
+__device__ __forceinline__ void ko_load(const signed char* p,
+                                        unsigned int (&v)[8]) {
+  const int2 a = __ldcs(reinterpret_cast<const int2*>(p));
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int w = i < 4 ? a.x : a.y;
+    v[i] = (unsigned int)((int)((unsigned int)w << (24 - 8 * (i & 3))) >>
+                          24);
+  }
+}
+
+__device__ __forceinline__ void ko_load(const unsigned char* p,
+                                        unsigned int (&v)[8]) {
+  const int2 a = __ldcs(reinterpret_cast<const int2*>(p));
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    v[i] = ((unsigned int)(i < 4 ? a.x : a.y) >> (8 * (i & 3))) & 0xffu;
+}
+
+template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads)
     ko_kernel(const T* __restrict__ x, int B, int* __restrict__ t,
               long long* __restrict__ satd) {
-  const long long b = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (b >= B) return;
-  unsigned int v[64];
-  const T* g = x + b * 64;
+  const long long g = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long b = g >> 3;   // the block; this lane holds its row r
+  const int r = threadIdx.x & 7;
+  const bool valid = b < B;     // the same for the block's 8 lanes
+  unsigned int v[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  if (valid) {
+    if (kVec) {
+      ko_load(x + g * 8, v);
+    } else {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) v[i] = (unsigned int)(int)g[i];
-#pragma unroll
-  for (int r = 0; r < 8; ++r) wht8(v + 8 * r, 1);  // rows (last axis)
-#pragma unroll
-  for (int c = 0; c < 8; ++c) wht8(v + c, 8);      // then columns
-  long long s = 0;
-#pragma unroll
-  for (int i = 0; i < 64; ++i) {
-    // |q| in int32 (wrapping at INT_MIN as numpy's abs does), then summed
-    const unsigned int q = v[i];
-    s += (int)((int)q < 0 ? 0u - q : q);
-    if (t) t[b * 64 + i] = (int)q;
+      for (int i = 0; i < 8; ++i) v[i] = (unsigned int)(int)x[g * 8 + i];
+    }
   }
-  if (satd) satd[b] = s;
+  wht8(v, 1);  // the row (last axis)
+  // the columns: row r pairs with row r ^ s; the lower row of the pair
+  // takes the sum, the upper one the difference (lower - upper)
+#pragma unroll
+  for (int s = 1; s < 8; s <<= 1) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const unsigned int o = __shfl_xor_sync(0xffffffffu, v[i], s);
+      v[i] = (r & s) ? o - v[i] : v[i] + o;
+    }
+  }
+  if (t && valid) {
+    int* out = t + g * 8;
+    if (kVec) {
+      reinterpret_cast<int4*>(out)[0] = make_int4(v[0], v[1], v[2], v[3]);
+      reinterpret_cast<int4*>(out)[1] = make_int4(v[4], v[5], v[6], v[7]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) out[i] = (int)v[i];
+    }
+  }
+  if (satd) {
+    // |q| in int32 (wrapping at INT_MIN as numpy's abs does), then summed
+    long long sum = 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      sum += (int)((int)v[i] < 0 ? 0u - v[i] : v[i]);
+#pragma unroll
+    for (int s = 1; s < 8; s <<= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, s);
+    if (valid && r == 0) satd[b] = sum;
+  }
+}
+
+template <typename T>
+void ko_launch(const void* x, int B, int* t, long long* satd,
+               cudaStream_t st) {
+  // vector loads need the row's alignment: 8 bytes at 8 bits, 16 above;
+  // the transform's int32 rows 16 bytes
+  const size_t al = sizeof(T) == 1 ? 8 : 16;
+  const bool vec = (uintptr_t)x % al == 0 && (uintptr_t)t % 16 == 0;
+  const int grid = (int)(((long long)B * 8 + kThreads - 1) / kThreads);
+  if (vec)
+    ko_kernel<T, true><<<grid, kThreads, 0, st>>>((const T*)x, B, t, satd);
+  else
+    ko_kernel<T, false><<<grid, kThreads, 0, st>>>((const T*)x, B, t, satd);
 }
 
 template <int OP>
@@ -234,23 +330,13 @@ AV1_EXPORT int block_reduce(const KNArgs* args, void* stream) {
 AV1_EXPORT int satd8x8(const void* x, int dtype, int B, int* t,
                        long long* satd, void* stream) {
   if (B <= 0) return 0;
-  const int grid = (B + kThreads - 1) / kThreads;
   cudaStream_t st = (cudaStream_t)stream;
   switch (dtype) {
-    case kU8:
-      ko_kernel<<<grid, kThreads, 0, st>>>((const unsigned char*)x, B, t, satd);
-      break;
-    case kI8:
-      ko_kernel<<<grid, kThreads, 0, st>>>((const signed char*)x, B, t, satd);
-      break;
-    case kI16:
-      ko_kernel<<<grid, kThreads, 0, st>>>((const short*)x, B, t, satd);
-      break;
-    case kI32:
-      ko_kernel<<<grid, kThreads, 0, st>>>((const int*)x, B, t, satd);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+    case kU8: ko_launch<unsigned char>(x, B, t, satd, st); break;
+    case kI8: ko_launch<signed char>(x, B, t, satd, st); break;
+    case kI16: ko_launch<short>(x, B, t, satd, st); break;
+    case kI32: ko_launch<int>(x, B, t, satd, st); break;
+    default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

@@ -39,7 +39,8 @@
 // ((c8 & 7) << 1, (r8 & 7) << 1) through the facade path those phases
 // select (the four paths of csrc/convolve.cuh, with KL's roundings), its
 // SAD against the block, and the first-index argmin. Blocks of every
-// power-of-two w, h in 4..128 (AV1's, up to 128x128).
+// w, h in 2..128 (AV1's, up to 128x128, the 2-wide chroma of 4:2:0, and
+// sizes that are not powers of two).
 //
 // What bounds it: at the 1080p P-frame's 16x16 grid (B = 8160) the least
 // work is one x pass per column phase (6 of them, over h + 8 window rows)
@@ -59,13 +60,19 @@
 // multiple of 8), so its output clip(round2(round2(acc, 3), 4)) is
 // clip(round2(im - 2^(bd+3), 4)). Column dc = 0 holds the raw window
 // column 4 + c instead: the y-only candidates and the copy.
-// A lane-task is (block, column phase, row chunk of R = min(h, 16) output
-// rows, column c): it keeps the R + 8 values of its column in registers,
+// A lane-task is (block, column phase, row chunk of R output rows, column
+// c), R = h rounded up to a power of two, at most 16; a last chunk of
+// fewer rows (h not a multiple of R) reads its window rows clamped to the
+// block's and adds nothing for the rows past h. It keeps the R + 8 values
+// of its column in registers,
 // then scores the 7 candidates of its column phase, each a sliding 8-tap
 // vertical pass over those registers (the rounding of the 2-D or the
 // y-only path by the column) and the SAD against the block's column c,
 // also held in registers. Lanes of consecutive columns sum each
-// candidate's SAD with warp shuffles (a segment of min(w, 32) lanes) and
+// candidate's SAD with warp shuffles over a segment of min(gw, 32) lanes,
+// gw = w rounded up to a power of two up to 32, or to a multiple of 32
+// above (lanes of columns past w add zero, so the shuffle tree stays a
+// power of two that divides the warp), and
 // add it into the block's 49 sums in shared memory at the dr-major index
 // (dr + 3) * 7 + (dc + 3); after the one barrier, a warp per block takes
 // the first-index argmin. There is no CTA barrier between candidates:
@@ -249,7 +256,9 @@ struct KMArgs {
   long long B;
   int w, h, bd;
   int nb;           // blocks per CTA
-  int tasks;        // lane-tasks per block: 7 * (h / R) * w
+  int gw;           // lane columns per (block, phase, chunk): w padded
+  int chunks;       // row chunks: ceil(h / R)
+  int tasks;        // lane-tasks per block: 7 * chunks * gw
   const int* tabx;  // (16, 8) x taps of width w
   const int* taby;  // (16, 8) y taps of height h
   int* best_idx;
@@ -258,12 +267,14 @@ struct KMArgs {
 
 // The 7 SADs (one per dr, dr-major) of the lane-task of column phase
 // (fc, sc) at column c: `wc` is the window at (r0, c) (row stride ww),
-// `sb` the block at (r0, c) (row stride w); rows r0..r0+R-1 of the output.
-template <int R>
+// `sb` the block at (r0, c) (row stride w); rows r0..r0+nr-1 of the
+// output (nr == R unless kRagged: then rows past nr are read clamped and
+// score nothing).
+template <int R, bool kRagged>
 __device__ __forceinline__ void km_column(const int* wc, int ww,
-                                          const int* sb, int w, int fc,
-                                          int sc, const int* stab, int bd,
-                                          int (&sad)[7]) {
+                                          const int* sb, int w, int nr,
+                                          int fc, int sc, const int* stab,
+                                          int bd, int (&sad)[7]) {
   using av1conv::kFilterBits;
   using av1conv::kRound0;
   const int maxv = (1 << bd) - 1;
@@ -276,18 +287,20 @@ __device__ __forceinline__ void km_column(const int* wc, int ww,
     const int* p = wc + fc;
 #pragma unroll
     for (int q = 0; q < R + 8; ++q) {
+      const int* pq = p + (kRagged && q > nr + 7 ? nr + 7 : q) * ww;
       int acc = 0;
 #pragma unroll
-      for (int k = 0; k < 8; ++k) acc += kx[k] * p[q * ww + k];
+      for (int k = 0; k < 8; ++k) acc += kx[k] * pq[k];
       v[q] = (acc + off) >> kRound0;
     }
   } else {  // dc = 0: the raw column 4 + c
 #pragma unroll
-    for (int q = 0; q < R + 8; ++q) v[q] = wc[q * ww + 4];
+    for (int q = 0; q < R + 8; ++q)
+      v[q] = wc[(kRagged && q > nr + 7 ? nr + 7 : q) * ww + 4];
   }
   int s[R];
 #pragma unroll
-  for (int r = 0; r < R; ++r) s[r] = sb[r * w];
+  for (int r = 0; r < R; ++r) s[r] = sb[(kRagged && r >= nr ? 0 : r) * w];
   // dr != 0: round2(acc + 2^ob, 11) - sub (2-D) or round2(acc, 7) (y only)
   const int round1 = 2 * kFilterBits - kRound0;
   const int ob = bd + 2 * kFilterBits - kRound0;
@@ -314,18 +327,22 @@ __device__ __forceinline__ void km_column(const int* wc, int ww,
         int acc = 0;
 #pragma unroll
         for (int k = 0; k < 8; ++k) acc += ky[k] * v[fr + r + k];
-        t += abs(clampi(((acc + yadd) >> ysh) - ysub, 0, maxv) - s[r]);
+        const int d =
+            abs(clampi(((acc + yadd) >> ysh) - ysub, 0, maxv) - s[r]);
+        t += kRagged && r >= nr ? 0 : d;
       }
     } else {
 #pragma unroll
-      for (int r = 0; r < R; ++r)
-        t += abs(clampi((v[4 + r] + xadd) >> xsh, lo, hi) - s[r]);
+      for (int r = 0; r < R; ++r) {
+        const int d = abs(clampi((v[4 + r] + xadd) >> xsh, lo, hi) - s[r]);
+        t += kRagged && r >= nr ? 0 : d;
+      }
     }
     sad[i] = t;
   }
 }
 
-template <int R>
+template <int R, bool kRagged>
 __global__ void __launch_bounds__(kKmMaxThreads) km_kernel(KMArgs a) {
   extern __shared__ int sm[];
   const int w = a.w, h = a.h, ww = w + 9, wsz = (h + 9) * ww, bsz = h * w;
@@ -345,9 +362,10 @@ __global__ void __launch_bounds__(kKmMaxThreads) km_kernel(KMArgs a) {
   __syncthreads();
 
   // lane-tasks, column fastest: (block, column phase j, row chunk, c);
-  // a segment of seg lanes shares (block, j, chunk) (tasks and w are
-  // multiples of seg), so its lanes sum the same 7 candidates
-  const int seg = w < 32 ? w : 32, chunks = h / R;
+  // a segment of seg lanes shares (block, j, chunk) (tasks and gw are
+  // multiples of seg), so its lanes sum the same 7 candidates; lanes of
+  // columns c >= w add zero, and a segment's first lane is a column < w
+  const int pw = a.gw, seg = pw < 32 ? pw : 32, chunks = a.chunks;
   const int valid_tasks = nblk * a.tasks, all_tasks = a.nb * a.tasks;
   for (int base = 0; base < all_tasks; base += blockDim.x) {
     const int t = base + threadIdx.x;
@@ -356,13 +374,15 @@ __global__ void __launch_bounds__(kKmMaxThreads) km_kernel(KMArgs a) {
     int blk = 0, j = 0;
     if (valid) {
       blk = t / a.tasks;
-      const int u = t - blk * a.tasks, c = u % w, q = u / w;
+      const int u = t - blk * a.tasks, c = u % pw, q = u / pw;
       const int r0 = q % chunks * R;
       j = q / chunks;
       const int c8 = 2 + 2 * j;
-      km_column<R>(swin + blk * wsz + r0 * ww + c, ww,
-                   sblk + blk * bsz + r0 * w + c, w, c8 >> 3,
-                   (c8 & 7) << 1, stab, a.bd, sad);
+      if (c < w)
+        km_column<R, kRagged>(swin + blk * wsz + r0 * ww + c, ww,
+                              sblk + blk * bsz + r0 * w + c, w,
+                              h - r0 < R ? h - r0 : R, c8 >> 3,
+                              (c8 & 7) << 1, stab, a.bd, sad);
     }
 #pragma unroll
     for (int i = 0; i < 7; ++i)
@@ -407,13 +427,15 @@ AV1_EXPORT int subpel_refine49(const int* src, const int* win, int B, int w,
                                int bd, int* best_idx, int* best_sad,
                                void* stream) {
   if (B <= 0) return 0;
-  const auto pow2 = [](int x) {
-    return x >= 4 && x <= 128 && !(x & (x - 1));
-  };
-  if (!pow2(w) || !pow2(h) || bd < 8 || bd > 12)
+  if (w < 2 || w > 128 || h < 2 || h > 128 || bd < 8 || bd > 12)
     return (int)cudaErrorInvalidValue;
-  const int R = h < 16 ? h : 16;
-  const int tasks = 7 * (h / R) * w;
+  int R = 2, gw = 2;  // h and w rounded up to a power of two, R <= 16
+  while (R < h && R < 16) R <<= 1;
+  while (gw < w && gw < 32) gw <<= 1;
+  if (w > 32) gw = (w + 31) / 32 * 32;
+  const int chunks = (h + R - 1) / R;
+  const bool ragged = chunks * R != h;
+  const int tasks = 7 * chunks * gw;
   const int nb = tasks >= kKmCtaTasks ? 1 : kKmCtaTasks / tasks;
   int threads = (nb * tasks + 31) / 32 * 32;
   if (threads > kKmMaxThreads) threads = kKmMaxThreads;
@@ -421,11 +443,14 @@ AV1_EXPORT int subpel_refine49(const int* src, const int* win, int B, int w,
   // (one block a CTA)
   const size_t smem = sizeof(int) *
       (256 + (size_t)nb * (49 + (h + 9) * (w + 9) + h * w));
-  KMArgs a{src, win, B, w, h, bd, nb, tasks, tabx, taby, best_idx,
-           best_sad};
+  KMArgs a{src, win, B, w, h, bd, nb, gw, chunks, tasks, tabx, taby,
+           best_idx, best_sad};
   const int grid = (B + nb - 1) / nb;
-  void (*kern)(KMArgs) = R == 4 ? km_kernel<4>
-                         : R == 8 ? km_kernel<8> : km_kernel<16>;
+  void (*kern)(KMArgs) =
+      R == 2    ? km_kernel<2, false>
+      : R == 4  ? (ragged ? km_kernel<4, true> : km_kernel<4, false>)
+      : R == 8  ? (ragged ? km_kernel<8, true> : km_kernel<8, false>)
+                : (ragged ? km_kernel<16, true> : km_kernel<16, false>);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -15,7 +15,6 @@ from ..bitstream.headers import SequenceHeader, FrameHeader
 from ..ec.coder import Decoder
 from ..ec.context import FrameContext
 from ..ec import coeffs as C
-from ..errors import outside_the_port
 from ..normative import tables
 from ..normative.enums import (BlockSize, Partition, PredictionMode, TxSize,
                                BLOCK_WIDTH, BLOCK_HEIGHT, TX_WIDTH, TX_HEIGHT,
@@ -257,11 +256,8 @@ class FrameDecoder:
         self.tile_mi_col_start = t.col_starts[tile_col] * self.sb_mi
         self.tile_mi_col_end = min(t.col_starts[tile_col + 1] * self.sb_mi,
                                    self.mi_cols)
-        if any(self.fh.lr_type[: self.nplanes]):
-            raise outside_the_port("loop restoration")
-        if self.fh.use_superres:
-            raise outside_the_port("superres")
         # superblock-aligned width: edge tx blocks may span past mi_cols
+        _lr_reset_refs(self)
         # per-tile delta-q / delta-lf running state (spec: reset per tile)
         self.current_base_qindex = self.fh.quant.base_q_idx
         self.current_delta_lf = [0, 0, 0, 0]
@@ -286,6 +282,8 @@ class FrameDecoder:
                             self.sb_mi):
                 self.cfl = CflCtx(self.seq.subsampling_x,
                                   self.seq.subsampling_y)
+                if any(self.fh.lr_type[: self.nplanes]):
+                    _lr_read_for_sb(self, r0, c0)
                 self.decode_partition(r0, c0, int(self.sb_bsize))
 
     # ------------------------------------------------------------------
@@ -1405,7 +1403,9 @@ class FrameDecoder:
         overlappable = 0
         if int(BLOCK_WIDTH[bsize]) >= 8 and int(BLOCK_HEIGHT[bsize]) >= 8 \
                 and not mbmi.skip_mode and not is_compound:
-            mbmi.num_proj_ref = MR.find_samples(self, xd, mbmi)[0]
+            n, pts, pts_inref = MR.find_samples(self, xd, mbmi)
+            mbmi.num_proj_ref = n
+            self._warp_pts = (pts, pts_inref)
         overlappable = IT.count_overlappable_neighbors(self, xd, bsize)
         if mbmi.ref_frame[1] != MR.INTRA_FRAME:
             mbmi.motion_mode = IT.read_motion_mode(self, xd, mbmi,
@@ -1448,7 +1448,7 @@ class FrameDecoder:
         IT.read_mb_interp_filter(self, mbmi, above, left_mb, up, left)
 
         if mbmi.motion_mode == IT.WARPED_CAUSAL:
-            raise outside_the_port("warped motion")
+            self._derive_warp_params(mbmi, xd)
 
     def _interintra_allowed(self, mbmi):
         """is_interintra_allowed (blockd.h): bsize is an ENUM-ORDER range
@@ -1499,6 +1499,26 @@ class FrameDecoder:
                 elif mb.ref_frame[0] == 7:
                     ctx += 1
         return ctx + 3 * offset
+
+    def _derive_warp_params(self, mbmi, xd):
+        """WARPED_CAUSAL model fit (read_inter_block_mode_info tail:
+        av1_selectSamples + av1_find_projection)."""
+        from ..normative import mvref as MR
+        from ..ops.warp import get_shear_params, find_projection
+        pts, pts_inref = self._warp_pts
+        if mbmi.num_proj_ref > 1:
+            n, pts, pts_inref = MR.select_samples(mbmi.mv[0], pts, pts_inref,
+                                                  mbmi.bsize)
+            mbmi.num_proj_ref = n
+        wm = MR.WarpModel()
+        wm.wmtype = MR.ROTZOOM  # DEFAULT_WMTYPE
+        ok = find_projection(mbmi.num_proj_ref, pts, pts_inref,
+                             int(BLOCK_WIDTH[mbmi.bsize]),
+                             int(BLOCK_HEIGHT[mbmi.bsize]),
+                             mbmi.mv[0], wm, xd.mi_row, xd.mi_col)
+        if not ok or not get_shear_params(wm):
+            wm.invalid = True
+        mbmi.wm_params = wm
 
     def _read_tx_size_vartx(self, mbmi, tx_size, depth, blk_row, blk_col,
                             mi_row, mi_col):
@@ -1847,6 +1867,7 @@ class FrameDecoder:
         for p in range(self.nplanes):
             deblock.loop_filter_plane(self.planes[p], p, info, self.fh,
                                       self.seq, uv_tx_grid=self.mi_uv_tx)
+        self.deblocked = [p.copy() for p in self.planes]
         if self.seq.enable_cdef and not self.lossless \
                 and not self.fh.allow_intrabc:
             from ..ops import cdef as cdef_ops
@@ -1856,6 +1877,18 @@ class FrameDecoder:
             cdef_ops.cdef_frame(self.planes, self.mi_skip,
                                 unit_strength, self.fh, self.seq,
                                 self.mi_rows, self.mi_cols)
+        if self.fh.use_superres:
+            # superres_post_decode: upscale CDEF output AND the saved
+            # deblock boundary source before LR (decodeframe.c:5305;
+            # boundary lines are upscaled rows of the deblocked frame,
+            # restoration.c save_deblock_boundary_lines)
+            from ..ops import resize as RZ
+            self.planes = RZ.upscale_normative_frame(self.planes, self.fh,
+                                                     self.seq)
+            self.deblocked = RZ.upscale_normative_frame(self.deblocked,
+                                                        self.fh, self.seq)
+            self.w = self.fh.upscaled_width
+        _lr_apply(self)
 
     # ------------------------------------------------------------------
     def output_frame(self):
@@ -1869,3 +1902,255 @@ class FrameDecoder:
         u = np.clip(self.planes[1][:ch, :cw], 0, 255).astype(np.uint8)
         v = np.clip(self.planes[2][:ch, :cw], 0, 255).astype(np.uint8)
         return Frame(y, u, v)
+
+
+# ---------------------------------------------------------------------------
+# Loop restoration state + parse + apply (decodeframe.c read_lr,
+# restoration.c apply) — attached to FrameDecoder
+# ---------------------------------------------------------------------------
+
+def _lr_init(self):
+    """Set up per-plane restoration unit grids from the frame header."""
+    from ..ops import restoration as R
+    # coded 2-bit value remaps: 0 NONE, 1 SWITCHABLE, 2 WIENER, 3 SGRPROJ
+    # (obu.c remap_lr_type); internally: 1=wiener, 2=sgrproj, 3=switchable
+    remap = {0: 0, 1: 3, 2: 1, 3: 2}
+    self.lr_planes = []
+    for p in range(self.nplanes):
+        rtype = remap[self.fh.lr_type[p]]
+        if rtype == 0:
+            self.lr_planes.append(None)
+            continue
+        sx, sy = self.ss[p]
+        usize = (64 << self.fh.lr_unit_shift)
+        if p:
+            usize >>= self.fh.lr_uv_shift
+        # LR units live in the (superres-)upscaled frame geometry
+        w = (self.fh.upscaled_width + sx) >> sx
+        h = (self.h + sy) >> sy
+        hunits = max((w + (usize >> 1)) // usize, 1)
+        vunits = max((h + (usize >> 1)) // usize, 1)
+        self.lr_planes.append({
+            "frame_type": rtype, "usize": usize, "w": w, "h": h,
+            "hunits": hunits, "vunits": vunits,
+            "units": [None] * (hunits * vunits),
+        })
+
+
+def _lr_reset_refs(self):
+    """av1_reset_loop_restoration: per-tile subexp references."""
+    self.lr_wiener_ref = []
+    self.lr_sgr_ref = []
+    for _ in range(self.nplanes):
+        f = [3, -7, 15, -2 * (3 - 7 + 15), 15, -7, 3, 0]
+        self.lr_wiener_ref.append({"v": list(f), "h": list(f)})
+        # C truncating division: (SGRPROJ_PRJ_MIN0 + SGRPROJ_PRJ_MAX0) / 2 =
+        # -65/2 = -32 (Python floor // would give -33)
+        self.lr_sgr_ref.append([int((-96 + 31) / 2), (-32 + 95) // 2])
+
+
+def _lr_read_unit(self, plane, runit_idx):
+    from ..ec import binary_codes as BC
+    from ..ops import restoration as R
+    lp = self.lr_planes[plane]
+    fc = self.fc
+    dec = self.dec
+    frame_type = lp["frame_type"]
+    wiener_win = 5 if plane else 7
+    if frame_type == 3:  # RESTORE_SWITCHABLE
+        rtype = dec.decode_symbol(fc.switchable_restore_cdf, 3)
+    elif frame_type == 1:  # WIENER
+        rtype = 1 if dec.decode_symbol(fc.wiener_restore_cdf, 2) else 0
+    else:  # SGRPROJ
+        rtype = 2 if dec.decode_symbol(fc.sgrproj_restore_cdf, 2) else 0
+
+    if rtype == 1:  # wiener
+        ref = self.lr_wiener_ref[plane]
+        taps = {"v": [0] * 8, "h": [0] * 8}
+        specs = [  # (min, max, subexp k) per tap 0..2
+            (-5, 10, 1), (-23, 8, 2), (-17, 46, 3)]
+        for dim in ("v", "h"):
+            for t, (mn, mx, k) in enumerate(specs):
+                if t == 0 and wiener_win != 7:
+                    taps[dim][0] = taps[dim][6] = 0
+                    continue
+                v = BC.read_primitive_refsubexpfin(
+                    dec, mx - mn + 1, k, ref[dim][t] - mn) + mn
+                taps[dim][t] = taps[dim][6 - t] = v
+            taps[dim][3] = -2 * (taps[dim][0] + taps[dim][1] + taps[dim][2])
+            ref[dim] = list(taps[dim])
+        unit = ("wiener", taps["v"], taps["h"])
+    elif rtype == 2:  # sgrproj
+        ref = self.lr_sgr_ref[plane]
+        ep = dec.read_literal(4)
+        (r0, r1), _ = R.SGR_PARAMS[ep]
+        if r0 == 0:
+            x0 = 0
+            x1 = BC.read_primitive_refsubexpfin(
+                dec, R.SGRPROJ_PRJ_MAX1 - R.SGRPROJ_PRJ_MIN1 + 1, 4,
+                ref[1] - R.SGRPROJ_PRJ_MIN1) + R.SGRPROJ_PRJ_MIN1
+        elif r1 == 0:
+            x0 = BC.read_primitive_refsubexpfin(
+                dec, R.SGRPROJ_PRJ_MAX0 - R.SGRPROJ_PRJ_MIN0 + 1, 4,
+                ref[0] - R.SGRPROJ_PRJ_MIN0) + R.SGRPROJ_PRJ_MIN0
+            x1 = int(np.clip((1 << 7) - x0, R.SGRPROJ_PRJ_MIN1,
+                             R.SGRPROJ_PRJ_MAX1))
+        else:
+            x0 = BC.read_primitive_refsubexpfin(
+                dec, R.SGRPROJ_PRJ_MAX0 - R.SGRPROJ_PRJ_MIN0 + 1, 4,
+                ref[0] - R.SGRPROJ_PRJ_MIN0) + R.SGRPROJ_PRJ_MIN0
+            x1 = BC.read_primitive_refsubexpfin(
+                dec, R.SGRPROJ_PRJ_MAX1 - R.SGRPROJ_PRJ_MIN1 + 1, 4,
+                ref[1] - R.SGRPROJ_PRJ_MIN1) + R.SGRPROJ_PRJ_MIN1
+        self.lr_sgr_ref[plane] = [x0, x1]
+        unit = ("sgrproj", ep, (x0, x1))
+    else:
+        unit = ("none",)
+    lp["units"][runit_idx] = unit
+
+
+def _lr_read_for_sb(self, mi_row, mi_col):
+    """av1_loop_restoration_corners_in_sb + unit reads, at SB roots."""
+    if not hasattr(self, "lr_planes"):
+        _lr_init(self)
+    for plane in range(self.nplanes):
+        lp = self.lr_planes[plane]
+        if lp is None:
+            continue
+        sx, sy = self.ss[plane]
+        size = lp["usize"]
+        mi_size_x = 4 >> sx
+        mi_size_y = 4 >> sy
+        # With superres the SB's mi position maps to upscaled pixels:
+        # u = D * MI_SIZE * m / 8 (av1_loop_restoration_corners_in_sb)
+        if self.fh.use_superres:
+            mi_to_num_x = mi_size_x * self.fh.superres_denom
+            denom_x = size * 8
+        else:
+            mi_to_num_x = mi_size_x
+            denom_x = size
+        mi_rel_row0, mi_rel_col0 = mi_row, mi_col
+        mi_rel_row1 = mi_row + self.sb_mi
+        mi_rel_col1 = mi_col + self.sb_mi
+        rcol0 = (mi_rel_col0 * mi_to_num_x + denom_x - 1) // denom_x
+        rrow0 = (mi_rel_row0 * mi_size_y + size - 1) // size
+        rcol1 = min((mi_rel_col1 * mi_to_num_x + denom_x - 1) // denom_x,
+                    lp["hunits"])
+        rrow1 = min((mi_rel_row1 * mi_size_y + size - 1) // size,
+                    lp["vunits"])
+        if rcol0 < rcol1 and rrow0 < rrow1:
+            for rr in range(rrow0, rrow1):
+                for rc in range(rcol0, rcol1):
+                    _lr_read_unit(self, plane, rc + rr * lp["hunits"])
+
+
+def _lr_apply(self):
+    """av1_loop_restoration_filter_frame with stripe boundary handling.
+
+    When CDEF and superres are both inactive the reference decoder takes the
+    optimized-LR path (decodeframe.c:5279 ``optimized_loop_restoration =
+    !do_cdef && !do_superres``): no deblock boundary lines are swapped in;
+    instead the 3rd border row above/below each stripe is a duplicate of the
+    2nd row of the *current* frame data (restoration.c:345-366 ``opt`` arm of
+    setup_processing_stripe_boundary)."""
+    from ..ops import restoration as R
+    if not hasattr(self, "lr_planes") or all(
+            lp is None for lp in self.lr_planes):
+        return
+    c = self.fh.cdef
+    do_cdef = (self.seq.enable_cdef and not self.lossless
+               and not self.fh.allow_intrabc
+               and bool(c.bits or (c.y_pri[0] * 4 + c.y_sec[0])
+                        or (c.uv_pri[0] * 4 + c.uv_sec[0]
+                            if c.uv_pri else 0)))
+    optimized = not do_cdef and not self.fh.use_superres
+    for plane in range(self.nplanes):
+        lp = self.lr_planes[plane]
+        if lp is None:
+            continue
+        sx, sy = self.ss[plane]
+        w, h = lp["w"], lp["h"]
+        usize = lp["usize"]
+        src = self.planes[plane]  # CDEF output
+        deb = self.deblocked[plane]  # pre-CDEF (deblocked)
+        dst = src.copy()
+        stripe_h = 64 >> sy
+        off = 8 >> sy
+        pw = 64 >> sx  # processing chunk width
+
+        # crop then pad: 3 left, 3+16 right so padded wiener chunks fit
+        def padded(arr):
+            return np.pad(arr[:h, :w].astype(np.int64), ((0, 0), (3, 19)),
+                          mode="edge")
+
+        src_p = padded(src)
+        deb_p = padded(deb)
+
+        def boundaries(total):
+            ext_sz = usize * 3 // 2
+            pos = [0]
+            x = 0
+            while x < total:
+                rem = total - x
+                x += rem if rem < ext_sz else usize
+                pos.append(x)
+            return pos
+
+        vb = boundaries(h)
+        hb = boundaries(w)
+        for ui in range(len(vb) - 1):
+            for uj in range(len(hb) - 1):
+                unit = lp["units"][ui * lp["hunits"] + uj]
+                if unit is None or unit[0] == "none":
+                    continue
+                v0, v1 = vb[ui], vb[ui + 1]
+                h0, h1 = hb[uj], hb[uj + 1]
+                wu = h1 - h0
+                wu_pad = (wu + 18) & ~15  # room for padded wiener chunks
+                i = v0
+                while i < v1:
+                    tile_stripe = (i + off) // stripe_h
+                    nominal = stripe_h - (off if tile_stripe == 0 else 0)
+                    sh = min(nominal, v1 - i)
+                    ys0 = i
+                    copy_above = ys0 != 0
+                    copy_below = (ys0 + sh) < h
+                    # (sh+6, wu_pad+6) source: columns h0-3 .. h0+wu_pad+3
+                    rows = np.clip(np.arange(ys0 - 3, ys0 + sh + 3), 0, h - 1)
+                    cs = slice(h0, h0 + wu_pad + 6)  # +3 offset baked in pad
+                    ext = src_p[rows][:, cs].copy()
+                    if optimized:
+                        # opt arm: only the outermost border rows are
+                        # overwritten, with the adjacent current-data row
+                        if copy_above:
+                            ext[0] = ext[1]
+                        if copy_below:
+                            ext[sh + 5] = ext[sh + 4]
+                    elif copy_above or copy_below:
+                        if copy_above:
+                            ext[0] = deb_p[ys0 - 2, cs]
+                            ext[1] = deb_p[ys0 - 2, cs]
+                            ext[2] = deb_p[ys0 - 1, cs]
+                        if copy_below:
+                            yb = ys0 + sh
+                            yb1 = min(yb + 1, h - 1)
+                            ext[sh + 3] = deb_p[yb, cs]
+                            ext[sh + 4] = deb_p[yb1, cs]
+                            ext[sh + 5] = deb_p[yb1, cs]
+                    out = np.empty((sh, wu), np.int32)
+                    j = 0
+                    while j < wu:
+                        if unit[0] == "wiener":
+                            cw = min(pw, ((wu - j) + 15) & ~15)
+                            seg = ext[:, j : j + cw + 6]
+                            got = R.wiener_convolve(seg, unit[2], unit[1])
+                        else:
+                            cw = min(pw, wu - j)
+                            seg = ext[:, j : j + cw + 6]
+                            got = R.apply_sgr(seg, unit[1], unit[2])
+                        n = min(cw, wu - j)
+                        out[:, j : j + n] = got[:, :n]
+                        j += cw
+                    dst[ys0 : ys0 + sh, h0:h1] = out
+                    i += sh
+        self.planes[plane][:h, :w] = dst[:h, :w]

@@ -16,7 +16,6 @@ from ..normative.blocks import MI_W, MI_H, get_plane_block_size
 from ..normative.enums import BLOCK_WIDTH, BLOCK_HEIGHT
 from ..ops import convolve as CONV
 from ..ops import compound as COMP
-from ..errors import outside_the_port
 
 SWITCHABLE_FILTERS = 3
 SWITCHABLE = 4
@@ -761,9 +760,16 @@ def _masked_blend(dec, mbmi, conv0, conv1, plane, bw, bh, ss_x, ss_y):
 
 def _predict_warp(dec, xd, mbmi, wm, plane, pre_x, pre_y, bw, bh, ss_x,
                   ss_y):
-    """Warped motion / non-translational global motion prediction
-    (av1_warp_plane): no stream the port writes uses it."""
-    raise outside_the_port("warped prediction")
+    """Warped motion / non-translational global motion prediction via
+    ops.warp.warp_affine (av1_warp_plane)."""
+    from ..ops import warp as WARP
+    ref_slot = dec.refs[mbmi.ref_frame[0]]
+    plane_buf = ref_slot["planes"][plane]
+    crop_w = (ref_slot["upscaled_width"] + ss_x) >> ss_x
+    crop_h = (ref_slot["height"] + ss_y) >> ss_y
+    return WARP.warp_affine(wm.wmmat, plane_buf[:crop_h, :crop_w], pre_x,
+                            pre_y, bw, bh, ss_x, ss_y, wm.alpha, wm.beta,
+                            wm.gamma, wm.delta, bd=dec.bd)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""OBU-level decoding (av1/decoder/obu.c analogue).
+"""OBU-level decode driver (av1/decoder/obu.c analogue).
 
 Parses a temporal unit's OBUs, reads headers, dispatches tile groups to the
 FrameDecoder, returns decoded frames. Owns the 8-slot reference frame map
@@ -37,6 +37,13 @@ class Av1Decoder:
         self.ref_slots = [None] * 8  # RefCntBuffer analogues
 
     # ---- ref_state protocol for read_frame_header ----
+    def inspect(self):
+        """Per-mi inspection snapshot of the most recently decoded frame
+        (av1/decoder/inspection.h analogue; see decoder/inspect.py)."""
+        from .inspect import snapshot
+        assert self.fdec is not None, "no frame decoded yet"
+        return snapshot(self)
+
     def slot_order_hint(self, idx: int):
         s = self.ref_slots[idx]
         return s["order_hint"] if s else None

@@ -35,12 +35,3 @@ class Av1InvalidParamError(Av1Error):
     """Invalid API usage / parameter (AOM_CODEC_INVALID_PARAM)."""
 
     code = "AOM_CODEC_INVALID_PARAM"
-
-
-def outside_the_port(tool: str) -> NotImplementedError:
-    """The error for a coding tool that no stream the port writes uses
-    (loop restoration, superres, warped or non-translational global
-    motion): the port's decoder leaves it out, and ``decode_packet``
-    reports it as an ``Av1UnsupportedBitstreamError``."""
-    return NotImplementedError(f"{tool}: left out of the port's decoder, "
-                               "which reads the streams the port writes")

@@ -997,3 +997,19 @@ def find_samples(cm, xd: XdCtx, mbmi: MbInfo):
                 pts.append(p)
                 pts_inref.append(q)
     return len(pts), pts, pts_inref
+
+
+def select_samples(mv, pts, pts_inref, bsize):
+    """av1_selectSamples: keep samples with small MV difference."""
+    bw = int(MI_W[bsize]) * 4
+    bh = int(MI_H[bsize]) * 4
+    thresh = clamp(max(bw, bh), 16, 112)
+    out_p, out_q = [], []
+    for p, q in zip(pts, pts_inref):
+        diff = abs(q[0] - p[0] - mv[1]) + abs(q[1] - p[1] - mv[0])
+        if diff <= thresh:
+            out_p.append(p)
+            out_q.append(q)
+    if not out_p:
+        return 1, pts[:1], pts_inref[:1]
+    return len(out_p), out_p, out_q

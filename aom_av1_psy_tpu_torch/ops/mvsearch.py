@@ -473,19 +473,20 @@ KM_MAX = 128      # AV1's largest block side
 
 def check_km_block(w: int, h: int) -> None:
     """Raise ``ValueError`` unless kernel KM takes (w, h) blocks on the
-    card: every power-of-two w and h in 4..128 (its lane-tasks split a
-    block into row chunks of min(h, 16) and warp segments of min(w, 32))."""
+    card: every w and h in 2..128. Above 128 (where AV1 has no block) the
+    kernel would stage more than a CTA's shared memory: 141.8 KB of window,
+    block and sums at 128x128."""
     for v in (w, h):
-        if not 4 <= v <= KM_MAX or v & (v - 1):
+        if not 2 <= v <= KM_MAX:
             raise ValueError(f"KM: block {w}x{h}: the card takes w and h "
-                             f"that are powers of two in 4..{KM_MAX}")
+                             f"in 2..{KM_MAX}")
 
 
 def subpel_refine49(src_blocks, ref_windows, interp: int = C.EIGHTTAP_REGULAR,
                     bd: int = 8):
     """``subpel_refine49_plain``'s (index, SAD). CPU tensors: the plain
-    version; CUDA tensors: kernel KM (int32 blocks (B, h, w) with w, h
-    powers of two in 4..128, windows (B, >= h+9, >= w+9), bd 8..12)."""
+    version; CUDA tensors: kernel KM (int32 blocks (B, h, w) with w, h in
+    2..128, windows (B, >= h+9, >= w+9), bd 8..12)."""
     if src_blocks.device.type == "cpu":
         return subpel_refine49_plain(src_blocks, ref_windows, interp, bd)
     B, h, w = src_blocks.shape

@@ -2523,11 +2523,14 @@ def check_k13b_kernels(dev):
     and interp filter at 16x16 (B = 8160), 8x8, 4x4, 32x32, 64x64, the
     luma's whole 128x128 blocks (B = 120), 12x20 (B = 8640) and 2x2 on the
     u plane padded to 544 rows (B = 130560), with the device time and
-    bound at each size; KM on the 49-point lattice at 16x16 and at the
-    luma's whole 128x128 and 128x64 blocks; KN's reducers at 16x16, and
-    sad / sse / variance at 8x8 and 4x4; KO on the 4 x 8160 8x8 residuals
-    of the 16x16 grid. Exact equality; kernel, plain, bound and library
-    times."""
+    bound at each size; KM on the 49-point lattice at 16x16, at the
+    luma's whole 128x128, 128x64, 12x20 and 128x2 blocks and the u plane's
+    2x2 blocks, with the device time and bound at each size; KN's reducers
+    at 16x16, and sad / sse / variance at 8x8 and 4x4; KO on the 4 x 8160
+    8x8 residuals of the 16x16 grid in int32, int16 and int8 and on the
+    source blocks in uint8, at B = 32640 and 32637, both variants, with
+    the device time (warm and with the L2 flushed) and the host time per
+    call. Exact equality; kernel, plain, bound and library times."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -2615,14 +2618,19 @@ def check_k13b_kernels(dev):
     km_t = (cuda_time(lambda: MV.subpel_refine49(src, win), 20),
             cuda_time(lambda: MV.subpel_refine49_plain(src, win), 3),
             device_ms(lambda: MV.subpel_refine49(src, win), 20, "km_kernel"))
-    # AV1's largest blocks: the luma's whole 128x128 and 128x64 blocks
+    # AV1's largest blocks: the luma's whole 128x128 and 128x64 blocks;
+    # sizes that are not powers of two in 4..128: 12x20 and 128x2 on the
+    # luma, 2x2 on the u plane (KM's ragged chunks and padded lanes)
     km_sizes = {}
-    for w, h in ((128, 128), (128, 64)):
-        by, bx = _whole_grid(y1, h, w)
+    u1 = _pad_rows(frames[1].planes()[1], 544, dev)
+    for w, h, p0, p1 in ((128, 128, y0, y1), (128, 64, y0, y1),
+                         (12, 20, y0, y1), (128, 2, y0, y1),
+                         (2, 2, u0, u1)):
+        by, bx = _whole_grid(p1, h, w)
         Bw = by.numel()
-        srcw = _cut(y1, by, bx, h, w)
+        srcw = _cut(p1, by, bx, h, w)
         mvw = t(wide.integers(-8, 9, (Bw, 2)))
-        winw = _cut(y0, by + mvw[:, 0] - 4, bx + mvw[:, 1] - 4, h + 9,
+        winw = _cut(p0, by + mvw[:, 0] - 4, bx + mvw[:, 1] - 4, h + 9,
                     w + 9)
         gotw = MV.subpel_refine49(srcw, winw)
         err = max(err, compare(f"KM {w}x{h}", gotw,
@@ -2655,7 +2663,8 @@ def check_k13b_kernels(dev):
         f"{km_t[1]:.4f} ms, bound {km_bnd['bound_ms']:.4f} ms "
         f"({km_bnd['bound_by']}; one pass per sub-pel phase), "
         f"{km_bnd_each['bound_ms']:.4f} ms counted per candidate; exact at "
-        f"AV1's largest blocks, device ms and bound: " + ", ".join(
+        f"AV1's largest blocks and at sizes that are not powers of two, "
+        f"device ms and bound: " + ", ".join(
             f"{k} B={v['B']} {v['device_ms']} [{v['bound_ms']:.4f} "
             f"{v['bound_by']}]" for k, v in km_sizes.items()))
 
@@ -2732,27 +2741,57 @@ def check_k13b_kernels(dev):
     # ---- KO: the four 8x8 residuals of every 16x16 block ----
     res = (src - pred16).reshape(-1, 2, 8, 2, 8).transpose(2, 3) \
         .reshape(-1, 4, 8, 8)
-    err = compare("KO satd", ME.satd(res), ME.satd_plain(res))
-    err = max(err, compare("KO hadamard", ME.hadamard8x8(res),
-                           ME.hadamard8x8_plain(res)))
+    # the four input types KO reads as they are: the residuals (int32,
+    # int16, int8 clamped) and the source blocks (uint8), each at B = 32640
+    # and at B = 32637 (the last warp part-filled); both variants
+    ko_in = {"int32": res, "int16": res.to(torch.int16),
+             "int8": res.clamp(-128, 127).to(torch.int8),
+             "uint8": src.reshape(-1, 2, 8, 2, 8).transpose(2, 3)
+             .reshape(-1, 4, 8, 8).to(torch.uint8).contiguous()}
+    err = 0.0
+    for name, x in ko_in.items():
+        for xb in (x, x.reshape(-1, 8, 8)[:-3]):
+            B = xb.numel() // 64
+            err = max(err, compare(f"KO satd {name} B={B}", ME.satd(xb),
+                                   ME.satd_plain(xb)))
+            err = max(err, compare(f"KO hadamard {name} B={B}",
+                                   ME.hadamard8x8(xb),
+                                   ME.hadamard8x8_plain(xb)))
     ko_t = (cuda_time(lambda: ME.satd(res), 20),
             cuda_time(lambda: ME.satd_plain(res), 5),
-            device_ms(lambda: ME.satd(res), 20, "ko_kernel"))
+            device_ms(lambda: ME.satd(res), 20, "ko_kernel"),
+            device_ms(lambda: (flush.fill_(1), ME.satd(res)), 20,
+                      "ko_kernel"))
+    ko_host_us = _host_us(lambda: ME.satd(res), 2000)
     # per block: 2 passes x 8 vectors x 12 butterflies x 2, 64 abs, 64 adds
-    ko_bnd = bound(nbytes(res, ME.satd(res)), 512 * res.numel() // 64)
+    ko_ops = 512 * res.numel() // 64
+    ko_bnd = bound(nbytes(res, ME.satd(res)), ko_ops)
+    ko_variants = {}
+    for label, fn, x in (("transform int32", ME.hadamard8x8, res),
+                         ("satd int16", ME.satd, ko_in["int16"]),
+                         ("satd uint8", ME.satd, ko_in["uint8"])):
+        ko_variants[label] = {
+            "device_ms": device_ms(lambda: fn(x), 20, "ko_kernel"),
+            **bound(nbytes(x, fn(x)), ko_ops)}
     results.append({"name": "satd8x8", "route": "cuda",
                     "source": "aom_av1_psy_tpu_torch/csrc/metrics.cu",
                     "replaces": "aom_av1_psy_tpu/ops/metrics.py:97",
                     "max_abs_err": err, "ms": ko_t[0], "plain_ms": ko_t[1],
-                    "device_ms": ko_t[2], **ko_bnd, "library_ms": None,
+                    "device_ms": ko_t[2], "device_ms_l2_flushed": ko_t[3],
+                    "host_us_per_call": ko_host_us, **ko_bnd,
+                    "library_ms": None,
                     "library_none": "no single PyTorch call sums the "
                                     "absolute Hadamard transform",
+                    "device_ms_by_variant": ko_variants,
                     "timed_at": "4 x 8160 8x8 residuals (1080p P-frame "
-                                "grid), satd only"})
-    log(f"[3f] KO satd8x8 exact (hadamard8x8 and satd, 4 x 8160 8x8 "
-        f"residuals); kernel {ko_t[0]:.4f} ms (device {ko_t[2]} ms), plain "
-        f"{ko_t[1]:.4f} ms, bound "
-        f"{ko_bnd['bound_ms']:.4f} ms ({ko_bnd['bound_by']})")
+                                "grid), satd only, int32"})
+    log(f"[3f] KO satd8x8 exact (hadamard8x8 and satd; int32, int16, int8, "
+        f"uint8; B = 32640 and 32637); satd int32: kernel {ko_t[0]:.4f} ms "
+        f"(device {ko_t[2]} ms warm, {ko_t[3]} ms with the L2 flushed; "
+        f"host {ko_host_us:.2f} us per call), plain {ko_t[1]:.4f} ms, bound "
+        f"{ko_bnd['bound_ms']:.4f} ms ({ko_bnd['bound_by']}); " + ", ".join(
+            f"{k} {v['device_ms']} [{v['bound_ms']:.4f} {v['bound_by']}]"
+            for k, v in ko_variants.items()))
     return results
 
 

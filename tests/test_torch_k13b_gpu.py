@@ -96,8 +96,59 @@ def test_km_matches_plain(dev, w, h):
 
 def _km_blocks_per_cta(w, h):
     """Blocks a CTA of KM takes (the launcher in csrc/mvsearch.cu): 256 //
-    its lane-tasks, 7 * (h / min(h, 16)) * w, at least 1."""
-    return max(1, 256 // (7 * (h // min(h, 16)) * w))
+    its lane-tasks, 7 * chunks * gw, at least 1 (R = h rounded up to a
+    power of two, at most 16; chunks = ceil(h / R); gw = w rounded up to a
+    power of two up to 32, to a multiple of 32 above)."""
+    R = 2
+    while R < min(h, 16):
+        R *= 2
+    gw = 2
+    while gw < min(w, 32):
+        gw *= 2
+    if w > 32:
+        gw = -(-w // 32) * 32
+    return max(1, 256 // (7 * -(-h // R) * gw))
+
+
+# sizes KM takes since PR 17 (w, h): 2-wide and 2-tall blocks, sizes that
+# are not powers of two (a ragged last row chunk, padded lane columns),
+# AV1's longest sides
+KM_WIDE = [(2, 2), (2, 4), (4, 2), (6, 10), (12, 20), (20, 12), (128, 2),
+           (2, 128), (24, 128), (100, 36)]
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("w,h", KM_WIDE)
+def test_km_matches_plain_at_every_size(dev, w, h, bd):
+    """KM against its plain version at sizes that are not powers of two in
+    4..128, at B off the blocks a CTA takes (1, nb + 1, 3 * nb + 2), with
+    flat blocks (every candidate ties) and blocks planted on a candidate,
+    one launch a call."""
+    nb = _km_blocks_per_cta(w, h)
+    rng = np.random.default_rng(w * 131 + h + bd)
+    maxv = (1 << bd) - 1
+    for B in sorted({1, nb + 1, 3 * nb + 2}):
+        win = rng.integers(0, maxv + 1, (B, h + 9, w + 9))
+        src = rng.integers(0, maxv + 1, (B, h, w))
+        if B > 2:
+            win[-1], src[-1] = maxv // 2, maxv // 2          # flat
+            k = int(rng.integers(0, 49))
+            r8, c8 = 8 + 2 * (k // 7 - 3), 8 + 2 * (k % 7 - 3)
+            src[0] = C.predict_subpel_plain(
+                _t(win[:1, r8 >> 3:(r8 >> 3) + h + 7,
+                       c8 >> 3:(c8 >> 3) + w + 7], "cpu"), w, h,
+                (c8 & 7) << 1, (r8 & 7) << 1, bd=bd)[0].numpy()
+        for interp in (0, 2):
+            n0 = MV.KM.launches
+            got = MV.subpel_refine49(_t(src, dev), _t(win, dev), interp, bd)
+            assert MV.KM.launches == n0 + 1
+            want = MV.subpel_refine49_plain(_t(src, "cpu"), _t(win, "cpu"),
+                                            interp, bd)
+            for g, w_ in zip(got, want):
+                assert torch.equal(g.cpu(), w_), (B, interp)
+            if B > 2:       # flat: the first index; planted (regular): 0
+                assert int(want[0][-1]) == 0
+                assert int(want[1][0]) == 0 or interp != C.EIGHTTAP_REGULAR
 
 
 @pytest.mark.parametrize("bd", [8, 10])
@@ -145,18 +196,18 @@ def test_km_reads_wider_windows_through_the_wrapper(dev, w, h):
 
 
 def test_kl_and_km_raise_outside_their_sizes_on_the_card(dev):
-    """KL raises above 128 and below 2, KM off the powers of two in 4..128,
-    before any launch: never a different result."""
+    """KL and KM raise above 128 and below 2, before any launch: never a
+    different result."""
     n0 = (C.KL.launches, MV.KM.launches)
     for w, h in ((129, 8), (8, 129), (1, 4), (256, 256)):
         reg = torch.zeros((3, h + 7, w + 7), dtype=torch.int32, device=dev)
         ph = torch.ones(3, dtype=torch.int32, device=dev)
         with pytest.raises(ValueError, match="2..128"):
             C.subpel_predict(reg, w, h, ph, ph)
-    for w, h in ((12, 16), (16, 24), (2, 8), (256, 16)):
+    for w, h in ((129, 8), (8, 129), (1, 4), (4, 1), (256, 16)):
         src = torch.zeros((3, h, w), dtype=torch.int32, device=dev)
         win = torch.zeros((3, h + 9, w + 9), dtype=torch.int32, device=dev)
-        with pytest.raises(ValueError, match="powers of two"):
+        with pytest.raises(ValueError, match="2..128"):
             MV.subpel_refine49(src, win)
     assert (C.KL.launches, MV.KM.launches) == n0
 
@@ -236,6 +287,67 @@ def test_ko_matches_plain(dev):
                        M.hadamard8x8_plain(_t(x, "cpu")))
     assert torch.equal(M.satd(_t(x, dev)).cpu(), M.satd_plain(_t(x, "cpu")))
     assert M.KO.launches == n0 + 2
+
+
+KO_TYPES = [torch.uint8, torch.int8, torch.int16, torch.int32]
+
+
+def _ko_blocks(rng, B, dtype):
+    info = torch.iinfo(dtype)
+    x = rng.integers(info.min, info.max + 1, (B, 8, 8))
+    if dtype == torch.int32:
+        x[::3] = rng.choice([info.min, info.max, -1], (len(x[::3]), 8, 8))
+    return torch.as_tensor(x).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", KO_TYPES)
+@pytest.mark.parametrize("B", [1, 3, 5, 32640])
+def test_ko_at_every_type_and_tail(dev, B, dtype):
+    """KO's lane-per-row design against its plain version at B = 1, 3, 5
+    (warps that blocks past B fill) and 32640 (the 1080p grid's 8x8
+    residuals), both variants, the four input types read as they are
+    (INT32_MIN / INT32_MAX blocks at int32 wrap), one launch a call."""
+    x = _ko_blocks(np.random.default_rng(B), B, dtype)
+    xd = x.to(dev)
+    n0 = M.KO.launches
+    assert torch.equal(M.hadamard8x8(xd).cpu(), M.hadamard8x8_plain(x))
+    assert M.KO.launches == n0 + 1
+    assert torch.equal(M.satd(xd).cpu(), M.satd_plain(x))
+    assert M.KO.launches == n0 + 2
+
+
+@pytest.mark.parametrize("dtype", KO_TYPES)
+def test_ko_off_its_vector_alignment(dev, dtype):
+    """Blocks that start one element past the vector alignment (the
+    kernel's per-element path) and a batch shape around them."""
+    x = _ko_blocks(np.random.default_rng(7), 74, dtype)
+    buf = torch.empty(74 * 64 + 1, dtype=dtype, device=dev)
+    buf[1:] = x.reshape(-1).to(dev)
+    xd = buf[1:].view(2, 37, 8, 8)
+    assert xd.is_contiguous() and xd.data_ptr() % 8
+    want = x.view(2, 37, 8, 8)
+    assert torch.equal(M.hadamard8x8(xd).cpu(), M.hadamard8x8_plain(want))
+    assert torch.equal(M.satd(xd).cpu(), M.satd_plain(want))
+
+
+def test_ko_copies_a_strided_input_once_and_never_casts(dev):
+    """A non-contiguous int16 input (the 8x8 residuals of 16x16 blocks, a
+    transposed view) goes to the kernel as one contiguous copy in its own
+    type: one copy, no conversion, one launch."""
+    rng = np.random.default_rng(3)
+    res = torch.as_tensor(rng.integers(-255, 256, (64, 16, 16))) \
+        .to(torch.int16).to(dev)
+    x = res.reshape(64, 2, 8, 2, 8).transpose(2, 3)
+    assert not x.is_contiguous()
+    n0 = M.KO.launches
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        got = M.satd(x)
+    ops = [e.name for e in prof.events()]
+    assert ops.count("aten::copy_") == 1, ops
+    assert "aten::_to_copy" not in ops, ops
+    assert M.KO.launches == n0 + 1
+    assert torch.equal(got.cpu(), M.satd_plain(x.cpu()))
 
 
 def test_interframe_on_card_matches_cpu(dev):

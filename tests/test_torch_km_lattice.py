@@ -3,8 +3,10 @@ plain version on the CPU (no card, no jax).
 
 KM (``csrc/mvsearch.cu``) does not predict the 49 candidates one by one.
 Per column phase dc it runs one x pass over window rows 0..R+7 of each
-chunk of R = min(h, 16) output rows (the raw window column 4 + c where
-dc = 0), and scores all seven candidates of that column from it: the 2-D
+chunk of R output rows (R = h rounded up to a power of two, at most 16; a
+last chunk of fewer rows reads its window rows clamped and scores only its
+own; the raw window column 4 + c where dc = 0), and scores all seven
+candidates of that column from it: the 2-D
 ones (and the y-only ones at dc = 0) by an 8-tap vertical pass, the
 x-only one (dr = 0) by ``round2(im - 2^(bd+3), 4)`` on the 2-D path's
 intermediate, the copy from the raw column. It sums the SADs by column
@@ -12,10 +14,14 @@ and takes the first-index argmin over the dr-major flat index
 ``(dr + 3) * 7 + (dc + 3)``. ``km_model`` below is that order in plain
 torch. It is held equal, with all 49 SADs, to the reference's candidate
 loop (``predict_subpel_plain`` per lattice point, as
-``subpel_refine49_plain`` runs it) at every block size 4..64, bit depths
-8 and 10 and every interp filter, on random, flat and near-flat blocks,
-blocks planted on a candidate, and ties between candidates of different
-columns. Tolerance: exact equality (integer outputs).
+``subpel_refine49_plain`` runs it) at the power-of-two sizes 4..64 and at
+sizes that are not (2-wide, ragged chunks), bit depths 8 and 10 and every
+interp filter, on random, flat and near-flat blocks, blocks planted on a
+candidate, and ties between candidates of different columns.
+``km_layout`` mirrors the launcher's lane-task arithmetic, and is checked
+at every w, h in 2..128: each (block, column phase, chunk) owns whole
+shuffle segments, covers every column and row once, and reads only its
+block's window. Tolerance: exact equality (integer outputs).
 """
 import itertools
 
@@ -40,11 +46,34 @@ def _column_phase(j):
     return c8 >> 3, (c8 & 7) << 1
 
 
+def _pow2_up(v, cap):
+    p = 2
+    while p < v and p < cap:
+        p <<= 1
+    return p
+
+
+def km_layout(w, h):
+    """The launcher's lane-task layout (``subpel_refine49`` in
+    ``csrc/mvsearch.cu``): rows a chunk R, lane columns gw, shuffle segment
+    seg, chunks, lane-tasks a block, blocks a CTA nb, threads, and the
+    dynamic shared memory in bytes."""
+    R = _pow2_up(h, 16)
+    gw = _pow2_up(w, 32) if w <= 32 else (w + 31) // 32 * 32
+    chunks = -(-h // R)
+    tasks = 7 * chunks * gw
+    nb = 1 if tasks >= 256 else 256 // tasks
+    threads = min(512, (nb * tasks + 31) // 32 * 32)
+    smem = 4 * (256 + nb * (49 + (h + 9) * (w + 9) + h * w))
+    return dict(R=R, gw=gw, seg=min(gw, 32), chunks=chunks, tasks=tasks,
+                nb=nb, threads=threads, smem=smem)
+
+
 def km_model(src, win, interp, bd):
     """KM's order in plain torch: returns the (B, 7, 7) int64 SADs indexed
     [column phase, row phase], as the kernel scores them."""
     B, h, w = src.shape
-    R = min(h, 16)
+    R = km_layout(w, h)["R"]
     kx_tab, ky_tab = C.filter_kernels(interp, w), C.filter_kernels(interp, h)
     win = win[:, :h + 9, :w + 9].to(torch.int32)
     src = src.to(torch.int64)
@@ -55,14 +84,15 @@ def km_model(src, win, interp, bd):
     for j in range(7):
         fc, sc = _column_phase(j)
         for r0 in range(0, h, R):
-            rows = win[:, r0:r0 + R + 8]
+            nr = min(R, h - r0)        # rows past nr: clamped, unscored
+            rows = win[:, [r0 + min(q, nr + 7) for q in range(R + 8)]]
             if sc:   # one x pass for the column: R + 8 rows
                 acc = sum(int(kx_tab[sc][k]) * rows[:, :, fc + k:fc + k + w]
                           for k in range(8))
                 v = _round2(acc + (1 << (bd + 6)), 3)
             else:    # dc = 0: the raw column
                 v = rows[:, :, 4:4 + w]
-            s = src[:, r0:r0 + R]
+            s = src[:, r0:r0 + nr]
             for i in range(7):
                 fr, sr = _column_phase(i)
                 if sr:
@@ -75,7 +105,8 @@ def km_model(src, win, interp, bd):
                         .clamp(0, maxv)
                 else:      # the copy
                     p = v[:, 4:4 + R]
-                sads[:, j, i] += (p.to(torch.int64) - s).abs().sum((1, 2))
+                sads[:, j, i] += (p[:, :nr].to(torch.int64) - s).abs() \
+                    .sum((1, 2))
     return sads
 
 
@@ -129,7 +160,9 @@ def _cases(rng, w, h, interp, bd):
 @pytest.mark.parametrize("interp", [0, 1, 2, 3])
 @pytest.mark.parametrize("bd", [8, 10])
 @pytest.mark.parametrize("w,h", [(s, s) for s in SIZES]
-                         + [(4, 16), (16, 4), (8, 64), (64, 8), (32, 16)])
+                         + [(4, 16), (16, 4), (8, 64), (64, 8), (32, 16)]
+                         + [(2, 2), (2, 4), (4, 2), (6, 10), (12, 20),
+                            (20, 12), (3, 37), (36, 5)])
 def test_model_matches_plain(w, h, bd, interp):
     rng = np.random.default_rng(w * 131 + h * 7 + bd + interp)
     src, win = _cases(rng, w, h, interp, bd)
@@ -141,6 +174,39 @@ def test_model_matches_plain(w, h, bd, interp):
     assert torch.equal(best, ref[0]) and torch.equal(sad, ref[1])
     assert (ref[0][6:8] == 0).all()                     # flat: every tie
     assert (ref[1][10:] == 0).all()                     # planted
+
+
+@pytest.mark.parametrize("w", range(2, 129))
+def test_layout_covers_each_block_once(w):
+    """At every h in 2..128 for this w: a CTA's lane-tasks fall into
+    shuffle segments of seg lanes (a power of two dividing the warp) that
+    never mix two (block, column phase, chunk) triples; each triple covers
+    columns 0..w-1 once (lanes past w add zero) and the chunks rows 0..h-1
+    once; a segment's first lane (the one that adds its sums) is a column
+    below w; the clamped rows stay inside the block's h + 9 window rows;
+    a CTA has at most 512 threads and 227 KB of shared memory."""
+    for h in range(2, 129):
+        L = km_layout(w, h)
+        R, gw, seg, chunks, tasks = (L[k] for k in
+                                     ("R", "gw", "seg", "chunks", "tasks"))
+        assert seg & (seg - 1) == 0 and 32 % seg == 0 and gw % seg == 0
+        assert tasks % seg == 0 and L["threads"] <= 512
+        assert L["smem"] <= 227 * 1024
+        t = np.arange(L["nb"] * tasks)
+        blk, u = t // tasks, t % tasks
+        c, q = u % gw, u // gw
+        key = (blk * 7 + q // chunks) * chunks + q % chunks
+        segs = key.reshape(-1, seg)
+        assert (segs == segs[:, :1]).all()
+        assert (c.reshape(-1, seg)[:, 0] < w).all()
+        cols = np.zeros((L["nb"], 7, chunks, w), int)
+        np.add.at(cols, (blk[c < w], (q // chunks)[c < w],
+                         (q % chunks)[c < w], c[c < w]), 1)
+        assert (cols == 1).all()
+        r0 = np.arange(chunks) * R
+        nr = np.minimum(R, h - r0)
+        assert (nr > 0).all() and nr.sum() == h
+        assert (r0 + np.minimum(R + 7, nr + 7) <= h + 8).all()
 
 
 @pytest.mark.parametrize("w,h", [(4, 4), (8, 8), (16, 16)])

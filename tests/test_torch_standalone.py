@@ -3,7 +3,11 @@
 (or a submodule) or ``bench``; a fresh interpreter that encodes a KEY
 frame, a 3-frame GOP, a tune_vmaf frame, a 4-frame ARF GOP and a 2-frame
 GOP of the host inter encoder (with a metric on its residual), and runs the analysis pipeline
-and palette assignment through the port has loaded none of them (one interpreter, a case per stage); the port's test content
+and palette assignment through the port, and decodes a loop-restoration
+and a superres stream, has loaded none of them (one interpreter, a case
+per stage); every module of the reference has a same-named counterpart in
+the port (``ops/cdef_jax.py`` and ``ops/deblock_jax.py``: ``*_torch.py``);
+the port's test content
 equals ``bench``'s; its own range coder build lives beside the reference's
 in one process; and ``convert`` carries the reference's objects into the
 port's classes.
@@ -64,7 +68,8 @@ def test_no_import_of_jax_reference_or_bench(path):
 # tune_vmaf frame, an ARF GOP with its temporal filters, the host inter
 # encoder's GOP and the satd of its residual, the analysis of a plane and
 # the batched step on its blocks, k-means and calc_indices on a block)
-_STAGES = ("key", "gop", "tune_vmaf", "arf", "interframe", "analyze")
+_STAGES = ("key", "gop", "tune_vmaf", "arf", "interframe", "analyze",
+           "decode")
 _ENCODES = """
 import dataclasses, json, sys
 import numpy as np
@@ -121,7 +126,28 @@ idx2, total2 = palette.calc_indices(plane[:64, :64], torch.as_tensor(cents),
 report("analyze", int(step[4])
        if torch.equal(step[2], out["eob"]) and total2 == total
        and np.array_equal(idx2.numpy(), idx) else 0)
+from aom_av1_psy_tpu_torch.decoder.obu import decode_ivf
+report("decode", sum(len(decode_ivf(f"tests/golden/streams/{n}.ivf"))
+                     for n in ("lr_sgr_cpu2_q140_64x64",
+                               "superres16_178x130")))
 """
+
+
+def _modules(pkg):
+    root = os.path.join(REPO, pkg)
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, files in os.walk(root) for f in files
+                  if f.endswith(".py"))
+
+
+# the JAX package's two modules whose port counterparts bear another name
+_RENAMED = {"ops/cdef_jax.py": "ops/cdef_torch.py",
+            "ops/deblock_jax.py": "ops/deblock_torch.py"}
+
+
+@pytest.mark.parametrize("module", _modules("aom_av1_psy_tpu"))
+def test_every_reference_module_has_its_counterpart(module):
+    assert os.path.isfile(os.path.join(PORT, _RENAMED.get(module, module)))
 
 
 @pytest.fixture(scope="module")

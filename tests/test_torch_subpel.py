@@ -119,21 +119,21 @@ def test_refine_first_index_on_flat_blocks():
 
 def test_card_sizes_are_the_powers_of_two_4_to_128():
     """``check_km_block``, the predicate KM's wrapper applies on the card,
-    accepts every power-of-two w and h in 4..128 and raises, naming the
-    limit, on every other size; a meta tensor (the wrapper's kernel
-    branch) raises before any launch."""
-    pow2 = {4, 8, 16, 32, 64, 128}
+    accepts every w and h in 2..128 (powers of two or not: the kernel's
+    last row chunk may be ragged and its lane columns padded) and raises,
+    naming the limit, on every other size; a meta tensor (the wrapper's
+    kernel branch) raises before any launch."""
     for w in range(0, 260):
-        for h in range(0, 260, 4):
-            if w in pow2 and h in pow2:
+        for h in range(0, 260, 3):
+            if 2 <= w <= 128 and 2 <= h <= 128:
                 MV.check_km_block(w, h)
             else:
-                with pytest.raises(ValueError, match="powers of two"):
+                with pytest.raises(ValueError, match="in 2..128"):
                     MV.check_km_block(w, h)
     n0 = MV.KM.launches
-    for h, w in ((12, 16), (128, 256), (2, 8)):
+    for h, w in ((1, 16), (128, 256), (129, 8)):
         src = torch.zeros((2, h, w), dtype=torch.int32, device="meta")
         win = torch.zeros((2, h + 9, w + 9), dtype=torch.int32, device="meta")
-        with pytest.raises(ValueError, match="powers of two in 4..128"):
+        with pytest.raises(ValueError, match="w and h in 2..128"):
             MV.subpel_refine49(src, win)
     assert MV.KM.launches == n0

@@ -76,11 +76,22 @@ and the device kernels and copies per call (every device row of the
 profiler); and the wall of 5j's whole analysis path (the checkout's own
 ``chip_smoke._analysis_path`` on ``_palette_tiles``' centroids, median of
 7 after a first).
+With ``--ko-km-only`` a turn times kernels KO and KM alone: under the
+profiler, KO's device time per ``satd`` call on the 4 x 8160 int32 8x8
+residuals of the 1080p 16x16 grid (frame 1 of ``make_gop(1920, 1080, 2)``
+less frame 0 at random full-pel MVs), warm and with the L2 flushed before
+each call (a 64 MB fill, its own time not counted), ``hadamard8x8`` on the
+same blocks, ``satd`` on them as int16 and on the source blocks as uint8,
+and the host microseconds per ``satd`` call (2000 calls enqueued, then one
+wait); KM's device time per ``subpel_refine49`` call at B = 8160 16x16
+(as ``--k13-only``) and at the luma's 8640 whole 12x20 blocks (null where
+the checkout's KM does not take them); and the wall of the 5i subpel chain
+(the checkout's own ``chip_smoke._subpel_chain``).
 Only entry points that both checkouts have are timed. Both checkouts
 build their kernels into their own ``build/`` at first use.
 
     python3 tools/port_turns.py PARENT_DIR CHANGE_DIR [--rounds 1]
-        [--tf-only | --vmaf-only | --k13-only]
+        [--tf-only | --vmaf-only | --k13-only | --ko-km-only]
 
 Prints the card (name, power limit), one JSON line per turn, and the
 medians per checkout as the last line. Needs a CUDA device.
@@ -185,6 +196,55 @@ if sys.argv[2:] == ["vmaf"]:
     out["vif_lite_s"] = host_s(lambda: TV.vif_lite(y_np, blur))
     out["frame_preprocessing_s"] = host_s(
         lambda: TV.frame_preprocessing(y_np, "cuda"))
+    print(json.dumps(out))
+    sys.exit(0)
+
+
+if sys.argv[2:] == ["kokm"]:
+    import chip_smoke as CS
+    gop2 = testframes.make_gop(1920, 1080, 2)
+    y0, y1 = (CS._luma_1088(f, "cuda") for f in gop2)
+    by, bx = CS._grid(16, "cuda")
+    src = CS._cut(y1, by, bx, 16, 16)
+    mvs = torch.as_tensor(np.random.default_rng(6).integers(
+        -8, 9, (by.numel(), 2)).astype(np.int32), device="cuda")
+    win = CS._cut(y0, by + mvs[:, 0] - 4, bx + mvs[:, 1] - 4, 25, 25)
+    res = (src - win[:, 4:20, 4:20]).reshape(-1, 2, 8, 2, 8) \
+        .transpose(2, 3).reshape(-1, 4, 8, 8)
+    src8 = src.reshape(-1, 2, 8, 2, 8).transpose(2, 3) \
+        .reshape(-1, 4, 8, 8).to(torch.uint8)
+    res16 = res.to(torch.int16)
+    flush = torch.empty(16 << 20, dtype=torch.int32, device="cuda")
+    out["ko_satd_device_ms"], out["ko_launches"] = kernel_ms(
+        lambda: ME.satd(res), ("::ko_kernel",))
+    out["ko_satd_l2_flushed_device_ms"], _ = kernel_ms(
+        lambda: (flush.fill_(1), ME.satd(res)), ("::ko_kernel",))
+    out["ko_transform_device_ms"], _ = kernel_ms(
+        lambda: ME.hadamard8x8(res), ("::ko_kernel",))
+    out["ko_satd_int16_device_ms"], _ = kernel_ms(
+        lambda: ME.satd(res16), ("::ko_kernel",))
+    out["ko_satd_uint8_device_ms"], _ = kernel_ms(
+        lambda: ME.satd(src8), ("::ko_kernel",))
+    ME.satd(res)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2000):
+        ME.satd(res)
+    out["ko_host_us"] = (time.perf_counter() - t0) / 2000 * 1e6
+    torch.cuda.synchronize()
+    out["km_device_ms"], out["km_launches"] = kernel_ms(
+        lambda: MV.subpel_refine49(src, win), ("::km_kernel",))
+    gy, gx = CS._whole_grid(y1, 20, 12)
+    s12 = CS._cut(y1, gy, gx, 20, 12)
+    w12 = CS._cut(y0, gy - 4, gx - 4, 29, 21)
+    try:
+        MV.subpel_refine49(s12, w12)
+    except ValueError:   # the parent's KM takes powers of two only
+        out["km12x20_device_ms"] = None
+    else:
+        out["km12x20_device_ms"], _ = kernel_ms(
+            lambda: MV.subpel_refine49(s12, w12), ("::km_kernel",))
+    out["chain_s"] = host_s(lambda: CS._subpel_chain(y0, y1))
     print(json.dumps(out))
     sys.exit(0)
 
@@ -600,7 +660,8 @@ def main() -> int:
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
     parts = (["tf"] if "--tf-only" in sys.argv else
              ["vmaf"] if "--vmaf-only" in sys.argv else
-             ["k13"] if "--k13-only" in sys.argv else [])
+             ["k13"] if "--k13-only" in sys.argv else
+             ["kokm"] if "--ko-km-only" in sys.argv else [])
     rounds = 1
     if "--rounds" in sys.argv:
         rounds = int(sys.argv[sys.argv.index("--rounds") + 1])
@@ -654,7 +715,11 @@ def main() -> int:
                   "kl16_device_ms", "kl16_launches", "kl128_device_ms",
                   "kl128_launches", "kq_call_ms", "kq_device_ms",
                   "kq_launches", "kq_all_device_ms",
-                  "kq_device_ops_per_call", "analysis_path_s") + tuple(
+                  "kq_device_ops_per_call", "analysis_path_s",
+                  "ko_satd_device_ms", "ko_launches",
+                  "ko_satd_l2_flushed_device_ms", "ko_transform_device_ms",
+                  "ko_satd_int16_device_ms", "ko_satd_uint8_device_ms",
+                  "ko_host_us", "km12x20_device_ms") + tuple(
                 f"kp_{t}_{m}" for t in ("y16", "y32", "y8", "u8", "y4")
                 for m in ("device_ms", "launches")) + tuple(
                 f"{k}_p_frame_{m}" for k in ("kd", "ke", "kc", "kf")
