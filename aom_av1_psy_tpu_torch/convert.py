@@ -83,19 +83,33 @@ def _state(obj) -> dict:
     return out
 
 
-def from_jax(obj):
+def _is_jax_mesh(obj) -> bool:
+    cls = type(obj)
+    return cls.__name__ == "Mesh" and cls.__module__.split(".")[0] == "jax"
+
+
+def from_jax(obj, device=None):
     """A deep copy of a reference object (a header, a ``FrameContext``, an
     ``EncoderConfig``, a ``Frame``, ...) as the port's object of the same
     class: instances of reference classes become instances of the port's
     copies, attribute for attribute; numpy arrays are copied; lists, tuples
-    and dicts are walked; anything else is kept. The reference package is
-    never imported: classes are matched by module path and name."""
+    and dicts are walked; anything else is kept. A reference device mesh
+    (``jax.sharding.Mesh``) becomes the port's ``parallel.mesh.Mesh`` of as
+    many entries of ``device`` (which the caller must name) along its first
+    axis. Neither the reference package nor jax is imported: classes are
+    matched by module path and name."""
     if isinstance(obj, np.ndarray):
         return obj.copy()
     if isinstance(obj, (list, tuple)):
-        return type(obj)(from_jax(x) for x in obj)
+        return type(obj)(from_jax(x, device) for x in obj)
     if isinstance(obj, dict):
-        return {k: from_jax(v) for k, v in obj.items()}
+        return {k: from_jax(v, device) for k, v in obj.items()}
+    if _is_jax_mesh(obj):
+        from .parallel.mesh import Mesh
+        if device is None:
+            raise ValueError("from_jax of a device mesh needs the device its "
+                             "entries stand for")
+        return Mesh([device] * obj.devices.size, axis=obj.axis_names[0])
     cls = type(obj)
     if not cls.__module__.startswith(_REF):
         return obj
@@ -104,7 +118,7 @@ def from_jax(obj):
         return port(obj.value)
     out = port.__new__(port)
     for k, v in _state(obj).items():
-        setattr(out, k, from_jax(v))
+        setattr(out, k, from_jax(v, device))
     return out
 
 

@@ -1,6 +1,8 @@
 """Device selection: explicit, never auto-detected."""
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -16,3 +18,13 @@ def resolve_device(d="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def on_device(dev):
+    """A context that makes CUDA device ``dev`` the current device (the
+    kernels launch on the current device's stream and refuse tensors of
+    another card); for a CPU device it does nothing."""
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()

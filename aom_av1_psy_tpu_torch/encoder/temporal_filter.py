@@ -226,7 +226,7 @@ def tf_weight(scaled):
     out = torch.empty(scaled.shape, dtype=torch.int64, device=scaled.device)
     KK.launch("tf_weight_sweep", scaled.data_ptr(), scaled.numel(),
               _thresholds_on(str(scaled.device)).data_ptr(), out.data_ptr(),
-              variant="sweep")
+              device=out.get_device(), variant="sweep")
     return out
 
 
@@ -240,7 +240,8 @@ def divide_totals(n: int, device):
     if dev.type == "cpu":
         return torch.arange(MAX_TOTAL + 1, dtype=torch.float64) / n
     out = torch.empty(MAX_TOTAL + 1, dtype=torch.float64, device=dev)
-    KK.launch("tf_div_sweep", n, out.data_ptr(), variant="div sweep")
+    KK.launch("tf_div_sweep", n, out.data_ptr(), device=out.get_device(),
+              variant="div sweep")
     return out
 
 
@@ -495,7 +496,7 @@ def tf_span_filter(center_idx: int, planes, mvs, params, ss_x: int = 1,
                                                    (Hc, Wc)), strict=True)):
             a.planes[3 * f + p] = need(t, torch.int32, shape, di,
                                        f"KK frame {f} plane {p}")
-    KK.launch("tf_span_filter", ctypes.byref(a), variant="span")
+    KK.launch("tf_span_filter", ctypes.byref(a), device=di, variant="span")
     return out
 
 

@@ -3,7 +3,9 @@
 
 Pipeline: the two-level 32 -> 16 partition plan on the device
 (``tpu_intra.plan_frame_part``; with tile columns, the T equal SB-aligned
-slabs batched through one wavefront, ``parallel/mesh.tile_plans_batched``),
+slabs batched through one wavefront, ``parallel/mesh.tile_plans_batched``,
+or with ``GpuFrameEncoder.mesh`` set, tile t planned on card t,
+``parallel/mesh.tile_plans_sharded``),
 ONE native pack call over the plan (per tile: ``native/ec.cpp
 ec_enc_pack_kf_part2`` through ``ec.native_coder``), the device
 loop-filter ladder (``ops/deblock_torch.lpf_pick_and_filter``) and, with
@@ -47,7 +49,7 @@ from ..normative.txsize import (TXSIZE_LOG2_MINUS4, TXSIZE_SQR,
                                 txsize_entropy_ctx)
 from ..utils.frame import Frame
 from .. import convert
-from ..device import resolve_device
+from ..device import on_device, resolve_device
 from ..ops import deblock_torch as DT
 from . import tpu_intra, tune_vmaf
 
@@ -77,7 +79,13 @@ class GpuFrameEncoder:
     ``mi_skip``, ``timings`` (``plan_s``, ``pack_s``) and, on the partition
     path, ``ref_planes_dev`` (post-LPF planes on ``device``); with
     ``tune_vmaf``, ``vmaf_unsharp_amount`` and ``vmaf_s`` (the
-    preprocessing's seconds) from construction on."""
+    preprocessing's seconds) from construction on. The encoder's kernels
+    run with ``device`` current."""
+
+    # optional ``parallel.mesh.Mesh`` of tile_T devices of the encoder's
+    # type: the tiled plan runs tile t on mesh.devices[t]; set on the class,
+    # it reaches the KEY frames of encode_video and the other GOP encoders
+    mesh = None
 
     def __init__(self, frame: Frame, cfg: EncoderConfig, device="cuda"):
         if not available():
@@ -90,8 +98,9 @@ class GpuFrameEncoder:
             # av1_vmaf_frame_preprocessing analogue: encode the unsharpened
             # source (kernels KG/KH); vmaf_s is its host-clock time
             t0 = time.perf_counter()
-            self.vmaf_unsharp_amount, frame = tune_vmaf.preprocess_frame(
-                frame, self.device)
+            with on_device(self.device):
+                self.vmaf_unsharp_amount, frame = tune_vmaf.preprocess_frame(
+                    frame, self.device)
             self.vmaf_s = time.perf_counter() - t0
         self.src = frame
         self.w, self.h = frame.width, frame.height
@@ -217,11 +226,28 @@ class GpuFrameEncoder:
         return slabs
 
     def _plan_tiles(self) -> list:
-        """Per-tile partition plans: the slabs batched through one pair of
-        wavefronts on the device (``parallel/mesh.tile_plans_batched``)."""
-        from ..parallel.mesh import tile_plans_batched
+        """Per-tile partition plans: with ``mesh``, tile t on
+        ``mesh.devices[t]`` (``parallel/mesh.tile_plans_sharded``); else the
+        slabs batched through one pair of wavefronts on the device
+        (``parallel/mesh.tile_plans_batched``)."""
+        from ..parallel.mesh import tile_plans_batched, tile_plans_sharded
+        if self.mesh is not None:
+            return tile_plans_sharded(self.mesh, self._tile_slabs(),
+                                      self.cfg.base_q_idx, self.mi_rows)
         return tile_plans_batched(self._tile_slabs(), self.cfg.base_q_idx,
                                   self.mi_rows, device=self.device)
+
+    def _check_mesh(self) -> None:
+        """A mesh reaches only the partition path with tile columns, on
+        devices of the encoder's type."""
+        if not self.use_part:
+            raise ValueError("a mesh is set, but the frame takes the "
+                             "uniform grid, which has no tiles")
+        if self.tile_T == 1:
+            raise ValueError("a mesh is set, but the frame has one tile")
+        if self.mesh.type != self.device.type:
+            raise ValueError(f"mesh of {self.mesh.type} devices for an "
+                             f"encoder on {self.device}")
 
     # -- headers (mirrors FrameEncoder.make_headers for this feature set) --
     def make_headers(self) -> tuple[SequenceHeader, FrameHeader]:
@@ -256,6 +282,12 @@ class GpuFrameEncoder:
 
     # ------------------------------------------------------------------
     def encode(self, include_seq: bool = True) -> bytes:
+        if self.mesh is not None:
+            self._check_mesh()
+        with on_device(self.device):
+            return self._encode(include_seq)
+
+    def _encode(self, include_seq: bool) -> bytes:
         seq, fh = self.make_headers()
         self.seq, self.fh = seq, fh
         fc = FrameContext(self.cfg.base_q_idx)
@@ -465,10 +497,12 @@ class GpuFrameEncoder:
         return np.repeat(np.repeat(sp.astype(bool), 2, 0), 2, 1)
 
     def _recon_dev_frame(self):
-        """Frame recon planes on the device (tile columns concatenated)."""
+        """Frame recon planes on the device (tile columns concatenated; a
+        tile planned on another card is copied to ``device`` first)."""
         if self.tile_T > 1:
-            return [torch.cat([pl["recon_dev"][p] for pl in self.tile_plans],
-                              dim=1) for p in range(self.nplanes)]
+            return [torch.cat([pl["recon_dev"][p].to(self.device)
+                               for pl in self.tile_plans], dim=1)
+                    for p in range(self.nplanes)]
         return list(self.plan["recon_dev"])
 
     def device_sources(self) -> tuple:

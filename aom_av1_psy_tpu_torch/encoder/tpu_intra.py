@@ -38,6 +38,7 @@ import torch
 from ..normative import tables
 from ..normative.enums import TxSize
 from .. import convert
+from ..device import on_device
 from ..ops import intra_pred as IP
 from ..ops import txq as TQ
 from . import tpu_intra_dir as DIR
@@ -254,11 +255,21 @@ def _diagonals(R: int, C: int, T: int = 1):
             np.concatenate(cols), tuple(offs))
 
 
+@functools.cache
+def _diagonals_on(R: int, C: int, T: int, device: str):
+    """``_diagonals``' tile, row and column arrays as int64 tensors on
+    ``device``, uploaded once per shape and device (read-only), so that a
+    wavefront queues no host copy (a copy would wait for the device)."""
+    tiles, rows, cols, _ = _diagonals(R, C, T)
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in (tiles, rows, cols))
+
+
 def _walk(R: int, C: int, device, T: int = 1):
-    """Yield (tt, rc, cc) int64 device tensors per diagonal (one upload):
-    the tile, row and column of every cell of the diagonal in T grids."""
-    tiles, rows, cols, offs = _diagonals(R, C, T)
-    all_ = [torch.as_tensor(a, device=device) for a in (tiles, rows, cols)]
+    """Yield (tt, rc, cc) int64 device tensors per diagonal: the tile, row
+    and column of every cell of the diagonal in T grids."""
+    offs = _diagonals(R, C, T)[3]
+    all_ = _diagonals_on(R, C, T, str(device))
     for d in range(R + C - 1):
         yield tuple(a[offs[d]:offs[d + 1]] for a in all_)
 
@@ -419,40 +430,69 @@ def _fetch(named: dict) -> dict:
     return out
 
 
+def start_tiles_part(slabs: list, shared: dict, mi_rows: int,
+                     device) -> dict:
+    """First half of :func:`plan_tiles_part`: under ``device`` (the current
+    device while it runs), upload the stacked inputs of the T slabs
+    (``shared``: the frame's ``shared_inputs``, made once for every part)
+    and queue the luma and chroma wavefronts. It waits for nothing on the
+    device: the inputs go up before the first kernel is queued, so the
+    host can go on to another card while this one computes. Returns the
+    plan's device tensors for :func:`fetch_tiles_part`."""
+    R, C = shared["R"], shared["C"]
+    t = stack_tiles(shared, [tile_inputs(R, C, s["rd"], mi_rows,
+                                         s["mi_cols_eff"], s.get("tile_mi_w"),
+                                         s.get("vis_mi_w"))
+                             for s in slabs])
+    with on_device(device):
+        t = convert.inputs_from_numpy(t, device)
+        srcs = [torch.as_tensor(np.stack([np.asarray(s[p], np.int32)
+                                          for s in slabs]), device=device)
+                for p in (("y", "u", "v") if "u" in slabs[0] else ("y",))]
+        # the walk's indices too go up before the first kernel is queued
+        _diagonals_on(R, C, len(slabs), str(srcs[0].device))
+        luma = _luma_wavefront_part(srcs[0], t)
+        named = dict(zip(_LUMA_KEYS, luma[:9]))
+        recons = [luma[9]]
+        if len(srcs) > 1:
+            chroma = _chroma_wavefront_part(srcs[1], srcs[2], t,
+                                            named["split32"],
+                                            named["y_mode32"],
+                                            named["y_mode16"])
+            named.update(zip(_CHROMA_KEYS, chroma[:6]))
+            recons += [chroma[6][0], chroma[6][1]]
+    return {"named": named, "recons": recons, "T": len(slabs)}
+
+
+def fetch_tiles_part(started: dict) -> list:
+    """Second half of :func:`plan_tiles_part`: the one device->host copy
+    of the plan arrays, and the T plan dicts (``recon_dev`` on the device
+    the wavefronts ran on)."""
+    host = _fetch(started["named"])
+    return [{"part": True, **{k: v[i] for k, v in host.items()},
+             "recon_dev": [r[i].contiguous() for r in started["recons"]]}
+            for i in range(started["T"])]
+
+
 def plan_tiles_part(slabs: list, q: int, fc, mi_rows: int, device):
     """Two-level plans of T equal tile slabs in one pair of wavefronts.
 
     slabs: list of dicts with ``y`` (and ``u``/``v`` unless monochrome)
     int32 numpy planes of one shape, an ``rd`` lambda (scalar or (2R, 2C)
     grid), ``mi_cols_eff`` (the slab's effective mi width for the edge-cell
-    masks) and ``tile_mi_w`` / ``vis_mi_w`` (None: ``mi_cols_eff``). The
-    only place that stacks the plan inputs of the slabs. Returns T plan
-    dicts (the reference's keys and dtypes; ``recon_dev`` on ``device``)
-    from one device->host copy."""
-    y0 = slabs[0]["y"]
-    R, C = y0.shape[0] // 32, y0.shape[1] // 32
-    t = stack_tiles(shared_inputs(R, C, q, fc),
-                    [tile_inputs(R, C, s["rd"], mi_rows, s["mi_cols_eff"],
-                                 s.get("tile_mi_w"), s.get("vis_mi_w"))
-                     for s in slabs])
-    src_tiles = [np.stack([np.asarray(s[p], np.int32) for s in slabs])
-                 for p in (("y", "u", "v") if "u" in slabs[0] else ("y",))]
-    t = convert.inputs_from_numpy(t, device)
-    ys = torch.as_tensor(np.asarray(src_tiles[0], np.int32), device=device)
-    luma = _luma_wavefront_part(ys, t)
-    named = dict(zip(_LUMA_KEYS, luma[:9]))
-    recons = [luma[9]]
-    if len(src_tiles) > 1:
-        us, vs = (torch.as_tensor(np.asarray(p, np.int32), device=device)
-                  for p in src_tiles[1:])
-        chroma = _chroma_wavefront_part(us, vs, t, named["split32"],
-                                        named["y_mode32"], named["y_mode16"])
-        named.update(zip(_CHROMA_KEYS, chroma[:6]))
-        recons += [chroma[6][0], chroma[6][1]]
-    host = _fetch(named)
-    return [{"part": True, **{k: v[i] for k, v in host.items()},
-             "recon_dev": [r[i].contiguous() for r in recons]}
-            for i in range(ys.shape[0])]
+    masks) and ``tile_mi_w`` / ``vis_mi_w`` (None: ``mi_cols_eff``).
+    ``start_tiles_part`` is the only place that stacks the plan inputs of
+    the slabs. Returns T plan dicts (the reference's keys and dtypes;
+    ``recon_dev`` on ``device``) from one device->host copy:
+    :func:`start_tiles_part`, then :func:`fetch_tiles_part`."""
+    return fetch_tiles_part(start_tiles_part(
+        slabs, slab_shared_inputs(slabs, q, fc), mi_rows, device))
+
+
+def slab_shared_inputs(slabs: list, q: int, fc) -> dict:
+    """``shared_inputs`` of the slabs' (R, C) cell grid."""
+    h, w = np.shape(slabs[0]["y"])
+    return shared_inputs(h // 32, w // 32, q, fc)
 
 
 def plan_frame_part(src_planes, q, fc, rdmult, mi_rows, mi_cols,

@@ -130,6 +130,7 @@ def gaussian_blur(y, moments: bool = False):
         if moments else None
     TV.launch("gauss_blur", y.data_ptr(), int(y.dtype == torch.uint8), H, W,
               out.data_ptr(), mom.data_ptr() if moments else None,
+              device=out.get_device(),
               variant="gauss_blur moments" if moments else "gauss_blur")
     return (out, mom) if moments else out
 
@@ -155,7 +156,8 @@ def unsharp(src, blur, amount: float):
     blur = _require(blur, (torch.int32,), src.shape)
     out = torch.empty_like(src)
     TV.launch("unsharp_apply", src.data_ptr(), blur.data_ptr(), amount,
-              src.numel(), out.data_ptr(), variant="unsharp_apply")
+              src.numel(), out.data_ptr(), device=out.get_device(),
+              variant="unsharp_apply")
     return out
 
 
@@ -281,7 +283,8 @@ def vif_scale_sums(ref, dist):
     H, W = ref.shape
     sums = torch.zeros(2, dtype=torch.float32, device=ref.device)
     TV.launch("vif_scale", ref.data_ptr(), dist.data_ptr(), H, W,
-              sums.data_ptr(), variant="vif_scale")
+              sums.data_ptr(), device=sums.get_device(),
+              variant="vif_scale")
     return sums
 
 
@@ -303,7 +306,7 @@ def down2(x):
     out = torch.empty(((H + 1) // 2, (W + 1) // 2), dtype=torch.float32,
                       device=x.device)
     TV.launch("vif_down2", x.data_ptr(), H, W, out.data_ptr(),
-              variant="vif_down2")
+              device=out.get_device(), variant="vif_down2")
     return out
 
 

@@ -12,6 +12,11 @@ not synchronise, and returns ``cudaGetLastError()``; ``CudaKernel.launch``
 raises on a non-zero code. The ctypes functions are resolved once, when
 the library loads.
 
+Every call names the CUDA device its tensors lie on (``device=``, the
+index) and raises ``WrongDevice`` when that is not the current device: a
+kernel never runs on another card's stream. Code that works on several
+cards enters each one (``device.on_device``) before it calls a wrapper.
+
 ``-O3 --fmad=false``: the RD arithmetic next to the kernels is float32 and
 decides modes, so ``a*b+c`` must round twice as it does in the JAX
 reference, never once as an FMA.
@@ -66,7 +71,7 @@ class CudaKernel:
         self.build_log = ""
         self._lib = None
         self._fns = {}
-        self._stream = None
+        self._raw = self._current = None
 
     @property
     def source(self) -> str:
@@ -114,9 +119,8 @@ class CudaKernel:
                 self._fns[fn] = f
             # the current device's current stream, as a raw handle (the
             # device from torch's own getter: a launch finds CUDA set up)
-            raw, device = torch._C._cuda_getCurrentRawStream, \
-                torch._C._cuda_getDevice
-            self._stream = lambda: raw(device())
+            self._raw = torch._C._cuda_getCurrentRawStream
+            self._current = torch._C._cuda_getDevice
             self._lib = lib
         return self._lib
 
@@ -124,26 +128,44 @@ class CudaKernel:
         self.launches = 0
         self.variants.clear()
 
-    def call(self, fn: str, *args) -> None:
-        """Call entry point ``fn`` on the current CUDA stream; raise on a
-        CUDA error. Not counted: for set-up entries that launch no kernel."""
+    def stream_on(self, device: int):
+        """The current stream's raw handle, after the guard: raises
+        ``WrongDevice`` unless ``device`` (the index of the card the
+        call's tensors lie on) is the current device."""
+        cur = self._current()
+        if device != cur:
+            raise WrongDevice(f"{self.name}: tensors on cuda:{device}, but "
+                              f"the current device is cuda:{cur}; enter "
+                              f"torch.cuda.device({device}) first")
+        return self._raw(cur)
+
+    def call(self, fn: str, *args, device: int) -> None:
+        """Call entry point ``fn`` on device ``device``'s current stream
+        (which must be the current device); raise on a CUDA error. Not
+        counted: for set-up entries that launch no kernel."""
         if self._lib is None:
             self.lib()
-        rc = self._fns[fn](*args, self._stream())
+        rc = self._fns[fn](*args, self.stream_on(device))
         if rc != 0:
             raise RuntimeError(f"{self.name}.{fn}: CUDA error {rc}")
 
-    def launch(self, fn: str, *args, variant: str = "") -> None:
+    def launch(self, fn: str, *args, device: int, variant: str = "") -> None:
         """Call entry point ``fn``, which launches the kernel on the
-        current CUDA stream; raise on a launch error. ``variant`` labels
-        the launch in ``variants``."""
+        current stream of device ``device``, the card its tensors lie on
+        (it must be the current device); raise on a launch error.
+        ``variant`` labels the launch in ``variants``."""
         if self._lib is None:
             self.lib()
-        rc = self._fns[fn](*args, self._stream())
+        rc = self._fns[fn](*args, self.stream_on(device))
         if rc != 0:
             raise RuntimeError(f"{self.name}.{fn}: CUDA error {rc}")
         self.launches += 1
         self.variants[variant or fn] += 1
+
+
+class WrongDevice(RuntimeError):
+    """A kernel call whose tensors lie on another card than the current
+    device."""
 
 
 def need(t, dtype, shape, di: int, what: str) -> int:

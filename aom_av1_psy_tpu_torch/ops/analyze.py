@@ -242,6 +242,7 @@ def _launch_kp(n: int, tx_size: int, dc_q: int, ac_q: int, plane=None,
               out["sse"].data_ptr(), out["levels"].data_ptr(),
               out["eob"].data_ptr(),
               0 if totals is None else totals.data_ptr(),
+              device=dev.index,
               variant=f"n{n}" + (" plane" if plane is not None else ""))
     return out
 

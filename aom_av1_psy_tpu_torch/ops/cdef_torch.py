@@ -287,7 +287,8 @@ def _launch(jobs, skip, nb_r: int, nb_c: int, dirs, var, search: bool, sums,
                 search=int(search))
     for i, j in enumerate(jobs):
         a.p[i] = j
-    KF.launch("cdef_launch", ctypes.byref(a), variant=variant)
+    KF.launch("cdef_launch", ctypes.byref(a), device=skip.get_device(),
+              variant=variant)
 
 
 def _blocks_of(t, dtype, B: int, di: int, what: str):

@@ -342,7 +342,8 @@ def _launch_kl(regions, w, h, subpel_x, subpel_y, tabx, taby, bd):
     out = torch.empty((B, h, w), dtype=torch.int32, device=regions.device)
     KL.launch("subpel_predict", regions.data_ptr(), B, w, h, sx.data_ptr(),
               sy.data_ptr(), tabx.data_ptr(), taby.data_ptr(), bd,
-              out.data_ptr(), variant=f"{w}x{h}")
+              out.data_ptr(), device=regions.get_device(),
+              variant=f"{w}x{h}")
     return out
 
 

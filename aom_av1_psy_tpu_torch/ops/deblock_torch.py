@@ -281,9 +281,10 @@ def lpf_ladder(buf, split16, cands, src, w: int, h: int, cell: int,
         spec.append((src, torch.int32, 2))
     args = []
     for t, dt, nd in spec:
-        if t.device.type != "cuda" or t.dtype != dt or t.dim() != nd:
-            raise ValueError(f"KC input: want {nd}-D {dt} on cuda, got "
-                             f"{t.dim()}-D {t.dtype} on {t.device}")
+        if t.device.type != "cuda" or t.device != buf.device or \
+                t.dtype != dt or t.dim() != nd:
+            raise ValueError(f"KC input: want {nd}-D {dt} on {buf.device}, "
+                             f"got {t.dim()}-D {t.dtype} on {t.device}")
         args.append(t.contiguous())
     buf, split16, cands = args[:3]
     L = cands.shape[0]
@@ -301,7 +302,7 @@ def lpf_ladder(buf, split16, cands, src, w: int, h: int, cell: int,
               C2, cands.data_ptr(), L, cell, int(luma), nl_v, kv, nl_h, kh,
               *src_args, outs.data_ptr(),
               0 if sse is None else sse.data_ptr(),
-              variant="luma" if luma else "chroma")
+              device=buf.get_device(), variant="luma" if luma else "chroma")
     return outs, sse
 
 

@@ -102,5 +102,5 @@ def fullpel_search(src, plane, by, bx, crop_h: int, crop_w: int,
     KE.launch("fullpel_ssd", src.data_ptr(), plane.data_ptr(),
               plane.shape[0], plane.shape[1], crop_h, crop_w, by.data_ptr(),
               bx.data_ptr(), *cptr, B, bw, dy.data_ptr(),
-              dx.data_ptr(), variant=f"bw{bw}")
+              dx.data_ptr(), device=dx.get_device(), variant=f"bw{bw}")
     return dy, dx

@@ -214,7 +214,7 @@ def intra_pred_sse(above, left, tl, have_a, have_l, src, K, trreal=None,
     out = torch.empty((K, B), dtype=torch.int32, device=above.device)
     KA.launch("intra_pred_sse", *(a.data_ptr() for a in args),
               *_table_ptrs(bs, K, above.device), B, bs, K, out.data_ptr(),
-              variant=f"bs{bs}")
+              device=out.get_device(), variant=f"bs{bs}")
     return out
 
 
@@ -232,7 +232,7 @@ def intra_pred_one(above, left, tl, have_a, have_l, cand, K, trreal=None,
     *edges, cand = args
     KA.launch("intra_pred_one", *(a.data_ptr() for a in edges),
               *_table_ptrs(bs, K, above.device), cand.data_ptr(), B, bs, K,
-              out.data_ptr(), variant=f"bs{bs}")
+              out.data_ptr(), device=out.get_device(), variant=f"bs{bs}")
     return out
 
 
@@ -367,7 +367,7 @@ def _pick_init(di: int):
     if di not in _PICK_READY:
         tab = pick_table()
         with torch.cuda.device(di):
-            KA.call("intra_pick_init", tab.ctypes.data, tab.size)
+            KA.call("intra_pick_init", tab.ctypes.data, tab.size, device=di)
         _PICK_READY.add(di)
 
 
@@ -462,5 +462,6 @@ def intra_pick(buf, tt, rc, cc, src, bs, K, rd, *, local=False, qr=0, qc=0,
                      int(local), qr, qc, src[0].shape[1], src[0].shape[2], T,
                      MR, MC, scale, nbr.shape[1], nbr.shape[2], nbr_scale,
                      int(nbr_plan), int(luma))
-    KA.launch("intra_pick", ctypes.byref(args), variant=f"pick bs{bs}")
+    KA.launch("intra_pick", ctypes.byref(args), device=di,
+              variant=f"pick bs{bs}")
     return pick, pred

@@ -136,5 +136,5 @@ def mc_8tap(ref, by, bx, qr, qc, bw: int, crop_h: int, crop_w: int, kernels,
               crop_w, by.data_ptr(), bx.data_ptr(), qr.data_ptr(),
               qc.data_ptr(), K, B, bw, kern.data_ptr(),
               ptr(args[6] if src is not None else None), ptr(pred), ptr(sad),
-              ptr(sse))
+              ptr(sse), device=dev.index)
     return pred, sad, sse

@@ -481,7 +481,7 @@ def _launch_kn(op, ts, code, shape, B, n, w, bdiv=1, a_rows=0, a_w=0,
     ptrs = [t.data_ptr() for t in ts] + [0] * (4 - len(ts))
     KN.launch("block_reduce", ctypes.byref(_KNArgs(
         *ptrs, *sums, op, code, B, n, w, bdiv, a_rows, a_w, *taps, avg)),
-        variant=_OP_NAMES[op])
+        device=out.get_device(), variant=_OP_NAMES[op])
     return out
 
 
@@ -553,6 +553,7 @@ def _ko(x, want_transform: bool):
     s = torch.empty(lead, dtype=_I64, device=x.device)
     KO.launch("satd8x8", xi.data_ptr(), code, B,
               t.data_ptr() if t is not None else 0, s.data_ptr(),
+              device=s.get_device(),
               variant="transform" if want_transform else "satd")
     return t, s
 

@@ -156,6 +156,7 @@ def sad_argmin(src, win, m: int, stride: int = 1, cost=None):
     sad = torch.empty((B,), dtype=torch.int32, device=src.device)
     KJ.launch("fullpel_sad", src.data_ptr(), win.data_ptr(), B, h, w, wh, ww,
               m, stride, cptr, idx.data_ptr(), sad.data_ptr(),
+              device=idx.get_device(),
               variant="dense" if stride == 1 else "coarse")
     return idx.long(), sad
 
@@ -209,7 +210,8 @@ def sad_argmin_plane(src, plane, oy, ox, m: int, cost=None):
     sad = torch.empty((B,), dtype=torch.int32, device=plane.device)
     KJ.launch("fullpel_sad_plane", src.data_ptr(), plane.data_ptr(), H, W,
               oy.data_ptr(), ox.data_ptr(), B, h, w, m, cptr,
-              idx.data_ptr(), sad.data_ptr(), variant="plane")
+              idx.data_ptr(), sad.data_ptr(), device=idx.get_device(),
+              variant="plane")
     return idx.long(), sad
 
 
@@ -509,5 +511,5 @@ def subpel_refine49(src_blocks, ref_windows, interp: int = C.EIGHTTAP_REGULAR,
     sad = torch.empty((B,), dtype=torch.int32, device=src.device)
     KM.launch("subpel_refine49", src.data_ptr(), win.data_ptr(), B, w, h,
               tx.data_ptr(), ty.data_ptr(), bd, idx.data_ptr(), sad.data_ptr(),
-              variant=f"{w}x{h}")
+              device=idx.get_device(), variant=f"{w}x{h}")
     return idx.long(), sad.long()

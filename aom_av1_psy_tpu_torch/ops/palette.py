@@ -129,11 +129,12 @@ def calc_indices_plain(data, centroids, dim: int):
 def _slot(di: int):
     """The device's mapped pinned slot for KQ's total (a ctypes view of the
     total, the slot's address) and KQ's scratch area, made once per
-    device."""
+    device, under that device (its allocations land on card ``di``)."""
     s = _SLOTS.get(di)
     if s is None:
         buf = (ctypes.c_void_p * 2)()
-        KQ.call("palette_setup", ctypes.addressof(buf))
+        with torch.cuda.device(di):
+            KQ.call("palette_setup", ctypes.addressof(buf), device=di)
         s = _SLOTS[di] = (ctypes.c_longlong.from_address(buf[0]), buf[0],
                           buf[1])
     return s
@@ -157,7 +158,7 @@ def _launch_kq(data, cents, dim: int):
     KQ.launch("palette_indices", ptr, KQ_DTYPES[data.dtype], vec,
               cents.data_ptr(), KQ_DTYPES[cents.dtype], n,
               cents.numel() // dim, dim, idx.data_ptr(), slot, scratch,
-              variant=_VARIANT[dim])
+              device=idx.get_device(), variant=_VARIANT[dim])
     return idx, host.value
 
 

@@ -257,10 +257,10 @@ def _launch_kb(src, pred, dc_q, ac_q, scan, vadst, hadst, rd=None):
                  (eob_tbl, (eob_tbl.shape[0],), torch.float32))
     args = []
     for t, shape, dt in spec:
-        if t.device.type != "cuda" or t.dtype != dt or \
-                tuple(t.shape) != shape:
-            raise ValueError(f"KB input: want {dt} {shape} on cuda, got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        if t.device.type != "cuda" or t.device != src.device or \
+                t.dtype != dt or tuple(t.shape) != shape:
+            raise ValueError(f"KB input: want {dt} {shape} on {src.device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
         args.append(t.contiguous())
     src, pred, scan = args[:3]
     va, ha = (args[3].data_ptr(), args[4].data_ptr()) if vadst is not None \
@@ -282,7 +282,7 @@ def _launch_kb(src, pred, dc_q, ac_q, scan, vadst, hadst, rd=None):
               bs, dc_q, ac_q, TS.tx_scale(SQUARE_TX[bs]), scan.data_ptr(),
               int(rd is not None), *ptrs[:4], stages.data_ptr(),
               meta.data_ptr(), levels.data_ptr(), eob.data_ptr(),
-              recon.data_ptr(), *ptrs[4:],
+              recon.data_ptr(), *ptrs[4:], device=dev.index,
               variant=f"bs{bs}" + ("" if rd is not None else " no-skip"))
     return levels, eob, recon, sse, rate
 
@@ -466,7 +466,8 @@ class TxqStep:
         a.pick = chk(pick, torch.int32, (4, B), "pick")
         a.pred = chk(pred, torch.int32, (self.P * B, bs, bs), "pred")
         a.B, a.qr, a.qc = B, qr, qc
-        KB.launch("txq_step", ctypes.byref(a), variant=self._variant)
+        KB.launch("txq_step", ctypes.byref(a), device=self._di,
+                  variant=self._variant)
 
     # ------------------------------------------------------------------
     def _plain(self, tt, rc, cc, pick, pred, qr, qc):

@@ -180,12 +180,30 @@ exit code is not 0):
    at K = 8 with centroids from the host ``k_means``; equal to the same
    path on the CPU plain path; timed (median of 3 after a first) with the
    counts set to 0 before the 3 runs and read after;
+5k. the tile columns sharded over a mesh (``GpuFrameEncoder.mesh``:
+   ``make_mesh(T)`` where the machine has T cards, else ``cuda:0`` T
+   times; the line names the mesh and ``torch.cuda.device_count()``): the
+   phase-5c frame (T = 2) and ``make_frame(2008, 1080)`` with
+   ``tile_cols_log2=2`` (T = 4: 32 superblock columns in slabs of 512 px,
+   the last with 472 visible; 1920 px, 30 columns, codes one tile), each
+   equal to the batched and CPU
+   plain streams, a first frame and 3 steady frames with the KA / KB / KC
+   counts set to 0 before them and read after, each tile's recon on its
+   own card, the mesh and the batched path in turns (B M M B, twice:
+   ``plan_s`` and the frame wall), the device copies of one mesh frame
+   and the cross-card recon copies; ``sharded_analyze_step(mesh, 16,
+   100)`` on phase 5j's luma blocks (B = 8160) at mesh sizes 1, 2 and 4,
+   equal to ``batched_analyze_step``, timed (median of 3 after a first);
+   the host cost of the kernels' device guard (the guarded stream lookup
+   against the bare one, KA's pick wrapper with the guard and bypassed,
+   in turns);
 6. / 6b. a profiler window over one steady 1080p KEY frame and one steady
    1080p P-frame (device busy time by kernel; KC's launches and device
    time in the KEY frame; 6b also KD's, KE's, KC's and KF's in the
    P-frame, and its pack split).
 
-``--only-kernels`` stops after phase 3g. The second-to-last line is
+``--only-kernels`` stops after phase 3g; ``--only-mesh`` runs phase 5k
+alone after the build. The second-to-last line is
 ``{"kernels": [...]}``: ``launches`` from the GOP of phase 5b (for the
 4x4 / no-skip entries, from the uniform KEY frames of phase 5d; for KG,
 KH, KI and ``vif_down2``, from phase 5f; for KJ and KK, from the ARF GOP
@@ -1520,7 +1538,7 @@ def tiled_key_path(dev, kernels, untiled_med):
         f"{med / untiled_med:.3f}; CUDA == CPU plain stream (CPU encode "
         f"{cpu_s:.1f} s)")
     log(f"[5c] launches over the 3 steady tiled frames: {json.dumps(counts)}")
-    return counts
+    return counts, pkt
 
 
 def uniform_key_path(dev, kernels):
@@ -3224,6 +3242,187 @@ def analysis_path(dev, kernels):
     return counts
 
 
+def _sync_all():
+    """Wait for every card (a mesh may span several)."""
+    import torch
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _mesh_of(n, dev):
+    """``make_mesh(n)`` where the machine has n cards, else ``dev`` n
+    times (each entry still one shard with its own launches)."""
+    import torch
+    from aom_av1_psy_tpu_torch.parallel import mesh as M
+    return M.make_mesh(n) if torch.cuda.device_count() >= n \
+        else M.Mesh([dev] * n)
+
+
+def _cross_card(mesh, dev):
+    """Entries of the mesh on another card than ``dev``."""
+    return sum(d != dev for d in mesh.devices)
+
+
+def _mesh_frames(dev, kernels, frame, lg, batched_pkt):
+    """The 1080p KEY frame with 2**lg tile columns through
+    ``GpuFrameEncoder.mesh``: equal to the batched and CPU plain streams,
+    a first and 3 steady frames with the launch counts around them, the
+    mesh and the batched path in turns (B M M B, twice), and the device
+    copies of one mesh frame."""
+    import torch
+    from aom_av1_psy_tpu_torch.encoder.tpu_frame import (EncoderConfig,
+                                                         GpuFrameEncoder)
+    T = 1 << lg
+    mesh = _mesh_of(T, dev)
+    cfg = EncoderConfig(base_q_idx=100, tile_cols_log2=lg)
+
+    def encode(m):
+        enc = GpuFrameEncoder(frame, cfg, device=dev)
+        enc.mesh = m
+        t0 = time.perf_counter()
+        pkt = enc.encode()
+        _sync_all()
+        return pkt, enc, time.perf_counter() - t0
+
+    tag = f"{frame.width}x{frame.height} {T} tiles"
+    if batched_pkt is None:
+        batched_pkt = encode(None)[0]
+    cpu_s = _cpu_equal(f"{tag} (batched)", frame, cfg, batched_pkt)
+    pkt, enc, first_s = encode(mesh)
+    if enc.tile_T != T or pkt != batched_pkt:
+        raise AssertionError(f"{tag}: mesh stream differs from the batched "
+                             "stream")
+    _reset(kernels)
+    steady = [encode(mesh) for _ in range(3)]
+    counts = _counts(kernels)
+    if any(p != pkt for p, _, _ in steady):
+        raise AssertionError(f"{tag}: a steady mesh frame differs")
+    _need(f"{tag} mesh", counts, ("intra_pred pick bs32",
+                                  "intra_pred pick bs16",
+                                  "intra_pred pick bs8", "txq step bs32",
+                                  "txq step bs16", "txq step bs8",
+                                  "deblock"))
+    for t, p in enumerate(steady[-1][1].tile_plans):
+        if any(r.device != mesh.devices[t] for r in p["recon_dev"]):
+            raise AssertionError(f"{tag}: tile {t}'s recon is not on "
+                                 f"{mesh.devices[t]}")
+    turns = {"B": [], "M": []}
+    for which in "BMMBBMMB":
+        _, e, wall = encode(mesh if which == "M" else None)
+        turns[which].append((e.timings["plan_s"], wall))
+    med = {k: (statistics.median(x[0] for x in v),
+               statistics.median(x[1] for x in v)) for k, v in turns.items()}
+    copies = {k: n for k, n in device_ops(lambda: encode(mesh)).items()
+              if "Memcpy" in k}
+    log(f"[5k] {tag} over {mesh} ({torch.cuda.device_count()} cards): "
+        f"{len(pkt)} bytes, mesh == batched == CPU plain stream (CPU "
+        f"encode {cpu_s:.1f} s); first {first_s:.3f} s, steady "
+        f"{', '.join(f'{w:.4f}' for _, _, w in steady)} s; in turns (B M M "
+        f"B x2): plan_s batched {[round(x[0], 4) for x in turns['B']]}, "
+        f"mesh {[round(x[0], 4) for x in turns['M']]}; frame wall batched "
+        f"{[round(x[1], 4) for x in turns['B']]}, mesh "
+        f"{[round(x[1], 4) for x in turns['M']]}; medians plan "
+        f"{med['B'][0]:.4f} / {med['M'][0]:.4f} s (mesh/batched "
+        f"{med['M'][0] / med['B'][0]:.3f}), wall {med['B'][1]:.4f} / "
+        f"{med['M'][1]:.4f} s ({med['M'][1] / med['B'][1]:.3f})")
+    log(f"[5k] {tag}: cross-card recon copies per frame "
+        f"{_cross_card(mesh, dev) * enc.nplanes}; device copies of one mesh "
+        f"frame {json.dumps(copies)}; launches over the 3 steady mesh "
+        f"frames: {json.dumps(counts)}")
+    return counts
+
+
+def _guard_cost(dev):
+    """Host cost of the kernels' device guard: the guarded stream lookup
+    against the bare one (100000 calls each), and KA's pick wrapper
+    (1080p luma bs 32, B = 34) with the guard and with it bypassed, in
+    turns (G N N G, twice; 1000 calls a turn)."""
+    import torch
+    from aom_av1_psy_tpu_torch.ops.intra_pred import KA
+    raw, cur = torch._C._cuda_getCurrentRawStream, torch._C._cuda_getDevice
+    di = dev.index or 0
+    guarded = _host_us(lambda: KA.stream_on(di), 100000)
+    bare = _host_us(lambda: raw(cur()), 100000)
+    run32 = _pick_calls(dev)[0][0][1]
+    turns = {"G": [], "N": []}
+    for which in "GNNGGNNG":
+        if which == "N":
+            KA.stream_on = lambda device: raw(cur())
+        turns[which].append(_host_us(run32.bare))
+        if which == "N":
+            del KA.stream_on
+    g, n = (statistics.median(turns[k]) for k in "GN")
+    log(f"[5k] device guard: stream lookup {guarded:.4f} us guarded, "
+        f"{bare:.4f} us bare (+{guarded - bare:.4f} us a launch); KA pick "
+        f"wrapper (bs32 B=34) in turns (G N N G x2): guarded "
+        f"{[round(x, 2) for x in turns['G']]}, bypassed "
+        f"{[round(x, 2) for x in turns['N']]} us a call, medians {g:.2f} / "
+        f"{n:.2f} us ({g - n:+.2f} us)")
+
+
+def mesh_path(dev, kernels, tiled_pkt=None):
+    """Phase 5k: the tile columns sharded over a mesh
+    (``GpuFrameEncoder.mesh``; ``make_mesh(T)`` where the machine has T
+    cards, else ``cuda:0`` T times): the 2-tile frame of phase 5c (its
+    batched stream ``tiled_pkt``) and a 2008x1080 frame in 4 tiles (512
+    px slabs, the last with 472 visible), each equal to the batched and
+    CPU plain streams,
+    counted and timed in turns against the batched path; then
+    ``sharded_analyze_step(mesh, 16, 100)`` on phase 5j's luma blocks (B =
+    8160) at mesh sizes 1, 2 and 4, equal to ``batched_analyze_step`` and
+    timed (median of 3 after a first); and the device guard's host
+    cost."""
+    import torch
+    from aom_av1_psy_tpu_torch.ops import analyze as AN
+    from aom_av1_psy_tpu_torch.ops.analyze import KP
+    from aom_av1_psy_tpu_torch.parallel import mesh as M
+    from aom_av1_psy_tpu_torch.utils import testframes
+    frame = testframes.make_frame(1920, 1080)
+    # 1920 px is 30 superblock columns, which do not part into 4 equal
+    # slabs (both encoders then code one tile); 2008 px is 32, four tiles
+    # of 512 px, the last with 472 visible
+    counts = {T: _mesh_frames(dev, kernels, f, lg, pkt)
+              for T, lg, f, pkt in (
+                  (2, 1, frame, tiled_pkt),
+                  (4, 2, testframes.make_frame(2008, 1080), None))}
+    y = _luma_1088(frame, dev)
+    args = (AN.blockify(y, 16), *AN._edges_from_source(y, 16))
+    batched = M.batched_analyze_step(16, 100, device=dev)
+
+    def timed(fn):
+        fn(*args)
+        _sync_all()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            _sync_all()
+            times.append(time.perf_counter() - t0)
+        return out, statistics.median(times)
+
+    want, b_s = timed(batched)
+    parts = [f"batched {b_s * 1e3:.3f} ms"]
+    for k in (1, 2, 4):
+        mesh = _mesh_of(k, dev)
+        before = KP.launches
+        got, s = timed(M.sharded_analyze_step(mesh, 16, 100))
+        for name, g, w in zip(("modes", "levels", "eob", "tot_sse",
+                               "tot_coeff"), got, want, strict=True):
+            if g.device != dev:
+                raise AssertionError(f"sharded step k={k} {name} on "
+                                     f"{g.device}")
+            compare(f"sharded step k={k} {name} vs batched", g, w)
+        parts.append(f"k={k} over {mesh}: {s * 1e3:.3f} ms, "
+                     f"{(KP.launches - before) // 4} KP launches a step, "
+                     f"{5 * _cross_card(mesh, dev)} cross-card copies a step")
+    log(f"[5k] sharded_analyze_step(mesh, 16, 100) on the 1080p luma blocks "
+        f"(B={args[0].shape[0]}) == batched_analyze_step (modes, levels, "
+        f"eob, int32 totals {int(want[3])} / {int(want[4])}); median of 3 "
+        f"after a first: {'; '.join(parts)}")
+    _guard_cost(dev)
+    return counts
+
+
 def closed_loop_gops_cif(dev):
     """Phase 4f: the ARF, CBR and RC GOP encodes at CIF: the CUDA packets (and
     q, trace) equal the CPU plain path's, every displayed frame decodes to
@@ -3409,6 +3608,9 @@ def main() -> int:
         log(f"[{tag}] phase took {time.perf_counter() - t0:.1f} s")
         return out
 
+    if "--only-mesh" in sys.argv[1:]:
+        phase("5k", mesh_path, dev, kernels[:3])
+        return 0
     results = phase("3", check_kernels, dev)
     results += phase("3b", check_inter_kernels, dev)
     uniform_results = phase("3c", check_uniform_kernels, dev)
@@ -3428,7 +3630,8 @@ def main() -> int:
     key_counts, frame, cfg, key_med, key_pkt, key_enc = phase(
         "5", main_path, dev, kernels[:3])
     counts, frames, encs, rate_5b = phase("5b", gop_main_path, dev, kernels)
-    tiled_counts = phase("5c", tiled_key_path, dev, kernels, key_med)
+    tiled_counts, tiled_pkt = phase("5c", tiled_key_path, dev, kernels,
+                                    key_med)
     uniform_counts = phase("5d", uniform_key_path, dev, kernels)
     phase("5e", search_cdef_path, dev)
     vmaf_counts, vmaf_gop_counts = phase("5f", tune_vmaf_path, dev,
@@ -3437,6 +3640,7 @@ def main() -> int:
     phase("5h", rc_gop_paths, dev, rate_5b)
     chain_counts = phase("5i", subpel_chain_path, dev, k13b)
     analysis_counts = phase("5j", analysis_path, dev, k12)
+    phase("5k", mesh_path, dev, kernels[:3], tiled_pkt)
     phase("6", profile_frame, dev, frame, cfg)
     phase("6b", profile_p_frame, dev, frames, encs)
 

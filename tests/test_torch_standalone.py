@@ -3,11 +3,14 @@
 (or a submodule) or ``bench``; a fresh interpreter that encodes a KEY
 frame, a 3-frame GOP, a tune_vmaf frame, a 4-frame ARF GOP and a 2-frame
 GOP of the host inter encoder (with a metric on its residual), and runs the analysis pipeline
-and palette assignment through the port, and decodes a loop-restoration
+and palette assignment and the mesh (a 2-tile frame, the sharded analysis
+step) through the port, and decodes a loop-restoration
 and a superres stream, has loaded none of them (one interpreter, a case
 per stage); every module of the reference has a same-named counterpart in
-the port (``ops/cdef_jax.py`` and ``ops/deblock_jax.py``: ``*_torch.py``);
-the port's test content
+the port (``ops/cdef_jax.py`` and ``ops/deblock_jax.py``: ``*_torch.py``),
+and every public top-level function or class of a reference module has
+one in its counterpart, of the same name or of the name the rename table
+gives with its reason; the port's test content
 equals ``bench``'s; its own range coder build lives beside the reference's
 in one process; and ``convert`` carries the reference's objects into the
 port's classes.
@@ -38,7 +41,8 @@ FORBIDDEN = ("jax", "aom_av1_psy_tpu", "bench")
 
 
 def _sources():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, "chip_smoke.py"),
+           os.path.join(REPO, "tests", "test_torch_mesh_gpu.py")]
     for root, _, files in os.walk(PORT):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -67,9 +71,10 @@ def test_no_import_of_jax_reference_or_bench(path):
 # package and bench (a KEY frame with flat chroma, a 3-frame GOP, a
 # tune_vmaf frame, an ARF GOP with its temporal filters, the host inter
 # encoder's GOP and the satd of its residual, the analysis of a plane and
-# the batched step on its blocks, k-means and calc_indices on a block)
+# the batched step on its blocks, k-means and calc_indices on a block, a
+# 2-tile KEY frame and the analysis step sharded over a mesh of two)
 _STAGES = ("key", "gop", "tune_vmaf", "arf", "interframe", "analyze",
-           "decode")
+           "mesh", "decode")
 _ENCODES = """
 import dataclasses, json, sys
 import numpy as np
@@ -126,6 +131,16 @@ idx2, total2 = palette.calc_indices(plane[:64, :64], torch.as_tensor(cents),
 report("analyze", int(step[4])
        if torch.equal(step[2], out["eob"]) and total2 == total
        and np.array_equal(idx2.numpy(), idx) else 0)
+from aom_av1_psy_tpu_torch.parallel.mesh import (make_mesh,
+                                                 sharded_analyze_step)
+enc = GpuFrameEncoder(make_frame(128, 64, seed=4),
+                      EncoderConfig(base_q_idx=90, tile_cols_log2=1),
+                      device="cpu")
+enc.mesh = make_mesh(2, device="cpu")
+n = len(enc.encode())
+step2 = sharded_analyze_step(make_mesh(2, device="cpu"), 16, 100)(
+    analyze.blockify(plane, 16), *analyze._edges_from_source(plane, 16))
+report("mesh", n if torch.equal(step2[2], out["eob"]) else 0)
 from aom_av1_psy_tpu_torch.decoder.obu import decode_ivf
 report("decode", sum(len(decode_ivf(f"tests/golden/streams/{n}.ivf"))
                      for n in ("lr_sgr_cpu2_q140_64x64",
@@ -148,6 +163,75 @@ _RENAMED = {"ops/cdef_jax.py": "ops/cdef_torch.py",
 @pytest.mark.parametrize("module", _modules("aom_av1_psy_tpu"))
 def test_every_reference_module_has_its_counterpart(module):
     assert os.path.isfile(os.path.join(PORT, _RENAMED.get(module, module)))
+
+
+# public names of a reference module whose counterpart bears another name
+# or lives in another port module: (module, name) -> (port module, port
+# name, why)
+_NAME_RENAMES = {
+    ("encoder/tpu_frame.py", "TpuFrameEncoder"): (
+        "encoder/tpu_frame.py", "GpuFrameEncoder", "the device is a GPU"),
+    ("encoder/tpu_frame.py", "encode_ivf_tpu"): (
+        "encoder/tpu_frame.py", "encode_ivf", "the device is a GPU"),
+    ("encoder/tpu_interframe.py", "TpuInterFrameEncoder"): (
+        "encoder/tpu_interframe.py", "GpuInterFrameEncoder",
+        "the device is a GPU"),
+    **{("encoder/tpu_interframe.py", f"encode_video_tpu{s}"): (
+        "encoder/tpu_interframe.py", f"encode_video{s}",
+        "the device is a GPU") for s in ("", "_arf", "_cbr", "_rc")},
+    ("encoder/temporal_filter.py", "apply_temporal_filter"): (
+        "encoder/temporal_filter.py", "tf_span_filter",
+        "kernel KK's span pass weights and accumulates every frame of a "
+        "span in one launch"),
+    ("ops/txfm.py", "fwht4x4"): (
+        "ops/txfm_host.py", "fwht4x4",
+        "the reference's numpy transforms are the port's host module"),
+    ("ops/txfm.py", "iwht4x4_add"): (
+        "ops/txfm_host.py", "iwht4x4_add",
+        "the reference's numpy transforms are the port's host module"),
+}
+
+
+def _public_defs(path):
+    """Public top-level functions and classes defined in the file."""
+    tree = ast.parse(open(path).read(), path)
+    return sorted(n.name for n in tree.body
+                  if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+                  and not n.name.startswith("_"))
+
+
+def _bound_names(path):
+    """Every name bound at the file's top level (definitions, assignments
+    and imports)."""
+    out = set()
+    for n in ast.parse(open(path).read(), path).body:
+        if isinstance(n, (ast.FunctionDef, ast.ClassDef)):
+            out.add(n.name)
+        elif isinstance(n, ast.Assign):
+            out |= {t.id for t in n.targets if isinstance(t, ast.Name)}
+        elif isinstance(n, (ast.Import, ast.ImportFrom)):
+            out |= {a.asname or a.name.split(".")[0] for a in n.names}
+    return out
+
+
+@pytest.mark.parametrize("module", _modules("aom_av1_psy_tpu"))
+def test_every_public_reference_name_has_its_counterpart(module):
+    missing = []
+    for name in _public_defs(os.path.join(REPO, "aom_av1_psy_tpu", module)):
+        where, port_name, _ = _NAME_RENAMES.get(
+            (module, name), (_RENAMED.get(module, module), name, ""))
+        if port_name not in _bound_names(os.path.join(PORT, where)):
+            missing.append(f"{name} -> {where}:{port_name}")
+    assert not missing, f"{module}: no counterpart for {missing}"
+
+
+@pytest.mark.parametrize("key", sorted(_NAME_RENAMES),
+                         ids=lambda k: f"{k[0]}:{k[1]}")
+def test_every_rename_names_a_reference_name(key):
+    module, name = key
+    assert name in _public_defs(os.path.join(REPO, "aom_av1_psy_tpu",
+                                             module))
+    assert _NAME_RENAMES[key][2]
 
 
 @pytest.fixture(scope="module")
