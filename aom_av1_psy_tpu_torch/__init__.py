@@ -24,8 +24,9 @@ reference's relative paths (``normative/`` with its data, ``bitstream/``,
 the reference's ``ops/txfm.py`` is ``ops/txfm_host.py``), numpy only.
 ``convert.py`` carries the reference's objects into the port's classes.
 
-Device work runs as plain torch ops plus eleven hand-written CUDA kernels
-(``csrc/``), each beside a plain PyTorch version of the same function:
+Device work runs as plain torch ops plus eighteen hand-written CUDA
+kernels (``csrc/``), each beside a plain PyTorch version of the same
+function:
 
 - KA ``intra_pred_sse`` (``ops/intra_pred.py``): all intra candidates of a
   block (edge buffer, plain + directional predictions) and their SSE;
@@ -61,7 +62,11 @@ Device work runs as plain torch ops plus eleven hand-written CUDA kernels
   ``csrc/strips.cuh``, templated on the metric, shared with KE;
 - KK ``tf_weight_accum`` (``encoder/temporal_filter.py``): the temporal
   filter's block-local 5x5 windowed error, float64 weight and int64
-  accumulation over every block of a frame.
+  accumulation over every block of a frame;
+- KL-KQ (``ops/convolve.py``, ``ops/mvsearch.py``, ``ops/metrics.py``,
+  ``ops/analyze.py``, ``ops/palette.py``; the README describes them) and
+  KR (``ops/txfm.py``): the general 2-D transforms, every tx size and
+  type forward and inverse at bd 8 / 10 / 12, and the lossless WHT pair.
 
 A wrapper runs the plain version for CPU tensors and the kernel for CUDA
 tensors; there is no fallback from one to the other.

@@ -127,7 +127,7 @@ def chain_from_jax(enc, device) -> dict:
     ``TpuInterFrameEncoder``) leaves behind, as the inputs of the port's
     ``GpuInterFrameEncoder``: ``seq`` and ``prev_fc`` (its counter-reset
     ``saved_fc``) as the port's objects (:func:`from_jax`), and
-    ``ref_planes`` (``ref_planes_out`` of an inter frame, else
+    ``ref_planes_dev`` (``ref_planes_out`` of an inter frame, else
     ``ref_planes_dev``; jax arrays are read with ``np.asarray``) as int32
     tensors on ``device``. Use as
     ``GpuInterFrameEncoder(frame, cfg, crop_w=..., crop_h=...,
@@ -136,4 +136,5 @@ def chain_from_jax(enc, device) -> dict:
     if planes is None:
         planes = enc.ref_planes_dev
     return {"seq": from_jax(enc.seq), "prev_fc": from_jax(enc.saved_fc),
-            "ref_planes": [plane(np.asarray(p), device) for p in planes]}
+            "ref_planes_dev": [plane(np.asarray(p), device)
+                               for p in planes]}

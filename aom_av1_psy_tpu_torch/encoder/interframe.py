@@ -20,8 +20,10 @@ to ``ops/mvsearch.full_pel_grid_search`` (kernel KJ on the card), and the
 one ``_mv_sads`` call, which cuts every candidate's region as the decoder's
 ``_predict_one`` does and predicts them together through
 ``ops/convolve.subpel_predict`` (kernel KL, per-candidate phases): 1 KJ +
-3 KL launches per inter block. The choices between the returned SADs stay
-the reference's sequential strict ``<``, on the host; the chosen
+3 KL launches per inter block (against a reference of another size, the
+candidates go through the decoder's scaled prediction on the host, as in
+the reference, and KL is not launched). The choices between the returned
+SADs stay the reference's sequential strict ``<``, on the host; the chosen
 prediction's SSE and ``build_inter_predictors`` stay on the host copy of
 the decoder path. ``device="cpu"`` runs the same calls on CPU tensors (the
 plain versions); the packets are the reference's byte for byte.
@@ -191,10 +193,18 @@ class InterFrameEncoder(FrameEncoder):
         ``mvs`` (EIGHTTAP_REGULAR, as ``fh.interp_filter``): every
         candidate's (bh+7, bw+7) region is cut as ``IT._predict_one`` cuts
         it (``_clamp_mv_to_umv_border``, ``_fetch_ref_block``), and one
-        ``subpel_predict`` predicts them all with their own phases."""
+        ``subpel_predict`` predicts them all with their own phases. On a
+        scaled reference (another size than the frame's) each candidate is
+        predicted as the reference's ``_mv_sad`` predicts it: through
+        ``IT._predict_one``, which scales, on the host."""
         ref = self.ref_slot
         if ref["upscaled_width"] != self.w or ref["height"] != self.h:
-            raise NotImplementedError("motion search on a scaled reference")
+            mbmi = MR.MbInfo()
+            mbmi.bsize = self.mi[mi_row, mi_col].bsize
+            mbmi.interp_y = mbmi.interp_x = 0
+            return [int(np.abs(IT._predict_one(
+                self, mbmi, ref, mv, self._xd_tmp, 0, mi_col * 4, mi_row * 4,
+                bw, bh, 0, 0, False) - src).sum()) for mv in mvs]
         regs, phases = [], []
         for mv in mvs:
             q4 = IT._clamp_mv_to_umv_border(mv, self._xd_tmp, bw, bh, 0, 0)

@@ -349,7 +349,7 @@ def _chroma_inter(src_u, src_v, ref_u, ref_v, dc_q, ac_q, rd16, rd32,
 
 
 def plan_inter_frame(src_planes, ref_planes, q, rdmult, mi_rows, mi_cols,
-                     crop_w, crop_h, device="cuda", fetch_recon=False):
+                     crop_w, crop_h, fetch_recon=False, device="cuda"):
     """Batched inter plan for one frame vs one LAST reference.
 
     src_planes: mi-aligned int32 numpy planes padded to 32 (luma) / 16

@@ -94,14 +94,15 @@ def _dc_sign_ctx(vals):
 class GpuInterFrameEncoder:
     """One INTER frame against a single LAST reference through the device
     plan + symbol-script pack. API mirror of ``TpuInterFrameEncoder``:
-    ``ref_planes`` are the reference's int32 planes on ``device``; after
+    ``ref_planes_dev`` are the reference's int32 planes on ``device``;
+    after
     ``encode()`` it holds ``plan``, ``seq``, ``fh``, ``saved_fc``,
     ``ref_planes_out`` (post-LPF, post-CDEF planes on ``device``) and
     ``timings`` (``plan_s``, ``pack_s``). The ARF slot plumbing
     (``ref_slot``, ``refresh_flags``, ``show``, ``primary_ref``) serves
     ``encode_video_arf``."""
 
-    def __init__(self, frame: Frame, cfg: EncoderConfig, seq, ref_planes,
+    def __init__(self, frame: Frame, cfg: EncoderConfig, seq, ref_planes_dev,
                  crop_w: int, crop_h: int, zero_lpf: bool = False,
                  prev_fc=None, ref_slot: int = 0, refresh_flags: int = 0xFF,
                  show: bool = True, primary_ref: int = 0, device="cuda"):
@@ -135,7 +136,7 @@ class GpuInterFrameEncoder:
                 self.srcp.append(_pad_plane(planes[p].astype(np.int32),
                                             ph32 // 2, pw32 // 2))
         self._srcs_dev = None
-        self.ref_planes_dev = list(ref_planes)
+        self.ref_planes_dev = list(ref_planes_dev)
         self.crop_w, self.crop_h = crop_w, crop_h
         # slot plumbing (ARF group structure)
         self.ref_slot = ref_slot

@@ -496,8 +496,8 @@ def slab_shared_inputs(slabs: list, q: int, fc) -> dict:
 
 
 def plan_frame_part(src_planes, q, fc, rdmult, mi_rows, mi_cols,
-                    device="cuda", fetch_recon=False, tile_mi_w=None,
-                    vis_mi_w=None):
+                    fetch_recon=False, tile_mi_w=None, vis_mi_w=None,
+                    device="cuda"):
     """Two-level (32 -> 16) partition plan over one frame (or one tile).
 
     src_planes: mi-aligned int32 numpy planes padded to multiples of 32
@@ -579,8 +579,8 @@ def _chroma_wavefront(src_u, src_v, uv_cost, dc_q, ac_q, rdmult, y_mode_idx,
     return mode_grid[0], levels_out, eob_out, bufs[:, 1:1 + H, 1:1 + W]
 
 
-def plan_frame(src_planes, q, bs, fc, rdmult, device="cuda",
-               fetch_recon=False):
+def plan_frame(src_planes, q, bs, fc, rdmult, fetch_recon=False,
+               device="cuda"):
     """Uniform-grid plan over one frame (the reference's ``plan_frame``).
 
     src_planes: mi-aligned int32 numpy planes (luma dims multiples of

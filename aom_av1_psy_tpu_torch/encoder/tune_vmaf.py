@@ -161,8 +161,8 @@ def unsharp(src, blur, amount: float):
     return out
 
 
-def frame_preprocessing(y_plane, device="cuda", max_amount: float = MAX_AMOUNT,
-                        hf_target: float = HF_TARGET):
+def frame_preprocessing(y_plane, max_amount: float = MAX_AMOUNT,
+                        hf_target: float = HF_TARGET, device="cuda"):
     """av1_vmaf_frame_preprocessing analogue: unsharp the 8-bit source luma.
 
     amount = max_amount * clip(1 - hf / hf_target, 0, 1) with hf =
@@ -188,7 +188,7 @@ def frame_preprocessing(y_plane, device="cuda", max_amount: float = MAX_AMOUNT,
 def preprocess_frame(frame: Frame, device="cuda"):
     """The encoders' tune_vmaf step: (amount, the frame with its luma
     replaced by :func:`frame_preprocessing`'s)."""
-    amount, sharp_y = frame_preprocessing(frame.planes()[0], device)
+    amount, sharp_y = frame_preprocessing(frame.planes()[0], device=device)
     if frame.monochrome:
         return amount, Frame(sharp_y, None, None)
     return amount, Frame(sharp_y, frame.planes()[1], frame.planes()[2])

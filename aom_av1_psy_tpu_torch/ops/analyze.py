@@ -177,7 +177,7 @@ def analyze_blocks_plain(src, above, left, corner, dc_q: int, ac_q: int,
                              .expand(1, b, n, n))[0]
     res = src - best_pred
 
-    coeffs = txfm_ops.fwd_txfm2d(res, tx_size, 0)  # (B, n, n) W,H
+    coeffs = txfm_ops.fwd_txfm2d_plain(res, tx_size, 0)  # (B, n, n) W,H
     shift = TS.tx_scale(tx_size)
     levels = quantize_fp(coeffs.reshape(b, -1), dc_q, ac_q, shift)
 

@@ -39,7 +39,7 @@ from ..normative import txsize as TS
 from ..normative.blocks import INTRA_MODE_TO_TX_TYPE
 from .txfm_host import _compiled_stages
 from .txfm import (FWD_COS_BIT_COL, FWD_COS_BIT_ROW, FWD_SHIFT, INV_COS_BIT,
-                   INV_SHIFT, SQUARE_TX, fwd_sel, inv_sel_add)
+                   INV_SHIFT, SQUARE_TX, fwd_sel, inv_sel_add, stage_rows)
 from ..kernels.build import CudaKernel, F, I, P, need
 
 
@@ -216,15 +216,8 @@ def stage_table(bs: int):
         sinpi += [0] * 5
         stages = _compiled_stages(f"av1_{d}{kind}{bs}", cb)
         meta += [off, len(stages), cb, 16 if d == "i" else 0]
-        for ia, ib, wa, wb, is_btf, clamp in stages:
-            assert len(ia) == bs
-            assert np.abs(wa).max() < 2**31 and np.abs(wb).max() < 2**31
-            head = (ia.astype(np.int64) | ib.astype(np.int64) << 8
-                    | is_btf.astype(np.int64) << 16
-                    | clamp.astype(np.int64) << 17)
-            rows.append(np.stack([head, wa, wb, np.zeros_like(head)],
-                                 axis=1).astype(np.int32))
-            off += bs
+        rows += stage_rows(stages, bs)
+        off += bs * len(stages)
     meta += [int(v) for v in FWD_SHIFT[tx]] + [int(v) for v in INV_SHIFT[tx]]
     meta += sinpi
     assert len(meta) == META_LEN

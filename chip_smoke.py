@@ -14,7 +14,8 @@ exit code is not 0):
    nvcc process per source, all started together (KA-KF, KG/KH/KI in
    ``tune_vmaf.cu``, KJ and KM ``mvsearch.cu``, KK ``temporal_filter.cu``,
    KL ``convolve.cu``, KN and KO ``metrics.cu``, KP ``analyze.cu``, KQ
-   ``palette.cu``), and the native range coder (``native/ec.cpp``, g++);
+   ``palette.cu``, KR ``txfm2d.cu``), and the native range coder
+   (``native/ec.cpp``, g++);
 3. KA / KB / KC against their plain PyTorch versions on the card, at the
    shapes the 1080p KEY frame gives them, for exact equality, with both
    times (CUDA events): KA's pick (``intra_pick``, the wavefronts' entry)
@@ -102,6 +103,17 @@ exit code is not 0):
    and at N = 16384 (several CTAs); exact; kernel (per call, the total on
    the host), ``device_ms``, plain and bound times, and the device
    kernels and copies of one call on int32 data;
+3h. KR (the general 2-D transforms, ``ops/txfm.py``'s four entries)
+   against its plain version on the card and on the CPU: every one of the
+   193 valid (tx_size, tx_type) pairs forward and inverse at bd 8, the
+   inverse at bd 10 and 12 on a third of each size's types (every size),
+   the WHT pair at bd 8 / 10 / 12, on mixed residuals (+-255 blocks,
+   values that wrap in int32) and extreme coefficient blocks; exact;
+   timed at a 1080p luma's blocks (``KR_TIMED``: TX_16X16 ADST_ADST
+   B = 8160, TX_32X32 DCT_DCT 2040, TX_64X64 DCT_DCT 510, TX_16X64
+   DCT_DCT 2040, TX_8X32 IDTX 8160, TX_4X4 FLIPADST_ADST 130560; the WHT
+   pair at 130560), forward and inverse: kernel (CUDA events, median of 3
+   after a first; ``device_ms``), plain and bound times;
 4. closed loop at CIF (352x288), KEY frame: the CUDA stream equals the
    port's CPU (plain-path) stream byte for byte, and the in-repo decoder
    reconstructs the port's post-loop-filter planes exactly;
@@ -197,21 +209,31 @@ exit code is not 0):
    the host cost of the kernels' device guard (the guarded stream lookup
    against the bare one, KA's pick wrapper with the guard and bypassed,
    in turns);
+5l. the main path of kernel KR (the transform API): frame 1 of ``make_gop(1920,
+   1080, 2)`` against frame 0 as its prediction (luma padded to 1088
+   rows), cut into the blocks of each ``KR_TIMED`` shape, through
+   ``fwd_txfm2d`` and ``inv_txfm2d_add``, and the 4x4 WHT pair, whose
+   round trip gives the source back exactly; equal to the CPU plain path;
+   timed (median of 3 after a first) with the counts set to 0 before the
+   3 runs and read after (14 launches a run). No encode path of either
+   package calls the general transforms on the device;
 6. / 6b. a profiler window over one steady 1080p KEY frame and one steady
    1080p P-frame (device busy time by kernel; KC's launches and device
    time in the KEY frame; 6b also KD's, KE's, KC's and KF's in the
    P-frame, and its pack split).
 
-``--only-kernels`` stops after phase 3g; ``--only-mesh`` runs phase 5k
+``--only-kernels`` stops after phase 3h; ``--only-mesh`` runs phase 5k
 alone after the build. The second-to-last line is
 ``{"kernels": [...]}``: ``launches`` from the GOP of phase 5b (for the
 4x4 / no-skip entries, from the uniform KEY frames of phase 5d; for KG,
 KH, KI and ``vif_down2``, from phase 5f; for KJ and KK, from the ARF GOP
 of phase 5g; for KL, KM, KN and KO, from the chain of phase 5i; for KP
-and KQ, from the analysis path of phase 5j), with the counts of the KEY
+and KQ, from the analysis path of phase 5j; for KR's four entries, from
+the transform path of phase 5l), with the counts of the KEY
 frames of phases 5, 5c, 5d and 5f, of phase 5b's IPPP GOP, of phase 5f's
 tune_vmaf GOP, of phase 5g's ARF GOP, of phase 5i's chain, of phase 5j's
-analysis path and of phase 4g's host inter GOP beside it, and
+analysis path, of phase 5l's transform path and of phase 4g's host
+inter GOP beside it, and
 ``launches_per_key_frame`` (phase 5's count over its 3 frames). KA's and
 KB's entries count only their own instances (``intra_pick`` bs 8/16/32,
 ``intra_pick bs4``; ``intra_pred_sse`` bs 8/16/32 and bs 4, no longer on
@@ -3140,6 +3162,218 @@ def check_k12_kernels(dev):
     return results
 
 
+# the timed shapes of phases 3h and 5l: (tx_size, tx_type, label) with a
+# 1080p luma's blocks (1088 x 1920 pixels: B = 8160 at 16x16); the WHT
+# pair at 4x4 (B = 130560)
+KR_TIMED = ((2, 3, "TX_16X16 ADST_ADST"), (3, 0, "TX_32X32 DCT_DCT"),
+            (4, 0, "TX_64X64 DCT_DCT"), (17, 0, "TX_16X64 DCT_DCT"),
+            (15, 9, "TX_8X32 IDTX"), (0, 8, "TX_4X4 FLIPADST_ADST"))
+
+
+def _kr_ops(B, ts, tt, inverse, bd=8):
+    """Operations of one KR launch over B blocks, from its program table:
+    3 a stage entry (two products and their sum), 2 more for a
+    butterfly's round shift and 2 for a stage clamp; 30 an ADST4 vector
+    (its sinpi products, sums and four round shifts); 3 an IDTX element;
+    ~4 an element and pass (the shifts, a flip, the rescale, an input
+    clamp); 3 a pixel for the inverse's recon (add and clip)."""
+    from aom_av1_psy_tpu_torch.ops import txfm as TX
+    stages, meta = TX.kr_program(ts, tt, inverse, bd)
+    w, h = int(meta[0]), int(meta[1])
+    ops = 3 * w * h if inverse else 0
+    for p in (meta[12:22], meta[22:32]):
+        kind, n, nst, off, clamp_bit = (int(v) for v in (*p[:4], p[5]))
+        if kind == TX.KIND_STAGES:
+            head = stages[off: off + nst * n, 0].astype("int64")
+            per = (3 * len(head) + 2 * int(((head >> 16) & 1).sum())
+                   + (2 * int(((head >> 17) & 1).sum()) if clamp_bit else 0))
+        else:
+            per = 30 if kind == TX.KIND_ADST4 else 3 * n
+        ops += (w * h // n) * (per + 4 * n)
+    return B * ops
+
+
+def _wht_ops(B, inverse):
+    """Operations of the WHT pair over B 4x4 blocks: 8 butterflies of 7
+    and 16 scalings (forward) or 16 shifts and 16 x 3 for the recon
+    (inverse)."""
+    return B * (56 + (64 if inverse else 16))
+
+
+def _kr_inputs(rng, B, w, h, bd=8):
+    """Mixed residuals (B, h, w) (+-40 noise, a third at +-255, two flat
+    +-255 blocks, one past the transforms' range that wraps in int32),
+    coefficients (B, w, h) (noise, both input clamps, raw int32 values)
+    and bd-bit predictions (B, h, w), int32 on the CPU."""
+    import numpy as np
+    import torch
+    res = rng.integers(-40, 41, (B, h, w))
+    res[: B // 3] = rng.integers(-255, 256, (B // 3, h, w))
+    res[B // 3] = 255
+    res[B // 3 + 1] = -255
+    res[B // 3 + 2] = rng.integers(-2**20, 2**20, (h, w))
+    lim = 1 << (bd + 7)
+    coeff = rng.integers(-3000, 3001, (B, w, h))
+    coeff[0] = lim - 1
+    coeff[1] = -lim
+    coeff[2] = rng.integers(-2**31, 2**31, (w, h))
+    coeff[3:6] = rng.integers(-lim, lim, (3, w, h))
+    pred = rng.integers(0, 1 << bd, (B, h, w))
+    return tuple(torch.as_tensor(a.astype(np.int32))
+                 for a in (res, coeff, pred))
+
+
+def _median_ms(fn, iters):
+    """Median of 3 CUDA-event means of ``iters`` calls, after a first."""
+    fn()
+    return statistics.median(cuda_time(fn, iters) for _ in range(3))
+
+
+def check_kr_kernels(dev):
+    """Phase 3h: KR against its plain version on the card and on the CPU,
+    exact: every one of the 193 valid (tx_size, tx_type) pairs forward
+    and inverse at bd 8 (B = 2 x 128 / max(w, h) + 3: the last CTA
+    part-filled), the inverse at bd 10 and 12 on a third of each size's
+    types (every size), the WHT pair (B = 1000, bd 8 / 10 / 12), on mixed
+    residuals and extreme coefficients (``_kr_inputs``). Timed at a
+    1080p luma's blocks (``KR_TIMED``, residuals of the same mix): kernel
+    (CUDA events around the wrapper, median of 3 after a first, and
+    ``device_ms``), plain (CUDA events) and bound times, forward and
+    inverse; the WHT pair at B = 130560."""
+    import numpy as np
+    import torch
+    from aom_av1_psy_tpu_torch.normative.enums import TX_HEIGHT, TX_WIDTH
+    from aom_av1_psy_tpu_torch.ops import txfm as TX
+
+    rng = np.random.default_rng(SEED + 19)
+    pairs = [(ts, tt) for ts in range(19) for tt in range(16)
+             if TX.valid_pair(ts, tt)]
+    if len(pairs) != 193:
+        raise AssertionError(f"KR: {len(pairs)} valid pairs, not 193")
+    err = {"fwd": 0.0, "inv": 0.0, "fwht": 0.0, "iwht": 0.0}
+    n_hbd = 0
+    for ts, tt in pairs:
+        w, h = int(TX_WIDTH[ts]), int(TX_HEIGHT[ts])
+        B = 2 * (128 // max(w, h)) + 3
+        res, coeff, pred = _kr_inputs(rng, B, w, h)
+        r, c, p = (x.to(dev) for x in (res, coeff, pred))
+        got = TX.fwd_txfm2d(r, ts, tt)
+        tag = f"KR fwd ts={ts} tt={tt}"
+        err["fwd"] = max(err["fwd"], compare(
+            tag, got, TX.fwd_txfm2d_plain(r, ts, tt)),
+            compare(tag + " (CPU)", got.cpu(),
+                    TX.fwd_txfm2d_plain(res, ts, tt)))
+        got = TX.inv_txfm2d_add(c, p, ts, tt)
+        tag = f"KR inv ts={ts} tt={tt} bd=8"
+        err["inv"] = max(err["inv"], compare(
+            tag, got, TX.inv_txfm2d_add_plain(c, p, ts, tt)),
+            compare(tag + " (CPU)", got.cpu(),
+                    TX.inv_txfm2d_add_plain(coeff, pred, ts, tt)))
+        if tt in [t for s, t in pairs if s == ts][ts % 3::3]:
+            for bd in (10, 12):
+                _, coeff, pred = _kr_inputs(rng, B, w, h, bd)
+                got = TX.inv_txfm2d_add(coeff.to(dev), pred.to(dev), ts, tt,
+                                        bd=bd)
+                err["inv"] = max(err["inv"], compare(
+                    f"KR inv ts={ts} tt={tt} bd={bd} (CPU)", got.cpu(),
+                    TX.inv_txfm2d_add_plain(coeff, pred, ts, tt, bd=bd)))
+                n_hbd += 1
+    for bd in (8, 10, 12):
+        res = torch.as_tensor(rng.integers(-255, 256, (1000, 4, 4)),
+                              dtype=torch.int32)
+        res[0] = torch.as_tensor(rng.integers(-2**29, 2**29, (4, 4)))
+        coeff = torch.as_tensor(rng.integers(-2**16, 2**16, (1000, 4, 4)),
+                                dtype=torch.int32)
+        coeff[0] = torch.as_tensor(rng.integers(-2**31, 2**31, (4, 4)))
+        pred = torch.as_tensor(rng.integers(0, 1 << bd, (1000, 4, 4)),
+                               dtype=torch.int32)
+        got = TX.fwht4x4(res.to(dev))
+        err["fwht"] = max(err["fwht"], compare(
+            "KR fwht", got, TX.fwht4x4_plain(res.to(dev))),
+            compare("KR fwht (CPU)", got.cpu(), TX.fwht4x4_plain(res)))
+        got = TX.iwht4x4_add(coeff.to(dev), pred.to(dev), bd)
+        err["iwht"] = max(err["iwht"], compare(
+            f"KR iwht bd={bd}", got,
+            TX.iwht4x4_add_plain(coeff.to(dev), pred.to(dev), bd)),
+            compare(f"KR iwht bd={bd} (CPU)", got.cpu(),
+                    TX.iwht4x4_add_plain(coeff, pred, bd)))
+    log(f"[3h] KR exact against its plain version on the card and on the "
+        f"CPU: 193 pairs forward and inverse at bd 8, {n_hbd} inverse "
+        f"(pair, bd) at bd 10 / 12 covering all 19 sizes, the WHT pair at "
+        f"bd 8 / 10 / 12")
+
+    # ---- timed at a 1080p luma's blocks ----
+    timed = {"fwd": {}, "inv": {}}
+    for ts, tt, label in KR_TIMED:
+        w, h = int(TX_WIDTH[ts]), int(TX_HEIGHT[ts])
+        B = 1088 * 1920 // (w * h)
+        res, _, pred = (x.to(dev) for x in _kr_inputs(rng, B, w, h))
+        coeff = TX.fwd_txfm2d(res, ts, tt)
+        out = TX.inv_txfm2d_add(coeff, pred, ts, tt)
+        iters = 20
+        for d, fn, plain, io in (
+                ("fwd", lambda: TX.fwd_txfm2d(res, ts, tt),
+                 lambda: TX.fwd_txfm2d_plain(res, ts, tt), (res, coeff)),
+                ("inv", lambda: TX.inv_txfm2d_add(coeff, pred, ts, tt),
+                 lambda: TX.inv_txfm2d_add_plain(coeff, pred, ts, tt),
+                 (coeff, pred, out))):
+            timed[d][f"{label} B={B}"] = {
+                "ms": _median_ms(fn, iters),
+                "device_ms": device_ms(fn, iters, f"kr_{d}_kernel"),
+                "plain_ms": cuda_time(plain, 3),
+                **bound(nbytes(io), _kr_ops(B, ts, tt, d == "inv"))}
+    B = 130560
+    res, coeff, pred = (torch.as_tensor(rng.integers(lo, hi, (B, 4, 4)),
+                                        dtype=torch.int32, device=dev)
+                        for lo, hi in ((-255, 256), (-2**12, 2**12),
+                                       (0, 256)))
+    wht = {}
+    for name, fn, plain, io in (
+            ("fwht4x4", lambda: TX.fwht4x4(res),
+             lambda: TX.fwht4x4_plain(res), (res, coeff)),
+            ("iwht4x4_add", lambda: TX.iwht4x4_add(coeff, pred),
+             lambda: TX.iwht4x4_add_plain(coeff, pred),
+             (coeff, pred, res))):
+        kname = "kr_fwht_kernel" if name == "fwht4x4" else "kr_iwht_kernel"
+        wht[name] = {"ms": _median_ms(fn, 50),
+                     "device_ms": device_ms(fn, 50, kname),
+                     "plain_ms": cuda_time(plain, 10),
+                     **bound(nbytes(io), _wht_ops(B, name != "fwht4x4"))}
+    for d in ("fwd", "inv"):
+        log(f"[3h] KR {d}: ms (device ms) [bound, plain ms] per 1080p "
+            f"batch: " + "; ".join(
+                f"{k} {v['ms']:.4f} ({v['device_ms']}) "
+                f"[{v['bound_ms']:.5f} {v['bound_by']}, plain "
+                f"{v['plain_ms']:.3f}]" for k, v in timed[d].items()))
+    log("[3h] KR WHT pair at B=130560: " + "; ".join(
+        f"{k} {v['ms']:.4f} ({v['device_ms']}) [{v['bound_ms']:.5f} "
+        f"{v['bound_by']}, plain {v['plain_ms']:.3f}]"
+        for k, v in wht.items()))
+    src = "aom_av1_psy_tpu_torch/csrc/txfm2d.cu"
+    none = "no single call runs the AV1 integer transforms"
+    results = []
+    for name, d, replaces in (
+            ("txfm2d_fwd", "fwd", "aom_av1_psy_tpu/ops/txfm.py:105,129,185,"
+                                  "197,211,227"),
+            ("txfm2d_inv", "inv", "aom_av1_psy_tpu/ops/txfm.py:105,157,185,"
+                                  "197,211,266")):
+        first = next(iter(timed[d].items()))
+        results.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces, "max_abs_err": err[d],
+                        **first[1], "library_ms": None,
+                        "library_none": none, "timed_at": first[0],
+                        "by_shape": timed[d]})
+    for name, key, line in (("fwht4x4", "fwht", 314),
+                            ("iwht4x4_add", "iwht", 343)):
+        results.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": f"aom_av1_psy_tpu/ops/txfm.py:{line}",
+                        "max_abs_err": err[key], **wht[name],
+                        "library_ms": None, "library_none": none,
+                        "timed_at": "B=130560 4x4 blocks"})
+    return results
+
+
+
 def _wrap32(x):
     return (x + 2**31) % 2**32 - 2**31
 
@@ -3423,6 +3657,82 @@ def mesh_path(dev, kernels, tiled_pkt=None):
     return counts
 
 
+def _kr_blocks(plane, h, w):
+    """(B, h, w) blocks of a (1088, 1920) plane, raster order."""
+    H, W = plane.shape
+    return (plane.reshape(H // h, h, W // w, w).permute(0, 2, 1, 3)
+            .reshape(-1, h, w).contiguous())
+
+
+def _transform_path(src, ref):
+    """The transform API over a luma plane against a prediction plane: at
+    each ``KR_TIMED`` shape the forward transform of the residual blocks
+    and the inverse of its coefficients onto the prediction; at 4x4 the
+    WHT pair. Returns {name: tensor}."""
+    from aom_av1_psy_tpu_torch.normative.enums import TX_HEIGHT, TX_WIDTH
+    from aom_av1_psy_tpu_torch.ops import txfm as TX
+    out = {}
+    for ts, tt, label in KR_TIMED:
+        w, h = int(TX_WIDTH[ts]), int(TX_HEIGHT[ts])
+        s, p = _kr_blocks(src, h, w), _kr_blocks(ref, h, w)
+        out[f"{label} coeff"] = c = TX.fwd_txfm2d(s - p, ts, tt)
+        out[f"{label} recon"] = TX.inv_txfm2d_add(c, p, ts, tt)
+    s, p = _kr_blocks(src, 4, 4), _kr_blocks(ref, 4, 4)
+    out["WHT coeff"] = c = TX.fwht4x4(s - p)
+    out["WHT recon"] = TX.iwht4x4_add(c, p)
+    return out
+
+
+def transform_path(dev, kernels):
+    """Phase 5l: the main path of kernel KR, the transform API
+    at full width: frame 1 of ``make_gop(1920, 1080, 2)`` (luma padded to
+    1088 rows) against frame 0 as its prediction, through
+    ``_transform_path`` (6 shapes x (``fwd_txfm2d``, ``inv_txfm2d_add``)
+    + ``fwht4x4`` / ``iwht4x4_add``: 14 KR launches); the WHT pair gives
+    the source back exactly (AV1's lossless path); equal to the same path
+    on the CPU plain path; timed (host clock to a synchronize, median of 3
+    after a first) with the counts set to 0 just before the 3 runs and
+    read just after. No encode path of either package calls the general
+    transforms on the device: this path is the slice's own."""
+    import torch
+    from aom_av1_psy_tpu_torch.utils import testframes
+    f0, f1 = testframes.make_gop(1920, 1080, 2)
+    ref, src = _luma_1088(f0, dev), _luma_1088(f1, dev)
+    t0 = time.perf_counter()
+    got = _transform_path(src, ref)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    _reset(kernels)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        again = _transform_path(src, ref)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = _counts(kernels)
+    _need("1080p transform path", counts, [k.name for k in kernels])
+    t0 = time.perf_counter()
+    want = _transform_path(src.cpu(), ref.cpu())
+    cpu_s = time.perf_counter() - t0
+    for k in got:
+        compare(f"1080p transforms {k} (CUDA vs CPU plain)", got[k].cpu(),
+                want[k])
+        compare(f"1080p transforms {k} (steady)", again[k], got[k])
+    compare("1080p WHT round trip == source", got["WHT recon"],
+            _kr_blocks(src, 4, 4))
+    trip = {k[:-6]: int((v - _kr_blocks(src, v.shape[1], v.shape[2]))
+                        .abs().max())
+            for k, v in got.items() if k.endswith(" recon")}
+    log(f"[5l] 1080p transform path (6 shapes fwd + inv, the WHT pair): "
+        f"first {first_s:.4f} s, steady {statistics.median(times):.4f} s "
+        f"(runs {', '.join(f'{x:.4f}' for x in times)}), CPU plain "
+        f"{cpu_s:.2f} s; CUDA == CPU plain; WHT round trip exact; round "
+        f"trip max |recon - source| by shape (no quantizer; 64-point "
+        f"sizes keep 32 x 32 coefficients): {json.dumps(trip)}")
+    log(f"[5l] launches in the 3 timed runs: {json.dumps(counts)}")
+    return counts
+
+
 def closed_loop_gops_cif(dev):
     """Phase 4f: the ARF, CBR and RC GOP encodes at CIF: the CUDA packets (and
     q, trace) equal the CPU plain path's, every displayed frame decodes to
@@ -3582,11 +3892,12 @@ def main() -> int:
     from aom_av1_psy_tpu_torch.ops.metrics import KN, KO
     from aom_av1_psy_tpu_torch.ops.analyze import KP
     from aom_av1_psy_tpu_torch.ops.palette import KQ
+    from aom_av1_psy_tpu_torch.ops.txfm import KR
     from aom_av1_psy_tpu_torch.native import LIB_PATH, get_lib
     kernels = (KA, KB, KC, KD, KE, KF, KJ, KK)
     k13b = (KJ, KL, KM, KN, KO)
     k12 = (KP, KQ)
-    built = kernels + (TV,) + k13b[1:] + k12
+    built = kernels + (TV,) + k13b[1:] + k12 + (KR,)
     t0 = time.perf_counter()
     build_all(built)
     log(f"[2] built {', '.join(k.name for k in built)} "
@@ -3618,6 +3929,7 @@ def main() -> int:
     tf_results = phase("3e", check_tf_kernels, dev)
     k13b_results = phase("3f", check_k13b_kernels, dev)
     k12_results = phase("3g", check_k12_kernels, dev)
+    kr_results = phase("3h", check_kr_kernels, dev)
     if "--only-kernels" in sys.argv[1:]:
         return 0
     phase("4", closed_loop_cif, dev)
@@ -3641,6 +3953,7 @@ def main() -> int:
     chain_counts = phase("5i", subpel_chain_path, dev, k13b)
     analysis_counts = phase("5j", analysis_path, dev, k12)
     phase("5k", mesh_path, dev, kernels[:3], tiled_pkt)
+    kr_counts = phase("5l", transform_path, dev, (KR,))
     phase("6", profile_frame, dev, frame, cfg)
     phase("6b", profile_p_frame, dev, frames, encs)
 
@@ -3665,7 +3978,9 @@ def main() -> int:
                           "tune_vmaf gauss_blur moments"),
            "unsharp_apply": ("tune_vmaf unsharp_apply",),
            "vif_scale": ("tune_vmaf vif_scale",),
-           "vif_down2": ("tune_vmaf vif_down2",)}
+           "vif_down2": ("tune_vmaf vif_down2",),
+           "txfm2d_fwd": ("txfm2d fwd",), "txfm2d_inv": ("txfm2d inv",),
+           "fwht4x4": ("txfm2d fwht",), "iwht4x4_add": ("txfm2d iwht",)}
     total = {"lpf_ladder": KC, "mc_8tap": KD, "fullpel_ssd": KE,
              "cdef_filter": KF, "fullpel_sad": KJ, "tf_span_filter": KK,
              "subpel_predict": KL, "subpel_refine49": KM,
@@ -3700,9 +4015,16 @@ def main() -> int:
     for r in k12_results:
         r["launches"] = n(r["name"], analysis_counts)
         r["launches_from"] = "5j: 3 timed runs of the 1080p analysis path"
+    for r in kr_results:
+        r["launches"] = n(r["name"], kr_counts)
+        r["launches_from"] = "5l: 3 timed runs of the 1080p transform path"
+        r["launches_note"] = ("no encode path of either package calls the "
+                              "general transforms on the device: 0 on "
+                              "every encode path below")
     results += (uniform_results + vmaf_results + tf_results + k13b_results
-                + k12_results)
+                + k12_results + kr_results)
     for r in results:
+        r["launches_transform_path"] = n(r["name"], kr_counts)
         r["launches_analysis_path"] = n(r["name"], analysis_counts)
         r["launches_subpel_chain"] = n(r["name"], chain_counts)
         r["launches_host_inter_gop"] = n(r["name"], host_inter_counts)

@@ -179,7 +179,7 @@ def test_chain_from_jax_starts_port_p_frames(pan96):
     cfg = EncoderConfig(base_q_idx=80, cdef_fixed=True)
     for i in (1, 2):
         chain = convert.chain_from_jax(ej[i - 1], "cpu")
-        assert all(p.dtype == torch.int32 for p in chain["ref_planes"])
+        assert all(p.dtype == torch.int32 for p in chain["ref_planes_dev"])
         enc = GpuInterFrameEncoder(convert.from_jax(frames[i]),
                                    convert.from_jax(cfg), crop_w=96,
                                    crop_h=64, **chain, device="cpu")

@@ -183,12 +183,6 @@ _NAME_RENAMES = {
         "encoder/temporal_filter.py", "tf_span_filter",
         "kernel KK's span pass weights and accumulates every frame of a "
         "span in one launch"),
-    ("ops/txfm.py", "fwht4x4"): (
-        "ops/txfm_host.py", "fwht4x4",
-        "the reference's numpy transforms are the port's host module"),
-    ("ops/txfm.py", "iwht4x4_add"): (
-        "ops/txfm_host.py", "iwht4x4_add",
-        "the reference's numpy transforms are the port's host module"),
 }
 
 
@@ -223,6 +217,81 @@ def test_every_public_reference_name_has_its_counterpart(module):
         if port_name not in _bound_names(os.path.join(PORT, where)):
             missing.append(f"{name} -> {where}:{port_name}")
     assert not missing, f"{module}: no counterpart for {missing}"
+
+
+# parameters a counterpart may add after the reference's besides a
+# trailing ``device`` / ``generator``: (module, name, method) -> (names,
+# why); and the public names whose counterpart is another function
+_EXTRA_PARAMS = {
+    ("encoder/tune_vmaf.py", "gaussian_blur", ""): (
+        ("moments",), "kernel KG also returns the box moments KI reads"),
+}
+_OTHER_FUNCTION = {("encoder/temporal_filter.py", "apply_temporal_filter")}
+_TAIL = ("device", "generator")
+
+
+def _params(fn):
+    a = fn.args
+    out = [x.arg for x in a.posonlyargs + a.args]
+    out += [f"*{a.vararg.arg}"] if a.vararg else []
+    out += [x.arg for x in a.kwonlyargs]
+    return out + ([f"**{a.kwarg.arg}"] if a.kwarg else [])
+
+
+def _signatures(path):
+    """name -> {method ("" for a function) -> parameter names} of every
+    public top-level function and class (its public methods and
+    ``__init__``) defined in the file."""
+    out = {}
+    for n in ast.parse(open(path).read(), path).body:
+        if isinstance(n, ast.FunctionDef):
+            out[n.name] = {"": _params(n)}
+        elif isinstance(n, ast.ClassDef):
+            out[n.name] = {m.name: _params(m) for m in n.body
+                           if isinstance(m, ast.FunctionDef)
+                           and (m.name == "__init__"
+                                or not m.name.startswith("_"))}
+    return out
+
+
+@pytest.mark.parametrize("module", _modules("aom_av1_psy_tpu"))
+def test_every_counterpart_takes_the_reference_parameters(module):
+    """Every public function and method of a reference module takes, in
+    its port counterpart, the reference's parameter names in order; only
+    a trailing ``device`` / ``generator`` (or an ``_EXTRA_PARAMS`` entry)
+    may follow them."""
+    ref = _signatures(os.path.join(REPO, "aom_av1_psy_tpu", module))
+    wrong = []
+    for name, methods in ref.items():
+        if name.startswith("_") or (module, name) in _OTHER_FUNCTION:
+            continue
+        where, port_name, _ = _NAME_RENAMES.get(
+            (module, name), (_RENAMED.get(module, module), name, ""))
+        port = _signatures(os.path.join(PORT, where)).get(port_name)
+        if port is None:
+            continue                # bound otherwise: the test above
+        for m, want in methods.items():
+            got = port.get(m)
+            if got is None:
+                continue            # inherited in the port
+            extra = _EXTRA_PARAMS.get((module, name, m), ((), ""))[0]
+            tail = got[len(want):]
+            while tail and tail[-1] in _TAIL:
+                tail = tail[:-1]
+            if got[:len(want)] != want or tuple(tail) != extra:
+                wrong.append(f"{name}.{m or '()'}: {want} -> {got}")
+    assert not wrong, f"{module}: {wrong}"
+
+
+@pytest.mark.parametrize("key", sorted(_EXTRA_PARAMS),
+                         ids=lambda k: f"{k[0]}:{k[1]}")
+def test_every_extra_parameter_is_the_ports(key):
+    module, name, method = key
+    got = _signatures(os.path.join(PORT, module))[name][method]
+    want = _signatures(os.path.join(REPO, "aom_av1_psy_tpu",
+                                    module))[name][method]
+    assert all(p not in want for p in _EXTRA_PARAMS[key][0])
+    assert set(_EXTRA_PARAMS[key][0]) <= set(got) and _EXTRA_PARAMS[key][1]
 
 
 @pytest.mark.parametrize("key", sorted(_NAME_RENAMES),

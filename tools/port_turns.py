@@ -195,7 +195,7 @@ if sys.argv[2:] == ["vmaf"]:
                   ("::kd_kernel(", "::vif_down2_kernel("), 10)
     out["vif_lite_s"] = host_s(lambda: TV.vif_lite(y_np, blur))
     out["frame_preprocessing_s"] = host_s(
-        lambda: TV.frame_preprocessing(y_np, "cuda"))
+        lambda: TV.frame_preprocessing(y_np, device="cuda"))
     print(json.dumps(out))
     sys.exit(0)
 
