@@ -23,9 +23,11 @@ reference: residual/pixel blocks ``(B, H, W)``, coefficient blocks
 
 The four public functions take CPU tensors to their plain versions
 (``*_plain``, torch ops) and CUDA tensors to kernel KR (``csrc/txfm2d.cu``),
-one launch per call, with no fallback between them. KR reads each launch's
-two 1-D programs from a table the host builds once per (tx size, tx type,
-direction, bd) (``kr_program``).
+one launch per call, with no fallback between them. KR compiles the 1-D
+programs of every tx size into registers (``csrc/kr_programs.cuh``,
+generated from the normative stage data by ``tools/gen_kr_programs.py``);
+a launch takes only the tx size, the two 1-D kinds, the flips and, for
+the inverse, bd and its stage clamp (``kr_program``).
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ import functools
 import numpy as np
 import torch
 
-from ..kernels.build import CudaKernel, I, P, need
+from ..kernels.build import CudaKernel, I, P
 from ..normative import tables
 from ..normative.enums import (TX_HEIGHT, TX_TYPE_1D, TX_WIDTH, TxSize,
                                TxType, TxType1D)
@@ -56,10 +58,11 @@ SQUARE_TX = {4: int(TxSize.TX_4X4), 8: int(TxSize.TX_8X8),
 INV_STAGE_RANGE = {8: 16, 10: 18, 12: 20}
 
 KR = CudaKernel("txfm2d", {
-    # res, out, B, w, h, stages, meta
-    "kr_fwd": [P, P, I, I, I, P, P],
-    # coeff, pred, out, B, w, h, stages, meta
-    "kr_inv": [P, P, P, I, I, I, P, P],
+    # res, out, B, tx_size, vkind, hkind, ud_flip, lr_flip
+    "kr_fwd": [P, P, I, I, I, I, I, I],
+    # coeff, pred, out, B, tx_size, vkind, hkind, ud_flip, lr_flip, bd,
+    # stage clamp bits
+    "kr_inv": [P, P, P, I, I, I, I, I, I, I, I],
     # res, out, B
     "kr_fwht": [P, P, I],
     # coeff, pred, out, B, bd
@@ -391,19 +394,11 @@ def iwht4x4_add_plain(coeff, pred, bd: int = 8):
     return rec.to(pred.dtype)
 
 
-# ----------------------------------------------------------------------
-# kernel KR: the program table and the entries
-# ----------------------------------------------------------------------
-KIND_STAGES, KIND_ADST4, KIND_IDTX = 0, 1, 2
-PASS_LEN = 10       # csrc/txfm2d.cu kPassLen
-META_LEN = 12 + 2 * PASS_LEN
-
-
 def stage_rows(stages, n: int) -> list:
     """The entries of one 1-D stage program (``_compiled_stages``) as
-    kernels KB, KP and KR read them (``csrc/txfm.cuh``): per stage an
-    (n, 4) int32 array, one (ia | ib << 8 | is_btf << 16 | clamp << 17,
-    wa, wb, 0) per element."""
+    kernels KB and KP read them (``csrc/txfm.cuh``): per stage an (n, 4)
+    int32 array, one (ia | ib << 8 | is_btf << 16 | clamp << 17, wa, wb,
+    0) per element."""
     rows = []
     for ia, ib, wa, wb, is_btf, clamp in stages:
         assert len(ia) == n and ia.max() < 256 and ib.max() < 256
@@ -416,68 +411,52 @@ def stage_rows(stages, n: int) -> list:
     return rows
 
 
-def _pass(rows, type1d, n, cos_bit, inverse, clamp_bit):
-    """One 1-D program's descriptor (kind, n, n_stages, row offset,
-    cos_bit, clamp_bit, sinpi[1..4]); its stage entries, if any, appended
-    to ``rows`` (``stage_rows``: stage s at offset + s*n)."""
-    if type1d == TxType1D.IDTX:
-        return [KIND_IDTX, n, 0, 0, 0, 0, 0, 0, 0, 0]
-    if type1d != TxType1D.DCT and n == 4:
-        s = [int(v) for v in tables.sinpi(cos_bit)]
-        return [KIND_ADST4, n, 0, 0, cos_bit, 0, *s[1:5]]
-    kind = "dct" if type1d == TxType1D.DCT else "adst"
-    stages = _compiled_stages(f"av1_{'i' if inverse else 'f'}{kind}{n}",
-                              cos_bit)
-    off = sum(len(r) for r in rows)
-    rows += stage_rows(stages, n)
-    return [KIND_STAGES, n, len(stages), off, cos_bit, clamp_bit or 0,
-            0, 0, 0, 0]
+# ----------------------------------------------------------------------
+# kernel KR: the launch arguments and the entries
+# ----------------------------------------------------------------------
+KR_DCT, KR_ADST, KR_IDTX = 0, 1, 2      # csrc/txfm2d.cu's 1-D kinds
+_KR_KIND = {TxType1D.DCT: KR_DCT, TxType1D.ADST: KR_ADST,
+            TxType1D.FLIPADST: KR_ADST, TxType1D.IDTX: KR_IDTX}
 
 
 def kr_program(tx_size: int, tx_type: int, inverse: bool, bd: int = 8):
-    """The table of one KR launch, as ``csrc/txfm2d.cu`` reads it:
-    ``stages`` (rows, 4) int32, the stage entries of the launch's two 1-D
-    programs, and ``meta`` (META_LEN,) int32: w, h, ud_flip, lr_flip,
-    rect (|log2 w - log2 h| == 1), bd, the three shifts (forward; the
-    inverse's two and 0), the clamp of the first pass's input and of the
-    second's (inverse: bd + 8, max(bd + 6, 16); forward 0), 0, then the
-    descriptors of the first pass (forward: the columns, n = h; inverse:
-    the rows, n = w) and of the second (``_pass``)."""
-    w, h, lw, lh, vtype, htype, ud_flip, lr_flip = _pair(tx_size, tx_type)
-    rows = []
-    if inverse:
-        opt = _inv_bd(bd)
-        sh = [int(v) for v in INV_SHIFT[tx_size]] + [0]
-        clamps = [bd + 8, max(bd + 6, 16)]
-        first = _pass(rows, htype, w, INV_COS_BIT, True, opt)
-        second = _pass(rows, vtype, h, INV_COS_BIT, True, opt)
-    else:
-        sh = [int(v) for v in FWD_SHIFT[tx_size]]
-        clamps = [0, 0]
-        first = _pass(rows, vtype, h, int(FWD_COS_BIT_COL[lw][lh]), False,
-                      None)
-        second = _pass(rows, htype, w, int(FWD_COS_BIT_ROW[lw][lh]), False,
-                       None)
-    meta = [w, h, int(ud_flip), int(lr_flip), int(abs(lw - lh) == 1), bd,
-            *sh, *clamps, 0, *first, *second]
-    assert len(meta) == META_LEN
-    stages = np.concatenate(rows, 0) if rows else np.zeros((1, 4), np.int32)
-    return stages, np.asarray(meta, np.int32)
+    """What one KR launch takes at run time beside its tensors: (tx size,
+    column kind, row kind, ud_flip, lr_flip) and, for the inverse, (bd,
+    the stage clamp's bits). The kinds are ``KR_DCT`` / ``KR_ADST``
+    (FLIPADST is ADST with the flip) / ``KR_IDTX``. Everything else (the
+    1-D programs, cos bits, shifts, rescale and the CTA's shape) is
+    compiled per tx size into the kernel (``csrc/kr_programs.cuh``)."""
+    _, _, _, _, vtype, htype, ud_flip, lr_flip = _pair(tx_size, tx_type)
+    args = (int(tx_size), _KR_KIND[vtype], _KR_KIND[htype], int(ud_flip),
+            int(lr_flip))
+    return args + (bd, _inv_bd(bd)) if inverse else args
 
 
 @functools.cache
-def _kr_tables(tx_size: int, tx_type: int, inverse: bool, bd: int,
-               device: str):
-    """``kr_program`` on ``device`` (stages, meta), uploaded once."""
-    stages, meta = kr_program(tx_size, tx_type, inverse, bd)
-    return (torch.as_tensor(stages, device=device).contiguous(),
-            torch.as_tensor(meta, device=device))
+def _kr_launch(tx_size: int, tx_type: int, inverse: bool, bd: int):
+    """(w, h, ``kr_program``) of a valid pair, made once per (tx size,
+    type, direction, bd): a wrapper's host work is then a lookup."""
+    w, h = _pair(tx_size, tx_type)[:2]
+    return w, h, kr_program(tx_size, tx_type, inverse, bd)
 
 
 def _on_card(x, shape, what):
-    """x as a contiguous int32 tensor of ``shape`` on its card."""
-    _blocks(x, shape[1:], what)
-    return x.to(torch.int32).contiguous()
+    """x as a contiguous int32 tensor of ``shape`` on its card, its data
+    16-byte aligned (KR moves blocks as int4): a view that is not is
+    copied once. A tensor that already is one passes through unchecked
+    further."""
+    if (x.dtype != torch.int32 or x.shape != shape or not x.is_contiguous()
+            or x.data_ptr() % 16):
+        _blocks(x, shape[1:], what)
+        x = x.to(torch.int32).contiguous()
+        if x.data_ptr() % 16:
+            x = x.clone()
+    return x
+
+
+def _same_card(p, dev, what):
+    if p.device != dev:
+        raise ValueError(f"{what}: want a tensor on {dev}, got {p.device}")
 
 
 def fwd_txfm2d(res, tx_size: TxSize, tx_type: TxType, bd: int = 8):
@@ -488,18 +467,16 @@ def fwd_txfm2d(res, tx_size: TxSize, tx_type: TxType, bd: int = 8):
     index 31 are computed, not zeroed). ``bd`` is accepted and ignored, as
     in the reference. CPU tensors: ``fwd_txfm2d_plain``; CUDA tensors: one
     KR launch."""
-    if res.device.type == "cpu":
+    dev = res.device
+    if dev.type == "cpu":
         return fwd_txfm2d_plain(res, tx_size, tx_type, bd)
-    w, h = _pair(tx_size, tx_type)[:2]
+    w, h, args = _kr_launch(tx_size, tx_type, False, 8)
     b = res.shape[0]
     x = _on_card(res, (b, h, w), "fwd_txfm2d residuals")
-    out = torch.empty((b, w, h), dtype=torch.int32, device=x.device)
+    out = torch.empty((b, w, h), dtype=torch.int32, device=dev)
     if b:
-        stages, meta = _kr_tables(int(tx_size), int(tx_type), False, 8,
-                                  str(x.device))
-        KR.launch("kr_fwd", x.data_ptr(), out.data_ptr(), b, w, h,
-                  stages.data_ptr(), meta.data_ptr(), device=x.device.index,
-                  variant="fwd")
+        KR.launch("kr_fwd", x.data_ptr(), out.data_ptr(), b, *args,
+                  device=dev.index, variant="fwd")
     return out
 
 
@@ -512,21 +489,18 @@ def inv_txfm2d_add(coeff, pred, tx_size: TxSize, tx_type: TxType,
     coeff: (B, W, H) integer tensor (int32); pred: (B, H, W) integer
     pixels. Returns the recon (B, H, W) in pred's dtype. CPU tensors:
     ``inv_txfm2d_add_plain``; CUDA tensors: one KR launch."""
-    if coeff.device.type == "cpu":
+    dev = coeff.device
+    if dev.type == "cpu":
         return inv_txfm2d_add_plain(coeff, pred, tx_size, tx_type, bd)
-    w, h = _pair(tx_size, tx_type)[:2]
-    _inv_bd(bd)
+    w, h, args = _kr_launch(tx_size, tx_type, True, bd)
     b = coeff.shape[0]
     c = _on_card(coeff, (b, w, h), "inv_txfm2d_add coefficients")
     p = _on_card(pred, (b, h, w), "inv_txfm2d_add prediction")
-    need(p, torch.int32, (b, h, w), c.device.index, "inv_txfm2d_add pred")
-    out = torch.empty((b, h, w), dtype=torch.int32, device=c.device)
+    _same_card(p, dev, "inv_txfm2d_add prediction")
+    out = torch.empty((b, h, w), dtype=torch.int32, device=dev)
     if b:
-        stages, meta = _kr_tables(int(tx_size), int(tx_type), True, bd,
-                                  str(c.device))
         KR.launch("kr_inv", c.data_ptr(), p.data_ptr(), out.data_ptr(), b,
-                  w, h, stages.data_ptr(), meta.data_ptr(),
-                  device=c.device.index, variant="inv")
+                  *args, device=dev.index, variant="inv")
     return out.to(pred.dtype)
 
 
@@ -535,14 +509,15 @@ def fwht4x4(res):
     res: (B, 4, 4) natural (r, c), taken as int32; returns (B, 4, 4) int32
     in the C coefficient layout (flat c*4+r, shape (B, W, H)). CPU
     tensors: ``fwht4x4_plain``; CUDA tensors: one KR launch."""
-    if res.device.type == "cpu":
+    dev = res.device
+    if dev.type == "cpu":
         return fwht4x4_plain(res)
     b = res.shape[0]
     x = _on_card(res, (b, 4, 4), "fwht4x4 residuals")
-    out = torch.empty((b, 4, 4), dtype=torch.int32, device=x.device)
+    out = torch.empty((b, 4, 4), dtype=torch.int32, device=dev)
     if b:
         KR.launch("kr_fwht", x.data_ptr(), out.data_ptr(), b,
-                  device=x.device.index, variant="fwht")
+                  device=dev.index, variant="fwht")
     return out
 
 
@@ -552,14 +527,15 @@ def iwht4x4_add(coeff, pred, bd: int = 8):
     c*4+r, shape (B, W, H)); pred (B, 4, 4). Returns the recon in pred's
     dtype. CPU tensors: ``iwht4x4_add_plain``; CUDA tensors: one KR
     launch."""
-    if coeff.device.type == "cpu":
+    dev = coeff.device
+    if dev.type == "cpu":
         return iwht4x4_add_plain(coeff, pred, bd)
     b = coeff.shape[0]
     c = _on_card(coeff, (b, 4, 4), "iwht4x4_add coefficients")
     p = _on_card(pred, (b, 4, 4), "iwht4x4_add prediction")
-    need(p, torch.int32, (b, 4, 4), c.device.index, "iwht4x4_add pred")
-    out = torch.empty((b, 4, 4), dtype=torch.int32, device=c.device)
+    _same_card(p, dev, "iwht4x4_add prediction")
+    out = torch.empty((b, 4, 4), dtype=torch.int32, device=dev)
     if b:
         KR.launch("kr_iwht", c.data_ptr(), p.data_ptr(), out.data_ptr(), b,
-                  bd, device=c.device.index, variant="iwht")
+                  bd, device=dev.index, variant="iwht")
     return out.to(pred.dtype)

@@ -113,7 +113,13 @@ exit code is not 0):
    B = 8160, TX_32X32 DCT_DCT 2040, TX_64X64 DCT_DCT 510, TX_16X64
    DCT_DCT 2040, TX_8X32 IDTX 8160, TX_4X4 FLIPADST_ADST 130560; the WHT
    pair at 130560), forward and inverse: kernel (CUDA events, median of 3
-   after a first; ``device_ms``), plain and bound times;
+   after a first; ``device_ms`` warm, and with the L2 flushed before each
+   call, ``cold_device_ms``), plain and bound times, and each time over
+   its bound (the inverse's bytes count only the coded min(W, 32) x
+   min(H, 32) corner of the coefficients, which is all it reads; the
+   operations are counted from the normative stage data, ``_kr_ops``);
+   the registers, stack and spill that ptxas reported for each of KR's
+   40 instantiations (``ptxas_report``);
 4. closed loop at CIF (352x288), KEY frame: the CUDA stream equals the
    port's CPU (plain-path) stream byte for byte, and the in-repo decoder
    reconstructs the port's post-loop-filter planes exactly;
@@ -301,6 +307,43 @@ def device_ms(fn, iters, name):
             if e.device_type == torch.autograd.DeviceType.CUDA
             and name in e.key)
     return t / 1e3 / iters if t else None
+
+
+def cold_device_ms(fn, iters, name):
+    """``device_ms`` with the L2 flushed before each call: a read of 256 MB
+    (five times the H100's 50 MB L2; a read, so that the L2 holds no
+    dirty lines to write back during the call), so that each call reads
+    its inputs from HBM as a byte bound assumes. The read's own time is
+    not counted (``name`` leaves it out)."""
+    import torch
+    flush = torch.ones(64 << 20, dtype=torch.int32, device="cuda")
+    return device_ms(lambda: (flush.sum(), fn()), iters, name)
+
+
+def ptxas_report(build_log):
+    """What ptxas -v said of each entry function of a kernel's build log
+    (``tools/sass_census.ptxas_info``): {its demangled name, without
+    arguments: [its registers and stack / spill lines]}."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "sass_census", os.path.join(REPO, "tools", "sass_census.py"))
+    sass_census = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sass_census)
+    info = sass_census.ptxas_info(build_log.splitlines())
+    names = sass_census.demangle(list(info))
+    out = {}
+    for m, lines in info.items():
+        name, depth = names[m], 0
+        if name.endswith(")"):      # drop the argument list
+            for i in range(len(name) - 1, 0, -1):
+                depth += (name[i] == ")") - (name[i] == "(")
+                if depth == 0:
+                    name = name[:i]
+                    break
+        for part in ("void ", "<unnamed>::", "(anonymous namespace)::"):
+            name = name.replace(part, "")
+        out[name] = lines
+    return out
 
 
 def device_ops(fn):
@@ -3171,25 +3214,39 @@ KR_TIMED = ((2, 3, "TX_16X16 ADST_ADST"), (3, 0, "TX_32X32 DCT_DCT"),
 
 
 def _kr_ops(B, ts, tt, inverse, bd=8):
-    """Operations of one KR launch over B blocks, from its program table:
-    3 a stage entry (two products and their sum), 2 more for a
-    butterfly's round shift and 2 for a stage clamp; 30 an ADST4 vector
-    (its sinpi products, sums and four round shifts); 3 an IDTX element;
-    ~4 an element and pass (the shifts, a flip, the rescale, an input
-    clamp); 3 a pixel for the inverse's recon (add and clip)."""
+    """Operations of one launch of the general transforms over B blocks,
+    counted from the normative stage data (``ops/txfm_host.
+    _compiled_stages``), so the bound is the same work whatever implements
+    KR: 3 a stage entry (two products and their sum), 2 more for a
+    butterfly's round shift and 2 for a stage clamp (the inverse's); 30
+    an ADST4 vector (its sinpi products, sums and four round shifts); 3
+    an IDTX element; ~4 an element and pass (the shifts, a flip, the
+    rescale, an input clamp); 3 a pixel for the inverse's recon (add and
+    clip); the inverse's row pass over the coded min(H, 32) rows only."""
+    from aom_av1_psy_tpu_torch.normative.enums import TxType1D
     from aom_av1_psy_tpu_torch.ops import txfm as TX
-    stages, meta = TX.kr_program(ts, tt, inverse, bd)
-    w, h = int(meta[0]), int(meta[1])
+    from aom_av1_psy_tpu_torch.ops.txfm_host import _compiled_stages
+    w, h, lw, lh, vtype, htype, _, _ = TX._pair(ts, tt)
+    if inverse:     # rows past the coded 32 are zero: no row pass needed
+        passes = ((htype, w, min(h, 32), TX.INV_COS_BIT),
+                  (vtype, h, w, TX.INV_COS_BIT))
+    else:
+        passes = ((vtype, h, w, TX.FWD_COS_BIT_COL[lw][lh]),
+                  (htype, w, h, TX.FWD_COS_BIT_ROW[lw][lh]))
     ops = 3 * w * h if inverse else 0
-    for p in (meta[12:22], meta[22:32]):
-        kind, n, nst, off, clamp_bit = (int(v) for v in (*p[:4], p[5]))
-        if kind == TX.KIND_STAGES:
-            head = stages[off: off + nst * n, 0].astype("int64")
-            per = (3 * len(head) + 2 * int(((head >> 16) & 1).sum())
-                   + (2 * int(((head >> 17) & 1).sum()) if clamp_bit else 0))
+    for kind, n, nvec, cos_bit in passes:
+        if kind == TxType1D.IDTX:
+            per = 3 * n
+        elif kind != TxType1D.DCT and n == 4:
+            per = 30
         else:
-            per = 30 if kind == TX.KIND_ADST4 else 3 * n
-        ops += (w * h // n) * (per + 4 * n)
+            func = (f"av1_{'i' if inverse else 'f'}"
+                    f"{'dct' if kind == TxType1D.DCT else 'adst'}{n}")
+            per = sum(3 * len(ia) + 2 * int(btf.sum())
+                      + (2 * int(clamp.sum()) if inverse else 0)
+                      for ia, _, _, _, btf, clamp in
+                      _compiled_stages(func, int(cos_bit)))
+        ops += nvec * (per + 4 * n)
     return B * ops
 
 
@@ -3237,9 +3294,14 @@ def check_kr_kernels(dev):
     types (every size), the WHT pair (B = 1000, bd 8 / 10 / 12), on mixed
     residuals and extreme coefficients (``_kr_inputs``). Timed at a
     1080p luma's blocks (``KR_TIMED``, residuals of the same mix): kernel
-    (CUDA events around the wrapper, median of 3 after a first, and
-    ``device_ms``), plain (CUDA events) and bound times, forward and
-    inverse; the WHT pair at B = 130560."""
+    (CUDA events around the wrapper, median of 3 after a first;
+    ``device_ms`` warm and ``cold_device_ms`` with the L2 flushed before
+    each call), plain (CUDA events) and bound times and the times over
+    the bound, forward and inverse (the inverse's bytes: the coded
+    min(W, 32) x min(H, 32) corner of the coefficients, the predictions
+    and the output); the WHT pair at B = 130560; and what ptxas said of
+    each KR instantiation (``ptxas_report``), also in each entry's
+    ``ptxas``."""
     import numpy as np
     import torch
     from aom_av1_psy_tpu_torch.normative.enums import TX_HEIGHT, TX_WIDTH
@@ -3310,18 +3372,22 @@ def check_kr_kernels(dev):
         res, _, pred = (x.to(dev) for x in _kr_inputs(rng, B, w, h))
         coeff = TX.fwd_txfm2d(res, ts, tt)
         out = TX.inv_txfm2d_add(coeff, pred, ts, tt)
+        coded = B * min(w, 32) * min(h, 32) * coeff.element_size()
         iters = 20
-        for d, fn, plain, io in (
+        for d, fn, plain, n_bytes in (
                 ("fwd", lambda: TX.fwd_txfm2d(res, ts, tt),
-                 lambda: TX.fwd_txfm2d_plain(res, ts, tt), (res, coeff)),
+                 lambda: TX.fwd_txfm2d_plain(res, ts, tt),
+                 nbytes(res, coeff)),
                 ("inv", lambda: TX.inv_txfm2d_add(coeff, pred, ts, tt),
                  lambda: TX.inv_txfm2d_add_plain(coeff, pred, ts, tt),
-                 (coeff, pred, out))):
+                 coded + nbytes(pred, out))):
             timed[d][f"{label} B={B}"] = {
                 "ms": _median_ms(fn, iters),
                 "device_ms": device_ms(fn, iters, f"kr_{d}_kernel"),
+                "cold_device_ms": cold_device_ms(fn, iters,
+                                                 f"kr_{d}_kernel"),
                 "plain_ms": cuda_time(plain, 3),
-                **bound(nbytes(io), _kr_ops(B, ts, tt, d == "inv"))}
+                **bound(n_bytes, _kr_ops(B, ts, tt, d == "inv"))}
     B = 130560
     res, coeff, pred = (torch.as_tensor(rng.integers(lo, hi, (B, 4, 4)),
                                         dtype=torch.int32, device=dev)
@@ -3337,18 +3403,40 @@ def check_kr_kernels(dev):
         kname = "kr_fwht_kernel" if name == "fwht4x4" else "kr_iwht_kernel"
         wht[name] = {"ms": _median_ms(fn, 50),
                      "device_ms": device_ms(fn, 50, kname),
+                     "cold_device_ms": cold_device_ms(fn, 20, kname),
                      "plain_ms": cuda_time(plain, 10),
                      **bound(nbytes(io), _wht_ops(B, name != "fwht4x4"))}
     for d in ("fwd", "inv"):
-        log(f"[3h] KR {d}: ms (device ms) [bound, plain ms] per 1080p "
-            f"batch: " + "; ".join(
-                f"{k} {v['ms']:.4f} ({v['device_ms']}) "
-                f"[{v['bound_ms']:.5f} {v['bound_by']}, plain "
-                f"{v['plain_ms']:.3f}]" for k, v in timed[d].items()))
+        log(f"[3h] KR {d}: ms (cold device ms; warm device ms) [bound, "
+            f"plain ms] per 1080p batch: " + "; ".join(
+                f"{k} {v['ms']:.4f} ({v['cold_device_ms']}; "
+                f"{v['device_ms']}) [{v['bound_ms']:.5f} {v['bound_by']}, "
+                f"plain {v['plain_ms']:.3f}]" for k, v in timed[d].items()))
     log("[3h] KR WHT pair at B=130560: " + "; ".join(
-        f"{k} {v['ms']:.4f} ({v['device_ms']}) [{v['bound_ms']:.5f} "
-        f"{v['bound_by']}, plain {v['plain_ms']:.3f}]"
+        f"{k} {v['ms']:.4f} ({v['cold_device_ms']}; {v['device_ms']}) "
+        f"[{v['bound_ms']:.5f} {v['bound_by']}, plain {v['plain_ms']:.3f}]"
         for k, v in wht.items()))
+    nan = float("nan")
+    for v in [*timed["fwd"].values(), *timed["inv"].values(), *wht.values()]:
+        v["x_bound"] = v["ms"] / v["bound_ms"]
+        for key in ("device_ms", "cold_device_ms"):
+            if v[key]:
+                v[key.replace("ms", "x_bound")] = v[key] / v["bound_ms"]
+    for d, rows in (("fwd", timed["fwd"]), ("inv", timed["inv"]),
+                    ("WHT pair", wht)):
+        log(f"[3h] KR {d}: time over its bound, cold device time (warm "
+            f"device time; CUDA events): " + "; ".join(
+                f"{k} x{v.get('cold_device_x_bound', nan):.2f} "
+                f"(x{v.get('device_x_bound', nan):.2f}; "
+                f"x{v['x_bound']:.2f})" for k, v in rows.items()))
+    ptxas = ptxas_report(TX.KR.build_log)
+    clean = bool(ptxas) and all(
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+        in lines for lines in ptxas.values())
+    log(f"[3h] KR registers of its {len(ptxas)} instantiations (ptxas -v of "
+        f"this process's build; no stack, no spill: {clean}): " + ", ".join(
+            f"{k} {ln.split()[1]}" for k, lines in sorted(ptxas.items())
+            for ln in lines if ln.startswith("Used ")))
     src = "aom_av1_psy_tpu_torch/csrc/txfm2d.cu"
     none = "no single call runs the AV1 integer transforms"
     results = []
@@ -3370,6 +3458,8 @@ def check_kr_kernels(dev):
                         "max_abs_err": err[key], **wht[name],
                         "library_ms": None, "library_none": none,
                         "timed_at": "B=130560 4x4 blocks"})
+    for r, d in zip(results, ("fwd", "inv", "fwht", "iwht")):
+        r["ptxas"] = {k: v for k, v in ptxas.items() if f"kr_{d}" in k}
     return results
 
 
@@ -3909,9 +3999,8 @@ def main() -> int:
     log(f"[2] native range coder {os.path.relpath(LIB_PATH, REPO)} ready in "
         f"{time.perf_counter() - t0:.2f} s")
     for k in built:
-        for line in k.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[2]   {k.name}: {line.strip()}")
+        for fn, lines in ptxas_report(k.build_log).items():
+            log(f"[2]   {k.name} {fn}: {'; '.join(lines)}")
 
     def phase(tag, fn, *args):
         t0 = time.perf_counter()

@@ -4,8 +4,13 @@ device and on the CPU: every one of the 193 valid (tx_size, tx_type)
 pairs forward and inverse at bd 8, the inverse at bd 10 and 12 for every
 tx size, and the WHT pair, on mixed residuals (+-255 blocks, values that
 wrap in int32) and extreme coefficient blocks, at batch sizes that leave
-the last CTA part-filled; each call one launch; an invalid pair raises
-before any launch. Tolerance: exact equality (integer outputs).
+the last CTA part-filled, and every size at 1, G - 1, G, G + 1 and 2 G +
+3 blocks (G the blocks a CTA of its instantiation holds); int16,
+non-contiguous and misaligned inputs through the wrappers; each call one
+launch; an invalid pair raises before any launch; and ``ptxas`` reports
+no stack frame and no spill for any KR kernel (``tools/sass_census.py``;
+skips where there is no nvcc). Tolerance: exact equality (integer
+outputs).
 
 Every test needs the card: it carries the ``gpu`` marker and skips where
 ``torch.cuda.is_available()`` is false. The file imports nothing of jax
@@ -14,6 +19,10 @@ or of the reference package::
     python -m pytest --noconftest -p no:cacheprovider -m gpu \\
         tests/test_torch_kr_gpu.py
 """
+import importlib.util
+import os
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +31,16 @@ from aom_av1_psy_tpu_torch.normative.enums import TX_HEIGHT, TX_WIDTH
 from aom_av1_psy_tpu_torch.ops import txfm as T
 
 pytestmark = pytest.mark.gpu
+
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir)
+
+
+def _tool(name):
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "tools", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 PAIRS = [(ts, tt) for ts in range(19) for tt in range(16)
          if T.valid_pair(ts, tt)]
@@ -151,3 +170,77 @@ def test_kr_raises_on_an_invalid_pair_before_launching(dev):
                          torch.zeros((2, 4, 4), dtype=torch.int32,
                                      device=dev), 0, 0, bd=9)
     assert T.KR.launches == n0
+
+
+@pytest.mark.parametrize("ts", range(19))
+def test_kr_batch_sizes_around_a_cta(dev, ts):
+    """1, G - 1, G, G + 1 and 2 G + 3 blocks (G: the CTA's blocks; 128 a
+    CTA at 4x4, a thread a block), forward and inverse, on a type with
+    flips where the size has one."""
+    gen = _tool("gen_kr_programs")
+    w, h = _wh(ts)
+    types = [tt for s, tt in PAIRS if s == ts]
+    tt = max(types, key=lambda t: (t in (4, 5, 6, 7, 8, 14, 15), t))
+    for inverse in (False, True):
+        g = gen.plan(ts, inverse)["G"] if ts else 128
+        for b in sorted({1, max(g - 1, 1), g, g + 1, 2 * g + 3}):
+            rng = np.random.default_rng([ts, b, inverse])
+            n0 = T.KR.launches
+            if inverse:
+                coeff, pred = _coeffs(rng, max(b, 6), w, h, 10)
+                coeff, pred = coeff[:b], pred[:b]
+                got = T.inv_txfm2d_add(coeff.to(dev), pred.to(dev), ts, tt,
+                                       bd=10)
+                _same(got, T.inv_txfm2d_add(coeff, pred, ts, tt, bd=10))
+            else:
+                res = _residuals(rng, max(b, 6), h, w)[:b]
+                _same(T.fwd_txfm2d(res.to(dev), ts, tt),
+                      T.fwd_txfm2d(res, ts, tt))
+            assert T.KR.launches == n0 + 1
+
+
+def test_kr_int16_non_contiguous_and_misaligned_inputs(dev):
+    """int16 residuals and predictions, transposed and strided views, and
+    a contiguous view 4 bytes off a 16-byte boundary (copied once) give
+    the CPU plain path's outputs, one launch a call."""
+    rng = np.random.default_rng(21)
+    res = torch.as_tensor(rng.integers(-255, 256, (50, 32, 16)),
+                          dtype=torch.int16)                    # TX_16X32
+    _same(T.fwd_txfm2d(res.to(dev), 9, 2), T.fwd_txfm2d(res, 9, 2))
+    wide = torch.as_tensor(rng.integers(-255, 256, (50, 16, 32)),
+                           dtype=torch.int32)
+    view = wide.to(dev).transpose(1, 2)                          # (50, 32, 16)
+    assert not view.is_contiguous()
+    _same(T.fwd_txfm2d(view, 9, 2), T.fwd_txfm2d(wide.transpose(1, 2), 9, 2))
+    coeff = torch.as_tensor(rng.integers(-900, 900, (100, 8, 8)),
+                            dtype=torch.int32)
+    pred = torch.as_tensor(rng.integers(0, 256, (100, 8, 8)),
+                           dtype=torch.int16)
+    n0 = T.KR.launches
+    got = T.inv_txfm2d_add(coeff.to(dev)[::2], pred.to(dev)[1::2], 1, 15)
+    assert got.dtype == torch.int16 and T.KR.launches == n0 + 1
+    _same(got, T.inv_txfm2d_add(coeff[::2], pred[1::2], 1, 15))
+    flat = torch.as_tensor(rng.integers(-255, 256, 1 + 40 * 16),
+                           dtype=torch.int32).to(dev)
+    off = flat[1:].view(40, 4, 4)
+    assert off.is_contiguous() and off.data_ptr() % 16 == 4
+    _same(T.fwd_txfm2d(off, 0, 10), T.fwd_txfm2d(off.cpu(), 0, 10))
+    _same(T.fwht4x4(off), T.fwht4x4(off.cpu()))
+    _same(T.iwht4x4_add(off, off.abs() % 256), T.iwht4x4_add(
+        off.cpu(), off.cpu().abs() % 256))
+
+
+def test_kr_census_no_stack_or_spill():
+    """ptxas: 0 bytes of stack frame and of spill for every KR kernel
+    instantiation (38 templates, the 4x4 pair and the WHT pair)."""
+    if not (shutil.which("nvcc") or os.path.exists("/usr/local/cuda/bin/nvcc")):
+        pytest.skip("needs nvcc")
+    census = _tool("sass_census")
+    rows = list(census.census(os.path.abspath(ROOT),
+                              "aom_av1_psy_tpu_torch/csrc/txfm2d.cu",
+                              ["kr_"]))
+    assert len(rows) == 2 * 18 + 4
+    for row in rows:
+        frame = [ln for ln in row["ptxas"] if "stack frame" in ln]
+        assert frame == ["0 bytes stack frame, 0 bytes spill stores, "
+                         "0 bytes spill loads"], (row["kernel"], row["ptxas"])

@@ -9,12 +9,11 @@ and extreme coefficient blocks; the libaom golden vectors
 (``tests/golden/golden_txfm.npz``, read as ``tests/test_txfm.py`` reads
 them); the jitted reference (``jax.jit`` of ``fwd_txfm2d`` /
 ``inv_txfm2d_add``, its device path) for one pair per tx size and
-direction; the WHT pair; the ``ValueError`` of every invalid pair; and
-KR's program table (``kr_program``) interpreted in numpy as
-``csrc/txfm2d.cu`` reads it, against the plain version.
+direction; the WHT pair; the ``ValueError`` of every invalid pair (also
+from ``kr_program``, kernel KR's launch arguments; KR's schedule is held
+against the reference by ``tests/test_torch_kr_programs.py``).
 Tolerance: exact equality (integer outputs)."""
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
@@ -200,134 +199,3 @@ def test_bad_shapes_and_bit_depths_raise():
         TTX.fwht4x4(torch.zeros((1, 4, 4)))
     with pytest.raises(ValueError, match="tx_size 19"):
         TTX.fwd_txfm2d(x, 19, 0)
-
-
-# ----------------------------------------------------------------------
-# KR's program table read as csrc/txfm2d.cu reads it (numpy, int64 values
-# wrapped to int32 after every operation)
-# ----------------------------------------------------------------------
-def _w32(v):
-    return (v + 2**31) % 2**32 - 2**31
-
-
-def _rs(v, bit):
-    return _w32(v + (1 << (bit - 1))) >> bit
-
-
-def _rsa(v, bit):
-    if bit > 0:
-        return _rs(v, bit)
-    return _w32(v << -bit) if bit < 0 else v
-
-
-def _clamp(v, bits):
-    return np.clip(v, -(1 << (bits - 1)), (1 << (bits - 1)) - 1)
-
-
-def _adst4(x, s, cb, inverse):
-    x0, x1, x2, x3 = (x[:, i] for i in range(4))
-    m = lambda a, b: _w32(a * b)    # noqa: E731
-    if not inverse:
-        t0 = _w32(m(s[1], x0) + m(s[2], x1))
-        t1 = m(s[3], _w32(_w32(x0 + x1) - x3))
-        t2 = _w32(m(s[4], x0) - m(s[1], x1))
-        t3 = m(s[3], x2)
-        t0 = _w32(t0 + m(s[4], x3))
-        t2 = _w32(t2 + m(s[2], x3))
-        o = [_w32(t0 + t3), t1, _w32(t2 - t3), _w32(_w32(t2 - t0) + t3)]
-    else:
-        t0 = _w32(m(s[1], x0) + m(s[4], x2))
-        t1 = _w32(m(s[2], x0) - m(s[1], x2))
-        t3 = m(s[3], x1)
-        t2 = m(s[3], _w32(_w32(x0 - x2) + x3))
-        t0 = _w32(t0 + m(s[2], x3))
-        t1 = _w32(t1 - m(s[4], x3))
-        o = [_w32(t0 + t3), _w32(t1 + t3), t2, _w32(_w32(t0 + t1) - t3)]
-    return np.stack([_rs(v, cb) for v in o], axis=1)
-
-
-def _run_pass(x, p, stages, inverse):
-    kind, n, nst, off, cb, clamp_bit = (int(v) for v in p[:6])
-    if kind == TTX.KIND_IDTX:
-        if n == 4:
-            return _rs(_w32(x * 5793), 12)
-        if n == 16:
-            return _rs(_w32(x * 2 * 5793), 12)
-        return _w32(x * (2 if n == 8 else 4))
-    if kind == TTX.KIND_ADST4:
-        return _adst4(x, [0, *(int(v) for v in p[6:10])], cb, inverse)
-    for s in range(nst):
-        e = stages[off + s * n: off + (s + 1) * n].astype(np.int64)
-        ia, ib = e[:, 0] & 0xff, (e[:, 0] >> 8) & 0xff
-        v = _w32(_w32(x[:, ia] * e[:, 1]) + _w32(x[:, ib] * e[:, 2]))
-        v = np.where((e[:, 0] >> 16) & 1, _rs(v, cb), v)
-        if clamp_bit:
-            v = np.where((e[:, 0] >> 17) & 1, _clamp(v, clamp_bit), v)
-        x = v
-    return x
-
-
-def _kr_fwd(res, ts, tt):
-    stages, meta = TTX.kr_program(ts, tt, False)
-    w, h, ud, lr, rect = (int(v) for v in meta[:5])
-    sh = meta[6:9]
-    b = res.shape[0]
-    t = res.astype(np.int64)[:, ::-1] if ud else res.astype(np.int64)
-    x = t.transpose(0, 2, 1).reshape(b * w, h)              # columns
-    x = _rsa(_run_pass(_rsa(x, -sh[0]), meta[12:22], stages, False), -sh[1])
-    t = x.reshape(b, w, h).transpose(0, 2, 1)
-    x = (t[:, :, ::-1] if lr else t).reshape(b * h, w)      # rows
-    x = _rsa(_run_pass(x, meta[22:32], stages, False), -sh[2])
-    if rect:
-        x = _rs(_w32(x * 5793), 12)
-    return x.reshape(b, h, w).transpose(0, 2, 1)
-
-
-def _kr_inv(coeff, pred, ts, tt, bd):
-    stages, meta = TTX.kr_program(ts, tt, True, bd)
-    w, h, ud, lr, rect, mbd = (int(v) for v in meta[:6])
-    sh, ca, cb = meta[6:9], int(meta[9]), int(meta[10])
-    b = coeff.shape[0]
-    c = coeff.astype(np.int64).copy()
-    c[:, 32:, :] = 0
-    c[:, :, 32:] = 0
-    x = c.transpose(0, 2, 1).reshape(b * h, w)              # rows
-    if rect:
-        x = _rs(_w32(x * 2896), 12)
-    x = _rsa(_run_pass(_clamp(x, ca), meta[12:22], stages, True), -sh[0])
-    t = x.reshape(b, h, w)
-    t = t[:, :, ::-1] if lr else t
-    x = t.transpose(0, 2, 1).reshape(b * w, h)              # columns
-    x = _rsa(_run_pass(_clamp(x, cb), meta[22:32], stages, True), -sh[1])
-    t = x.reshape(b, w, h).transpose(0, 2, 1)
-    t = t[:, ::-1] if ud else t
-    return np.clip(_w32(pred + t), 0, (1 << mbd) - 1)
-
-
-@pytest.mark.parametrize("ts,tt", ALL_PAIRS)
-def test_kr_program_read_as_the_kernel_reads_it(ts, tt):
-    w, h = _wh(ts)
-    rng = _seed(5, ts, tt)
-    res = _residuals(rng, h, w)
-    np.testing.assert_array_equal(_kr_fwd(res, ts, tt),
-                                  TTX.fwd_txfm2d(_t(res), ts, tt).numpy())
-    for bd in (8, 10, 12):
-        coeff, pred = _coeffs(rng, w, h, bd)
-        np.testing.assert_array_equal(
-            _kr_inv(coeff, pred, ts, tt, bd),
-            TTX.inv_txfm2d_add(_t(coeff), _t(pred), ts, tt, bd=bd).numpy())
-
-
-def test_kr_program_layout():
-    """The first pass is the columns forward and the rows inverse; a
-    64-point DCT's indices fit the entry's 8-bit fields; ADST4 and IDTX
-    carry no stage entries."""
-    stages, meta = TTX.kr_program(4, 0, False)            # TX_64X64 DCT
-    assert meta[:2].tolist() == [64, 64] and meta[13] == 64
-    assert (stages[:, 0] & 0xff).max() == 63
-    _, meta = TTX.kr_program(8, 3, True, 12)              # TX_16X8 ADST
-    assert meta[12 + 1] == 16 and meta[22 + 1] == 8       # rows of 16
-    assert meta[9:11].tolist() == [20, 18] and meta[4] == 1
-    stages, meta = TTX.kr_program(0, 9, False)            # TX_4X4 IDTX
-    assert meta[12] == TTX.KIND_IDTX and len(stages) == 1
-    assert os.path.exists(GOLDEN)

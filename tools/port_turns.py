@@ -87,11 +87,24 @@ wait); KM's device time per ``subpel_refine49`` call at B = 8160 16x16
 (as ``--k13-only``) and at the luma's 8640 whole 12x20 blocks (null where
 the checkout's KM does not take them); and the wall of the 5i subpel chain
 (the checkout's own ``chip_smoke._subpel_chain``).
+With ``--kr`` a turn times kernel KR alone, at the checkout's own
+``chip_smoke.KR_TIMED`` shapes on a 1080p luma's blocks (its
+``_kr_inputs``): ``fwd_txfm2d`` and ``inv_txfm2d_add`` at each shape and
+the WHT pair at B = 130560, by CUDA events (``chip_smoke._median_ms``:
+the median of 3 means of 20 calls after a first) and by the profiler's
+device time of KR's kernels per call, warm and with the L2 flushed
+before each call (``chip_smoke.cold_device_ms``: a 256 MB read, its own
+time not counted), and at 16x16 the host
+microseconds of a wrapper call (1000 calls enqueued, then one wait);
+and the wall of phase 5l's path
+(the checkout's own ``chip_smoke._transform_path`` over frame 1 of
+``make_gop(1920, 1080, 2)`` against frame 0: 14 launches), host clock
+to a synchronize, median of 25 after a first.
 Only entry points that both checkouts have are timed. Both checkouts
 build their kernels into their own ``build/`` at first use.
 
     python3 tools/port_turns.py PARENT_DIR CHANGE_DIR [--rounds 1]
-        [--tf-only | --vmaf-only | --k13-only | --ko-km-only]
+        [--tf-only | --vmaf-only | --k13-only | --ko-km-only | --kr]
 
 Prints the card (name, power limit), one JSON line per turn, and the
 medians per checkout as the last line. Needs a CUDA device.
@@ -245,6 +258,56 @@ if sys.argv[2:] == ["kokm"]:
         out["km12x20_device_ms"], _ = kernel_ms(
             lambda: MV.subpel_refine49(s12, w12), ("::km_kernel",))
     out["chain_s"] = host_s(lambda: CS._subpel_chain(y0, y1))
+    print(json.dumps(out))
+    sys.exit(0)
+
+
+if sys.argv[2:] == ["kr"]:
+    import chip_smoke as CS
+    from aom_av1_psy_tpu_torch.normative.enums import TX_HEIGHT, TX_WIDTH
+    from aom_av1_psy_tpu_torch.ops import txfm as TX
+    rng = np.random.default_rng(20)
+    flush = torch.ones(64 << 20, dtype=torch.int32, device="cuda")
+
+    def cold_ms(fn, name):
+        # the profiler's device time per call with the L2 flushed before
+        # each call by a 256 MB read (as chip_smoke.cold_device_ms; the
+        # parent's chip_smoke has none)
+        return CS.device_ms(lambda: (flush.sum(), fn()), 20, name)
+
+    for ts, tt, label in CS.KR_TIMED:
+        w, h = int(TX_WIDTH[ts]), int(TX_HEIGHT[ts])
+        b = 1088 * 1920 // (w * h)
+        res, _, pred = (x.to("cuda") for x in CS._kr_inputs(rng, b, w, h))
+        coeff = TX.fwd_txfm2d(res, ts, tt)
+        for d, fn in (("fwd", lambda: TX.fwd_txfm2d(res, ts, tt)),
+                      ("inv", lambda: TX.inv_txfm2d_add(coeff, pred, ts,
+                                                        tt))):
+            key = f"kr_{w}x{h}_{d}"
+            out[f"{key}_ms"] = CS._median_ms(fn, 20)
+            out[f"{key}_device_ms"], out[f"{key}_launches"] = kernel_ms(
+                fn, (f"kr_{d}",))
+            out[f"{key}_cold_device_ms"] = cold_ms(fn, f"kr_{d}")
+            if w == h == 16:    # the wrapper's host time: 1000 enqueued
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(1000):
+                    fn()
+                out[f"kr_{d}_host_us"] = (time.perf_counter() - t0) * 1e3
+                torch.cuda.synchronize()
+    b = 130560
+    res, coeff, pred = (torch.as_tensor(rng.integers(lo, hi, (b, 4, 4)),
+                                        dtype=torch.int32, device="cuda")
+                        for lo, hi in ((-255, 256), (-2**12, 2**12),
+                                       (0, 256)))
+    for d, fn in (("fwht", lambda: TX.fwht4x4(res)),
+                  ("iwht", lambda: TX.iwht4x4_add(coeff, pred))):
+        out[f"kr_{d}_ms"] = CS._median_ms(fn, 50)
+        out[f"kr_{d}_device_ms"], _ = kernel_ms(fn, (f"kr_{d}",))
+        out[f"kr_{d}_cold_device_ms"] = cold_ms(fn, f"kr_{d}")
+    f0, f1 = testframes.make_gop(1920, 1080, 2)
+    ref, src = CS._luma_1088(f0, "cuda"), CS._luma_1088(f1, "cuda")
+    out["kr_path_s"] = host_s(lambda: CS._transform_path(src, ref))
     print(json.dumps(out))
     sys.exit(0)
 
@@ -661,7 +724,8 @@ def main() -> int:
     parts = (["tf"] if "--tf-only" in sys.argv else
              ["vmaf"] if "--vmaf-only" in sys.argv else
              ["k13"] if "--k13-only" in sys.argv else
-             ["kokm"] if "--ko-km-only" in sys.argv else [])
+             ["kokm"] if "--ko-km-only" in sys.argv else
+             ["kr"] if "--kr" in sys.argv else [])
     rounds = 1
     if "--rounds" in sys.argv:
         rounds = int(sys.argv[sys.argv.index("--rounds") + 1])
@@ -725,7 +789,8 @@ def main() -> int:
                 f"{k}_p_frame_{m}" for k in ("kd", "ke", "kc", "kf")
                 for m in ("device_ms", "launches")) + tuple(
                 f"kb_bs{bs}{m}" for bs in (16, 32, 8)
-                for m in ("_ms", "_device_ms")):
+                for m in ("_ms", "_device_ms")) + tuple(
+                k for k in lines[0] if k.startswith("kr_")):
             vals = [x[k] for x in lines if x.get(k) is not None]
             if vals:
                 med[t][k] = statistics.median(vals)

@@ -49,6 +49,20 @@ def demangle(names):
         {n: n for n in names}
 
 
+def ptxas_info(lines):
+    """What ``ptxas -v`` said of each entry function, from its output
+    lines ("Compiling entry function '<mangled>'", then that function's
+    lines): {mangled name: [its registers and stack / spill lines]}."""
+    info, cur = collections.defaultdict(list), None
+    for ln in lines:
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            cur = m.group(1)
+        elif cur and ("registers" in ln or "spill" in ln):
+            info[cur].append(ln.split(":", 1)[-1].strip())
+    return dict(info)
+
+
 def census(tree, source, words):
     sys.path.insert(0, tree)
     from aom_av1_psy_tpu_torch.kernels.build import CSRC, NVCC_FLAGS
@@ -65,14 +79,7 @@ def census(tree, source, words):
         sass = subprocess.run([tool("cuobjdump"), "-sass", cubin],
                               capture_output=True, text=True,
                               check=True).stdout
-    # ptxas -v: "Compiling entry function '<mangled>'", then its lines
-    info, cur = collections.defaultdict(list), None
-    for ln in ptxas:
-        m = re.search(r"Compiling entry function '(\w+)'", ln)
-        if m:
-            cur = m.group(1)
-        elif cur and ("registers" in ln or "spill" in ln):
-            info[cur].append(ln.split(":", 1)[-1].strip())
+    info = ptxas_info(ptxas)
     ops, cur = {}, None
     for ln in sass.splitlines():
         m = re.match(r"\s*Function : (\w+)", ln)
