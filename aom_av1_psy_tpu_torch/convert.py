@@ -18,22 +18,46 @@ import importlib
 import numpy as np
 import torch
 
+from .utils import trace
+
 _REF = "aom_av1_psy_tpu."
 
 
+def to_device(a, device, dtype=None) -> torch.Tensor:
+    """``a`` (numpy or array-like) as a tensor on ``device``. To a card
+    this is a copy from pageable host memory, which waits for the work
+    queued before it: it counts as one of the frame's ``syncs``
+    (``utils.trace``). On the CPU the tensor may share ``a``'s memory."""
+    t = torch.as_tensor(a, dtype=dtype, device=device)
+    if t.device.type != "cpu":
+        trace.add("syncs", 1)
+    return t
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """Tensor ``t`` as a numpy array. From a card this copy waits for the
+    work queued before it: it counts as one of the frame's ``syncs``."""
+    if t.device.type != "cpu":
+        trace.add("syncs", 1)
+        t = t.cpu()
+    return t.numpy()
+
+
 def plane(arr, device) -> torch.Tensor:
-    """A 2-D integer plane (numpy or array-like) as an int32 tensor."""
-    return torch.tensor(np.asarray(arr, np.int32), device=device)
+    """A 2-D integer plane (numpy or array-like) as an int32 tensor of its
+    own (never sharing ``arr``'s memory)."""
+    a = np.asarray(arr, np.int32)
+    if torch.device(device).type == "cpu":
+        return torch.tensor(a)
+    return to_device(a, device)
 
 
 def _tensor(v, device):
     a = np.asarray(v)
-    if a.dtype == np.bool_:
-        return torch.as_tensor(a, device=device)
+    if a.dtype == np.bool_ or a.dtype == np.float32:
+        return to_device(a, device)
     if np.issubdtype(a.dtype, np.integer):
-        return torch.as_tensor(a.astype(np.int32), device=device)
-    if a.dtype == np.float32:
-        return torch.as_tensor(a, device=device)
+        return to_device(a.astype(np.int32), device)
     raise TypeError(f"unexpected table dtype {a.dtype}")
 
 

@@ -27,8 +27,6 @@ encoder does. Lossless, outside the port, raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -51,12 +49,19 @@ from ..utils.frame import Frame
 from .. import convert
 from ..device import on_device, resolve_device
 from ..ops import deblock_torch as DT
+from ..utils import trace
 from . import tpu_intra, tune_vmaf
 
 _BS_TO_BSIZE = {8: int(BlockSize.BLOCK_8X8), 16: int(BlockSize.BLOCK_16X16),
                 32: int(BlockSize.BLOCK_32X32)}
 _BS_TO_TX = {8: int(TxSize.TX_8X8), 16: int(TxSize.TX_16X16),
              32: int(TxSize.TX_32X32)}
+# ``timings`` of a KEY frame: the spans' seconds (the plan, split into its
+# inputs, its wavefronts' submit and its fetch; the pack with the LPF
+# pick; the LPF pick alone) and the frame's counts (kernel launches in
+# the plan's submit, host-device copies that block the host)
+KEY_TIMINGS = ("plan_s", "plan_inputs_s", "plan_submit_s", "plan_fetch_s",
+               "plan_launches", "pack_s", "lpf_s", "syncs")
 
 
 def _pad_plane(src: np.ndarray, h: int, w: int) -> np.ndarray:
@@ -76,7 +81,7 @@ class GpuFrameEncoder:
     pack + device loop filter. API mirror of ``TpuFrameEncoder``; after
     ``encode()`` it holds ``plan`` (the first tile's with tile columns;
     ``tile_plans`` holds every tile's), ``seq``, ``fh``, ``saved_fc``,
-    ``mi_skip``, ``timings`` (``plan_s``, ``pack_s``) and, on the partition
+    ``mi_skip``, ``timings`` (``KEY_TIMINGS``) and, on the partition
     path, ``ref_planes_dev`` (post-LPF planes on ``device``); with
     ``tune_vmaf``, ``vmaf_unsharp_amount`` and ``vmaf_s`` (the
     preprocessing's seconds) from construction on. The encoder's kernels
@@ -97,11 +102,10 @@ class GpuFrameEncoder:
         if cfg.tune_vmaf:
             # av1_vmaf_frame_preprocessing analogue: encode the unsharpened
             # source (kernels KG/KH); vmaf_s is its host-clock time
-            t0 = time.perf_counter()
-            with on_device(self.device):
+            with on_device(self.device), trace.span("vmaf") as sp:
                 self.vmaf_unsharp_amount, frame = tune_vmaf.preprocess_frame(
                     frame, self.device)
-            self.vmaf_s = time.perf_counter() - t0
+            self.vmaf_s = sp.s
         self.src = frame
         self.w, self.h = frame.width, frame.height
         self.mi_cols = (self.w + 7) // 8 * 2
@@ -230,12 +234,14 @@ class GpuFrameEncoder:
         ``mesh.devices[t]`` (``parallel/mesh.tile_plans_sharded``); else the
         slabs batched through one pair of wavefronts on the device
         (``parallel/mesh.tile_plans_batched``)."""
-        from ..parallel.mesh import tile_plans_batched, tile_plans_sharded
+        with trace.span("plan.inputs", into="plan_inputs_s"):
+            from ..parallel.mesh import tile_plans_batched, tile_plans_sharded
+            slabs = self._tile_slabs()
         if self.mesh is not None:
-            return tile_plans_sharded(self.mesh, self._tile_slabs(),
-                                      self.cfg.base_q_idx, self.mi_rows)
-        return tile_plans_batched(self._tile_slabs(), self.cfg.base_q_idx,
-                                  self.mi_rows, device=self.device)
+            return tile_plans_sharded(self.mesh, slabs, self.cfg.base_q_idx,
+                                      self.mi_rows)
+        return tile_plans_batched(slabs, self.cfg.base_q_idx, self.mi_rows,
+                                  device=self.device)
 
     def _check_mesh(self) -> None:
         """A mesh reaches only the partition path with tile columns, on
@@ -284,41 +290,42 @@ class GpuFrameEncoder:
     def encode(self, include_seq: bool = True) -> bytes:
         if self.mesh is not None:
             self._check_mesh()
-        with on_device(self.device):
-            return self._encode(include_seq)
+        with on_device(self.device), trace.frame() as rec:
+            pkt = self._encode(include_seq)
+        self.timings = rec.pick(KEY_TIMINGS)
+        return pkt
 
     def _encode(self, include_seq: bool) -> bytes:
         seq, fh = self.make_headers()
         self.seq, self.fh = seq, fh
         fc = FrameContext(self.cfg.base_q_idx)
 
-        t0 = time.perf_counter()
-        if self.tile_T > 1:
-            plans = self._plan_tiles()
-            t1 = time.perf_counter()
-            self.plan = plans[0]
-            self.tile_plans = plans
-            fc, tile_data = self._pack_tiles(plans, fh)
-        elif self.use_part:
-            plan = tpu_intra.plan_frame_part(
-                self.srcp, self.cfg.base_q_idx, fc, self.rdmult,
-                self.mi_rows, self.mi_cols, device=self.device)
-            t1 = time.perf_counter()
+        with trace.span("plan", into="plan_s"):
+            if self.tile_T > 1:
+                self.tile_plans = self._plan_tiles()
+                plan = self.tile_plans[0]
+            elif self.use_part:
+                plan = tpu_intra.plan_frame_part(
+                    self.srcp, self.cfg.base_q_idx, fc, self.rdmult,
+                    self.mi_rows, self.mi_cols, device=self.device)
+            else:
+                plan = tpu_intra.plan_frame(self.srcp, self.cfg.base_q_idx,
+                                            self.bs, fc, self.rdmult,
+                                            device=self.device)
+        with trace.span("pack", into="pack_s"):
             self.plan = plan
-            tile_data = self._pack2(plan, fc, fh)
-        else:
-            plan = tpu_intra.plan_frame(self.srcp, self.cfg.base_q_idx,
-                                        self.bs, fc, self.rdmult,
-                                        device=self.device)
-            t1 = time.perf_counter()
-            self.plan = plan
-            tile_data = self._pack(plan, fc, fh)
-        if self.use_part:
-            # device LPF: pick per-plane levels on the device and keep the
-            # post-LPF recon there — it is the inter reference chain (the
-            # uniform grid keeps its pre-LPF plan recon, as the reference)
-            self._lpf_device(fh)
-        self.timings = {"plan_s": t1 - t0, "pack_s": time.perf_counter() - t1}
+            if self.tile_T > 1:
+                fc, tile_data = self._pack_tiles(self.tile_plans, fh)
+            elif self.use_part:
+                tile_data = self._pack2(plan, fc, fh)
+            else:
+                tile_data = self._pack(plan, fc, fh)
+            if self.use_part:
+                # device LPF: pick per-plane levels on the device and keep
+                # the post-LPF recon there — it is the inter reference
+                # chain (the uniform grid keeps its pre-LPF plan recon, as
+                # the reference)
+                self._lpf_device(fh)
         if seq.enable_cdef:
             if self.cfg.search_cdef:
                 # frame-level strengths picked on the post-LPF recon
@@ -517,31 +524,33 @@ class GpuFrameEncoder:
         """Pick + apply the loop filter on the device. With
         ``cfg.search_lpf`` a 6-rung ladder around the q-derived first guess
         is evaluated per plane; otherwise the first guess is applied.
-        Sets ``fh.lf`` and ``self.ref_planes_dev`` (post-LPF recon)."""
-        dev = self.device
-        split16 = torch.as_tensor(self._split16_frame(), device=dev)
-        recs = self._recon_dev_frame()
-        w, h = self.mi_cols * 4, self.mi_rows * 4
-        if self.cfg.search_lpf:
-            g = fh.lf.filter_level[0]
-            cands = torch.tensor([0, g // 2, max(g - 2, 0), g,
-                                  min(g + 2, 63), min(g * 2, 63)],
-                                 dtype=torch.int32, device=dev)
-            levels, outs = DT.lpf_pick_and_filter(
-                tuple(recs), self.device_sources(), split16, cands, w=w, h=h,
-                nplanes=self.nplanes)
-            lv = [int(x) for x in levels.cpu().numpy()]
-            fh.lf.filter_level = (lv[0], lv[0])
-            fh.lf.filter_level_u = lv[1]
-            fh.lf.filter_level_v = lv[2]
-        else:
-            lv = [fh.lf.filter_level[0], fh.lf.filter_level_u,
-                  fh.lf.filter_level_v]
-            outs = DT.lpf_apply(tuple(recs), split16,
-                                torch.tensor(lv, dtype=torch.int32,
-                                             device=dev),
-                                w=w, h=h, nplanes=self.nplanes)
-        self.ref_planes_dev = list(outs)
+        Sets ``fh.lf`` and ``self.ref_planes_dev`` (post-LPF recon). The
+        span ``lpf`` (``lpf_s``), the levels' read included."""
+        with trace.span("lpf", into="lpf_s"):
+            dev = self.device
+            split16 = convert.to_device(self._split16_frame(), dev)
+            recs = self._recon_dev_frame()
+            w, h = self.mi_cols * 4, self.mi_rows * 4
+            if self.cfg.search_lpf:
+                g = fh.lf.filter_level[0]
+                cands = convert.to_device(
+                    np.array([0, g // 2, max(g - 2, 0), g, min(g + 2, 63),
+                              min(g * 2, 63)], np.int32), dev)
+                levels, outs = DT.lpf_pick_and_filter(
+                    tuple(recs), self.device_sources(), split16, cands, w=w,
+                    h=h, nplanes=self.nplanes)
+                lv = [int(x) for x in convert.to_host(levels)]
+                fh.lf.filter_level = (lv[0], lv[0])
+                fh.lf.filter_level_u = lv[1]
+                fh.lf.filter_level_v = lv[2]
+            else:
+                lv = [fh.lf.filter_level[0], fh.lf.filter_level_u,
+                      fh.lf.filter_level_v]
+                outs = DT.lpf_apply(tuple(recs), split16,
+                                    convert.to_device(np.array(lv, np.int32),
+                                                      dev),
+                                    w=w, h=h, nplanes=self.nplanes)
+            self.ref_planes_dev = list(outs)
 
     def _host_lpf_planes(self, fh: FrameHeader, search: bool) -> list:
         """The uniform grid's loop-filtered planes, made on the host as the
@@ -553,7 +562,7 @@ class GpuFrameEncoder:
         from ..ops import deblock
         src, dims = self._crop_src()
         mi_tx, mi_bsz, mi_uv = self._cdef_grids()
-        pre = [np.array(r.cpu().numpy()[:h, :w], np.int32)
+        pre = [np.array(convert.to_host(r)[:h, :w], np.int32)
                for r, (h, w) in zip(self.plan["recon_dev"], dims)]
         info = deblock.DeblockInfo(mi_tx, mi_bsz, self.mi_skip,
                                    np.zeros_like(self.mi_skip),
@@ -606,7 +615,7 @@ class GpuFrameEncoder:
         from ..ops import cdef as cdef_ops
         src, dims = self._crop_src()
         if self.use_part:
-            planes = [np.array(r.cpu().numpy()[:h, :w], np.int32)
+            planes = [np.array(convert.to_host(r)[:h, :w], np.int32)
                       for r, (h, w) in zip(self.ref_planes_dev, dims)]
         else:
             planes = self._host_lpf_planes(fh, self.cfg.search_lpf)
@@ -918,11 +927,11 @@ def apply_cdef_refs(planes_dev, mi_skip, fh: FrameHeader, mi_rows: int,
         srcs = tuple(s if torch.is_tensor(s) else convert.plane(s, dev)
                      for s in srcs[:nplanes])
     outs, _, _, sums = CT.cdef_frame(
-        tuple(planes_dev[:nplanes]), torch.as_tensor(skip8, device=dev),
+        tuple(planes_dev[:nplanes]), convert.to_device(skip8, dev),
         c.y_pri[0], ysec, c.uv_pri[0], usec, c.damping, mi_rows=mi_rows,
         mi_cols=mi_cols, nplanes=nplanes, srcs=srcs)
     if srcs is not None:
-        e = sums.cpu().numpy().astype(np.float32)
+        e = convert.to_host(sums).astype(np.float32)
         e0, e1 = e[0, 0], e[1, 0]
         for i in range(1, nplanes):
             e0 = e0 + e[0, i]

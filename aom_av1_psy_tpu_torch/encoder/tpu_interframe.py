@@ -31,7 +31,6 @@ decoder's inter prediction, ``normative/mvref``) are the port's own copies.
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -51,7 +50,9 @@ from ..normative.blocks import (EXT_TX_IND, EXT_TX_SET_INDEX_INTER,
 from ..normative.enums import BlockSize, TxSize
 from ..normative.txsize import (TXSIZE_LOG2_MINUS4, TXSIZE_SQR,
                                 txsize_entropy_ctx)
+from ..utils import trace
 from ..utils.frame import Frame
+from .. import convert
 from ..device import resolve_device
 from ..ops import deblock_torch as DT
 from . import temporal_filter as TF
@@ -116,10 +117,10 @@ class GpuInterFrameEncoder:
         self.zero_lpf = zero_lpf
         self.cfg = cfg
         if cfg.tune_vmaf:
-            t0 = time.perf_counter()
-            self.vmaf_unsharp_amount, frame = tune_vmaf.preprocess_frame(
-                frame, self.device)
-            self.vmaf_s = time.perf_counter() - t0
+            with trace.span("vmaf") as sp:
+                self.vmaf_unsharp_amount, frame = tune_vmaf.preprocess_frame(
+                    frame, self.device)
+            self.vmaf_s = sp.s
         self.src = frame
         self._seq = seq
         self.w, self.h = frame.width, frame.height
@@ -221,6 +222,10 @@ class GpuInterFrameEncoder:
 
     # ------------------------------------------------------------------
     def encode(self) -> bytes:
+        with trace.frame():
+            return self._encode()
+
+    def _encode(self) -> bytes:
         seq, fh = self.make_headers()
         self.seq, self.fh = seq, fh
         if self.prev_fc is not None:
@@ -228,37 +233,39 @@ class GpuInterFrameEncoder:
         else:
             fc = FrameContext(self.cfg.base_q_idx)
         self.fc = fc
-        t0 = time.perf_counter()
-        plan = tpu_inter.plan_inter_frame(
-            self.srcp, self.ref_planes_dev, self.cfg.base_q_idx,
-            self.rdmult, self.mi_rows, self.mi_cols, self.crop_w,
-            self.crop_h, device=self.device)
-        t1 = time.perf_counter()
-        self.plan = plan
-        fh.interp_filter = int(plan.get("interp_filter", 0))
-        if not self.zero_lpf:
-            self._lpf_device(fh)
-        else:
-            self.ref_planes_out = list(plan["recon_dev"])
-        t2 = time.perf_counter()
-        if getattr(self.seq, "enable_cdef", False) and not self.zero_lpf:
-            self.ref_planes_out = apply_cdef_refs(
-                self.ref_planes_out, self._mi_skip_map(), fh,
-                self.mi_rows, self.mi_cols, self.nplanes,
-                srcs=self.device_sources())
-        t3 = time.perf_counter()
-        tile_data = self._pack_script(plan, fc, fh)
-        # end-of-frame context save (decoder/obu.py:_update_ref_slots):
-        # the script adapted fc's tables in place; reset the per-row
-        # adaptation counters exactly as the decoder does before storing
-        fc.reset_counters()
-        self.saved_fc = fc
-        t4 = time.perf_counter()
-        self.timings = {"plan_s": t1 - t0, "pack_s": t4 - t1}
-        # pack_s, split: the LPF pick (KC), apply_cdef_refs (KF and its one
-        # wait for the gate's sums), the symbol script and the native coder
-        self.pack_stages = {"lpf_s": t2 - t1, "cdef_s": t3 - t2,
-                            "script_s": t4 - t3}
+        with trace.span("plan") as plan_sp:
+            plan = tpu_inter.plan_inter_frame(
+                self.srcp, self.ref_planes_dev, self.cfg.base_q_idx,
+                self.rdmult, self.mi_rows, self.mi_cols, self.crop_w,
+                self.crop_h, device=self.device)
+        # pack_s, split under a profiler: the LPF pick (KC), apply_cdef_refs
+        # (KF and its one wait for the gate's sums), the symbol script and
+        # the native coder (``script_s``)
+        with trace.span("pack") as pack_sp:
+            self.plan = plan
+            fh.interp_filter = int(plan.get("interp_filter", 0))
+            with trace.span("lpf"):
+                if not self.zero_lpf:
+                    self._lpf_device(fh)
+                else:
+                    self.ref_planes_out = list(plan["recon_dev"])
+            with trace.span("cdef"):
+                if getattr(self.seq, "enable_cdef", False) and \
+                        not self.zero_lpf:
+                    self.ref_planes_out = apply_cdef_refs(
+                        self.ref_planes_out, self._mi_skip_map(), fh,
+                        self.mi_rows, self.mi_cols, self.nplanes,
+                        srcs=self.device_sources())
+            with trace.span("script") as script_sp:
+                tile_data = self._pack_script(plan, fc, fh)
+                # end-of-frame context save (decoder/obu.py:
+                # _update_ref_slots): the script adapted fc's tables in
+                # place; reset the per-row adaptation counters exactly as
+                # the decoder does before storing
+                fc.reset_counters()
+                self.saved_fc = fc
+        self.timings = {"plan_s": plan_sp.s, "pack_s": pack_sp.s}
+        self.pack_stages = {"script_s": script_sp.s}
         w = BitWriter()
         write_frame_header(w, seq, fh)
         w.byte_align()
@@ -293,17 +300,17 @@ class GpuInterFrameEncoder:
         post-LPF recon that the NEXT frame references."""
         dev = self.device
         sp = self.plan["split32"].astype(bool)
-        split16 = torch.as_tensor(np.repeat(np.repeat(sp, 2, 0), 2, 1),
-                                  device=dev)
+        split16 = convert.to_device(np.repeat(np.repeat(sp, 2, 0), 2, 1), dev)
         w, h = self.mi_cols * 4, self.mi_rows * 4
         g = fh.lf.filter_level[0]
-        cands = torch.tensor([0, g // 2, max(g - 2, 0), g, min(g + 2, 63),
-                              min(g * 2, 63)], dtype=torch.int32, device=dev)
+        cands = convert.to_device(
+            np.array([0, g // 2, max(g - 2, 0), g, min(g + 2, 63),
+                      min(g * 2, 63)], np.int32), dev)
         recs = tuple(self.plan["recon_dev"][: self.nplanes])
         levels, outs = DT.lpf_pick_and_filter(
             recs, self.device_sources(), split16, cands, w=w, h=h,
             nplanes=self.nplanes)
-        lv = [int(x) for x in levels.cpu().numpy()]
+        lv = [int(x) for x in convert.to_host(levels)]
         fh.lf.filter_level = (lv[0], lv[0])
         fh.lf.filter_level_u = lv[1]
         fh.lf.filter_level_v = lv[2]
@@ -754,10 +761,10 @@ def encode_video(frames, cfg: EncoderConfig, path: str | None = None,
             tf_s = None
             if tf_key and len(frames) > 1:
                 # multi-frame KEY denoise (temporal_filter.c:833-841)
-                t0 = time.perf_counter()
-                frame = TF.filter_key_frame(frames, i, kf_cfg.base_q_idx,
-                                            device=device)
-                tf_s = time.perf_counter() - t0
+                with trace.span("tf") as tf_sp:
+                    frame = TF.filter_key_frame(frames, i, kf_cfg.base_q_idx,
+                                                device=device)
+                tf_s = tf_sp.s
             enc = GpuFrameEncoder(frame, kf_cfg, device=device)
             enc.tf_s = tf_s
             packets.append(enc.encode(include_seq=(i == 0)))
@@ -807,10 +814,10 @@ def encode_video_arf(frames, cfg: EncoderConfig, path: str | None = None,
         cfg = dataclasses.replace(cfg, cdef_fixed=True)
         kf_cfg = dataclasses.replace(kf_cfg, cdef_fixed=True)
         arf_cfg = dataclasses.replace(arf_cfg, cdef_fixed=True)
-    t0 = time.perf_counter()
-    key_src = TF.filter_key_frame(frames, 0, kf_cfg.base_q_idx,
-                                  device=device) if T > 1 else frames[0]
-    tf_s = time.perf_counter() - t0 if T > 1 else None
+    with trace.span("tf") as tf_sp:
+        key_src = TF.filter_key_frame(frames, 0, kf_cfg.base_q_idx,
+                                      device=device) if T > 1 else frames[0]
+    tf_s = tf_sp.s if T > 1 else None
     key = GpuFrameEncoder(key_src, kf_cfg, device=device)
     key.tf_s = tf_s
     packets.append(key.encode(include_seq=True))
@@ -832,19 +839,19 @@ def encode_video_arf(frames, cfg: EncoderConfig, path: str | None = None,
         c_rel = center - max(s_idx, center - 2)
         tf_s = None
         if len(span) >= 2:
-            t0 = time.perf_counter()
-            planes_list = TF.upload([f.planes() for f in span], device)
-            noise = [max(TF.estimate_noise_level(pl), 0.0)
-                     for pl in planes_list[c_rel]]
-            # q_factor at the GROUP's quality level (av1_get_q analogue):
-            # the boosted ARF q would put q_decay near zero and disable
-            # the filter entirely
-            qf = max(1, tables.ac_quant(max(cfg.base_q_idx, 1)) // 4)
-            y, u, v = TF.temporal_filter_frames(
-                planes_list, c_rel, qf, tf_strength,
-                noise_levels=tuple(noise), device=device)
-            arf_src = Frame(y, u, v)
-            tf_s = time.perf_counter() - t0
+            with trace.span("tf") as tf_sp:
+                planes_list = TF.upload([f.planes() for f in span], device)
+                noise = [max(TF.estimate_noise_level(pl), 0.0)
+                         for pl in planes_list[c_rel]]
+                # q_factor at the GROUP's quality level (av1_get_q
+                # analogue): the boosted ARF q would put q_decay near zero
+                # and disable the filter entirely
+                qf = max(1, tables.ac_quant(max(cfg.base_q_idx, 1)) // 4)
+                y, u, v = TF.temporal_filter_frames(
+                    planes_list, c_rel, qf, tf_strength,
+                    noise_levels=tuple(noise), device=device)
+                arf_src = Frame(y, u, v)
+            tf_s = tf_sp.s
         else:
             arf_src = frames[center]
         enc_arf = GpuInterFrameEncoder(

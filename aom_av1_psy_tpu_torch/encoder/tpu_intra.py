@@ -39,8 +39,10 @@ from ..normative import tables
 from ..normative.enums import TxSize
 from .. import convert
 from ..device import on_device
+from ..kernels.build import launches_total
 from ..ops import intra_pred as IP
 from ..ops import txq as TQ
+from ..utils import trace
 from . import tpu_intra_dir as DIR
 
 # plan mode set: no top-right/bottom-left extensions, no edge filtering
@@ -73,8 +75,8 @@ def _tq_recon_uv(src, pred, dc_q, ac_q, tx_size, scan, uv_mode):
 
 @functools.cache
 def _scan(tx_size: int, device: str):
-    return torch.as_tensor(tables.scan_table(tx_size, 0).astype(np.int32),
-                           device=device)
+    return convert.to_device(tables.scan_table(tx_size, 0).astype(np.int32),
+                             device)
 
 
 # ----------------------------------------------------------------------
@@ -261,17 +263,24 @@ def _diagonals_on(R: int, C: int, T: int, device: str):
     ``device``, uploaded once per shape and device (read-only), so that a
     wavefront queues no host copy (a copy would wait for the device)."""
     tiles, rows, cols, _ = _diagonals(R, C, T)
-    return tuple(torch.as_tensor(a, device=device)
-                 for a in (tiles, rows, cols))
+    return tuple(convert.to_device(a, device) for a in (tiles, rows, cols))
 
 
-def _walk(R: int, C: int, device, T: int = 1):
+def _walk(R: int, C: int, device, T: int = 1, plane: str = "y"):
     """Yield (tt, rc, cc) int64 device tensors per diagonal: the tile, row
-    and column of every cell of the diagonal in T grids."""
+    and column of every cell of the diagonal in T grids. Under a profiler
+    each step (the loop's body) is a ``plan.step`` span of ``plane``."""
     offs = _diagonals(R, C, T)[3]
     all_ = _diagonals_on(R, C, T, str(device))
+    steps = trace.profiling()
     for d in range(R + C - 1):
-        yield tuple(a[offs[d]:offs[d + 1]] for a in all_)
+        cells = tuple(a[offs[d]:offs[d + 1]] for a in all_)
+        if steps:
+            with trace.span("plan.step", plane=plane, diagonal=d,
+                            cells=offs[d + 1] - offs[d]):
+                yield cells
+        else:
+            yield cells
 
 
 def _luma_wavefront_part(src, t: dict):
@@ -391,7 +400,7 @@ def _chroma_wavefront_part(src_u, src_v, t: dict, split32, y_m32, y_m16):
                               scan=_scan(BS_TO_TX[8], str(dev)), rd=rd16,
                               rt=t["rt"]["uv8"], split=split32, **common)
 
-    for tt, rc, cc in _walk(R, C, dev, T):
+    for tt, rc, cc in _walk(R, C, dev, T, plane="uv"):
         B = rc.shape[0]
         pick16, pred = IP.intra_pick(planes, tt, rc, cc, (src_u, src_v), 16,
                                      7, rd32,
@@ -419,7 +428,7 @@ def _fetch(named: dict) -> dict:
     fit int16 (levels are clipped to +/-32767, the reference's
     ``_shrink_levels`` downcast), so they travel as one int16 buffer."""
     flat = torch.cat([v.reshape(-1).to(torch.int16) for v in named.values()])
-    host = flat.cpu().numpy()
+    host = convert.to_host(flat)
     out, off = {}, 0
     for k, v in named.items():
         n = v.numel()
@@ -438,40 +447,52 @@ def start_tiles_part(slabs: list, shared: dict, mi_rows: int,
     and queue the luma and chroma wavefronts. It waits for nothing on the
     device: the inputs go up before the first kernel is queued, so the
     host can go on to another card while this one computes. Returns the
-    plan's device tensors for :func:`fetch_tiles_part`."""
+    plan's device tensors for :func:`fetch_tiles_part`.
+
+    The inputs' host work and uploads are the span ``plan.inputs``, the
+    wavefronts' queuing ``plan.submit``; the frame's record gains their
+    seconds (``plan_inputs_s``, ``plan_submit_s``) and the kernel launches
+    made in the submit (``plan_launches``)."""
     R, C = shared["R"], shared["C"]
-    t = stack_tiles(shared, [tile_inputs(R, C, s["rd"], mi_rows,
-                                         s["mi_cols_eff"], s.get("tile_mi_w"),
-                                         s.get("vis_mi_w"))
-                             for s in slabs])
     with on_device(device):
-        t = convert.inputs_from_numpy(t, device)
-        srcs = [torch.as_tensor(np.stack([np.asarray(s[p], np.int32)
-                                          for s in slabs]), device=device)
-                for p in (("y", "u", "v") if "u" in slabs[0] else ("y",))]
-        # the walk's indices too go up before the first kernel is queued
-        _diagonals_on(R, C, len(slabs), str(srcs[0].device))
-        luma = _luma_wavefront_part(srcs[0], t)
-        named = dict(zip(_LUMA_KEYS, luma[:9]))
-        recons = [luma[9]]
-        if len(srcs) > 1:
-            chroma = _chroma_wavefront_part(srcs[1], srcs[2], t,
-                                            named["split32"],
-                                            named["y_mode32"],
-                                            named["y_mode16"])
-            named.update(zip(_CHROMA_KEYS, chroma[:6]))
-            recons += [chroma[6][0], chroma[6][1]]
+        with trace.span("plan.inputs", into="plan_inputs_s"):
+            t = stack_tiles(shared, [
+                tile_inputs(R, C, s["rd"], mi_rows, s["mi_cols_eff"],
+                            s.get("tile_mi_w"), s.get("vis_mi_w"))
+                for s in slabs])
+            t = convert.inputs_from_numpy(t, device)
+            srcs = [convert.to_device(np.stack([np.asarray(s[p], np.int32)
+                                                for s in slabs]), device)
+                    for p in (("y", "u", "v") if "u" in slabs[0]
+                              else ("y",))]
+            # the walk's indices too go up before the first kernel is queued
+            _diagonals_on(R, C, len(slabs), str(srcs[0].device))
+        n0 = launches_total()
+        with trace.span("plan.submit", into="plan_submit_s"):
+            luma = _luma_wavefront_part(srcs[0], t)
+            named = dict(zip(_LUMA_KEYS, luma[:9]))
+            recons = [luma[9]]
+            if len(srcs) > 1:
+                chroma = _chroma_wavefront_part(srcs[1], srcs[2], t,
+                                                named["split32"],
+                                                named["y_mode32"],
+                                                named["y_mode16"])
+                named.update(zip(_CHROMA_KEYS, chroma[:6]))
+                recons += [chroma[6][0], chroma[6][1]]
+        trace.add("plan_launches", launches_total() - n0)
     return {"named": named, "recons": recons, "T": len(slabs)}
 
 
 def fetch_tiles_part(started: dict) -> list:
     """Second half of :func:`plan_tiles_part`: the one device->host copy
     of the plan arrays, and the T plan dicts (``recon_dev`` on the device
-    the wavefronts ran on)."""
-    host = _fetch(started["named"])
-    return [{"part": True, **{k: v[i] for k, v in host.items()},
-             "recon_dev": [r[i].contiguous() for r in started["recons"]]}
-            for i in range(started["T"])]
+    the wavefronts ran on); the span ``plan.fetch`` (``plan_fetch_s``)."""
+    with trace.span("plan.fetch", into="plan_fetch_s"):
+        host = _fetch(started["named"])
+        return [{"part": True, **{k: v[i] for k, v in host.items()},
+                 "recon_dev": [r[i].contiguous()
+                               for r in started["recons"]]}
+                for i in range(started["T"])]
 
 
 def plan_tiles_part(slabs: list, q: int, fc, mi_rows: int, device):
@@ -490,9 +511,11 @@ def plan_tiles_part(slabs: list, q: int, fc, mi_rows: int, device):
 
 
 def slab_shared_inputs(slabs: list, q: int, fc) -> dict:
-    """``shared_inputs`` of the slabs' (R, C) cell grid."""
-    h, w = np.shape(slabs[0]["y"])
-    return shared_inputs(h // 32, w // 32, q, fc)
+    """``shared_inputs`` of the slabs' (R, C) cell grid (a ``plan.inputs``
+    span)."""
+    with trace.span("plan.inputs", into="plan_inputs_s"):
+        h, w = np.shape(slabs[0]["y"])
+        return shared_inputs(h // 32, w // 32, q, fc)
 
 
 def plan_frame_part(src_planes, q, fc, rdmult, mi_rows, mi_cols,
@@ -513,7 +536,7 @@ def plan_frame_part(src_planes, q, fc, rdmult, mi_rows, mi_cols,
             "vis_mi_w": vis_mi_w, **dict(zip("yuv", src_planes))}
     plan = plan_tiles_part([slab], q, fc, mi_rows, dev)[0]
     if fetch_recon:
-        plan["recon"] = [r.cpu().numpy() for r in plan["recon_dev"]]
+        plan["recon"] = [convert.to_host(r) for r in plan["recon_dev"]]
     return plan
 
 
@@ -570,7 +593,7 @@ def _chroma_wavefront(src_u, src_v, uv_cost, dc_q, ac_q, rdmult, y_mode_idx,
     kb = TQ.uniform_step(bs, src_u[None], bufs, levels_out[None],
                          eob_out[None], src_v=src_v[None], dc_q=dc_q,
                          ac_q=ac_q, scan=_scan(BS_TO_TX[bs], str(dev)))
-    for tt, rc, cc in _walk(R, C, dev):
+    for tt, rc, cc in _walk(R, C, dev, plane="uv"):
         pick, pred = IP.intra_pick(
             bufs, tt, rc, cc, (src_u[None], src_v[None]), bs, IP.N_PLAIN,
             rdmult[None], uv_cost=uv_cost, nbr=y_mode_idx[None],
@@ -587,30 +610,39 @@ def plan_frame(src_planes, q, bs, fc, rdmult, fetch_recon=False,
     ``bs``); ``rdmult`` a scalar or a per-block (R, C) grid. Returns the
     plan dict consumed by the native uniform pack (the reference's keys and
     dtypes) from one device->host copy; ``recon_dev`` holds the recon
-    planes on ``device``."""
+    planes on ``device``. Spans and counts as the partition plan's
+    (:func:`start_tiles_part`, :func:`fetch_tiles_part`)."""
     from ..device import resolve_device
     dev = resolve_device(device)
-    kf_cost, angle_cost, uv_cost = _plan_cost_tables(fc)
-    y = src_planes[0]
-    R, C = y.shape[0] // bs, y.shape[1] // bs
-    dc_q, ac_q = tables.dc_quant(q), tables.ac_quant(q)
-    rdgrid = np.asarray(rdmult, np.float32)
-    if rdgrid.ndim == 0:
-        rdgrid = np.full((R, C), float(rdmult), np.float32)
-    assert rdgrid.shape == (R, C), (rdgrid.shape, R, C)
-    rdgrid = torch.as_tensor(rdgrid, device=dev)
-    t = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)
-    ym, ylv, yeob, yrec = _luma_wavefront(
-        t(y), t(kf_cost), t(angle_cost), dc_q, ac_q, rdgrid, bs, R, C)
-    named = {"y_mode": ym, "y_levels": ylv, "y_eob": yeob}
-    recon_dev = [yrec.contiguous()]
-    if len(src_planes) > 1:
-        uvm, uvlv, uveob, uvrec = _chroma_wavefront(
-            t(src_planes[1]), t(src_planes[2]), t(uv_cost), dc_q, ac_q,
-            rdgrid, ym, bs // 2, R, C)
-        named.update(uv_mode=uvm, uv_levels=uvlv, uv_eob=uveob)
-        recon_dev += [uvrec[0].contiguous(), uvrec[1].contiguous()]
-    plan = {"bs": bs, **_fetch(named), "recon_dev": recon_dev}
+    with trace.span("plan.inputs", into="plan_inputs_s"):
+        kf_cost, angle_cost, uv_cost = _plan_cost_tables(fc)
+        y = src_planes[0]
+        R, C = y.shape[0] // bs, y.shape[1] // bs
+        dc_q, ac_q = tables.dc_quant(q), tables.ac_quant(q)
+        rdgrid = np.asarray(rdmult, np.float32)
+        if rdgrid.ndim == 0:
+            rdgrid = np.full((R, C), float(rdmult), np.float32)
+        assert rdgrid.shape == (R, C), (rdgrid.shape, R, C)
+        rdgrid = convert.to_device(rdgrid, dev)
+        t = lambda a: convert.to_device(np.asarray(a, np.int32), dev)
+        ins = [t(a) for a in (y, kf_cost, angle_cost)]
+        if len(src_planes) > 1:
+            ins += [t(a) for a in (src_planes[1], src_planes[2], uv_cost)]
+        _diagonals_on(R, C, 1, str(dev))
+    n0 = launches_total()
+    with trace.span("plan.submit", into="plan_submit_s"):
+        ym, ylv, yeob, yrec = _luma_wavefront(*ins[:3], dc_q, ac_q, rdgrid,
+                                              bs, R, C)
+        named = {"y_mode": ym, "y_levels": ylv, "y_eob": yeob}
+        recon_dev = [yrec.contiguous()]
+        if len(src_planes) > 1:
+            uvm, uvlv, uveob, uvrec = _chroma_wavefront(
+                *ins[3:], dc_q, ac_q, rdgrid, ym, bs // 2, R, C)
+            named.update(uv_mode=uvm, uv_levels=uvlv, uv_eob=uveob)
+            recon_dev += [uvrec[0].contiguous(), uvrec[1].contiguous()]
+    trace.add("plan_launches", launches_total() - n0)
+    with trace.span("plan.fetch", into="plan_fetch_s"):
+        plan = {"bs": bs, **_fetch(named), "recon_dev": recon_dev}
     if fetch_recon:
-        plan["recon"] = [r.cpu().numpy() for r in recon_dev]
+        plan["recon"] = [convert.to_host(r) for r in recon_dev]
     return plan

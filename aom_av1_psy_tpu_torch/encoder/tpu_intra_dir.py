@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..ops import intra as intra_ops
+from .. import convert
 from ..normative.enums import PredictionMode, MODE_TO_ANGLE
 
 # class ids
@@ -218,7 +219,7 @@ def dir_positions(bs: int):
 def tables_on(bs: int, device: str):
     """``tables(bs)`` arrays as tensors on ``device`` (uploaded once)."""
     t = tables(bs)
-    return {k: torch.as_tensor(t[k], device=device)
+    return {k: convert.to_device(t[k], device)
             for k in ("MODE", "DELTA", "CLS", "IDXa", "IDXb", "SH")}
 
 

@@ -29,6 +29,8 @@ import os
 import shutil
 import subprocess
 
+from ..utils import trace
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build",
@@ -41,6 +43,15 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
 D = ctypes.c_double
+
+
+_ALL = []          # every CudaKernel made
+
+
+def launches_total() -> int:
+    """The launches made so far through every ``CudaKernel``: the sum of
+    their ``launches``."""
+    return sum(k.launches for k in _ALL)
 
 
 def nvcc_path() -> str:
@@ -72,6 +83,7 @@ class CudaKernel:
         self._lib = None
         self._fns = {}
         self._raw = self._current = None
+        _ALL.append(self)
 
     @property
     def source(self) -> str:
@@ -153,10 +165,17 @@ class CudaKernel:
         """Call entry point ``fn``, which launches the kernel on the
         current stream of device ``device``, the card its tensors lie on
         (it must be the current device); raise on a launch error.
-        ``variant`` labels the launch in ``variants``."""
+        ``variant`` labels the launch in ``variants``. Under a profiler
+        the C entry's call is a ``launch`` span (``utils.trace``)."""
         if self._lib is None:
             self.lib()
-        rc = self._fns[fn](*args, self.stream_on(device))
+        stream = self.stream_on(device)
+        if trace.profiling():
+            with trace.span("launch", kernel=self.name,
+                            variant=variant or fn):
+                rc = self._fns[fn](*args, stream)
+        else:
+            rc = self._fns[fn](*args, stream)
         if rc != 0:
             raise RuntimeError(f"{self.name}.{fn}: CUDA error {rc}")
         self.launches += 1

@@ -317,8 +317,10 @@ def lpf_pick_and_filter(planes, srcs, split16, cands, *, w: int, h: int,
     picks 0. Returns (levels (3,) int32 tensor, filtered planes tuple)."""
     def eval_plane(buf, src, pw, ph, cell, luma):
         outs, sse = lpf_ladder(buf, split16, cands, src, pw, ph, cell, luma)
-        best = torch.argmin(sse)
-        return cands[best], outs[best]
+        # the pick stays on the device: indexing with a tensor index would
+        # read it to the host first
+        best = torch.argmin(sse).view(1)
+        return cands.index_select(0, best)[0], outs.index_select(0, best)[0]
 
     lvl_y, out_y = eval_plane(planes[0], srcs[0], w, h, 16, True)
     levels, outs = [lvl_y], [out_y]

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from . import intra as intra_ops
+from .. import convert
 from ..encoder import tpu_intra_dir as DIR
 from ..kernels.build import CudaKernel, I, P, need
 from ..normative.blocks import INTRA_MODE_CONTEXT
@@ -121,8 +122,8 @@ def predict_all_modes(above, left, tl, have_a, have_l, bs: int):
 
 @functools.cache
 def _smooth_weights(bs: int, device: str):
-    return torch.as_tensor(intra_ops.smooth_weights(bs).astype("int32"),
-                           device=device)
+    return convert.to_device(intra_ops.smooth_weights(bs).astype("int32"),
+                             device)
 
 
 def _defaults(above, trreal, blreal, abext, lfext, ef):

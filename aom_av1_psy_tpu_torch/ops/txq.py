@@ -41,6 +41,7 @@ from .txfm_host import _compiled_stages
 from .txfm import (FWD_COS_BIT_COL, FWD_COS_BIT_ROW, FWD_SHIFT, INV_COS_BIT,
                    INV_SHIFT, SQUARE_TX, fwd_sel, inv_sel_add, stage_rows)
 from ..kernels.build import CudaKernel, F, I, P, need
+from .. import convert
 
 
 class _StepArgs(ctypes.Structure):
@@ -228,8 +229,8 @@ def stage_table(bs: int):
 def _programs(bs: int, device: str):
     """``stage_table(bs)`` on ``device`` (stages, meta), uploaded once."""
     stages, meta = stage_table(bs)
-    return (torch.as_tensor(stages, device=device).contiguous(),
-            torch.as_tensor(meta, device=device))
+    return (convert.to_device(stages, device).contiguous(),
+            convert.to_device(meta, device))
 
 
 def _launch_kb(src, pred, dc_q, ac_q, scan, vadst, hadst, rd=None):
@@ -307,8 +308,7 @@ def txq_recon(src, pred, dc_q: int, ac_q: int, scan, vadst=None,
 # ----------------------------------------------------------------------
 @functools.cache
 def _tx_types(device: str):
-    return torch.as_tensor(INTRA_MODE_TO_TX_TYPE.astype(np.int32),
-                           device=device)
+    return convert.to_device(INTRA_MODE_TO_TX_TYPE.astype(np.int32), device)
 
 
 def uv_adst(uv_mode):

@@ -36,6 +36,7 @@ from ..encoder import tpu_intra as TI
 from ..normative import tables
 from ..ops import analyze as A
 from ..ops.txfm import SQUARE_TX
+from ..utils import trace
 
 
 class Mesh:
@@ -184,7 +185,9 @@ def tile_plans_sharded(mesh: Mesh, slabs: list, q: int, mi_rows: int):
     if len(mesh) != len(slabs):
         raise ValueError(f"a mesh of {len(mesh)} devices for {len(slabs)} "
                          "tile slabs")
-    shared = TI.slab_shared_inputs(slabs, q, FrameContext(q))
+    with trace.span("plan.inputs", into="plan_inputs_s"):
+        fc = FrameContext(q)
+    shared = TI.slab_shared_inputs(slabs, q, fc)
     started = [TI.start_tiles_part([sl], shared, mi_rows, dev)
               for sl, dev in zip(slabs, mesh.devices)]
     return [TI.fetch_tiles_part(x)[0] for x in started]
@@ -197,5 +200,6 @@ def tile_plans_batched(slabs: list, q: int, mi_rows: int, device="cuda"):
     (planes, ``rd`` lambda grid, ``mi_cols_eff``, ``tile_mi_w``,
     ``vis_mi_w``). Returns a list of per-tile plan dicts (the reference's
     keys and dtypes; ``recon_dev`` on ``device``)."""
-    return TI.plan_tiles_part(slabs, q, FrameContext(q), mi_rows,
-                              resolve_device(device))
+    with trace.span("plan.inputs", into="plan_inputs_s"):
+        fc = FrameContext(q)
+    return TI.plan_tiles_part(slabs, q, fc, mi_rows, resolve_device(device))

@@ -1,0 +1,132 @@
+"""Spans and per-frame counters of the encoders.
+
+``span(name, **attrs)`` times a stage of the program. It always yields a
+``Span`` whose ``s`` holds the stage's seconds once the block has left;
+with ``into=key`` the seconds are also added to ``key`` of the open
+frame's record. ``frame()`` opens that record: every ``encode()`` opens
+one, advances the per-process frame id and reads its stage times and
+counts (``add``) from it afterwards.
+
+While a ``torch.profiler`` session runs (one read of torch's
+profiler-enabled flag per span), each span is also kept as a timeline
+record ``(name, start_ns, end_ns, parent, frame, attrs)``: ``parent`` is
+the index in ``records()`` of the innermost recorded span that was open
+around it (None at the top), ``frame`` the id of the frame it ran in (the
+latest begun where none is open), ``start_ns`` / ``end_ns`` read from
+``time.time_ns()``, the wall clock that the profiler stamps its CPU and
+device events with. So the program's spans lie beside the device's
+events of the same session. With no profiler running nothing is kept.
+``records()`` lists them and ``clear()`` drops them.
+
+Spans nest by the order of their blocks on one thread; the encoders run
+each frame on one thread.
+"""
+from __future__ import annotations
+
+import time
+
+import torch
+
+# True while a torch.profiler session runs (a C call, ~0.1 us)
+profiling = torch._C._autograd._profiler_enabled
+
+_records = []          # [name, start_ns, end_ns, parent record, frame, attrs]
+_open = []             # the recorded span of each open span (or None)
+_frames = []           # the open frames' records, innermost last
+_frame_id = 0          # the latest frame begun
+
+
+class Span:
+    """A span's seconds (``s``) once its block has left."""
+    __slots__ = ("s",)
+
+    def __init__(self):
+        self.s = None
+
+
+class span:
+    """``with span(name, into=None, **attrs) as sp:`` times the block into
+    ``sp.s``; ``into`` names the open frame's entry the seconds are added
+    to; under a profiler the block is also kept as a timeline record with
+    ``attrs``."""
+    __slots__ = ("name", "into", "attrs", "out", "t0", "rec")
+
+    def __init__(self, name: str, into: str | None = None, **attrs):
+        self.name, self.into, self.attrs = name, into, attrs
+        self.out = Span()
+
+    def __enter__(self) -> Span:
+        rec = None
+        if profiling():
+            rec = [self.name, time.time_ns(), None,
+                   _open[-1] if _open else None, frame_id(), self.attrs]
+            _records.append(rec)
+        _open.append(rec)
+        self.rec = rec
+        self.t0 = time.perf_counter()
+        return self.out
+
+    def __exit__(self, *exc) -> None:
+        self.out.s = s = time.perf_counter() - self.t0
+        if self.rec is not None:
+            self.rec[2] = time.time_ns()
+        _open.pop()
+        if self.into is not None and _frames:
+            vals = _frames[-1].values
+            vals[self.into] = vals.get(self.into, 0.0) + s
+
+
+class Frame:
+    """One frame's record: its ``id`` and ``values`` (stage seconds from
+    the spans opened with ``into``, counts from ``add``)."""
+    __slots__ = ("id", "values")
+
+    def __init__(self, fid: int):
+        self.id, self.values = fid, {}
+
+    def pick(self, keys) -> dict:
+        """``values`` of ``keys``, 0 where nothing was added."""
+        return {k: self.values.get(k, 0) for k in keys}
+
+
+class frame:
+    """``with frame() as rec:``: a new frame id and an empty record, the
+    innermost open frame until the block leaves."""
+    __slots__ = ("rec",)
+
+    def __enter__(self) -> Frame:
+        global _frame_id
+        _frame_id += 1
+        self.rec = Frame(_frame_id)
+        _frames.append(self.rec)
+        return self.rec
+
+    def __exit__(self, *exc) -> None:
+        _frames.remove(self.rec)
+
+
+def add(key: str, n) -> None:
+    """Add ``n`` to ``key`` of the open frame's record (if one is open)."""
+    if _frames:
+        vals = _frames[-1].values
+        vals[key] = vals.get(key, 0) + n
+
+
+def frame_id() -> int:
+    """The id of the innermost open frame, else of the latest begun."""
+    return _frames[-1].id if _frames else _frame_id
+
+
+def records() -> list:
+    """The timeline records kept so far, in the order the spans opened:
+    ``(name, start_ns, end_ns, parent, frame, attrs)``; ``end_ns`` is None
+    for a span still open."""
+    index = {id(r): i for i, r in enumerate(_records)}
+    return [(r[0], r[1], r[2],
+             None if r[3] is None else index.get(id(r[3])), r[4], r[5])
+            for r in _records]
+
+
+def clear() -> None:
+    """Drop the timeline records."""
+    _records.clear()

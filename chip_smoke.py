@@ -2180,8 +2180,8 @@ def gop_main_path(dev, kernels):
         log(f"[5b] frame {i} {'KEY' if i == 0 else 'P'}: {len(p)} bytes, "
             f"plan {e.timings['plan_s']:.4f} s, pack "
             f"{e.timings['pack_s']:.4f} s"
-            + (" (LPF {lpf_s:.4f}, CDEF {cdef_s:.4f}, script + native "
-               "coder {script_s:.4f})".format(**e.pack_stages) if i else "")
+            + (" (script + native coder {script_s:.4f})"
+               .format(**e.pack_stages) if i else "")
             + f", lf {e.fh.lf.filter_level} "
             f"{e.fh.lf.filter_level_u} {e.fh.lf.filter_level_v}, cdef "
             f"y {c.y_pri[0]}/{c.y_sec[0]} uv {c.uv_pri[0]}/{c.uv_sec[0]}"
@@ -2227,10 +2227,9 @@ def gop_main_path(dev, kernels):
         f"{statistics.median(e.timings['plan_s'] for e in encs[1:]):.4f} s, "
         f"pack+lpf+cdef "
         f"{statistics.median(e.timings['pack_s'] for e in encs[1:]):.4f} "
-        f"s: " + ", ".join(
-            f"{k} {statistics.median(e.pack_stages[k] for e in encs[1:]):.4f}"
-            for k in ("lpf_s", "cdef_s", "script_s"))
-        + f"), last-frame luma PSNR {psnr:.3f} dB; GOP == CPU plain path "
+        f"s: script_s "
+        f"{statistics.median(e.pack_stages['script_s'] for e in encs[1:]):.4f}"
+        f"), last-frame luma PSNR {psnr:.3f} dB; GOP == CPU plain path "
         f"(CPU GOP {cpu_s:.1f} s)")
     log(f"[5b] launches in the GOP: {json.dumps(counts)}")
     log(f"[5b] KK span launches per filtered KEY frame: "
@@ -2247,6 +2246,8 @@ def profile_p_frame(dev, frames, encs):
         GpuInterFrameEncoder
     prev = encs[1]
     cfg = encs[2].cfg
+    from aom_av1_psy_tpu_torch.utils import trace
+    trace.clear()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2256,7 +2257,11 @@ def profile_p_frame(dev, frames, encs):
         enc.encode()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    # the LPF pick and CDEF stages of the pack: its spans' timeline records
     tm = {**enc.timings, **enc.pack_stages}
+    for name in ("lpf", "cdef"):
+        tm[name + "_s"] = sum((r[2] - r[1]) / 1e9 for r in trace.records()
+                              if r[0] == name)
     _device_rows("6b", prof, wall, f"plan {tm['plan_s']:.4f} s, "
                  f"pack {tm['pack_s']:.4f} s (LPF {tm['lpf_s']:.4f}, CDEF "
                  f"host {tm['cdef_s']:.4f}, script + native coder "

@@ -69,7 +69,9 @@ def test_stream_96x64_q60_matches_jax(case_96x64):
     assert_decodes_to_recon(got, enc)
     for a, b in zip(enc.ref_planes_dev, ref.ref_planes_dev):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-    assert set(enc.timings) == {"plan_s", "pack_s"}
+    assert set(enc.timings) == {"plan_s", "plan_inputs_s", "plan_submit_s",
+                                "plan_fetch_s", "plan_launches", "pack_s",
+                                "lpf_s", "syncs"}
     # end-of-frame entropy state equals the reference's
     for field in ("kf_y_cdf", "partition_cdf", "txb_skip_cdf"):
         np.testing.assert_array_equal(getattr(enc.saved_fc, field),
