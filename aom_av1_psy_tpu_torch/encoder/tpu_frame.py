@@ -59,9 +59,10 @@ _BS_TO_TX = {8: int(TxSize.TX_8X8), 16: int(TxSize.TX_16X16),
 # ``timings`` of a KEY frame: the spans' seconds (the plan, split into its
 # inputs, its wavefronts' submit and its fetch; the pack with the LPF
 # pick; the LPF pick alone) and the frame's counts (kernel launches in
-# the plan's submit, host-device copies that block the host)
+# the plan's submit, 1 where the submit replayed a captured CUDA graph of
+# the wavefronts, host-device copies that block the host)
 KEY_TIMINGS = ("plan_s", "plan_inputs_s", "plan_submit_s", "plan_fetch_s",
-               "plan_launches", "pack_s", "lpf_s", "syncs")
+               "plan_launches", "plan_graph", "pack_s", "lpf_s", "syncs")
 
 
 def _pad_plane(src: np.ndarray, h: int, w: int) -> np.ndarray:

@@ -42,7 +42,7 @@ from ..ops import fullpel as FP
 from ..ops import mc as MC
 from ..ops import txq as TQ
 from .mv_rate_proxy import MV_RATE_PROXY, S_MAX
-from .tpu_intra import (BS_TO_TX, _fetch, _rate_tables, _scan,
+from .tpu_intra import (BS_TO_TX, _fetch, _pack16, _rate_tables, _scan,
                         edge_cell_masks, plan_part_supported)
 
 SEARCH_RAD = FP.SEARCH_RAD     # full-pel +/- range, px
@@ -397,7 +397,7 @@ def plan_inter_frame(src_planes, ref_planes, q, rdmult, mi_rows, mi_cols,
         named.update(zip(("uv_levels16", "uv_eob16", "uv_levels8",
                           "uv_eob8"), uv[:4]))
         recon_dev += [uv[4][0], uv[4][1]]
-    host = _fetch(named)        # the plan's single device->host copy
+    host = _fetch(named, _pack16(named))   # the plan's one device->host copy
     if host.pop("proxy_over"):
         raise RuntimeError(f"MV-rate proxy index past S_MAX={S_MAX}")
     plan = {"inter": True, "interp_filter": int(host.pop("interp_filter")),

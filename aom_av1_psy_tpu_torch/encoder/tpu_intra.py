@@ -21,6 +21,18 @@ wavefronts carry a leading tile axis: tiles are prediction-independent, so
 the cells of one diagonal in all T slabs form one batch (a frame without
 tile columns is T = 1). The plan reaches the host in one copy.
 
+On a card the partition wavefronts are issued by what the plan's key
+(``graph_key``: the grid, T, chroma, the card, the quantizers and
+partition rates, the inputs' shapes) has seen before: the key's first plan
+walks them eagerly, launch by launch; its second captures both walks and
+the fetch's packing as one CUDA graph (``PlanGraph``, at most
+``GRAPHS_PER_DEVICE`` keys a card) and replays it; every later plan copies
+its inputs into the graph's static tensors and replays it, one graph
+launch for the 1240 kernel launches of a 720p frame. The graph's outputs
+live in its own memory and are overwritten by its next replay, so the
+fetch copies all it returns (host arrays and ``recon_dev`` planes of their
+own). CPU tensors and the uniform grid always run eagerly.
+
 The building blocks keep the reference's names: ``_predict_all_modes`` is
 KA's plain half (``ops/intra_pred.py``); ``_quantize``, ``_dequantize``,
 ``_coeff_rate_est`` and ``_skip_rd`` are KB's (``ops/txq.py``). The host
@@ -30,6 +42,7 @@ reference; the port imports nothing of it.
 """
 from __future__ import annotations
 
+import collections
 import functools
 
 import numpy as np
@@ -423,11 +436,33 @@ _CHROMA_KEYS = ("uv_mode16", "uv_levels16", "uv_eob16", "uv_mode8",
                 "uv_levels8", "uv_eob8")
 
 
-def _fetch(named: dict) -> dict:
-    """Every plan array to the host in ONE device->host copy: all values
-    fit int16 (levels are clipped to +/-32767, the reference's
-    ``_shrink_levels`` downcast), so they travel as one int16 buffer."""
-    flat = torch.cat([v.reshape(-1).to(torch.int16) for v in named.values()])
+def _wavefronts(srcs: list, t: dict):
+    """Queue the luma wavefront and, with chroma planes, the chroma one
+    over the T slabs of ``srcs`` ((y,) or (y, u, v), each (T, H, W)).
+    Returns (named plan maps, recon planes (T, H, W) each, the maps
+    packed by ``_pack16``), views of the tensors the wavefronts write."""
+    luma = _luma_wavefront_part(srcs[0], t)
+    named = dict(zip(_LUMA_KEYS, luma[:9]))
+    recons = [luma[9]]
+    if len(srcs) > 1:
+        chroma = _chroma_wavefront_part(srcs[1], srcs[2], t,
+                                        named["split32"], named["y_mode32"],
+                                        named["y_mode16"])
+        named.update(zip(_CHROMA_KEYS, chroma[:6]))
+        recons += [chroma[6][0], chroma[6][1]]
+    return named, recons, _pack16(named)
+
+
+def _pack16(named: dict) -> torch.Tensor:
+    """Every plan array as one flat int16 tensor: all values fit int16
+    (levels are clipped to +/-32767, the reference's ``_shrink_levels``
+    downcast)."""
+    return torch.cat([v.reshape(-1).to(torch.int16) for v in named.values()])
+
+
+def _fetch(named: dict, flat: torch.Tensor) -> dict:
+    """Every plan array to the host in ONE device->host copy of
+    ``flat``, ``_pack16(named)``."""
     host = convert.to_host(flat)
     out, off = {}, 0
     for k, v in named.items():
@@ -437,6 +472,149 @@ def _fetch(named: dict) -> dict:
     if "split32" in out:
         out["split32"] = out["split32"].astype(np.uint8)
     return out
+
+
+# ----------------------------------------------------------------------
+# the partition wavefronts as one CUDA graph per key
+# ----------------------------------------------------------------------
+GRAPHS_PER_DEVICE = 4
+
+
+def _leaves(srcs: list, t: dict) -> list:
+    """The input tensors of a plan in a fixed order: the source planes,
+    then the tensors of ``t`` by key, through its nested dicts, lists
+    and tuples (every container ``_cloned`` copies)."""
+    out = []
+
+    def walk(v):
+        if isinstance(v, torch.Tensor):
+            out.append(v)
+        elif isinstance(v, dict):
+            for k in sorted(v):
+                walk(v[k])
+        elif isinstance(v, (list, tuple)):
+            for x in v:
+                walk(x)
+
+    walk(srcs)
+    walk(t)
+    return out
+
+
+def graph_key(srcs: list, t: dict) -> tuple:
+    """What a captured pair of partition wavefronts bakes in: the cell
+    grid ``R``, ``C``, the tile count T, whether chroma is planned, the
+    card's index, the scalars the kernels take by value (``dc_q``,
+    ``ac_q``, ``pr_none``, ``pr_split``), and the shape and dtype of every
+    input tensor (``_leaves``). The inputs' values are not in it: each
+    plan copies its own into the graph's static inputs."""
+    return (t["R"], t["C"], srcs[0].shape[0], len(srcs) > 1,
+            srcs[0].get_device(), t["dc_q"], t["ac_q"], t["pr_none"],
+            t["pr_split"],
+            tuple((tuple(x.shape), x.dtype) for x in _leaves(srcs, t)))
+
+
+def _cloned(v):
+    """``v`` with every tensor of its dicts, lists and tuples cloned."""
+    if isinstance(v, torch.Tensor):
+        return v.clone()
+    if isinstance(v, dict):
+        return {k: _cloned(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return type(v)(_cloned(x) for x in v)
+    return v
+
+
+class PlanGraph:
+    """The partition wavefronts of one key (``graph_key``) on one card.
+
+    The key's first plan runs eagerly: it uploads what the walk reads
+    besides its inputs (``_diagonals_on``, ``_scan``, KB's programs, KA's
+    table), so the second finds nothing left to upload. The second clones
+    its inputs into the static tensors ``srcs`` and ``t``, captures both
+    wavefronts and ``_pack16`` over them as one CUDA graph and replays it;
+    every later plan copies its inputs into ``srcs`` and ``t`` and
+    replays. The plan maps, the scratch and each step's pick and
+    prediction are allocated inside the capture, in the graph's memory
+    pool, and zeroed by the graph on every replay; ``named``, ``recons``
+    and ``flat`` view them and hold the latest replay's plan until the
+    next. ``busy`` from a replay to its fetch: a plan of the key meanwhile
+    (a mesh that names one card twice) runs eagerly."""
+
+    def __init__(self):
+        self.plans = 0
+        self.graph = None
+        self.srcs = self.t = None
+        self.named = self.recons = self.flat = None
+        self.busy = False
+
+    def load(self, srcs: list, t: dict) -> bool:
+        """Count a plan of the key; True where it takes the graph, its
+        inputs then in the static tensors (cloned for the capture,
+        copied on the card for a replay)."""
+        self.plans += 1
+        if self.plans == 1 or self.busy:
+            return False
+        if self.graph is None:
+            self.srcs, self.t = _cloned(srcs), _cloned(t)
+        else:
+            for dst, src in zip(_leaves(self.srcs, self.t),
+                                _leaves(srcs, t)):
+                dst.copy_(src)
+        self.busy = True
+        return True
+
+    def run(self) -> bool:
+        """Replay the graph, capturing it first where there is none.
+        True where it only replayed.
+
+        The capture records on a stream of its own and runs nothing, so
+        it neither waits for the card nor, as ``torch.cuda.graph`` does,
+        collects garbage and empties the allocator's caches (the frames
+        after it would allocate their memory afresh)."""
+        replay_only = self.graph is not None
+        if not replay_only:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(torch.cuda.Stream()):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    self.named, self.recons, self.flat = _wavefronts(
+                        self.srcs, self.t)
+                finally:
+                    graph.capture_end()
+            self.graph = graph
+        self.graph.replay()
+        return replay_only
+
+
+class PlanGraphs:
+    """The ``PlanGraph`` of each key on one card, the
+    ``GRAPHS_PER_DEVICE`` most recently used (a dropped entry's graph and
+    memory pool are freed once no started plan holds them)."""
+
+    def __init__(self):
+        self.entries = collections.OrderedDict()
+
+    def get(self, key) -> PlanGraph:
+        pg = self.entries.pop(key, None) or PlanGraph()
+        self.entries[key] = pg
+        while len(self.entries) > GRAPHS_PER_DEVICE:
+            self.entries.popitem(last=False)
+        return pg
+
+
+_PLAN_GRAPHS = {}      # CUDA device index -> PlanGraphs
+
+
+def _plan_graph(srcs: list, t: dict) -> PlanGraph | None:
+    """The key's ``PlanGraph`` with this plan's inputs loaded where the
+    plan takes the graph; None where it runs eagerly: CPU tensors, the
+    key's first plan, a graph whose last plan waits for its fetch."""
+    if srcs[0].device.type != "cuda":
+        return None
+    cache = _PLAN_GRAPHS.setdefault(srcs[0].get_device(), PlanGraphs())
+    pg = cache.get(graph_key(srcs, t))
+    return pg if pg.load(srcs, t) else None
 
 
 def start_tiles_part(slabs: list, shared: dict, mi_rows: int,
@@ -449,10 +627,18 @@ def start_tiles_part(slabs: list, shared: dict, mi_rows: int,
     host can go on to another card while this one computes. Returns the
     plan's device tensors for :func:`fetch_tiles_part`.
 
-    The inputs' host work and uploads are the span ``plan.inputs``, the
-    wavefronts' queuing ``plan.submit``; the frame's record gains their
-    seconds (``plan_inputs_s``, ``plan_submit_s``) and the kernel launches
-    made in the submit (``plan_launches``)."""
+    On a card the wavefronts are walked eagerly on the key's first plan,
+    captured as one CUDA graph on its second and replayed after
+    (``PlanGraph``); a replayed plan's device tensors are the graph's
+    own, valid until its next replay, so fetch it first.
+
+    The inputs' host work and uploads (and the copies into a graph's
+    static inputs) are the span ``plan.inputs``, the wavefronts' queuing
+    (or the graph's replay) ``plan.submit``; the frame's record gains
+    their seconds (``plan_inputs_s``, ``plan_submit_s``), the kernel
+    launches made in the submit (``plan_launches``; a replay makes none)
+    and ``plan_graph``, 1 where the submit replayed a captured graph (0
+    where it walked eagerly or captured)."""
     R, C = shared["R"], shared["C"]
     with on_device(device):
         with trace.span("plan.inputs", into="plan_inputs_s"):
@@ -467,32 +653,38 @@ def start_tiles_part(slabs: list, shared: dict, mi_rows: int,
                               else ("y",))]
             # the walk's indices too go up before the first kernel is queued
             _diagonals_on(R, C, len(slabs), str(srcs[0].device))
+            pg = _plan_graph(srcs, t)
         n0 = launches_total()
         with trace.span("plan.submit", into="plan_submit_s"):
-            luma = _luma_wavefront_part(srcs[0], t)
-            named = dict(zip(_LUMA_KEYS, luma[:9]))
-            recons = [luma[9]]
-            if len(srcs) > 1:
-                chroma = _chroma_wavefront_part(srcs[1], srcs[2], t,
-                                                named["split32"],
-                                                named["y_mode32"],
-                                                named["y_mode16"])
-                named.update(zip(_CHROMA_KEYS, chroma[:6]))
-                recons += [chroma[6][0], chroma[6][1]]
+            if pg is None:
+                named, recons, flat = _wavefronts(srcs, t)
+                replayed = False
+            else:
+                replayed = pg.run()
+                named, recons, flat = pg.named, pg.recons, pg.flat
         trace.add("plan_launches", launches_total() - n0)
-    return {"named": named, "recons": recons, "T": len(slabs)}
+        trace.add("plan_graph", int(replayed))
+    return {"named": named, "recons": recons, "flat": flat, "graph": pg,
+            "T": len(slabs)}
 
 
 def fetch_tiles_part(started: dict) -> list:
     """Second half of :func:`plan_tiles_part`: the one device->host copy
     of the plan arrays, and the T plan dicts (``recon_dev`` on the device
-    the wavefronts ran on); the span ``plan.fetch`` (``plan_fetch_s``)."""
+    the wavefronts ran on); the span ``plan.fetch`` (``plan_fetch_s``).
+    Everything returned is a copy: the host arrays and each
+    ``recon_dev`` plane (a contiguous clone) alias none of the
+    wavefronts' tensors, which a graph's next replay overwrites."""
     with trace.span("plan.fetch", into="plan_fetch_s"):
-        host = _fetch(started["named"])
-        return [{"part": True, **{k: v[i] for k, v in host.items()},
-                 "recon_dev": [r[i].contiguous()
-                               for r in started["recons"]]}
-                for i in range(started["T"])]
+        host = _fetch(started["named"], started["flat"])
+        own = torch.contiguous_format
+        plans = [{"part": True, **{k: v[i] for k, v in host.items()},
+                  "recon_dev": [r[i].clone(memory_format=own)
+                                for r in started["recons"]]}
+                 for i in range(started["T"])]
+    if started["graph"] is not None:
+        started["graph"].busy = False
+    return plans
 
 
 def plan_tiles_part(slabs: list, q: int, fc, mi_rows: int, device):
@@ -642,7 +834,8 @@ def plan_frame(src_planes, q, bs, fc, rdmult, fetch_recon=False,
             recon_dev += [uvrec[0].contiguous(), uvrec[1].contiguous()]
     trace.add("plan_launches", launches_total() - n0)
     with trace.span("plan.fetch", into="plan_fetch_s"):
-        plan = {"bs": bs, **_fetch(named), "recon_dev": recon_dev}
+        plan = {"bs": bs, **_fetch(named, _pack16(named)),
+                "recon_dev": recon_dev}
     if fetch_recon:
         plan["recon"] = [convert.to_host(r) for r in recon_dev]
     return plan

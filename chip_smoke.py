@@ -145,10 +145,12 @@ exit code is not 0):
    KL per inter block) read around the CUDA run;
 5. the KEY path: ``GpuFrameEncoder.encode()`` of the 1920x1080 test
    frame (``utils/testframes.make_frame``, the arrays of ``bench.py``'s) at
-   ``base_q_idx=100`` — a first frame and 3 steady frames — with the launch
-   counts read around that run (KA: 930 picks per frame, 10 per diagonal
-   step, and no launch of its older entries; KB: 930 launches per frame,
-   all through ``txq_step``);
+   ``base_q_idx=100`` — a first frame and 3 steady frames (the first
+   captures the walk as a CUDA graph, the others replay it), then a
+   fourth replayed one — with the launch counts read around those runs
+   (KA: 930 picks per frame on the card, 10 per diagonal step, and no
+   launch of its older entries; KB: 930 launches per frame, all through
+   ``txq_step``; a replayed frame launches neither from the host);
 5b. the main path of slice 2: ``encode_video(make_gop(1920, 1080, 5),
    EncoderConfig(base_q_idx=100))`` twice (the first run warms up), the
    counts set to 0 just before the second and read just after (KF only
@@ -239,8 +241,13 @@ the transform path of phase 5l), with the counts of the KEY
 frames of phases 5, 5c, 5d and 5f, of phase 5b's IPPP GOP, of phase 5f's
 tune_vmaf GOP, of phase 5g's ARF GOP, of phase 5i's chain, of phase 5j's
 analysis path, of phase 5l's transform path and of phase 4g's host
-inter GOP beside it, and
-``launches_per_key_frame`` (phase 5's count over its 3 frames). KA's and
+inter GOP beside it (launches from the host: a KEY frame that replays
+its key's CUDA graph launches no KA or KB), and
+``launches_per_key_frame``, the launches the card runs in one phase-5
+KEY frame (its 3 steady frames launch from the host one walk, captured as
+a CUDA graph, and KC's; two replay the walk without a launch: the 3
+frames' host launches less two replays'), and
+``host_launches_per_replayed_key_frame``, a fourth frame's. KA's and
 KB's entries count only their own instances (``intra_pick`` bs 8/16/32,
 ``intra_pick bs4``; ``intra_pred_sse`` bs 8/16/32 and bs 4, no longer on
 any encoder path; ``txq_step`` (``step`` bs 8/16/32) and ``txq_step
@@ -1378,8 +1385,12 @@ def tune_vmaf_path(dev, kernels, plain_pkt, plain_enc):
                                                          GpuFrameEncoder)
     from aom_av1_psy_tpu_torch.encoder.tpu_interframe import encode_video
     from aom_av1_psy_tpu_torch.utils import testframes
+    from aom_av1_psy_tpu_torch.encoder import tpu_intra
     frame = testframes.make_frame(1920, 1080)
     cfg = EncoderConfig(base_q_idx=100, tune_vmaf=True)
+    # phase 5's key: cleared, the first frame walks it eagerly and the
+    # first steady one captures it (its launches count), as in phase 5
+    tpu_intra._PLAN_GRAPHS.clear()
     t0 = time.perf_counter()
     pkt = GpuFrameEncoder(frame, cfg, device=dev).encode()
     torch.cuda.synchronize()
@@ -1702,11 +1713,29 @@ def main_path(dev, kernels):
     import torch
     from aom_av1_psy_tpu_torch.utils import testframes
     from aom_av1_psy_tpu_torch.encoder.tpu_frame import EncoderConfig
+    from aom_av1_psy_tpu_torch.encoder import tpu_intra
     frame = testframes.make_frame(1920, 1080)
     cfg = EncoderConfig(base_q_idx=100)
+    from aom_av1_psy_tpu_torch.encoder.tpu_frame import GpuFrameEncoder
+    # the first encode walks the key eagerly; of the 3 steady frames the
+    # first captures the walk as a CUDA graph (its launches count) and the
+    # other two replay it, without a launch
+    tpu_intra._PLAN_GRAPHS.clear()
     pkt, enc, first_s, times, plans, packs, counts = _steady(
         dev, frame, cfg, kernels)
     _need("1080p", counts, counts)
+    # a fourth frame replays: its host launches are KC's alone
+    _reset(kernels)
+    enc4 = GpuFrameEncoder(frame, cfg, device=dev)
+    if enc4.encode() != pkt:
+        raise AssertionError("1080p: a replayed frame differs from the first")
+    replay = _counts(kernels)
+    if enc4.timings["plan_graph"] != 1 or replay.get("intra_pred", 0) or \
+            replay.get("txq", 0):
+        raise AssertionError(f"1080p: the fourth frame did not replay the "
+                             f"walk ({enc4.timings['plan_graph']}, {replay})")
+    # the card runs the walk every frame, launched or replayed
+    per_frame = {k: v - 2 * replay.get(k, 0) for k, v in counts.items()}
     for pl, want in zip(enc.ref_planes_dev, ((1088, 1920), (544, 960),
                                              (544, 960))):
         if tuple(pl.shape) != want or pl.dtype != torch.int32:
@@ -1722,21 +1751,23 @@ def main_path(dev, kernels):
         raise AssertionError(f"1080p: bad stream or recon (PSNR {psnr:.2f})")
     # one pick and one KB per luma 32 and per 16 quad, per chroma 16 and
     # 8 quad: 10 of each per diagonal step, 93 steps (34 x 60 cells)
-    picks = counts.get("intra_pred", 0) / 3
-    if picks != 10 * (34 + 60 - 1) or counts.get("intra_pred", 0) != sum(
-            counts.get(f"intra_pred pick bs{b}", 0) for b in (8, 16, 32)):
+    picks = per_frame.get("intra_pred", 0)
+    if picks != 10 * (34 + 60 - 1) or picks != sum(
+            per_frame.get(f"intra_pred pick bs{b}", 0) for b in (8, 16, 32)):
         raise AssertionError(f"1080p: {picks} KA launches per frame, want "
                              f"930 picks")
     # one KB launch per pick, all through the in-place entry
-    kbs = counts.get("txq", 0) / 3
-    if kbs != picks or counts.get("txq", 0) != sum(
-            counts.get(f"txq step bs{b}", 0) for b in (8, 16, 32)):
+    kbs = per_frame.get("txq", 0)
+    if kbs != picks or kbs != sum(
+            per_frame.get(f"txq step bs{b}", 0) for b in (8, 16, 32)):
         raise AssertionError(f"1080p: {kbs} KB launches per frame, want "
                              f"930 txq_step launches")
     cpu_s = _cpu_equal("1080p", frame, cfg, pkt)
     med = statistics.median(times)
-    log(f"[5] KA launches per 1080p KEY frame: {picks:.0f} (all picks); KB "
-        f"launches: {kbs:.0f} (all txq_step)")
+    log(f"[5] KA launches the card runs per 1080p KEY frame: {picks} (all "
+        f"picks); KB: {kbs} (all txq_step); from the host, one walk over "
+        f"the 3 steady frames (a capture, two replays) and none in a "
+        f"replayed frame: {json.dumps(replay)}")
     log(f"[5] 1080p q100: {len(pkt)} bytes, luma PSNR {psnr:.3f} dB, first "
         f"frame {first_s:.3f} s, steady median {med:.4f} s/frame "
         f"({1 / med:.3f} fps, min {min(times):.4f}, max {max(times):.4f}), "
@@ -1744,8 +1775,8 @@ def main_path(dev, kernels):
         f"{statistics.median(packs):.4f} s, lf {enc.fh.lf.filter_level} "
         f"{enc.fh.lf.filter_level_u} {enc.fh.lf.filter_level_v}; CUDA == "
         f"CPU plain stream (CPU encode {cpu_s:.1f} s)")
-    log(f"[5] launches over the 3 steady frames: {json.dumps(counts)}")
-    return counts, frame, cfg, med, pkt, enc
+    log(f"[5] host launches over the 3 steady frames: {json.dumps(counts)}")
+    return (counts, per_frame, replay), frame, cfg, med, pkt, enc
 
 
 def _device_rows(tag, prof, wall, extra=""):
@@ -3881,8 +3912,12 @@ def arf_gop_path(dev, kernels):
     from aom_av1_psy_tpu_torch.encoder.tpu_interframe import (
         _ref_chain_planes, displayed_encoders, encode_video_arf)
     from aom_av1_psy_tpu_torch.utils import testframes
+    from aom_av1_psy_tpu_torch.encoder import tpu_intra
     frames = testframes.make_gop(1920, 1080, 9)
     cfg = EncoderConfig(base_q_idx=100)
+    # the KEY walks eagerly in the first run and is captured (its launches
+    # counted) in the second, whatever keys the phases before left
+    tpu_intra._PLAN_GRAPHS.clear()
     t0 = time.perf_counter()
     warm, _ = encode_video_arf(frames, cfg, group=4, device=dev)
     torch.cuda.synchronize()
@@ -4124,8 +4159,10 @@ def main() -> int:
         r["launches_host_inter_gop"] = n(r["name"], host_inter_counts)
         r["launches_ippp_gop"] = n(r["name"], counts)
         r["launches_arf_gop"] = n(r["name"], arf_counts)
-        r["launches_key_frame"] = n(r["name"], key_counts)
-        r["launches_per_key_frame"] = n(r["name"], key_counts) / 3
+        r["launches_key_frame"] = n(r["name"], key_counts[0])
+        r["launches_per_key_frame"] = n(r["name"], key_counts[1])
+        r["host_launches_per_replayed_key_frame"] = n(r["name"],
+                                                      key_counts[2])
         r["launches_tiled_key_frames"] = n(r["name"], tiled_counts)
         r["launches_uniform_key_frames"] = n(r["name"], uniform_counts)
         r["launches_tune_vmaf_key_frames"] = n(r["name"], vmaf_counts)

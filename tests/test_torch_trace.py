@@ -13,8 +13,11 @@ the new per-layer metrics.
 
 On a CUDA card (``gpu``, skipped without one): a span around a launch and
 a synchronize contains the kernel's device interval; one 720p KEY frame
-makes 1240 launches in its plan's submit; and its ``syncs`` equal the
-warnings of ``torch.cuda.set_sync_debug_mode("warn")`` over the encode.
+makes 1240 launches in its plan's submit when it captures the walk as a
+CUDA graph and none (3 in the frame, KC's) when it replays it; and the
+``syncs`` of a frame that walks eagerly, of one that captures and of one
+that replays each equal the warnings of
+``torch.cuda.set_sync_debug_mode("warn")`` over its encode.
 Tolerance: exact, but the 1 % of the plan's split."""
 import os
 import sys
@@ -26,6 +29,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from aom_av1_psy_tpu_torch import convert
+from aom_av1_psy_tpu_torch.encoder import tpu_intra as TI
 from aom_av1_psy_tpu_torch.encoder.frame import EncoderConfig
 from aom_av1_psy_tpu_torch.encoder.tpu_frame import (KEY_TIMINGS,
                                                      GpuFrameEncoder)
@@ -247,6 +251,8 @@ def test_traced_cpu_run_reports_the_plan_metrics():
     assert m["syncs_per_frame"] == {"value": 0.0, "unit": "syncs"}
     # no kernel launches on the CPU: nothing to divide
     assert "key_launch_us" not in m
+    # CPU tensors never take the graph path
+    assert m["key_graph_hit_pct"] == {"value": 0.0, "unit": "%"}
 
 
 def test_launch_and_sync_readers():
@@ -272,6 +278,34 @@ def test_launch_and_sync_readers():
     for name in ("key_launch_us", "syncs_per_frame", "key_plan_inputs_ms",
                  "key_plan_submit_ms", "key_plan_fetch_ms", "key_lpf_ms"):
         assert spec.metric_reader(name).read(Parent) is None, name
+
+
+def test_graph_hit_reader():
+    from benchmark.harness import spec
+    read = spec.metric_reader("key_graph_hit_pct").read
+
+    class Run:
+        frames = [
+            {"type": "key", "traced": True, "plan_graph": 0},
+            {"type": "key", "traced": False, "plan_graph": 1},
+            {"type": "key", "traced": False, "plan_graph": 0},
+            {"type": "key", "traced": False, "plan_graph": 1},
+            {"type": "key", "traced": False, "plan_graph": 2},
+            {"type": "inter", "traced": False, "plan_s": 0.01}]
+
+    assert read(Run) == 75.0
+
+    class Traced:                  # every frame in the traced stretch
+        frames = [{"type": "key", "traced": True, "plan_graph": 1},
+                  {"type": "key", "traced": True, "plan_graph": 0}]
+
+    assert read(Traced) == 50.0
+
+    class Parent:                  # a program without the counter
+        frames = [{"type": "key", "traced": False, "plan_s": 0.09,
+                   "plan_launches": 1240}]
+
+    assert read(Parent) is None
 
 
 # ---------------------------------------------------------------------------
@@ -310,23 +344,45 @@ def _720p(dev, seed):
 
 @pytest.mark.gpu
 def test_720p_plan_launches(dev):
-    _720p(dev, 1).encode()
+    TI._PLAN_GRAPHS.clear()
+    _720p(dev, 1).encode()                    # the key's eager walk
     enc = _720p(dev, 2)
     n0 = build.launches_total()
     enc.encode()
-    # 23 x 40 cells of 32: 62 diagonals, 5 KA + 5 KB a step, two planes;
-    # the frame's other launches are KC's three
+    # the capture: 23 x 40 cells of 32, 62 diagonals, 5 KA + 5 KB a step,
+    # two planes; the frame's other launches are KC's three
     assert enc.timings["plan_launches"] == 1240
+    assert enc.timings["plan_graph"] == 0
     assert build.launches_total() - n0 == 1243
+    t = enc.timings
+    assert abs(sum(t[k] for k in PLAN_PARTS) - t["plan_s"]) \
+        <= 0.01 * t["plan_s"], t
+    # a replay of the graph makes no launch from the host
+    enc = _720p(dev, 3)
+    n0 = build.launches_total()
+    enc.encode()
+    assert enc.timings["plan_launches"] == 0
+    assert enc.timings["plan_graph"] == 1
+    assert build.launches_total() - n0 == 3
     t = enc.timings
     assert abs(sum(t[k] for k in PLAN_PARTS) - t["plan_s"]) \
         <= 0.01 * t["plan_s"], t
 
 
+WALKS = ("eager", "capture", "replay")
+
+
 @pytest.mark.gpu
-def test_720p_syncs_match_torch_sync_debug_mode(dev):
+@pytest.mark.parametrize("walk", WALKS)
+def test_720p_syncs_match_torch_sync_debug_mode(dev, walk):
+    # the key's first plan walks eagerly, its second captures the walk as
+    # a CUDA graph, its third replays it: each counts what torch warns of
     _720p(dev, 1).encode()                    # builds and caches first
-    enc = _720p(dev, 3)
+    TI._PLAN_GRAPHS.clear()
+    before = WALKS.index(walk)
+    for seed in range(before):
+        _720p(dev, 2 + seed).encode()
+    enc = _720p(dev, 5)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("warn")
     try:
@@ -338,3 +394,8 @@ def test_720p_syncs_match_torch_sync_debug_mode(dev):
     syncs = [w for w in got if "synchroniz" in str(w.message)]
     assert enc.timings["syncs"] == len(syncs), \
         (enc.timings["syncs"], [str(w.message)[:80] for w in syncs])
+    pg, = TI._PLAN_GRAPHS[torch.cuda.current_device()].entries.values()
+    assert pg.plans == before + 1
+    assert (pg.graph is not None) == (walk != "eager")
+    assert enc.timings["plan_graph"] == int(walk == "replay")
+    assert enc.timings["plan_launches"] == (0 if walk == "replay" else 1240)
