@@ -60,9 +60,11 @@ _BS_TO_TX = {8: int(TxSize.TX_8X8), 16: int(TxSize.TX_16X16),
 # inputs, its wavefronts' submit and its fetch; the pack with the LPF
 # pick; the LPF pick alone) and the frame's counts (kernel launches in
 # the plan's submit, 1 where the submit replayed a captured CUDA graph of
-# the wavefronts, host-device copies that block the host)
+# the wavefronts, host-device copies that block the host, and the Python
+# collections inside the frame with their seconds)
 KEY_TIMINGS = ("plan_s", "plan_inputs_s", "plan_submit_s", "plan_fetch_s",
-               "plan_launches", "plan_graph", "pack_s", "lpf_s", "syncs")
+               "plan_launches", "plan_graph", "pack_s", "lpf_s", "syncs",
+               "gc_n", "gc_s")
 
 
 def _pad_plane(src: np.ndarray, h: int, w: int) -> np.ndarray:

@@ -34,6 +34,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import convert
 from ..ec.context import FrameContext
 from ..normative import tables
 from ..ops import convolve as CONV
@@ -360,7 +361,10 @@ def plan_inter_frame(src_planes, ref_planes, q, rdmult, mi_rows, mi_cols,
     holds the recon planes on ``device``."""
     dev = resolve_device(device)
     assert plan_part_supported(mi_rows, mi_cols)
-    rt = {k: tuple(torch.as_tensor(x, device=dev) for x in v)
+    # every upload through ``convert.to_device``: each counts in the
+    # frame's ``syncs``
+    t = lambda a: convert.to_device(a, dev)
+    rt = {k: tuple(t(x) for x in v)
           for k, v in _rate_tables(FrameContext(q)).items()}
     y = src_planes[0]
     R, C = y.shape[0] // 32, y.shape[1] // 32
@@ -373,7 +377,6 @@ def plan_inter_frame(src_planes, ref_planes, q, rdmult, mi_rows, mi_cols,
     rd32 = np.exp(np.log(rd16).reshape(R, 2, C, 2).mean((1, 3))) \
         .astype(np.float32)
     forced, no_split = edge_cell_masks(R, C, mi_rows, mi_cols)
-    t = lambda a: torch.as_tensor(a, device=dev)
     grids = [tuple(t(x) for x in _edge_grids(R2, C2, mi_rows, mi_cols, bs, ss))
              for bs, ss in ((16, 0), (32, 0), (16, 1), (32, 1))]
     all_kernels = _all_kernels(str(dev))

@@ -64,6 +64,12 @@ MV_CLASSES = 11
 CLASS0_BITS = 1
 CLASS0_SIZE = 1 << CLASS0_BITS
 
+# an inter frame's record (``timings``): its spans' seconds (the plan, the
+# pack, the script and the script's three stages), host-device copies that
+# block the host, and the Python collections inside it (count, seconds)
+PACK_STAGES = ("script_s", "script_prep_s", "script_walk_s", "script_code_s")
+INTER_TIMINGS = ("plan_s", "pack_s") + PACK_STAGES + ("syncs", "gc_n", "gc_s")
+
 _B64, _B32, _B16 = (int(BlockSize.BLOCK_64X64), int(BlockSize.BLOCK_32X32),
                     int(BlockSize.BLOCK_16X16))
 
@@ -96,12 +102,12 @@ class GpuInterFrameEncoder:
     """One INTER frame against a single LAST reference through the device
     plan + symbol-script pack. API mirror of ``TpuInterFrameEncoder``:
     ``ref_planes_dev`` are the reference's int32 planes on ``device``;
-    after
-    ``encode()`` it holds ``plan``, ``seq``, ``fh``, ``saved_fc``,
-    ``ref_planes_out`` (post-LPF, post-CDEF planes on ``device``) and
-    ``timings`` (``plan_s``, ``pack_s``). The ARF slot plumbing
-    (``ref_slot``, ``refresh_flags``, ``show``, ``primary_ref``) serves
-    ``encode_video_arf``."""
+    after ``encode()`` it holds ``plan``, ``seq``, ``fh``, ``saved_fc``,
+    ``ref_planes_out`` (post-LPF, post-CDEF planes on ``device``),
+    ``timings`` (``INTER_TIMINGS``) and ``pack_stages`` (``PACK_STAGES``:
+    the script's span and its stages, also in ``timings``). The ARF slot
+    plumbing (``ref_slot``, ``refresh_flags``, ``show``, ``primary_ref``)
+    serves ``encode_video_arf``."""
 
     def __init__(self, frame: Frame, cfg: EncoderConfig, seq, ref_planes_dev,
                  crop_w: int, crop_h: int, zero_lpf: bool = False,
@@ -222,8 +228,11 @@ class GpuInterFrameEncoder:
 
     # ------------------------------------------------------------------
     def encode(self) -> bytes:
-        with trace.frame():
-            return self._encode()
+        with trace.frame() as rec:
+            pkt = self._encode()
+        self.timings = rec.pick(INTER_TIMINGS)
+        self.pack_stages = {k: self.timings[k] for k in PACK_STAGES}
+        return pkt
 
     def _encode(self) -> bytes:
         seq, fh = self.make_headers()
@@ -233,15 +242,15 @@ class GpuInterFrameEncoder:
         else:
             fc = FrameContext(self.cfg.base_q_idx)
         self.fc = fc
-        with trace.span("plan") as plan_sp:
+        with trace.span("plan", into="plan_s"):
             plan = tpu_inter.plan_inter_frame(
                 self.srcp, self.ref_planes_dev, self.cfg.base_q_idx,
                 self.rdmult, self.mi_rows, self.mi_cols, self.crop_w,
                 self.crop_h, device=self.device)
         # pack_s, split under a profiler: the LPF pick (KC), apply_cdef_refs
         # (KF and its one wait for the gate's sums), the symbol script and
-        # the native coder (``script_s``)
-        with trace.span("pack") as pack_sp:
+        # the native coder (``script_s``, itself split into PACK_STAGES)
+        with trace.span("pack", into="pack_s"):
             self.plan = plan
             fh.interp_filter = int(plan.get("interp_filter", 0))
             with trace.span("lpf"):
@@ -256,16 +265,9 @@ class GpuInterFrameEncoder:
                         self.ref_planes_out, self._mi_skip_map(), fh,
                         self.mi_rows, self.mi_cols, self.nplanes,
                         srcs=self.device_sources())
-            with trace.span("script") as script_sp:
+            with trace.span("script", into="script_s"):
                 tile_data = self._pack_script(plan, fc, fh)
-                # end-of-frame context save (decoder/obu.py:
-                # _update_ref_slots): the script adapted fc's tables in
-                # place; reset the per-row adaptation counters exactly as
-                # the decoder does before storing
-                fc.reset_counters()
-                self.saved_fc = fc
-        self.timings = {"plan_s": plan_sp.s, "pack_s": pack_sp.s}
-        self.pack_stages = {"script_s": script_sp.s}
+            self.saved_fc = fc
         w = BitWriter()
         write_frame_header(w, seq, fh)
         w.byte_align()
@@ -318,350 +320,369 @@ class GpuInterFrameEncoder:
 
     # ------------------------------------------------------------------
     def _pack_script(self, plan, fc, fh) -> bytes:
-        Rc, Cc = plan["split32"].shape
-        R2, C2 = 2 * Rc, 2 * Cc
-        split = plan["split32"].astype(bool)
-        mv8 = plan["mv8"]
+        # three stages, each a span: the vectorised preparation (skip
+        # flags, culs, the CDF registry, the bundles and the level store),
+        # the per-block walk that builds the script ops, the native coder
+        # with the end-of-frame context save
+        with trace.span("script.prep", into="script_prep_s"):
+            Rc, Cc = plan["split32"].shape
+            R2, C2 = 2 * Rc, 2 * Cc
+            split = plan["split32"].astype(bool)
+            mv8 = plan["mv8"]
 
-        # --- per-block skip flags + culs (vectorized) ---
-        ye32, ye16 = plan["y_eob32"], plan["y_eob16"]
-        if self.nplanes > 1:
-            ue16, ue8 = plan["uv_eob16"], plan["uv_eob8"]
-            skip32 = (ye32 == 0) & (ue16 == 0).all(0)
-            skip16 = (ye16 == 0) & (ue8 == 0).all(0)
-        else:
-            skip32 = ye32 == 0
-            skip16 = ye16 == 0
-        tx32, tx16, tx8 = (int(TxSize.TX_32X32), int(TxSize.TX_16X16),
-                           int(TxSize.TX_8X8))
-        scan32 = np.ascontiguousarray(tables.scan_table(tx32, 0), np.int32)
-        scan16 = np.ascontiguousarray(tables.scan_table(tx16, 0), np.int32)
-        scan8 = np.ascontiguousarray(tables.scan_table(tx8, 0), np.int32)
-        cul_y32 = _cul_levels(plan["y_levels32"], ye32, scan32, 1024)
-        cul_y16 = _cul_levels(plan["y_levels16"], ye16, scan16, 256)
-        if self.nplanes > 1:
-            cul_u16 = _cul_levels(plan["uv_levels16"][0], ue16[0], scan16,
-                                  256)
-            cul_v16 = _cul_levels(plan["uv_levels16"][1], ue16[1], scan16,
-                                  256)
-            cul_u8 = _cul_levels(plan["uv_levels8"][0], ue8[0], scan8, 64)
-            cul_v8 = _cul_levels(plan["uv_levels8"][1], ue8[1], scan8, 64)
-
-        # --- CDF registry ---
-        sref = fc.single_ref_cdf.reshape(18, 3)
-        comp_tables = []
-        for c in range(2):
-            g = lambda n: getattr(fc, f"nmv_comp{c}_{n}_cdf")
-            comp_tables += [
-                g("sign").reshape(1, -1), g("classes").reshape(1, -1),
-                g("class0").reshape(1, -1), g("bits"),
-                g("class0_fp"), g("fp").reshape(1, -1),
-                g("class0_hp").reshape(1, -1), g("hp").reshape(1, -1)]
-        cdfs = [fc.partition_cdf, fc.skip_txfm_cdfs, fc.intra_inter_cdf,
-                sref, fc.newmv_cdf, fc.zeromv_cdf, fc.refmv_cdf,
-                fc.drl_cdf, fc.nmv_joints_cdf.reshape(1, -1)] + comp_tables
-        (CDF_PART, CDF_SKIP, CDF_II, CDF_SREF, CDF_NEWMV, CDF_ZEROMV,
-         CDF_REFMV, CDF_DRL, CDF_JOINT) = range(9)
-        for t in cdfs:
-            assert t.flags["C_CONTIGUOUS"] and t.dtype == np.uint16
-
-        # --- coeff bundles (inter ext-tx sets) ---
-        e32c, e16c, e8c = (txsize_entropy_ctx(t) for t in (tx32, tx16, tx8))
-
-        def inter_ext(tx, sqr_is16):
-            set_type = 1 if tx == tx32 else (4 if sqr_is16 else 5)
-            nsyms = int(NUM_EXT_TX_SET[set_type])
-            eset = EXT_TX_SET_INDEX_INTER[set_type]
-            row = np.ascontiguousarray(
-                fc.inter_ext_tx_cdf[eset][int(TXSIZE_SQR[tx])])
-            fc.inter_ext_tx_cdf[eset][int(TXSIZE_SQR[tx])] = row
-            return row, nsyms, int(EXT_TX_IND[set_type][0])
-
-        ext32, n32, s32sym = inter_ext(tx32, False)
-        ext16, n16, s16sym = inter_ext(tx16, True)
-        self._ext_keep = (ext32, ext16)
-
-        def nz(tx):
-            return np.ascontiguousarray(tables.get(f"nz_map_ctx_offset_ts{tx}"),
-                                        np.int32)
-
-        bundles = [
-            make_bundle(fc.txb_skip_cdf[e32c], fc.eob_flag_cdf1024[0][0],
-                        fc.eob_extra_cdf[e32c][0],
-                        fc.coeff_base_eob_cdf[e32c][0],
-                        fc.coeff_base_cdf[e32c][0],
-                        fc.coeff_br_cdf[min(e32c, 3)][0], fc.dc_sign_cdf[0],
-                        scan32, nz(tx32), 5 + int(TXSIZE_LOG2_MINUS4[tx32]),
-                        32, ext32, n32, s32sym, 0),
-            make_bundle(fc.txb_skip_cdf[e16c], fc.eob_flag_cdf256[0][0],
-                        fc.eob_extra_cdf[e16c][0],
-                        fc.coeff_base_eob_cdf[e16c][0],
-                        fc.coeff_base_cdf[e16c][0],
-                        fc.coeff_br_cdf[min(e16c, 3)][0], fc.dc_sign_cdf[0],
-                        scan16, nz(tx16), 5 + int(TXSIZE_LOG2_MINUS4[tx16]),
-                        16, ext16, n16, s16sym, 0),
-            make_bundle(fc.txb_skip_cdf[e16c], fc.eob_flag_cdf256[1][0],
-                        fc.eob_extra_cdf[e16c][1],
-                        fc.coeff_base_eob_cdf[e16c][1],
-                        fc.coeff_base_cdf[e16c][1],
-                        fc.coeff_br_cdf[min(e16c, 3)][1], fc.dc_sign_cdf[1],
-                        scan16, nz(tx16), 5 + int(TXSIZE_LOG2_MINUS4[tx16]),
-                        16),
-            make_bundle(fc.txb_skip_cdf[e8c], fc.eob_flag_cdf64[1][0],
-                        fc.eob_extra_cdf[e8c][1],
-                        fc.coeff_base_eob_cdf[e8c][1],
-                        fc.coeff_base_cdf[e8c][1],
-                        fc.coeff_br_cdf[min(e8c, 3)][1], fc.dc_sign_cdf[1],
-                        scan8, nz(tx8), 5 + int(TXSIZE_LOG2_MINUS4[tx8]),
-                        8),
-        ]
-        BND_Y32, BND_Y16, BND_UV16, BND_UV8 = range(4)
-        # flat levels store: [y32 | y16 | u16 | v16 | u8 | v8]; op2 indexes
-        # are in units of the bundle's own n (every region size is a
-        # multiple of 64/256/1024, so offsets stay integral)
-        lv_list = [np.ascontiguousarray(plan["y_levels32"], np.int32)
-                   .reshape(-1),
-                   np.ascontiguousarray(plan["y_levels16"], np.int32)
-                   .reshape(-1)]
-        if self.nplanes > 1:
-            lv_list += [
-                np.ascontiguousarray(plan["uv_levels16"][0], np.int32)
-                .reshape(-1),
-                np.ascontiguousarray(plan["uv_levels16"][1], np.int32)
-                .reshape(-1),
-                np.ascontiguousarray(plan["uv_levels8"][0], np.int32)
-                .reshape(-1),
-                np.ascontiguousarray(plan["uv_levels8"][1], np.int32)
-                .reshape(-1)]
-        lv_base = np.concatenate(lv_list)
-        # element offsets of each region
-        roff = np.cumsum([0] + [x.size for x in lv_list])
-        # per-bundle index = (region_offset + block*n) / n must be integral
-        # -> guaranteed since region sizes are multiples of their own n;
-        # but regions of other sizes may misalign a later region. Check:
-        idx_div = {BND_Y32: 1024, BND_Y16: 256, BND_UV16: 256, BND_UV8: 64}
-
-        def lv_index(region, block, bnd):
-            o = roff[region] + block * idx_div[bnd]
-            assert o % idx_div[bnd] == 0
-            return o // idx_div[bnd]
-
-        # --- rolling contexts ---
-        mi_rows, mi_cols = self.mi_rows, self.mi_cols
-        ncols = (mi_cols + 15) // 16 * 16
-        above_part = np.zeros(ncols, np.int32)
-        left_part = np.zeros(16, np.int32)
-        aent = [np.zeros(ncols, np.uint8) for _ in range(3)]
-        lent = [np.zeros(16, np.uint8) for _ in range(3)]
-        mi = np.full((mi_rows, mi_cols), None, object)
-        self.mi = mi
-        self.tile_mi_row_start = 0
-        self.tile_mi_col_start = 0
-        self.tile_mi_row_end = mi_rows
-        self.tile_mi_col_end = mi_cols
-
-        ops = []
-        op = ops.append
-        pa32, pl32 = int(PARTITION_CTX_ABOVE[_B32]), \
-            int(PARTITION_CTX_LEFT[_B32])
-        pa16, pl16 = int(PARTITION_CTX_ABOVE[_B16]), \
-            int(PARTITION_CTX_LEFT[_B16])
-
-        def txb_op(bnd, region, block, eob, skip_ctx, dctx):
-            op((2, bnd | (skip_ctx << 8) | (dctx << 16),
-                lv_index(region, block, bnd), int(eob), 0))
-
-        def ent_update(plane, acol, lrow, wu, cul, vis_w, vis_h):
-            a, l = aent[plane], lent[plane]
-            a[acol : acol + vis_w] = cul
-            a[acol + vis_w : acol + wu] = 0
-            l[lrow : lrow + vis_h] = cul
-            l[lrow + vis_h : lrow + wu] = 0
-
-        def block_ops(mi_row, mi_col, bs):
-            r32, c32 = mi_row // 8, mi_col // 8
-            r16, c16 = mi_row // 4, mi_col // 4
-            up, left = mi_row > 0, mi_col > 0
-            above = mi[mi_row - 1, mi_col] if up else None
-            left_mb = mi[mi_row, mi_col - 1] if left else None
-
-            if bs == 32:
-                skip = bool(skip32[r32, c32])
-                mv = mv8[2 * r32, 2 * c32]
-            else:
-                skip = bool(skip16[r16, c16])
-                mv = mv8[r16, c16]
-            mv = (int(mv[0]), int(mv[1]))
-            bsize = _B32 if bs == 32 else _B16
-
-            mbmi = MR.MbInfo()
-            mbmi.bsize = bsize
-            mbmi.mi_row, mbmi.mi_col = mi_row, mi_col
-            mbmi.interp_y = mbmi.interp_x = 0
-            mbmi.ref_frame = [MR.LAST_FRAME, MR.NONE_FRAME]
-            mi[mi_row, mi_col] = mbmi   # _has_top_right reads the current
-            xd = MR.XdCtx(mi, mi_row, mi_col, bsize,
-                          (0, mi_rows, 0, mi_cols), mi_rows, mi_cols)
-            stack, weights, count, mode_ctx, mv_ref_list, gm_mv = \
-                MR.find_mv_refs(self, xd, mbmi, MR.LAST_FRAME)
-            lower = lambda m: MR.lower_mv_precision(m, False, False)
-            nearest = lower(mv_ref_list[0])
-            near = lower(mv_ref_list[1])
-            gmv = gm_mv[0]
-            if mv == nearest:
-                mode = MR.NEARESTMV
-            elif mv == near:
-                mode = MR.NEARMV
-            elif mv == gmv:
-                mode = MR.GLOBALMV
-            else:
-                mode = MR.NEWMV
-            newmv_ref = nearest if count <= 1 else stack[0][0]
-            mbmi.mode = mode
-            mbmi.mv[0] = mv
-            mbmi.ref_mv_idx = 0
-            mbmi.skip_txfm = int(skip)
-
-            # ---- syntax (decoder parse order) ----
-            skip_ctx = ((above.skip_txfm if up else 0)
-                        + (left_mb.skip_txfm if left else 0))
-            op((0, CDF_SKIP, skip_ctx, int(skip), 2))
-            if up and left:
-                ai, li = not above.is_inter, not left_mb.is_inter
-                ctx = 3 if (ai and li) else int(ai or li)
-            elif up or left:
-                e = above if up else left_mb
-                ctx = 2 * int(not e.is_inter)
-            else:
-                ctx = 0
-            op((0, CDF_II, ctx, 1, 2))          # is_inter = 1
-            counts = IT.collect_neighbors_ref_counts(self, above, left_mb)
-            op((0, CDF_SREF, IT.ctx_single_p1(counts) * 6 + 0, 0, 2))
-            op((0, CDF_SREF, IT.ctx_ll2_or_l3gld(counts) * 6 + 2, 0, 2))
-            op((0, CDF_SREF, IT.ctx_last_or_last2(counts) * 6 + 3, 0, 2))
-            # inter mode
-            ctx = mode_ctx & MR.NEWMV_CTX_MASK
-            op((0, CDF_NEWMV, ctx, int(mode != MR.NEWMV), 2))
-            if mode != MR.NEWMV:
-                ctx = (mode_ctx >> MR.GLOBALMV_OFFSET) & MR.GLOBALMV_CTX_MASK
-                op((0, CDF_ZEROMV, ctx, int(mode != MR.GLOBALMV), 2))
-                if mode != MR.GLOBALMV:
-                    ctx = (mode_ctx >> MR.REFMV_OFFSET) & MR.REFMV_CTX_MASK
-                    op((0, CDF_REFMV, ctx, int(mode != MR.NEARESTMV), 2))
-            # drl (ref_mv_idx always 0)
-            if mode == MR.NEWMV:
-                if count > 1:
-                    op((0, CDF_DRL, MR.drl_ctx(weights, 0), 0, 2))
-            elif mode == MR.NEARMV:
-                if count > 2:
-                    op((0, CDF_DRL, MR.drl_ctx(weights, 1), 0, 2))
-            if mode == MR.NEWMV:
-                self._mv_ops(op, mv, newmv_ref)
-
-            # ---- store MI ----
-            n4 = bs // 4
-            r1 = min(mi_row + n4, mi_rows)
-            c1 = min(mi_col + n4, mi_cols)
-            mi[mi_row:r1, mi_col:c1] = mbmi
-
-            # ---- residual ----
-            wu = bs // 4
-            cwu = wu // 2
-            acol, lrow = mi_col, mi_row & 15
-            cacol, clrow = mi_col >> 1, (mi_row & 15) >> 1
-            vis_w = min(wu, mi_cols - mi_col)
-            vis_h = min(wu, mi_rows - mi_row)
-            cvw = min(cwu, ((vis_w * 4) >> 1) >> 2)
-            cvh = min(cwu, ((vis_h * 4) >> 1) >> 2)
-            if skip:
-                ent_update(0, acol, lrow, wu, 0, wu, wu)
-                if self.nplanes > 1:
-                    ent_update(1, cacol, clrow, cwu, 0, cwu, cwu)
-                    ent_update(2, cacol, clrow, cwu, 0, cwu, cwu)
-                return
-            dctx = _dc_sign_ctx(list(aent[0][acol : acol + wu])
-                                + list(lent[0][lrow : lrow + wu]))
-            if bs == 32:
-                blk = r32 * Cc + c32
-                txb_op(BND_Y32, 0, blk, ye32[r32, c32], 0, dctx)
-                cul = int(cul_y32[r32, c32])
-            else:
-                blk = r16 * C2 + c16
-                txb_op(BND_Y16, 1, blk, ye16[r16, c16], 0, dctx)
-                cul = int(cul_y16[r16, c16])
-            ent_update(0, acol, lrow, wu, cul, vis_w, vis_h)
+            # --- per-block skip flags + culs (vectorized) ---
+            ye32, ye16 = plan["y_eob32"], plan["y_eob16"]
             if self.nplanes > 1:
-                for pl in (1, 2):
-                    a = aent[pl][cacol : cacol + cwu]
-                    l = lent[pl][clrow : clrow + cwu]
-                    sctx = (int(a.any()) + int(l.any())) + 7
-                    dctx = _dc_sign_ctx(list(a) + list(l))
-                    if bs == 32:
-                        e = int((ue16[pl - 1])[r32, c32])
-                        txb_op(BND_UV16, 1 + pl, blk, e, sctx, dctx)
-                        cul = int((cul_u16 if pl == 1 else cul_v16)
-                                  [r32, c32])
-                    else:
-                        e = int((ue8[pl - 1])[r16, c16])
-                        txb_op(BND_UV8, 3 + pl, blk, e, sctx, dctx)
-                        cul = int((cul_u8 if pl == 1 else cul_v8)
-                                  [r16, c16])
-                    ent_update(pl, cacol, clrow, cwu, cul, cvw, cvh)
-
-        def part_ops(mi_row, mi_col, bsize):
-            if mi_row >= mi_rows or mi_col >= mi_cols:
-                return
-            bsl = (bsize - 3) // 3
-            mi_w = 2 << bsl
-            hbs = mi_w // 2
-            has_rows = mi_row + hbs < mi_rows
-            has_cols = mi_col + hbs < mi_cols
-            if bsize == _B16:
-                partition = 0
-            elif bsize == _B32:
-                partition = 3 if split[mi_row // 8, mi_col // 8] else 0
+                ue16, ue8 = plan["uv_eob16"], plan["uv_eob8"]
+                skip32 = (ye32 == 0) & (ue16 == 0).all(0)
+                skip16 = (ye16 == 0) & (ue8 == 0).all(0)
             else:
-                partition = 3
-            above = (above_part[mi_col] >> bsl) & 1
-            lft = (left_part[mi_row & 15] >> bsl) & 1
-            ctx = (lft * 2 + above) + bsl * 4
-            if has_rows and has_cols:
-                op((0, CDF_PART, ctx, partition, 10))
-            elif not has_rows and not has_cols:
-                pass
-            else:
-                op((3, CDF_PART, ctx, int(partition == 3),
-                    int(not has_cols)))
-            if partition == 0:
-                block_ops(mi_row, mi_col, 32 if bsize == _B32 else 16)
-                pa = pa32 if bsize == _B32 else pa16
-                pl = pl32 if bsize == _B32 else pl16
-                above_part[mi_col : mi_col + mi_w] = pa
-                for i in range(mi_w):
-                    left_part[(mi_row + i) & 15] = pl
-            else:
-                sub = bsize - 3
-                part_ops(mi_row, mi_col, sub)
-                part_ops(mi_row, mi_col + hbs, sub)
-                part_ops(mi_row + hbs, mi_col, sub)
-                part_ops(mi_row + hbs, mi_col + hbs, sub)
+                skip32 = ye32 == 0
+                skip16 = ye16 == 0
+            tx32, tx16, tx8 = (int(TxSize.TX_32X32), int(TxSize.TX_16X16),
+                               int(TxSize.TX_8X8))
+            scan32 = np.ascontiguousarray(tables.scan_table(tx32, 0), np.int32)
+            scan16 = np.ascontiguousarray(tables.scan_table(tx16, 0), np.int32)
+            scan8 = np.ascontiguousarray(tables.scan_table(tx8, 0), np.int32)
+            cul_y32 = _cul_levels(plan["y_levels32"], ye32, scan32, 1024)
+            cul_y16 = _cul_levels(plan["y_levels16"], ye16, scan16, 256)
+            if self.nplanes > 1:
+                cul_u16 = _cul_levels(plan["uv_levels16"][0], ue16[0], scan16,
+                                      256)
+                cul_v16 = _cul_levels(plan["uv_levels16"][1], ue16[1], scan16,
+                                      256)
+                cul_u8 = _cul_levels(plan["uv_levels8"][0], ue8[0], scan8, 64)
+                cul_v8 = _cul_levels(plan["uv_levels8"][1], ue8[1], scan8, 64)
 
-        for r0 in range(0, mi_rows, 16):
-            left_part[:] = 0
-            for l in lent:
-                l[:] = 0
-            for c0 in range(0, mi_cols, 16):
-                part_ops(r0, c0, _B64)
+            # --- CDF registry ---
+            sref = fc.single_ref_cdf.reshape(18, 3)
+            comp_tables = []
+            for c in range(2):
+                g = lambda n: getattr(fc, f"nmv_comp{c}_{n}_cdf")
+                comp_tables += [
+                    g("sign").reshape(1, -1), g("classes").reshape(1, -1),
+                    g("class0").reshape(1, -1), g("bits"),
+                    g("class0_fp"), g("fp").reshape(1, -1),
+                    g("class0_hp").reshape(1, -1), g("hp").reshape(1, -1)]
+            cdfs = [fc.partition_cdf, fc.skip_txfm_cdfs, fc.intra_inter_cdf,
+                    sref, fc.newmv_cdf, fc.zeromv_cdf, fc.refmv_cdf,
+                    fc.drl_cdf, fc.nmv_joints_cdf.reshape(1, -1)] + comp_tables
+            (CDF_PART, CDF_SKIP, CDF_II, CDF_SREF, CDF_NEWMV, CDF_ZEROMV,
+             CDF_REFMV, CDF_DRL, CDF_JOINT) = range(9)
+            for t in cdfs:
+                assert t.flags["C_CONTIGUOUS"] and t.dtype == np.uint16
 
-        enc = NativeEncoder()
-        enc.allow_update = not fh.disable_cdf_update
-        self._cdf_keep = cdfs
-        self._lv_keep = lv_base
-        native_run_script(
-            enc, np.asarray(ops, np.int32).reshape(-1, 5), cdfs, bundles,
-            lv_base, tables.get("eob_group_start"),
-            tables.get("eob_offset_bits"))
-        return enc.done()
+            # --- coeff bundles (inter ext-tx sets) ---
+            e32c, e16c, e8c = (txsize_entropy_ctx(t)
+                               for t in (tx32, tx16, tx8))
+
+            def inter_ext(tx, sqr_is16):
+                set_type = 1 if tx == tx32 else (4 if sqr_is16 else 5)
+                nsyms = int(NUM_EXT_TX_SET[set_type])
+                eset = EXT_TX_SET_INDEX_INTER[set_type]
+                row = np.ascontiguousarray(
+                    fc.inter_ext_tx_cdf[eset][int(TXSIZE_SQR[tx])])
+                fc.inter_ext_tx_cdf[eset][int(TXSIZE_SQR[tx])] = row
+                return row, nsyms, int(EXT_TX_IND[set_type][0])
+
+            ext32, n32, s32sym = inter_ext(tx32, False)
+            ext16, n16, s16sym = inter_ext(tx16, True)
+            self._ext_keep = (ext32, ext16)
+
+            def nz(tx):
+                return np.ascontiguousarray(
+                    tables.get(f"nz_map_ctx_offset_ts{tx}"), np.int32)
+
+            bundles = [
+                make_bundle(fc.txb_skip_cdf[e32c], fc.eob_flag_cdf1024[0][0],
+                            fc.eob_extra_cdf[e32c][0],
+                            fc.coeff_base_eob_cdf[e32c][0],
+                            fc.coeff_base_cdf[e32c][0],
+                            fc.coeff_br_cdf[min(e32c, 3)][0],
+                            fc.dc_sign_cdf[0],
+                            scan32, nz(tx32),
+                            5 + int(TXSIZE_LOG2_MINUS4[tx32]),
+                            32, ext32, n32, s32sym, 0),
+                make_bundle(fc.txb_skip_cdf[e16c], fc.eob_flag_cdf256[0][0],
+                            fc.eob_extra_cdf[e16c][0],
+                            fc.coeff_base_eob_cdf[e16c][0],
+                            fc.coeff_base_cdf[e16c][0],
+                            fc.coeff_br_cdf[min(e16c, 3)][0],
+                            fc.dc_sign_cdf[0],
+                            scan16, nz(tx16),
+                            5 + int(TXSIZE_LOG2_MINUS4[tx16]),
+                            16, ext16, n16, s16sym, 0),
+                make_bundle(fc.txb_skip_cdf[e16c], fc.eob_flag_cdf256[1][0],
+                            fc.eob_extra_cdf[e16c][1],
+                            fc.coeff_base_eob_cdf[e16c][1],
+                            fc.coeff_base_cdf[e16c][1],
+                            fc.coeff_br_cdf[min(e16c, 3)][1],
+                            fc.dc_sign_cdf[1],
+                            scan16, nz(tx16),
+                            5 + int(TXSIZE_LOG2_MINUS4[tx16]),
+                            16),
+                make_bundle(fc.txb_skip_cdf[e8c], fc.eob_flag_cdf64[1][0],
+                            fc.eob_extra_cdf[e8c][1],
+                            fc.coeff_base_eob_cdf[e8c][1],
+                            fc.coeff_base_cdf[e8c][1],
+                            fc.coeff_br_cdf[min(e8c, 3)][1], fc.dc_sign_cdf[1],
+                            scan8, nz(tx8), 5 + int(TXSIZE_LOG2_MINUS4[tx8]),
+                            8),
+            ]
+            BND_Y32, BND_Y16, BND_UV16, BND_UV8 = range(4)
+            # flat levels store: [y32 | y16 | u16 | v16 | u8 | v8]; op2 indexes
+            # are in units of the bundle's own n (every region size is a
+            # multiple of 64/256/1024, so offsets stay integral)
+            lv_list = [np.ascontiguousarray(plan["y_levels32"], np.int32)
+                       .reshape(-1),
+                       np.ascontiguousarray(plan["y_levels16"], np.int32)
+                       .reshape(-1)]
+            if self.nplanes > 1:
+                lv_list += [
+                    np.ascontiguousarray(plan["uv_levels16"][0], np.int32)
+                    .reshape(-1),
+                    np.ascontiguousarray(plan["uv_levels16"][1], np.int32)
+                    .reshape(-1),
+                    np.ascontiguousarray(plan["uv_levels8"][0], np.int32)
+                    .reshape(-1),
+                    np.ascontiguousarray(plan["uv_levels8"][1], np.int32)
+                    .reshape(-1)]
+            lv_base = np.concatenate(lv_list)
+            # element offsets of each region
+            roff = np.cumsum([0] + [x.size for x in lv_list])
+            # per-bundle index = (region_offset + block*n) / n must be integral
+            # -> guaranteed since region sizes are multiples of their own n;
+            # but regions of other sizes may misalign a later region. Check:
+            idx_div = {BND_Y32: 1024, BND_Y16: 256, BND_UV16: 256, BND_UV8: 64}
+
+            def lv_index(region, block, bnd):
+                o = roff[region] + block * idx_div[bnd]
+                assert o % idx_div[bnd] == 0
+                return o // idx_div[bnd]
+
+        with trace.span("script.walk", into="script_walk_s"):
+            # --- rolling contexts ---
+            mi_rows, mi_cols = self.mi_rows, self.mi_cols
+            ncols = (mi_cols + 15) // 16 * 16
+            above_part = np.zeros(ncols, np.int32)
+            left_part = np.zeros(16, np.int32)
+            aent = [np.zeros(ncols, np.uint8) for _ in range(3)]
+            lent = [np.zeros(16, np.uint8) for _ in range(3)]
+            mi = np.full((mi_rows, mi_cols), None, object)
+            self.mi = mi
+            self.tile_mi_row_start = 0
+            self.tile_mi_col_start = 0
+            self.tile_mi_row_end = mi_rows
+            self.tile_mi_col_end = mi_cols
+
+            ops = []
+            op = ops.append
+            pa32, pl32 = int(PARTITION_CTX_ABOVE[_B32]), \
+                int(PARTITION_CTX_LEFT[_B32])
+            pa16, pl16 = int(PARTITION_CTX_ABOVE[_B16]), \
+                int(PARTITION_CTX_LEFT[_B16])
+
+            def txb_op(bnd, region, block, eob, skip_ctx, dctx):
+                op((2, bnd | (skip_ctx << 8) | (dctx << 16),
+                    lv_index(region, block, bnd), int(eob), 0))
+
+            def ent_update(plane, acol, lrow, wu, cul, vis_w, vis_h):
+                a, l = aent[plane], lent[plane]
+                a[acol : acol + vis_w] = cul
+                a[acol + vis_w : acol + wu] = 0
+                l[lrow : lrow + vis_h] = cul
+                l[lrow + vis_h : lrow + wu] = 0
+
+            def block_ops(mi_row, mi_col, bs):
+                r32, c32 = mi_row // 8, mi_col // 8
+                r16, c16 = mi_row // 4, mi_col // 4
+                up, left = mi_row > 0, mi_col > 0
+                above = mi[mi_row - 1, mi_col] if up else None
+                left_mb = mi[mi_row, mi_col - 1] if left else None
+
+                if bs == 32:
+                    skip = bool(skip32[r32, c32])
+                    mv = mv8[2 * r32, 2 * c32]
+                else:
+                    skip = bool(skip16[r16, c16])
+                    mv = mv8[r16, c16]
+                mv = (int(mv[0]), int(mv[1]))
+                bsize = _B32 if bs == 32 else _B16
+
+                mbmi = MR.MbInfo()
+                mbmi.bsize = bsize
+                mbmi.mi_row, mbmi.mi_col = mi_row, mi_col
+                mbmi.interp_y = mbmi.interp_x = 0
+                mbmi.ref_frame = [MR.LAST_FRAME, MR.NONE_FRAME]
+                mi[mi_row, mi_col] = mbmi   # _has_top_right reads the current
+                xd = MR.XdCtx(mi, mi_row, mi_col, bsize,
+                              (0, mi_rows, 0, mi_cols), mi_rows, mi_cols)
+                stack, weights, count, mode_ctx, mv_ref_list, gm_mv = \
+                    MR.find_mv_refs(self, xd, mbmi, MR.LAST_FRAME)
+                lower = lambda m: MR.lower_mv_precision(m, False, False)
+                nearest = lower(mv_ref_list[0])
+                near = lower(mv_ref_list[1])
+                gmv = gm_mv[0]
+                if mv == nearest:
+                    mode = MR.NEARESTMV
+                elif mv == near:
+                    mode = MR.NEARMV
+                elif mv == gmv:
+                    mode = MR.GLOBALMV
+                else:
+                    mode = MR.NEWMV
+                newmv_ref = nearest if count <= 1 else stack[0][0]
+                mbmi.mode = mode
+                mbmi.mv[0] = mv
+                mbmi.ref_mv_idx = 0
+                mbmi.skip_txfm = int(skip)
+
+                # ---- syntax (decoder parse order) ----
+                skip_ctx = ((above.skip_txfm if up else 0)
+                            + (left_mb.skip_txfm if left else 0))
+                op((0, CDF_SKIP, skip_ctx, int(skip), 2))
+                if up and left:
+                    ai, li = not above.is_inter, not left_mb.is_inter
+                    ctx = 3 if (ai and li) else int(ai or li)
+                elif up or left:
+                    e = above if up else left_mb
+                    ctx = 2 * int(not e.is_inter)
+                else:
+                    ctx = 0
+                op((0, CDF_II, ctx, 1, 2))          # is_inter = 1
+                counts = IT.collect_neighbors_ref_counts(self, above, left_mb)
+                op((0, CDF_SREF, IT.ctx_single_p1(counts) * 6 + 0, 0, 2))
+                op((0, CDF_SREF, IT.ctx_ll2_or_l3gld(counts) * 6 + 2, 0, 2))
+                op((0, CDF_SREF, IT.ctx_last_or_last2(counts) * 6 + 3, 0, 2))
+                # inter mode
+                ctx = mode_ctx & MR.NEWMV_CTX_MASK
+                op((0, CDF_NEWMV, ctx, int(mode != MR.NEWMV), 2))
+                if mode != MR.NEWMV:
+                    ctx = (mode_ctx >> MR.GLOBALMV_OFFSET) \
+                        & MR.GLOBALMV_CTX_MASK
+                    op((0, CDF_ZEROMV, ctx, int(mode != MR.GLOBALMV), 2))
+                    if mode != MR.GLOBALMV:
+                        ctx = (mode_ctx >> MR.REFMV_OFFSET) & MR.REFMV_CTX_MASK
+                        op((0, CDF_REFMV, ctx, int(mode != MR.NEARESTMV), 2))
+                # drl (ref_mv_idx always 0)
+                if mode == MR.NEWMV:
+                    if count > 1:
+                        op((0, CDF_DRL, MR.drl_ctx(weights, 0), 0, 2))
+                elif mode == MR.NEARMV:
+                    if count > 2:
+                        op((0, CDF_DRL, MR.drl_ctx(weights, 1), 0, 2))
+                if mode == MR.NEWMV:
+                    self._mv_ops(op, mv, newmv_ref)
+
+                # ---- store MI ----
+                n4 = bs // 4
+                r1 = min(mi_row + n4, mi_rows)
+                c1 = min(mi_col + n4, mi_cols)
+                mi[mi_row:r1, mi_col:c1] = mbmi
+
+                # ---- residual ----
+                wu = bs // 4
+                cwu = wu // 2
+                acol, lrow = mi_col, mi_row & 15
+                cacol, clrow = mi_col >> 1, (mi_row & 15) >> 1
+                vis_w = min(wu, mi_cols - mi_col)
+                vis_h = min(wu, mi_rows - mi_row)
+                cvw = min(cwu, ((vis_w * 4) >> 1) >> 2)
+                cvh = min(cwu, ((vis_h * 4) >> 1) >> 2)
+                if skip:
+                    ent_update(0, acol, lrow, wu, 0, wu, wu)
+                    if self.nplanes > 1:
+                        ent_update(1, cacol, clrow, cwu, 0, cwu, cwu)
+                        ent_update(2, cacol, clrow, cwu, 0, cwu, cwu)
+                    return
+                dctx = _dc_sign_ctx(list(aent[0][acol : acol + wu])
+                                    + list(lent[0][lrow : lrow + wu]))
+                if bs == 32:
+                    blk = r32 * Cc + c32
+                    txb_op(BND_Y32, 0, blk, ye32[r32, c32], 0, dctx)
+                    cul = int(cul_y32[r32, c32])
+                else:
+                    blk = r16 * C2 + c16
+                    txb_op(BND_Y16, 1, blk, ye16[r16, c16], 0, dctx)
+                    cul = int(cul_y16[r16, c16])
+                ent_update(0, acol, lrow, wu, cul, vis_w, vis_h)
+                if self.nplanes > 1:
+                    for pl in (1, 2):
+                        a = aent[pl][cacol : cacol + cwu]
+                        l = lent[pl][clrow : clrow + cwu]
+                        sctx = (int(a.any()) + int(l.any())) + 7
+                        dctx = _dc_sign_ctx(list(a) + list(l))
+                        if bs == 32:
+                            e = int((ue16[pl - 1])[r32, c32])
+                            txb_op(BND_UV16, 1 + pl, blk, e, sctx, dctx)
+                            cul = int((cul_u16 if pl == 1 else cul_v16)
+                                      [r32, c32])
+                        else:
+                            e = int((ue8[pl - 1])[r16, c16])
+                            txb_op(BND_UV8, 3 + pl, blk, e, sctx, dctx)
+                            cul = int((cul_u8 if pl == 1 else cul_v8)
+                                      [r16, c16])
+                        ent_update(pl, cacol, clrow, cwu, cul, cvw, cvh)
+
+            def part_ops(mi_row, mi_col, bsize):
+                if mi_row >= mi_rows or mi_col >= mi_cols:
+                    return
+                bsl = (bsize - 3) // 3
+                mi_w = 2 << bsl
+                hbs = mi_w // 2
+                has_rows = mi_row + hbs < mi_rows
+                has_cols = mi_col + hbs < mi_cols
+                if bsize == _B16:
+                    partition = 0
+                elif bsize == _B32:
+                    partition = 3 if split[mi_row // 8, mi_col // 8] else 0
+                else:
+                    partition = 3
+                above = (above_part[mi_col] >> bsl) & 1
+                lft = (left_part[mi_row & 15] >> bsl) & 1
+                ctx = (lft * 2 + above) + bsl * 4
+                if has_rows and has_cols:
+                    op((0, CDF_PART, ctx, partition, 10))
+                elif not has_rows and not has_cols:
+                    pass
+                else:
+                    op((3, CDF_PART, ctx, int(partition == 3),
+                        int(not has_cols)))
+                if partition == 0:
+                    block_ops(mi_row, mi_col, 32 if bsize == _B32 else 16)
+                    pa = pa32 if bsize == _B32 else pa16
+                    pl = pl32 if bsize == _B32 else pl16
+                    above_part[mi_col : mi_col + mi_w] = pa
+                    for i in range(mi_w):
+                        left_part[(mi_row + i) & 15] = pl
+                else:
+                    sub = bsize - 3
+                    part_ops(mi_row, mi_col, sub)
+                    part_ops(mi_row, mi_col + hbs, sub)
+                    part_ops(mi_row + hbs, mi_col, sub)
+                    part_ops(mi_row + hbs, mi_col + hbs, sub)
+
+            for r0 in range(0, mi_rows, 16):
+                left_part[:] = 0
+                for l in lent:
+                    l[:] = 0
+                for c0 in range(0, mi_cols, 16):
+                    part_ops(r0, c0, _B64)
+
+        with trace.span("script.code", into="script_code_s"):
+            enc = NativeEncoder()
+            enc.allow_update = not fh.disable_cdf_update
+            self._cdf_keep = cdfs
+            self._lv_keep = lv_base
+            native_run_script(
+                enc, np.asarray(ops, np.int32).reshape(-1, 5), cdfs, bundles,
+                lv_base, tables.get("eob_group_start"),
+                tables.get("eob_offset_bits"))
+            # end-of-frame context save (decoder/obu.py: _update_ref_slots):
+            # the script adapted fc's tables in place; reset the per-row
+            # adaptation counters exactly as the decoder does before storing
+            fc.reset_counters()
+            return enc.done()
 
     # ------------------------------------------------------------------
     def _mv_ops(self, op, mv, ref_mv):

@@ -18,11 +18,17 @@ device events with. So the program's spans lie beside the device's
 events of the same session. With no profiler running nothing is kept.
 ``records()`` lists them and ``clear()`` drops them.
 
+Python's garbage collections are counted per frame: a ``gc.callbacks``
+hook, installed once at import, adds each collection that starts and ends
+inside an open frame's record to its ``gc_n`` (collections) and ``gc_s``
+(their seconds). Collections outside every frame count nowhere.
+
 Spans nest by the order of their blocks on one thread; the encoders run
 each frame on one thread.
 """
 from __future__ import annotations
 
+import gc
 import time
 
 import torch
@@ -34,6 +40,7 @@ _records = []          # [name, start_ns, end_ns, parent record, frame, attrs]
 _open = []             # the recorded span of each open span (or None)
 _frames = []           # the open frames' records, innermost last
 _frame_id = 0          # the latest frame begun
+_gc_start = None       # (frame, start) of a collection begun inside one
 
 
 class Span:
@@ -110,6 +117,26 @@ def add(key: str, n) -> None:
     if _frames:
         vals = _frames[-1].values
         vals[key] = vals.get(key, 0) + n
+
+
+def _on_gc(phase: str, info: dict) -> None:
+    """``gc.callbacks`` hook: a collection that starts inside an open frame
+    and ends while that frame is still open adds 1 to its ``gc_n`` and
+    its seconds to ``gc_s``."""
+    global _gc_start
+    if phase == "start":
+        _gc_start = (_frames[-1], time.perf_counter()) if _frames else None
+    elif _gc_start is not None:
+        rec, t0 = _gc_start
+        _gc_start = None
+        if rec in _frames:
+            vals = rec.values
+            vals["gc_n"] = vals.get("gc_n", 0) + 1
+            vals["gc_s"] = vals.get("gc_s", 0.0) + time.perf_counter() - t0
+
+
+if _on_gc not in gc.callbacks:
+    gc.callbacks.append(_on_gc)
 
 
 def frame_id() -> int:

@@ -71,7 +71,8 @@ def test_stream_96x64_q60_matches_jax(case_96x64):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     assert set(enc.timings) == {"plan_s", "plan_inputs_s", "plan_submit_s",
                                 "plan_fetch_s", "plan_launches",
-                                "plan_graph", "pack_s", "lpf_s", "syncs"}
+                                "plan_graph", "pack_s", "lpf_s", "syncs",
+                                "gc_n", "gc_s"}
     assert enc.timings["plan_graph"] == 0        # CPU tensors walk eagerly
     # end-of-frame entropy state equals the reference's
     for field in ("kf_y_cdf", "partition_cdf", "txb_skip_cdf"):

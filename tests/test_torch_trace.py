@@ -8,8 +8,12 @@ timeline record contains the profiler's event of a torch op run inside it
 span; the copies to a card count as syncs; a KEY encode's ``timings``
 hold every key of ``KEY_TIMINGS``, and the plan's three spans (inputs,
 submit, fetch) add up to ``plan_s`` within 1 % on the partition, tiled
-and uniform-grid paths; a traced CPU run of the all-intra cell reports
-the new per-layer metrics.
+and uniform-grid paths; an inter frame's record holds ``INTER_TIMINGS``,
+and on a small random-access chunk (the psy deployment's settings) the
+script's three stages (prep, walk, code) add up to ``script_s`` within
+2 % on every ARF and middle; ``gc_n`` / ``gc_s`` count the collections
+inside a frame (the innermost) and none outside every frame; a traced
+CPU run of the all-intra cell reports the new per-layer metrics.
 
 On a CUDA card (``gpu``, skipped without one): a span around a launch and
 a synchronize contains the kernel's device interval; one 720p KEY frame
@@ -17,8 +21,10 @@ makes 1240 launches in its plan's submit when it captures the walk as a
 CUDA graph and none (3 in the frame, KC's) when it replays it; and the
 ``syncs`` of a frame that walks eagerly, of one that captures and of one
 that replays each equal the warnings of
-``torch.cuda.set_sync_debug_mode("warn")`` over its encode.
-Tolerance: exact, but the 1 % of the plan's split."""
+``torch.cuda.set_sync_debug_mode("warn")`` over its encode, and so do the
+``syncs`` of a 720p ARF and of its middles.
+Tolerance: exact, but the 1 % of the plan's split and the 2 % of the
+script's."""
 import os
 import sys
 import warnings
@@ -30,12 +36,13 @@ from torch.profiler import ProfilerActivity, profile
 
 from aom_av1_psy_tpu_torch import convert
 from aom_av1_psy_tpu_torch.encoder import tpu_intra as TI
+from aom_av1_psy_tpu_torch.encoder import tpu_interframe as TIF
 from aom_av1_psy_tpu_torch.encoder.frame import EncoderConfig
 from aom_av1_psy_tpu_torch.encoder.tpu_frame import (KEY_TIMINGS,
                                                      GpuFrameEncoder)
 from aom_av1_psy_tpu_torch.kernels import build
 from aom_av1_psy_tpu_torch.utils import trace
-from aom_av1_psy_tpu_torch.utils.testframes import make_frame
+from aom_av1_psy_tpu_torch.utils.testframes import make_frame, make_gop
 from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -43,6 +50,8 @@ if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
 PLAN_PARTS = ("plan_inputs_s", "plan_submit_s", "plan_fetch_s")
+SCRIPT_SPANS = ("script.prep", "script.walk", "script.code")
+SCRIPT_PARTS = ("script_prep_s", "script_walk_s", "script_code_s")
 
 
 @pytest.fixture(autouse=True)
@@ -209,15 +218,14 @@ def test_key_timings_split_the_plan(case):
 
 
 def test_inter_timings_and_script_stage():
-    from aom_av1_psy_tpu_torch.encoder.tpu_interframe import encode_video
-    from aom_av1_psy_tpu_torch.utils.testframes import make_gop
     with _cpu_profile():
-        _, encs = encode_video(make_gop(64, 64, 2),
+        _, encs = TIF.encode_video(make_gop(64, 64, 2),
                                EncoderConfig(base_q_idx=150), device="cpu")
     inter = encs[1]
-    assert set(inter.timings) == {"plan_s", "pack_s"}
-    assert set(inter.pack_stages) == {"script_s"}
+    assert set(inter.timings) == set(TIF.INTER_TIMINGS)
+    assert set(inter.pack_stages) == set(TIF.PACK_STAGES)
     assert 0 < inter.pack_stages["script_s"] <= inter.timings["pack_s"]
+    assert inter.timings["syncs"] == 0          # no card: no copies
     recs = trace.records()
     # the KEY's temporal filter runs before its frame begins
     frames = sorted({r[4] for r in recs if r[0] == "plan"})
@@ -225,12 +233,57 @@ def test_inter_timings_and_script_stage():
     assert [r[4] for r in recs if r[0] == "tf"] == [frames[0] - 1]
     last = [r for r in recs if r[4] == frames[1]]
     names = [r[0] for r in last]
-    for name in ("plan", "pack", "lpf", "cdef", "script"):
+    for name in ("plan", "pack", "lpf", "cdef", "script") + SCRIPT_SPANS:
         assert name in names, name
     pack = names.index("pack")
     assert all(last[names.index(n)][3] is not None for n in
                ("lpf", "cdef", "script"))
     assert recs.index(last[pack]) == last[names.index("script")][3]
+    script = recs.index(last[names.index("script")])
+    assert [last[names.index(n)][3] for n in SCRIPT_SPANS] == [script] * 3
+
+
+def test_script_stages_tile_script_s():
+    # a small random-access chunk with the deployment's settings: a KEY
+    # and two star groups of 4 (an ARF and three middles each)
+    from ra_chunk import config, gop, scene
+    _, encs = TIF.encode_video_arf(scene(192, 128, 9, seed=2), config(),
+                                   **gop(group=4))
+    inter = [e for e in encs if e is not None and hasattr(e, "show")]
+    assert [e.show for e in inter] == [False, True, True, True] * 2
+    for e in inter:
+        t = e.timings
+        assert set(t) == set(TIF.INTER_TIMINGS)
+        assert e.pack_stages == {k: t[k] for k in TIF.PACK_STAGES}
+        assert all(t[k] > 0 for k in SCRIPT_PARTS), t
+        parts = sum(t[k] for k in SCRIPT_PARTS)
+        assert parts <= t["script_s"] <= t["pack_s"], t
+        assert t["script_s"] - parts <= 0.02 * t["script_s"], t
+        assert t["syncs"] == 0 and t["gc_n"] >= 0 and t["gc_s"] >= 0
+    assert set(encs[0].timings) == set(KEY_TIMINGS)
+
+
+def test_gc_counts_collections_inside_a_frame_only():
+    import gc
+    was = gc.isenabled()
+    gc.disable()                   # only the collections forced here
+    try:
+        gc.collect()
+        with trace.frame() as f:
+            gc.collect()
+            with trace.frame() as inner:
+                gc.collect()
+                gc.collect()
+        with trace.frame() as idle:
+            pass
+        gc.collect()               # outside every frame
+    finally:
+        if was:
+            gc.enable()
+    assert f.values["gc_n"] == 1 and f.values["gc_s"] > 0
+    assert inner.values["gc_n"] == 2 and inner.values["gc_s"] > 0
+    assert "gc_n" not in idle.values and "gc_s" not in idle.values
+    assert f.pick(("gc_n", "gc_s")) == {"gc_n": 1, "gc_s": f.values["gc_s"]}
 
 
 def test_traced_cpu_run_reports_the_plan_metrics():
@@ -278,6 +331,81 @@ def test_launch_and_sync_readers():
     for name in ("key_launch_us", "syncs_per_frame", "key_plan_inputs_ms",
                  "key_plan_submit_ms", "key_plan_fetch_ms", "key_lpf_ms"):
         assert spec.metric_reader(name).read(Parent) is None, name
+
+
+def test_inter_readers():
+    from benchmark.harness import spec
+
+    class Run:
+        frames = [
+            {"type": "key", "traced": False, "syncs": 33, "gc_s": 0.5},
+            {"type": "arf", "traced": True, "script_walk_s": 1.0,
+             "script_code_s": 1.0, "syncs": 99, "gc_s": 1.0},
+            {"type": "arf", "traced": False, "script_walk_s": 0.2,
+             "script_code_s": 0.03, "syncs": 12, "gc_s": 0.0},
+            {"type": "inter", "traced": False, "script_walk_s": 0.1,
+             "script_code_s": 0.01, "syncs": 10, "gc_s": 0.004}]
+
+    read = lambda name, run: spec.metric_reader(name).read(run)
+    assert read("inter_script_walk_ms", Run) == pytest.approx(150.0)
+    assert read("inter_script_code_ms", Run) == pytest.approx(20.0)
+    assert read("inter_syncs_per_frame", Run) == 11.0
+    assert read("inter_gc_ms", Run) == pytest.approx(2.0)
+
+    class Parent:                  # a program without the spans, counters
+        frames = [{"type": "key", "traced": False, "plan_s": 0.09,
+                   "syncs": 33},
+                  {"type": "inter", "traced": False, "plan_s": 0.03,
+                   "pack_s": 0.2, "script_s": 0.2}]
+
+    for name in ("inter_script_walk_ms", "inter_script_code_ms",
+                 "inter_syncs_per_frame", "inter_gc_ms"):
+        assert read(name, Parent) is None, name
+
+
+def _ra_run(kernels):
+    """A stand-in run of the random-access cell at 720p: one traced chunk
+    (a KEY, four groups of 16) and a second chunk outside the trace."""
+    chunk = [{"type": "key"}] + (
+        [{"type": "arf"}] + [{"type": "inter"}] * 15) * 4
+
+    class Run:
+        traffic = {"width": 1280, "height": 720, "frames": 65}
+        config = {"encoder": {"base_q_idx": 110},
+                  "gop": {"group": 16, "kf_q_offset": 60,
+                          "arf_q_offset": 48}}
+        frames = [{**f, "traced": True} for f in chunk] + \
+            [{**f, "traced": False} for f in chunk]
+        trace = {"kernels": kernels}
+    return Run
+
+
+def test_inter_and_tf_roofline_readers():
+    from benchmark.harness import roofline_inter as RI
+    from benchmark.harness import spec
+    run = _ra_run({"void kd_kernel<16>(KDArgs)": 0.010,
+                   "ke_strip_kernel(KEArgs)": 0.004,
+                   "kb_batch_kernel<16>(KBBatch)": 0.003,
+                   "kf_tile_kernel(KFArgs)": 0.003,
+                   "kj_kernel(KJArgs)": 0.002,
+                   "kk_span_kernel(KKArgs)": 0.006,
+                   "kb_step_kernel<16>(StepArgs)": 9.0,
+                   "pick61_kernel<16>(PickArgs)": 9.0})
+    # ARFs at q 62 and the KEY at q 50 run no CDEF; the 60 middles do
+    assert not RI.cdef_on(62) and not RI.cdef_on(50) and RI.cdef_on(110)
+    need = 64 * RI.inter_plan_bound_s(1280, 720) + \
+        60 * RI.cdef_bound_s(1280, 720)
+    got = spec.metric_reader("inter_roofline_pct").read(run)
+    assert got == pytest.approx(100.0 * need / 0.020, rel=1e-12)
+    need = RI.tf_span_bound_s(3, 1280, 720) + \
+        3 * RI.tf_span_bound_s(5, 1280, 720) + \
+        RI.tf_span_bound_s(3, 1280, 720)
+    got = spec.metric_reader("tf_roofline_pct").read(run)
+    assert got == pytest.approx(100.0 * need / 0.008, rel=1e-12)
+    # no kernel of theirs in the trace (a CPU run): nothing to read
+    for name in ("inter_roofline_pct", "tf_roofline_pct"):
+        assert spec.metric_reader(name).read(
+            _ra_run({"pick61_kernel<16>(PickArgs)": 1.0})) is None, name
 
 
 def test_graph_hit_reader():
@@ -399,3 +527,37 @@ def test_720p_syncs_match_torch_sync_debug_mode(dev, walk):
     assert (pg.graph is not None) == (walk != "eager")
     assert enc.timings["plan_graph"] == int(walk == "replay")
     assert enc.timings["plan_launches"] == (0 if walk == "replay" else 1240)
+
+
+@pytest.mark.gpu
+def test_720p_inter_syncs_match_torch_sync_debug_mode(dev, monkeypatch):
+    # a KEY and a star group of 4 at 720p: the ARF and the three middles
+    # each count what torch warns of over their encode (the first chunk
+    # builds and caches; the second is read)
+    frames = make_gop(1280, 720, 5)
+    kw = dict(group=4, kf_q_offset=60, arf_q_offset=48, tf_strength=2,
+              device=dev)
+    cfg = EncoderConfig(base_q_idx=110, tune_psy=True, try_smooth64=True)
+    TIF.encode_video_arf(frames, cfg, **kw)
+    encode, warned = TIF.GpuInterFrameEncoder.encode, {}
+
+    def watched(self):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as got:
+                warnings.simplefilter("always")
+                pkt = encode(self)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        warned[id(self)] = [str(w.message)[:80] for w in got
+                            if "synchroniz" in str(w.message)]
+        return pkt
+
+    monkeypatch.setattr(TIF.GpuInterFrameEncoder, "encode", watched)
+    _, encs = TIF.encode_video_arf(frames, cfg, **kw)
+    inter = [e for e in encs if e is not None and hasattr(e, "show")]
+    assert [e.show for e in inter] == [False, True, True, True]
+    for e in inter:
+        assert e.timings["syncs"] == len(warned[id(e)]) > 0, \
+            (e.show, e.timings["syncs"], warned[id(e)])
