@@ -331,3 +331,59 @@ def native_run_script(enc: "NativeEncoder", ops: np.ndarray,
         _ptr(egs), _ptr(eob_bits))
     if rc != 0:
         raise RuntimeError(f"script failed: {rc}")
+
+
+_W_PTRS = ("split32", "mv8", "skip32", "skip16", "y_eob32", "y_eob16",
+           "uv_eob16", "uv_eob8", "cul_y32", "cul_y16", "cul_u16", "cul_v16",
+           "cul_u8", "cul_v8", "roff", "ops")
+_W_INTS = ("Rc", "Cc", "mi_rows", "mi_cols", "nplanes", "cap",
+           "pctx_a32", "pctx_l32", "pctx_a16", "pctx_l16", "blocks")
+# the most ops of one 16x16 block: 8 mode and reference symbols, two MV
+# components of 13 each, three transform blocks, and its partition symbol
+_OPS_PER_BLOCK = 38
+
+
+class InterWalkParams(ctypes.Structure):
+    """ctypes mirror of InterWalkParams in native/ec.cpp (all members 8
+    bytes, order must match exactly)."""
+
+    _fields_ = ([(n, ctypes.c_void_p) for n in _W_PTRS]
+                + [(n, ctypes.c_int64) for n in _W_INTS])
+
+
+def native_inter_script_walk(inputs: dict, mi_rows: int, mi_cols: int,
+                             nplanes: int, pctx) -> tuple:
+    """The P-frame script's ops in one native call (ec_inter_script_walk).
+
+    ``inputs``: ``tpu_interframe.script_inputs``' arrays (uint8 split and
+    skip flags, int32 MVs, eobs and culs, the int64 region offsets
+    ``roff``); the chroma arrays are absent where ``nplanes`` is 1.
+    ``pctx``: PARTITION_CTX_ABOVE / _LEFT of 32x32 and of 16x16. Returns
+    (ops (N, 5) int32, blocks walked)."""
+    Rc, Cc = inputs["split32"].shape
+    # every block a 16x16 at most, every node coding a partition symbol
+    cap = _OPS_PER_BLOCK * 4 * Rc * Cc + Rc * Cc + (Rc + 1) * (Cc + 1)
+    ops = np.empty((cap, 5), np.int32)
+    want = {"split32": np.uint8, "skip32": np.uint8, "skip16": np.uint8,
+            "roff": np.int64}
+    p = InterWalkParams()
+    keep = []
+    for name in _W_PTRS[:-1]:
+        arr = inputs.get(name)
+        if arr is None:
+            if nplanes > 1:
+                raise ValueError(f"the walk needs {name}")
+            continue
+        arr = np.ascontiguousarray(arr, want.get(name, np.int32))
+        keep.append(arr)
+        setattr(p, name, ctypes.c_void_p(arr.ctypes.data))
+    p.ops = ctypes.c_void_p(ops.ctypes.data)
+    for name, v in zip(_W_INTS, (Rc, Cc, mi_rows, mi_cols, nplanes, cap,
+                                 *pctx, 0)):
+        setattr(p, name, int(v))
+    n = get_lib().ec_inter_script_walk(ctypes.byref(p))
+    if n < 0:
+        raise RuntimeError("native inter script walk failed: "
+                           + ("ops past their bound" if n == -1
+                              else "a read of a block not yet coded"))
+    return ops[:n], int(p.blocks)

@@ -8,9 +8,13 @@ Per P-frame: the batched inter plan on the device
 (``tpu_inter.plan_inter_frame``: kernels KE, KD, KB), the device
 loop-filter ladder around the inter first guess (``ops/deblock_torch``,
 kernel KC), the device CDEF on the reference chain (``tpu_frame.
-apply_cdef_refs``, kernel KF), then the symbol-script pack executed by the
-native range coder. The reference chain (``ref_planes_out``) stays
-on the device, post-LPF and post-CDEF like the decoder's.
+apply_cdef_refs``, kernel KF), then the symbol-script pack: one native
+walk builds the frame's script ops (``native/ec.cpp``
+``ec_inter_script_walk``: the MV reference stacks, the contexts and the
+symbols, with no Python object a block) and the native range coder plays
+them. ``script_ops_plain`` is that walk in Python, kept for the tests. The
+reference chain (``ref_planes_out``) stays on the device, post-LPF and
+post-CDEF like the decoder's.
 
 With ``tune_vmaf`` the source luma is first unsharpened on the device
 (``tune_vmaf.preprocess_frame``: kernels KG and KH), as the reference's
@@ -19,10 +23,11 @@ unsharpened.
 
 The host code is carried over from the reference module: the MV-class
 helpers and constants (``tpu_interframe.py:
-38-68``), ``make_headers``, ``_mi_skip_map``, ``_pack_script`` and
-``_mv_ops`` (``:165-671``, over ``normative/mvref.find_mv_refs`` and
-``decoder/inter``), ``_ref_chain_planes``, the GOP loops and the rate
-control arithmetic (``:673-1044``). The temporal filters of the KEY frame
+38-68``), ``make_headers``, ``_mi_skip_map``, ``_pack_script``'s walk (as
+``script_ops_plain``) and ``_mv_ops`` (``:165-671``, over
+``normative/mvref.find_mv_refs`` and ``decoder/inter``),
+``_ref_chain_planes``, the GOP loops and the rate control arithmetic
+(``:673-1044``). The temporal filters of the KEY frame
 and of each ARF run on the device (``encoder/temporal_filter``: kernels KJ
 and KK). ``_warm_transfer`` is a TPU-platform workaround and is
 dropped. The host layers under it (headers, the range coder, the
@@ -31,6 +36,7 @@ decoder's inter prediction, ``normative/mvref``) are the port's own copies.
 from __future__ import annotations
 
 import dataclasses
+import types
 
 import numpy as np
 import torch
@@ -40,7 +46,7 @@ from ..bitstream.headers import FrameHeader, TileInfo, write_frame_header
 from ..decoder import inter as IT
 from ..ec.context import FrameContext
 from ..ec.native_coder import (NativeEncoder, available, make_bundle,
-                               native_run_script)
+                               native_inter_script_walk, native_run_script)
 from .frame import EncoderConfig
 from ..normative import mvref as MR
 from ..normative import tables
@@ -66,9 +72,12 @@ CLASS0_SIZE = 1 << CLASS0_BITS
 
 # an inter frame's record (``timings``): its spans' seconds (the plan, the
 # pack, the script and the script's three stages), host-device copies that
-# block the host, and the Python collections inside it (count, seconds)
+# block the host, the Python collections inside it (count, seconds), and
+# the script walk's engagement: 1 where the native walk built the ops, and
+# the blocks it walked
 PACK_STAGES = ("script_s", "script_prep_s", "script_walk_s", "script_code_s")
-INTER_TIMINGS = ("plan_s", "pack_s") + PACK_STAGES + ("syncs", "gc_n", "gc_s")
+INTER_TIMINGS = ("plan_s", "pack_s") + PACK_STAGES + (
+    "syncs", "gc_n", "gc_s", "script_native", "script_blocks")
 
 _B64, _B32, _B16 = (int(BlockSize.BLOCK_64X64), int(BlockSize.BLOCK_32X32),
                     int(BlockSize.BLOCK_16X16))
@@ -80,15 +89,26 @@ def _mv_class(z: int) -> int:
     return min(c, MV_CLASSES - 1)
 
 
-def _cul_levels(levels, eobs, scan, n):
+def _cul_levels(levels, eobs, n):
     """Vectorized cul_level per block: min(sum|l|,7) + dc-sign bits
-    (set_dc_sign), 0 where eob==0."""
+    (set_dc_sign), 0 where eob==0; int32."""
     flat = levels.reshape(-1, n)
     s = np.minimum(np.abs(flat).sum(-1), 7)
     dc = flat[:, 0]
     s = s + np.where(dc > 0, 2 << 3, np.where(dc < 0, 1 << 3, 0))
     s = np.where(eobs.reshape(-1) > 0, s, 0)
-    return s.reshape(eobs.shape)
+    return s.reshape(eobs.shape).astype(np.int32)
+
+
+def _block_skips(plan, nplanes: int) -> tuple:
+    """Each 32x32 and each 16x16 block's skip flag (no coefficient in any
+    plane) from the plan's eobs."""
+    skip32 = plan["y_eob32"] == 0
+    skip16 = plan["y_eob16"] == 0
+    if nplanes > 1:
+        skip32 &= (plan["uv_eob16"] == 0).all(0)
+        skip16 &= (plan["uv_eob8"] == 0).all(0)
+    return skip32, skip16
 
 
 def _dc_sign_ctx(vals):
@@ -168,23 +188,6 @@ class GpuInterFrameEncoder:
             if cc < C2:
                 g[:, cc:] = g[:, cc - 1 : cc]
             self.rdmult = (self.rdmult * g).astype(np.float32)
-
-        # ---- cm duck-type for normative/mvref.find_mv_refs ----
-        self.bd = 8
-        self.force_integer_mv = False
-        self.allow_high_precision_mv = False
-        self.global_motion = [MR.WarpModel() for _ in range(8)]
-        self.ref_frame_sign_bias = [0] * 8
-        self.enable_order_hint = False
-        self.order_hint_bits = 0
-        self.cur_order_hint = 0
-        self.allow_ref_frame_mvs = False
-        self.tpl_mvs = None
-        self.sb_mi = 16
-        self.refs = [None] * 8
-
-    def ref_order_hint(self, rf: int) -> int:
-        return 0
 
     # ------------------------------------------------------------------
     def make_headers(self):
@@ -281,11 +284,7 @@ class GpuInterFrameEncoder:
         """Per-mi skip grid from the plan eobs (the pack derives the same
         flags; CDEF's unit gating needs them before the pack runs)."""
         p = self.plan
-        skip32 = (p["y_eob32"] == 0)
-        skip16 = (p["y_eob16"] == 0)
-        if self.nplanes > 1:
-            skip32 &= (p["uv_eob16"] == 0).all(0)
-            skip16 &= (p["uv_eob8"] == 0).all(0)
+        skip32, skip16 = _block_skips(p, self.nplanes)
         sp = p["split32"].astype(bool)
         blk = np.where(np.repeat(np.repeat(sp, 2, 0), 2, 1), skip16,
                        np.repeat(np.repeat(skip32, 2, 0), 2, 1))
@@ -320,405 +319,438 @@ class GpuInterFrameEncoder:
 
     # ------------------------------------------------------------------
     def _pack_script(self, plan, fc, fh) -> bytes:
-        # three stages, each a span: the vectorised preparation (skip
-        # flags, culs, the CDF registry, the bundles and the level store),
-        # the per-block walk that builds the script ops, the native coder
-        # with the end-of-frame context save
-        with trace.span("script.prep", into="script_prep_s"):
-            Rc, Cc = plan["split32"].shape
-            R2, C2 = 2 * Rc, 2 * Cc
-            split = plan["split32"].astype(bool)
-            mv8 = plan["mv8"]
+        # three stages, consecutive spans: the vectorised preparation (the
+        # slice check, skip flags, culs, the level store, the CDF registry
+        # and the bundles), the native walk that builds the script ops, the
+        # native coder with the end-of-frame context save
+        with trace.stages() as stage:
+            stage("script.prep", into="script_prep_s")
+            check_walk_slice(fh)
+            inputs = script_inputs(plan, self.nplanes)
+            cdfs, bundles = script_tables(fc)
+            stage("script.walk", into="script_walk_s")
+            ops, blocks = script_ops(inputs, self.mi_rows, self.mi_cols,
+                                     self.nplanes)
+            trace.add("script_native", 1)
+            trace.add("script_blocks", blocks)
+            stage("script.code", into="script_code_s")
+            data = code_script(ops, cdfs, bundles, inputs["levels"], fc,
+                               not fh.disable_cdf_update)
+            # the script's buffers are freed inside the stage, not after it
+            del inputs, cdfs, bundles, ops
+        return data
 
-            # --- per-block skip flags + culs (vectorized) ---
-            ye32, ye16 = plan["y_eob32"], plan["y_eob16"]
-            if self.nplanes > 1:
-                ue16, ue8 = plan["uv_eob16"], plan["uv_eob8"]
-                skip32 = (ye32 == 0) & (ue16 == 0).all(0)
-                skip16 = (ye16 == 0) & (ue8 == 0).all(0)
-            else:
-                skip32 = ye32 == 0
-                skip16 = ye16 == 0
-            tx32, tx16, tx8 = (int(TxSize.TX_32X32), int(TxSize.TX_16X16),
-                               int(TxSize.TX_8X8))
-            scan32 = np.ascontiguousarray(tables.scan_table(tx32, 0), np.int32)
-            scan16 = np.ascontiguousarray(tables.scan_table(tx16, 0), np.int32)
-            scan8 = np.ascontiguousarray(tables.scan_table(tx8, 0), np.int32)
-            cul_y32 = _cul_levels(plan["y_levels32"], ye32, scan32, 1024)
-            cul_y16 = _cul_levels(plan["y_levels16"], ye16, scan16, 256)
-            if self.nplanes > 1:
-                cul_u16 = _cul_levels(plan["uv_levels16"][0], ue16[0], scan16,
-                                      256)
-                cul_v16 = _cul_levels(plan["uv_levels16"][1], ue16[1], scan16,
-                                      256)
-                cul_u8 = _cul_levels(plan["uv_levels8"][0], ue8[0], scan8, 64)
-                cul_v8 = _cul_levels(plan["uv_levels8"][1], ue8[1], scan8, 64)
 
-            # --- CDF registry ---
-            sref = fc.single_ref_cdf.reshape(18, 3)
-            comp_tables = []
-            for c in range(2):
-                g = lambda n: getattr(fc, f"nmv_comp{c}_{n}_cdf")
-                comp_tables += [
-                    g("sign").reshape(1, -1), g("classes").reshape(1, -1),
-                    g("class0").reshape(1, -1), g("bits"),
-                    g("class0_fp"), g("fp").reshape(1, -1),
-                    g("class0_hp").reshape(1, -1), g("hp").reshape(1, -1)]
-            cdfs = [fc.partition_cdf, fc.skip_txfm_cdfs, fc.intra_inter_cdf,
-                    sref, fc.newmv_cdf, fc.zeromv_cdf, fc.refmv_cdf,
-                    fc.drl_cdf, fc.nmv_joints_cdf.reshape(1, -1)] + comp_tables
-            (CDF_PART, CDF_SKIP, CDF_II, CDF_SREF, CDF_NEWMV, CDF_ZEROMV,
-             CDF_REFMV, CDF_DRL, CDF_JOINT) = range(9)
-            for t in cdfs:
-                assert t.flags["C_CONTIGUOUS"] and t.dtype == np.uint16
+# ----------------------------------------------------------------------
+# The P-frame symbol script: the decoder's parse order of a frame of the
+# device inter plan as ops (``native/ec.cpp`` ``ec_enc_run_script``),
+# built by one native walk (``ec_inter_script_walk``); ``script_ops_plain``
+# is the same walk in Python, over ``normative/mvref.find_mv_refs``.
+# ----------------------------------------------------------------------
+# the script's CDF registry (``script_tables``) and coefficient bundles
+(CDF_PART, CDF_SKIP, CDF_II, CDF_SREF, CDF_NEWMV, CDF_ZEROMV, CDF_REFMV,
+ CDF_DRL, CDF_JOINT, CDF_COMP0) = range(10)
+BND_Y32, BND_Y16, BND_UV16, BND_UV8 = range(4)
+# the level store's regions [y32 | y16 | u16 | v16 | u8 | v8], each in
+# units of its bundle's levels a block
+REGION_N = (1024, 256, 256, 256, 64, 64)
 
-            # --- coeff bundles (inter ext-tx sets) ---
-            e32c, e16c, e8c = (txsize_entropy_ctx(t)
-                               for t in (tx32, tx16, tx8))
 
-            def inter_ext(tx, sqr_is16):
-                set_type = 1 if tx == tx32 else (4 if sqr_is16 else 5)
-                nsyms = int(NUM_EXT_TX_SET[set_type])
-                eset = EXT_TX_SET_INDEX_INTER[set_type]
-                row = np.ascontiguousarray(
-                    fc.inter_ext_tx_cdf[eset][int(TXSIZE_SQR[tx])])
-                fc.inter_ext_tx_cdf[eset][int(TXSIZE_SQR[tx])] = row
-                return row, nsyms, int(EXT_TX_IND[set_type][0])
+def check_walk_slice(fh) -> None:
+    """Raise ``NotImplementedError`` where the frame header leaves the
+    slice of AV1 that the symbol walk codes, the state ``make_headers``
+    fixes: one tile, a single reference (no compound prediction, no skip
+    mode), identity global motion, no reference-frame MVs, quarter-pel MVs
+    (neither high precision nor integer MVs), a frame-wide interpolation
+    filter and simple motion."""
+    t = fh.tiles
+    outside = [name for name, off in (
+        ("tiles", not t.uniform_spacing or t.tile_cols_log2
+         or t.tile_rows_log2),
+        ("reference_select", fh.reference_select),
+        ("skip_mode_present", fh.skip_mode_present),
+        ("global_motion", any(g.wmtype != MR.IDENTITY
+                              for g in fh.global_motion or ())),
+        ("allow_ref_frame_mvs", fh.allow_ref_frame_mvs),
+        ("allow_high_precision_mv", fh.allow_high_precision_mv),
+        ("force_integer_mv", fh.force_integer_mv),
+        ("is_filter_switchable", fh.is_filter_switchable),
+        ("is_motion_mode_switchable", fh.is_motion_mode_switchable)) if off]
+    if outside:
+        raise NotImplementedError(
+            "the inter symbol walk codes no frame with " + ", ".join(outside))
 
-            ext32, n32, s32sym = inter_ext(tx32, False)
-            ext16, n16, s16sym = inter_ext(tx16, True)
-            self._ext_keep = (ext32, ext16)
 
-            def nz(tx):
-                return np.ascontiguousarray(
-                    tables.get(f"nz_map_ctx_offset_ts{tx}"), np.int32)
+def script_inputs(plan, nplanes: int) -> dict:
+    """The walk's inputs from an inter plan, vectorised: the split flags,
+    the 16-level MVs, each block's skip flag, its eobs and the culs
+    (entropy-context bytes) of its transform blocks, and the coder's flat
+    level store ``levels`` with each region's element offset ``roff``
+    (``REGION_N``; monochrome stores the luma regions only)."""
+    ye32, ye16 = plan["y_eob32"], plan["y_eob16"]
+    skip32, skip16 = _block_skips(plan, nplanes)
+    i32 = lambda a: np.ascontiguousarray(a, np.int32)
+    inp = {"split32": np.ascontiguousarray(plan["split32"], np.uint8),
+           "mv8": i32(plan["mv8"]),
+           "skip32": skip32.astype(np.uint8),
+           "skip16": skip16.astype(np.uint8),
+           "y_eob32": i32(ye32), "y_eob16": i32(ye16),
+           "cul_y32": _cul_levels(plan["y_levels32"], ye32, 1024),
+           "cul_y16": _cul_levels(plan["y_levels16"], ye16, 256)}
+    stores = [plan["y_levels32"], plan["y_levels16"]]
+    if nplanes > 1:
+        ue16, ue8 = plan["uv_eob16"], plan["uv_eob8"]
+        inp.update(uv_eob16=i32(ue16), uv_eob8=i32(ue8))
+        for pl, c in enumerate("uv"):
+            inp[f"cul_{c}16"] = _cul_levels(plan["uv_levels16"][pl],
+                                            ue16[pl], 256)
+            inp[f"cul_{c}8"] = _cul_levels(plan["uv_levels8"][pl], ue8[pl], 64)
+        stores += [plan["uv_levels16"][0], plan["uv_levels16"][1],
+                   plan["uv_levels8"][0], plan["uv_levels8"][1]]
+    sizes = [x.size for x in stores]
+    roff = np.cumsum([0] + sizes)
+    # a txb's level index is its element offset over its region's n
+    if any(int(o) % n for o, n in zip(roff, REGION_N)):
+        raise ValueError(f"level-store regions {sizes} misalign their blocks")
+    inp["roff"] = np.resize(roff[:-1], len(REGION_N)).astype(np.int64)
+    inp["levels"] = np.concatenate(
+        [np.asarray(x, np.int32).reshape(-1) for x in stores])
+    return inp
 
-            bundles = [
-                make_bundle(fc.txb_skip_cdf[e32c], fc.eob_flag_cdf1024[0][0],
-                            fc.eob_extra_cdf[e32c][0],
-                            fc.coeff_base_eob_cdf[e32c][0],
-                            fc.coeff_base_cdf[e32c][0],
-                            fc.coeff_br_cdf[min(e32c, 3)][0],
-                            fc.dc_sign_cdf[0],
-                            scan32, nz(tx32),
-                            5 + int(TXSIZE_LOG2_MINUS4[tx32]),
-                            32, ext32, n32, s32sym, 0),
-                make_bundle(fc.txb_skip_cdf[e16c], fc.eob_flag_cdf256[0][0],
-                            fc.eob_extra_cdf[e16c][0],
-                            fc.coeff_base_eob_cdf[e16c][0],
-                            fc.coeff_base_cdf[e16c][0],
-                            fc.coeff_br_cdf[min(e16c, 3)][0],
-                            fc.dc_sign_cdf[0],
-                            scan16, nz(tx16),
-                            5 + int(TXSIZE_LOG2_MINUS4[tx16]),
-                            16, ext16, n16, s16sym, 0),
-                make_bundle(fc.txb_skip_cdf[e16c], fc.eob_flag_cdf256[1][0],
-                            fc.eob_extra_cdf[e16c][1],
-                            fc.coeff_base_eob_cdf[e16c][1],
-                            fc.coeff_base_cdf[e16c][1],
-                            fc.coeff_br_cdf[min(e16c, 3)][1],
-                            fc.dc_sign_cdf[1],
-                            scan16, nz(tx16),
-                            5 + int(TXSIZE_LOG2_MINUS4[tx16]),
-                            16),
-                make_bundle(fc.txb_skip_cdf[e8c], fc.eob_flag_cdf64[1][0],
-                            fc.eob_extra_cdf[e8c][1],
-                            fc.coeff_base_eob_cdf[e8c][1],
-                            fc.coeff_base_cdf[e8c][1],
-                            fc.coeff_br_cdf[min(e8c, 3)][1], fc.dc_sign_cdf[1],
-                            scan8, nz(tx8), 5 + int(TXSIZE_LOG2_MINUS4[tx8]),
-                            8),
-            ]
-            BND_Y32, BND_Y16, BND_UV16, BND_UV8 = range(4)
-            # flat levels store: [y32 | y16 | u16 | v16 | u8 | v8]; op2 indexes
-            # are in units of the bundle's own n (every region size is a
-            # multiple of 64/256/1024, so offsets stay integral)
-            lv_list = [np.ascontiguousarray(plan["y_levels32"], np.int32)
-                       .reshape(-1),
-                       np.ascontiguousarray(plan["y_levels16"], np.int32)
-                       .reshape(-1)]
-            if self.nplanes > 1:
-                lv_list += [
-                    np.ascontiguousarray(plan["uv_levels16"][0], np.int32)
-                    .reshape(-1),
-                    np.ascontiguousarray(plan["uv_levels16"][1], np.int32)
-                    .reshape(-1),
-                    np.ascontiguousarray(plan["uv_levels8"][0], np.int32)
-                    .reshape(-1),
-                    np.ascontiguousarray(plan["uv_levels8"][1], np.int32)
-                    .reshape(-1)]
-            lv_base = np.concatenate(lv_list)
-            # element offsets of each region
-            roff = np.cumsum([0] + [x.size for x in lv_list])
-            # per-bundle index = (region_offset + block*n) / n must be integral
-            # -> guaranteed since region sizes are multiples of their own n;
-            # but regions of other sizes may misalign a later region. Check:
-            idx_div = {BND_Y32: 1024, BND_Y16: 256, BND_UV16: 256, BND_UV8: 64}
 
-            def lv_index(region, block, bnd):
-                o = roff[region] + block * idx_div[bnd]
-                assert o % idx_div[bnd] == 0
-                return o // idx_div[bnd]
+def script_tables(fc) -> tuple:
+    """The script's CDF registry (``CDF_*`` ids, each a C-contiguous uint16
+    table of ``fc`` adapted in place by the coder) and its coefficient
+    bundles (``BND_*``: the inter ext-tx sets of TX_32X32 and TX_16X16
+    luma, chroma TX_16X16 and TX_8X8)."""
+    sref = fc.single_ref_cdf.reshape(18, 3)
+    comp_tables = []
+    for c in range(2):
+        g = lambda n: getattr(fc, f"nmv_comp{c}_{n}_cdf")
+        comp_tables += [
+            g("sign").reshape(1, -1), g("classes").reshape(1, -1),
+            g("class0").reshape(1, -1), g("bits"),
+            g("class0_fp"), g("fp").reshape(1, -1),
+            g("class0_hp").reshape(1, -1), g("hp").reshape(1, -1)]
+    cdfs = [fc.partition_cdf, fc.skip_txfm_cdfs, fc.intra_inter_cdf,
+            sref, fc.newmv_cdf, fc.zeromv_cdf, fc.refmv_cdf,
+            fc.drl_cdf, fc.nmv_joints_cdf.reshape(1, -1)] + comp_tables
+    for t in cdfs:
+        assert t.flags["C_CONTIGUOUS"] and t.dtype == np.uint16
 
-        with trace.span("script.walk", into="script_walk_s"):
-            # --- rolling contexts ---
-            mi_rows, mi_cols = self.mi_rows, self.mi_cols
-            ncols = (mi_cols + 15) // 16 * 16
-            above_part = np.zeros(ncols, np.int32)
-            left_part = np.zeros(16, np.int32)
-            aent = [np.zeros(ncols, np.uint8) for _ in range(3)]
-            lent = [np.zeros(16, np.uint8) for _ in range(3)]
-            mi = np.full((mi_rows, mi_cols), None, object)
-            self.mi = mi
-            self.tile_mi_row_start = 0
-            self.tile_mi_col_start = 0
-            self.tile_mi_row_end = mi_rows
-            self.tile_mi_col_end = mi_cols
+    tx32, tx16, tx8 = (int(TxSize.TX_32X32), int(TxSize.TX_16X16),
+                       int(TxSize.TX_8X8))
+    e32c, e16c, e8c = (txsize_entropy_ctx(t) for t in (tx32, tx16, tx8))
 
-            ops = []
-            op = ops.append
-            pa32, pl32 = int(PARTITION_CTX_ABOVE[_B32]), \
-                int(PARTITION_CTX_LEFT[_B32])
-            pa16, pl16 = int(PARTITION_CTX_ABOVE[_B16]), \
-                int(PARTITION_CTX_LEFT[_B16])
+    def inter_ext(tx, sqr_is16):
+        set_type = 1 if tx == tx32 else (4 if sqr_is16 else 5)
+        nsyms = int(NUM_EXT_TX_SET[set_type])
+        eset = EXT_TX_SET_INDEX_INTER[set_type]
+        row = np.ascontiguousarray(
+            fc.inter_ext_tx_cdf[eset][int(TXSIZE_SQR[tx])])
+        fc.inter_ext_tx_cdf[eset][int(TXSIZE_SQR[tx])] = row
+        return row, nsyms, int(EXT_TX_IND[set_type][0])
 
-            def txb_op(bnd, region, block, eob, skip_ctx, dctx):
-                op((2, bnd | (skip_ctx << 8) | (dctx << 16),
-                    lv_index(region, block, bnd), int(eob), 0))
+    def scan(tx):
+        return np.ascontiguousarray(tables.scan_table(tx, 0), np.int32)
 
-            def ent_update(plane, acol, lrow, wu, cul, vis_w, vis_h):
-                a, l = aent[plane], lent[plane]
-                a[acol : acol + vis_w] = cul
-                a[acol + vis_w : acol + wu] = 0
-                l[lrow : lrow + vis_h] = cul
-                l[lrow + vis_h : lrow + wu] = 0
+    def nz(tx):
+        return np.ascontiguousarray(
+            tables.get(f"nz_map_ctx_offset_ts{tx}"), np.int32)
 
-            def block_ops(mi_row, mi_col, bs):
-                r32, c32 = mi_row // 8, mi_col // 8
-                r16, c16 = mi_row // 4, mi_col // 4
-                up, left = mi_row > 0, mi_col > 0
-                above = mi[mi_row - 1, mi_col] if up else None
-                left_mb = mi[mi_row, mi_col - 1] if left else None
+    def bundle(tx, e, eob, plane, width, ext=()):
+        return make_bundle(
+            fc.txb_skip_cdf[e], eob[plane][0], fc.eob_extra_cdf[e][plane],
+            fc.coeff_base_eob_cdf[e][plane], fc.coeff_base_cdf[e][plane],
+            fc.coeff_br_cdf[min(e, 3)][plane], fc.dc_sign_cdf[plane],
+            scan(tx), nz(tx), 5 + int(TXSIZE_LOG2_MINUS4[tx]), width, *ext)
 
+    bundles = [
+        bundle(tx32, e32c, fc.eob_flag_cdf1024, 0, 32,
+               inter_ext(tx32, False) + (0,)),
+        bundle(tx16, e16c, fc.eob_flag_cdf256, 0, 16,
+               inter_ext(tx16, True) + (0,)),
+        bundle(tx16, e16c, fc.eob_flag_cdf256, 1, 16),
+        bundle(tx8, e8c, fc.eob_flag_cdf64, 1, 8)]
+    return cdfs, bundles
+
+
+def script_ops(inputs: dict, mi_rows: int, mi_cols: int,
+               nplanes: int) -> tuple:
+    """The frame's script ops, (N, 5) int32, and the number of blocks
+    walked: one native call (``native_inter_script_walk``)."""
+    return native_inter_script_walk(
+        inputs, mi_rows, mi_cols, nplanes,
+        [int(PARTITION_CTX_ABOVE[_B32]), int(PARTITION_CTX_LEFT[_B32]),
+         int(PARTITION_CTX_ABOVE[_B16]), int(PARTITION_CTX_LEFT[_B16])])
+
+
+def code_script(ops, cdfs, bundles, levels, fc, allow_update: bool) -> bytes:
+    """Play ``ops`` into a new native range coder (``native_run_script``),
+    then reset ``fc``'s adaptation counters as the decoder does before it
+    stores the end-of-frame context (``decoder/obu.py``:
+    ``_update_ref_slots``); the script adapted ``fc``'s tables in place.
+    Returns the tile's bytes."""
+    enc = NativeEncoder()
+    enc.allow_update = allow_update
+    native_run_script(enc, ops, cdfs, bundles, levels,
+                      tables.get("eob_group_start"),
+                      tables.get("eob_offset_bits"))
+    fc.reset_counters()
+    return enc.done()
+
+
+def script_ops_plain(inputs: dict, mi_rows: int, mi_cols: int,
+                     nplanes: int) -> tuple:
+    """``script_ops`` in Python: the walk over a grid of ``MbInfo``
+    records and ``normative/mvref.find_mv_refs``; the plain version the
+    tests hold the native walk to. Returns the same (ops, blocks)."""
+    split, mv8 = inputs["split32"].astype(bool), inputs["mv8"]
+    skip32, skip16 = inputs["skip32"], inputs["skip16"]
+    ye32, ye16 = inputs["y_eob32"], inputs["y_eob16"]
+    ue16, ue8 = inputs.get("uv_eob16"), inputs.get("uv_eob8")
+    culs = {k: inputs[k] for k in inputs if k.startswith("cul_")}
+    roff = inputs["roff"]
+    Cc = split.shape[1]
+    C2 = 2 * Cc
+    # the cm duck-type ``find_mv_refs`` reads: the slice ``check_walk_slice``
+    # admits, one tile over the frame
+    mi = np.full((mi_rows, mi_cols), None, object)
+    cm = types.SimpleNamespace(
+        mi_rows=mi_rows, mi_cols=mi_cols, mi=mi, sb_mi=16,
+        allow_high_precision_mv=False, force_integer_mv=False,
+        global_motion=[MR.WarpModel() for _ in range(8)],
+        ref_frame_sign_bias=[0] * 8, allow_ref_frame_mvs=False)
+    ncols = (mi_cols + 15) // 16 * 16
+    above_part = np.zeros(ncols, np.int32)
+    left_part = np.zeros(16, np.int32)
+    aent = [np.zeros(ncols, np.uint8) for _ in range(3)]
+    lent = [np.zeros(16, np.uint8) for _ in range(3)]
+    ops = []
+    op = ops.append
+    blocks = [0]
+    pa32, pl32 = int(PARTITION_CTX_ABOVE[_B32]), int(PARTITION_CTX_LEFT[_B32])
+    pa16, pl16 = int(PARTITION_CTX_ABOVE[_B16]), int(PARTITION_CTX_LEFT[_B16])
+
+    def txb_op(bnd, region, block, eob, skip_ctx, dctx):
+        n = REGION_N[region]
+        op((2, bnd | (skip_ctx << 8) | (dctx << 16),
+            (int(roff[region]) + block * n) // n, int(eob), 0))
+
+    def ent_update(plane, acol, lrow, wu, cul, vis_w, vis_h):
+        a, l = aent[plane], lent[plane]
+        a[acol : acol + vis_w] = cul
+        a[acol + vis_w : acol + wu] = 0
+        l[lrow : lrow + vis_h] = cul
+        l[lrow + vis_h : lrow + wu] = 0
+
+    def block_ops(mi_row, mi_col, bs):
+        blocks[0] += 1
+        r32, c32 = mi_row // 8, mi_col // 8
+        r16, c16 = mi_row // 4, mi_col // 4
+        up, left = mi_row > 0, mi_col > 0
+        above = mi[mi_row - 1, mi_col] if up else None
+        left_mb = mi[mi_row, mi_col - 1] if left else None
+
+        if bs == 32:
+            skip = bool(skip32[r32, c32])
+            mv = mv8[2 * r32, 2 * c32]
+        else:
+            skip = bool(skip16[r16, c16])
+            mv = mv8[r16, c16]
+        mv = (int(mv[0]), int(mv[1]))
+        bsize = _B32 if bs == 32 else _B16
+
+        mbmi = MR.MbInfo()
+        mbmi.bsize = bsize
+        mbmi.mi_row, mbmi.mi_col = mi_row, mi_col
+        mbmi.interp_y = mbmi.interp_x = 0
+        mbmi.ref_frame = [MR.LAST_FRAME, MR.NONE_FRAME]
+        mi[mi_row, mi_col] = mbmi   # _has_top_right reads the current
+        xd = MR.XdCtx(mi, mi_row, mi_col, bsize,
+                      (0, mi_rows, 0, mi_cols), mi_rows, mi_cols)
+        stack, weights, count, mode_ctx, mv_ref_list, gm_mv = \
+            MR.find_mv_refs(cm, xd, mbmi, MR.LAST_FRAME)
+        lower = lambda m: MR.lower_mv_precision(m, False, False)
+        nearest = lower(mv_ref_list[0])
+        near = lower(mv_ref_list[1])
+        gmv = gm_mv[0]
+        if mv == nearest:
+            mode = MR.NEARESTMV
+        elif mv == near:
+            mode = MR.NEARMV
+        elif mv == gmv:
+            mode = MR.GLOBALMV
+        else:
+            mode = MR.NEWMV
+        newmv_ref = nearest if count <= 1 else stack[0][0]
+        mbmi.mode = mode
+        mbmi.mv[0] = mv
+        mbmi.ref_mv_idx = 0
+        mbmi.skip_txfm = int(skip)
+
+        # ---- syntax (decoder parse order) ----
+        skip_ctx = ((above.skip_txfm if up else 0)
+                    + (left_mb.skip_txfm if left else 0))
+        op((0, CDF_SKIP, skip_ctx, int(skip), 2))
+        if up and left:
+            ai, li = not above.is_inter, not left_mb.is_inter
+            ctx = 3 if (ai and li) else int(ai or li)
+        elif up or left:
+            e = above if up else left_mb
+            ctx = 2 * int(not e.is_inter)
+        else:
+            ctx = 0
+        op((0, CDF_II, ctx, 1, 2))          # is_inter = 1
+        counts = IT.collect_neighbors_ref_counts(cm, above, left_mb)
+        op((0, CDF_SREF, IT.ctx_single_p1(counts) * 6 + 0, 0, 2))
+        op((0, CDF_SREF, IT.ctx_ll2_or_l3gld(counts) * 6 + 2, 0, 2))
+        op((0, CDF_SREF, IT.ctx_last_or_last2(counts) * 6 + 3, 0, 2))
+        # inter mode
+        ctx = mode_ctx & MR.NEWMV_CTX_MASK
+        op((0, CDF_NEWMV, ctx, int(mode != MR.NEWMV), 2))
+        if mode != MR.NEWMV:
+            ctx = (mode_ctx >> MR.GLOBALMV_OFFSET) & MR.GLOBALMV_CTX_MASK
+            op((0, CDF_ZEROMV, ctx, int(mode != MR.GLOBALMV), 2))
+            if mode != MR.GLOBALMV:
+                ctx = (mode_ctx >> MR.REFMV_OFFSET) & MR.REFMV_CTX_MASK
+                op((0, CDF_REFMV, ctx, int(mode != MR.NEARESTMV), 2))
+        # drl (ref_mv_idx always 0)
+        if mode == MR.NEWMV:
+            if count > 1:
+                op((0, CDF_DRL, MR.drl_ctx(weights, 0), 0, 2))
+        elif mode == MR.NEARMV:
+            if count > 2:
+                op((0, CDF_DRL, MR.drl_ctx(weights, 1), 0, 2))
+        if mode == MR.NEWMV:
+            _mv_ops(op, mv, newmv_ref)
+
+        # ---- store MI ----
+        n4 = bs // 4
+        r1 = min(mi_row + n4, mi_rows)
+        c1 = min(mi_col + n4, mi_cols)
+        mi[mi_row:r1, mi_col:c1] = mbmi
+
+        # ---- residual ----
+        wu = bs // 4
+        cwu = wu // 2
+        acol, lrow = mi_col, mi_row & 15
+        cacol, clrow = mi_col >> 1, (mi_row & 15) >> 1
+        vis_w = min(wu, mi_cols - mi_col)
+        vis_h = min(wu, mi_rows - mi_row)
+        cvw = min(cwu, ((vis_w * 4) >> 1) >> 2)
+        cvh = min(cwu, ((vis_h * 4) >> 1) >> 2)
+        if skip:
+            ent_update(0, acol, lrow, wu, 0, wu, wu)
+            if nplanes > 1:
+                ent_update(1, cacol, clrow, cwu, 0, cwu, cwu)
+                ent_update(2, cacol, clrow, cwu, 0, cwu, cwu)
+            return
+        dctx = _dc_sign_ctx(list(aent[0][acol : acol + wu])
+                            + list(lent[0][lrow : lrow + wu]))
+        if bs == 32:
+            blk = r32 * Cc + c32
+            txb_op(BND_Y32, 0, blk, ye32[r32, c32], 0, dctx)
+            cul = int(culs["cul_y32"][r32, c32])
+        else:
+            blk = r16 * C2 + c16
+            txb_op(BND_Y16, 1, blk, ye16[r16, c16], 0, dctx)
+            cul = int(culs["cul_y16"][r16, c16])
+        ent_update(0, acol, lrow, wu, cul, vis_w, vis_h)
+        if nplanes > 1:
+            for pl, c in ((1, "u"), (2, "v")):
+                a = aent[pl][cacol : cacol + cwu]
+                l = lent[pl][clrow : clrow + cwu]
+                sctx = (int(a.any()) + int(l.any())) + 7
+                dctx = _dc_sign_ctx(list(a) + list(l))
                 if bs == 32:
-                    skip = bool(skip32[r32, c32])
-                    mv = mv8[2 * r32, 2 * c32]
+                    e = int((ue16[pl - 1])[r32, c32])
+                    txb_op(BND_UV16, 1 + pl, blk, e, sctx, dctx)
+                    cul = int(culs[f"cul_{c}16"][r32, c32])
                 else:
-                    skip = bool(skip16[r16, c16])
-                    mv = mv8[r16, c16]
-                mv = (int(mv[0]), int(mv[1]))
-                bsize = _B32 if bs == 32 else _B16
+                    e = int((ue8[pl - 1])[r16, c16])
+                    txb_op(BND_UV8, 3 + pl, blk, e, sctx, dctx)
+                    cul = int(culs[f"cul_{c}8"][r16, c16])
+                ent_update(pl, cacol, clrow, cwu, cul, cvw, cvh)
 
-                mbmi = MR.MbInfo()
-                mbmi.bsize = bsize
-                mbmi.mi_row, mbmi.mi_col = mi_row, mi_col
-                mbmi.interp_y = mbmi.interp_x = 0
-                mbmi.ref_frame = [MR.LAST_FRAME, MR.NONE_FRAME]
-                mi[mi_row, mi_col] = mbmi   # _has_top_right reads the current
-                xd = MR.XdCtx(mi, mi_row, mi_col, bsize,
-                              (0, mi_rows, 0, mi_cols), mi_rows, mi_cols)
-                stack, weights, count, mode_ctx, mv_ref_list, gm_mv = \
-                    MR.find_mv_refs(self, xd, mbmi, MR.LAST_FRAME)
-                lower = lambda m: MR.lower_mv_precision(m, False, False)
-                nearest = lower(mv_ref_list[0])
-                near = lower(mv_ref_list[1])
-                gmv = gm_mv[0]
-                if mv == nearest:
-                    mode = MR.NEARESTMV
-                elif mv == near:
-                    mode = MR.NEARMV
-                elif mv == gmv:
-                    mode = MR.GLOBALMV
-                else:
-                    mode = MR.NEWMV
-                newmv_ref = nearest if count <= 1 else stack[0][0]
-                mbmi.mode = mode
-                mbmi.mv[0] = mv
-                mbmi.ref_mv_idx = 0
-                mbmi.skip_txfm = int(skip)
+    def part_ops(mi_row, mi_col, bsize):
+        if mi_row >= mi_rows or mi_col >= mi_cols:
+            return
+        bsl = (bsize - 3) // 3
+        mi_w = 2 << bsl
+        hbs = mi_w // 2
+        has_rows = mi_row + hbs < mi_rows
+        has_cols = mi_col + hbs < mi_cols
+        if bsize == _B16:
+            partition = 0
+        elif bsize == _B32:
+            partition = 3 if split[mi_row // 8, mi_col // 8] else 0
+        else:
+            partition = 3
+        above = (above_part[mi_col] >> bsl) & 1
+        lft = (left_part[mi_row & 15] >> bsl) & 1
+        ctx = (lft * 2 + above) + bsl * 4
+        if has_rows and has_cols:
+            op((0, CDF_PART, ctx, partition, 10))
+        elif not has_rows and not has_cols:
+            pass
+        else:
+            op((3, CDF_PART, ctx, int(partition == 3), int(not has_cols)))
+        if partition == 0:
+            block_ops(mi_row, mi_col, 32 if bsize == _B32 else 16)
+            pa = pa32 if bsize == _B32 else pa16
+            pl = pl32 if bsize == _B32 else pl16
+            above_part[mi_col : mi_col + mi_w] = pa
+            for i in range(mi_w):
+                left_part[(mi_row + i) & 15] = pl
+        else:
+            sub = bsize - 3
+            part_ops(mi_row, mi_col, sub)
+            part_ops(mi_row, mi_col + hbs, sub)
+            part_ops(mi_row + hbs, mi_col, sub)
+            part_ops(mi_row + hbs, mi_col + hbs, sub)
 
-                # ---- syntax (decoder parse order) ----
-                skip_ctx = ((above.skip_txfm if up else 0)
-                            + (left_mb.skip_txfm if left else 0))
-                op((0, CDF_SKIP, skip_ctx, int(skip), 2))
-                if up and left:
-                    ai, li = not above.is_inter, not left_mb.is_inter
-                    ctx = 3 if (ai and li) else int(ai or li)
-                elif up or left:
-                    e = above if up else left_mb
-                    ctx = 2 * int(not e.is_inter)
-                else:
-                    ctx = 0
-                op((0, CDF_II, ctx, 1, 2))          # is_inter = 1
-                counts = IT.collect_neighbors_ref_counts(self, above, left_mb)
-                op((0, CDF_SREF, IT.ctx_single_p1(counts) * 6 + 0, 0, 2))
-                op((0, CDF_SREF, IT.ctx_ll2_or_l3gld(counts) * 6 + 2, 0, 2))
-                op((0, CDF_SREF, IT.ctx_last_or_last2(counts) * 6 + 3, 0, 2))
-                # inter mode
-                ctx = mode_ctx & MR.NEWMV_CTX_MASK
-                op((0, CDF_NEWMV, ctx, int(mode != MR.NEWMV), 2))
-                if mode != MR.NEWMV:
-                    ctx = (mode_ctx >> MR.GLOBALMV_OFFSET) \
-                        & MR.GLOBALMV_CTX_MASK
-                    op((0, CDF_ZEROMV, ctx, int(mode != MR.GLOBALMV), 2))
-                    if mode != MR.GLOBALMV:
-                        ctx = (mode_ctx >> MR.REFMV_OFFSET) & MR.REFMV_CTX_MASK
-                        op((0, CDF_REFMV, ctx, int(mode != MR.NEARESTMV), 2))
-                # drl (ref_mv_idx always 0)
-                if mode == MR.NEWMV:
-                    if count > 1:
-                        op((0, CDF_DRL, MR.drl_ctx(weights, 0), 0, 2))
-                elif mode == MR.NEARMV:
-                    if count > 2:
-                        op((0, CDF_DRL, MR.drl_ctx(weights, 1), 0, 2))
-                if mode == MR.NEWMV:
-                    self._mv_ops(op, mv, newmv_ref)
+    for r0 in range(0, mi_rows, 16):
+        left_part[:] = 0
+        for l in lent:
+            l[:] = 0
+        for c0 in range(0, mi_cols, 16):
+            part_ops(r0, c0, _B64)
+    return np.asarray(ops, np.int32).reshape(-1, 5), blocks[0]
 
-                # ---- store MI ----
-                n4 = bs // 4
-                r1 = min(mi_row + n4, mi_rows)
-                c1 = min(mi_col + n4, mi_cols)
-                mi[mi_row:r1, mi_col:c1] = mbmi
 
-                # ---- residual ----
-                wu = bs // 4
-                cwu = wu // 2
-                acol, lrow = mi_col, mi_row & 15
-                cacol, clrow = mi_col >> 1, (mi_row & 15) >> 1
-                vis_w = min(wu, mi_cols - mi_col)
-                vis_h = min(wu, mi_rows - mi_row)
-                cvw = min(cwu, ((vis_w * 4) >> 1) >> 2)
-                cvh = min(cwu, ((vis_h * 4) >> 1) >> 2)
-                if skip:
-                    ent_update(0, acol, lrow, wu, 0, wu, wu)
-                    if self.nplanes > 1:
-                        ent_update(1, cacol, clrow, cwu, 0, cwu, cwu)
-                        ent_update(2, cacol, clrow, cwu, 0, cwu, cwu)
-                    return
-                dctx = _dc_sign_ctx(list(aent[0][acol : acol + wu])
-                                    + list(lent[0][lrow : lrow + wu]))
-                if bs == 32:
-                    blk = r32 * Cc + c32
-                    txb_op(BND_Y32, 0, blk, ye32[r32, c32], 0, dctx)
-                    cul = int(cul_y32[r32, c32])
-                else:
-                    blk = r16 * C2 + c16
-                    txb_op(BND_Y16, 1, blk, ye16[r16, c16], 0, dctx)
-                    cul = int(cul_y16[r16, c16])
-                ent_update(0, acol, lrow, wu, cul, vis_w, vis_h)
-                if self.nplanes > 1:
-                    for pl in (1, 2):
-                        a = aent[pl][cacol : cacol + cwu]
-                        l = lent[pl][clrow : clrow + cwu]
-                        sctx = (int(a.any()) + int(l.any())) + 7
-                        dctx = _dc_sign_ctx(list(a) + list(l))
-                        if bs == 32:
-                            e = int((ue16[pl - 1])[r32, c32])
-                            txb_op(BND_UV16, 1 + pl, blk, e, sctx, dctx)
-                            cul = int((cul_u16 if pl == 1 else cul_v16)
-                                      [r32, c32])
-                        else:
-                            e = int((ue8[pl - 1])[r16, c16])
-                            txb_op(BND_UV8, 3 + pl, blk, e, sctx, dctx)
-                            cul = int((cul_u8 if pl == 1 else cul_v8)
-                                      [r16, c16])
-                        ent_update(pl, cacol, clrow, cwu, cul, cvw, cvh)
-
-            def part_ops(mi_row, mi_col, bsize):
-                if mi_row >= mi_rows or mi_col >= mi_cols:
-                    return
-                bsl = (bsize - 3) // 3
-                mi_w = 2 << bsl
-                hbs = mi_w // 2
-                has_rows = mi_row + hbs < mi_rows
-                has_cols = mi_col + hbs < mi_cols
-                if bsize == _B16:
-                    partition = 0
-                elif bsize == _B32:
-                    partition = 3 if split[mi_row // 8, mi_col // 8] else 0
-                else:
-                    partition = 3
-                above = (above_part[mi_col] >> bsl) & 1
-                lft = (left_part[mi_row & 15] >> bsl) & 1
-                ctx = (lft * 2 + above) + bsl * 4
-                if has_rows and has_cols:
-                    op((0, CDF_PART, ctx, partition, 10))
-                elif not has_rows and not has_cols:
-                    pass
-                else:
-                    op((3, CDF_PART, ctx, int(partition == 3),
-                        int(not has_cols)))
-                if partition == 0:
-                    block_ops(mi_row, mi_col, 32 if bsize == _B32 else 16)
-                    pa = pa32 if bsize == _B32 else pa16
-                    pl = pl32 if bsize == _B32 else pl16
-                    above_part[mi_col : mi_col + mi_w] = pa
-                    for i in range(mi_w):
-                        left_part[(mi_row + i) & 15] = pl
-                else:
-                    sub = bsize - 3
-                    part_ops(mi_row, mi_col, sub)
-                    part_ops(mi_row, mi_col + hbs, sub)
-                    part_ops(mi_row + hbs, mi_col, sub)
-                    part_ops(mi_row + hbs, mi_col + hbs, sub)
-
-            for r0 in range(0, mi_rows, 16):
-                left_part[:] = 0
-                for l in lent:
-                    l[:] = 0
-                for c0 in range(0, mi_cols, 16):
-                    part_ops(r0, c0, _B64)
-
-        with trace.span("script.code", into="script_code_s"):
-            enc = NativeEncoder()
-            enc.allow_update = not fh.disable_cdf_update
-            self._cdf_keep = cdfs
-            self._lv_keep = lv_base
-            native_run_script(
-                enc, np.asarray(ops, np.int32).reshape(-1, 5), cdfs, bundles,
-                lv_base, tables.get("eob_group_start"),
-                tables.get("eob_offset_bits"))
-            # end-of-frame context save (decoder/obu.py: _update_ref_slots):
-            # the script adapted fc's tables in place; reset the per-row
-            # adaptation counters exactly as the decoder does before storing
-            fc.reset_counters()
-            return enc.done()
-
-    # ------------------------------------------------------------------
-    def _mv_ops(self, op, mv, ref_mv):
-        """encode_mv (av1/encoder/encodemv.c) as script ops."""
-        CDF_JOINT = 8
-        dr = mv[0] - ref_mv[0]
-        dc = mv[1] - ref_mv[1]
-        joint = 2 * int(dr != 0) + int(dc != 0)
-        op((0, CDF_JOINT, 0, joint, 4))
-        for comp, diff in ((0, dr), (1, dc)):
-            if diff == 0:
-                continue
-            base_id = 9 + comp * 8
-            (SIGN, CLASSES, CLASS0, BITS, C0FP, FP, C0HP, HP) = range(8)
-            sign = int(diff < 0)
-            mag = -diff if sign else diff
-            z = mag - 1
-            mv_class = _mv_class(z)
-            cbase = 0 if mv_class == 0 else (CLASS0_SIZE << (mv_class + 2))
-            offset = z - cbase
-            d = offset >> 3
-            fr = (offset >> 1) & 3
-            hp = offset & 1
-            op((0, base_id + SIGN, 0, sign, 2))
-            op((0, base_id + CLASSES, 0, mv_class, MV_CLASSES))
-            if mv_class == 0:
-                op((0, base_id + CLASS0, 0, d, CLASS0_SIZE))
-            else:
-                n = mv_class + CLASS0_BITS - 1
-                for i in range(n):
-                    op((0, base_id + BITS, i, (d >> i) & 1, 2))
-            # use_subpel (precision=1): fr always, hp only if precision>1
-            if mv_class == 0:
-                op((0, base_id + C0FP, d, fr, 4))
-            else:
-                op((0, base_id + FP, 0, fr, 4))
+def _mv_ops(op, mv, ref_mv):
+    """encode_mv (av1/encoder/encodemv.c) as script ops."""
+    dr = mv[0] - ref_mv[0]
+    dc = mv[1] - ref_mv[1]
+    joint = 2 * int(dr != 0) + int(dc != 0)
+    op((0, CDF_JOINT, 0, joint, 4))
+    for comp, diff in ((0, dr), (1, dc)):
+        if diff == 0:
+            continue
+        base_id = CDF_COMP0 + comp * 8
+        (SIGN, CLASSES, CLASS0, BITS, C0FP, FP, C0HP, HP) = range(8)
+        sign = int(diff < 0)
+        mag = -diff if sign else diff
+        z = mag - 1
+        mv_class = _mv_class(z)
+        cbase = 0 if mv_class == 0 else (CLASS0_SIZE << (mv_class + 2))
+        offset = z - cbase
+        d = offset >> 3
+        fr = (offset >> 1) & 3
+        op((0, base_id + SIGN, 0, sign, 2))
+        op((0, base_id + CLASSES, 0, mv_class, MV_CLASSES))
+        if mv_class == 0:
+            op((0, base_id + CLASS0, 0, d, CLASS0_SIZE))
+        else:
+            n = mv_class + CLASS0_BITS - 1
+            for i in range(n):
+                op((0, base_id + BITS, i, (d >> i) & 1, 2))
+        # use_subpel (precision=1): fr always, hp only if precision>1
+        if mv_class == 0:
+            op((0, base_id + C0FP, d, fr, 4))
+        else:
+            op((0, base_id + FP, 0, fr, 4))
 
 
 def _ref_chain_planes(enc):

@@ -1,4 +1,6 @@
-"""The native (C++) range coder, ``native/ec.cpp``, with ctypes bindings.
+"""The native (C++) range coder, ``native/ec.cpp``, with ctypes bindings
+(``ec/native_coder.py``); the same file holds the KEY packs and the inter
+frame's symbol walk.
 
 ``g++`` builds it into ``build/aom_av1_psy_tpu_torch/libnative_ec.so`` at
 first use, and again when the source is newer, by the rule
@@ -64,5 +66,7 @@ def get_lib():
         getattr(lib, name).restype = ctypes.c_int
     lib.ec_dec_literal.restype = ctypes.c_uint
     lib.ec_enc_pack_kf_uniform.restype = ctypes.c_int
+    lib.ec_inter_script_walk.restype = ctypes.c_long
+    lib.ec_inter_script_walk.argtypes = [ctypes.c_void_p]
     _lib = lib
     return lib

@@ -1246,3 +1246,553 @@ int ec_enc_run_script(Encoder *e, const int32_t *ops, long n_ops,
 }
 
 }  // extern "C"
+
+// ---------------------------------------------------------------------------
+// The inter frame's symbol walk: the ops of the script above for a P-frame
+// of the device inter plan (encoder/tpu_interframe.py, script_ops_plain is
+// the same walk in Python). 64x64 superblocks in raster order, each split
+// into 32x32 cells, each coded whole or split into four 16x16 blocks; every
+// block inter, single reference LAST, one tile. The frame state is the
+// slice the encoder's header fixes (checked by the caller): identity global
+// motion (the global MV is (0, 0) and no candidate is a global block), no
+// temporal candidates, no high-precision MVs, no integer MVs. So the MV
+// reference search is setup_ref_mv_list (av1/common/mvref_common.c:474)
+// for one reference and square blocks: the nearest row / column / top-right
+// scans, the outer ring, the weight sort and the single-reference fill.
+// Ops are written in the decoder's parse order into ``ops`` (cap rows of 5
+// int32); cdf ids and bundle ids follow the caller's registry.
+// ---------------------------------------------------------------------------
+
+extern "C" {
+
+struct InterWalkParams {  // mirrored by ctypes in ec/native_coder.py
+  const uint8_t *split32;   // (Rc, Cc)
+  const int32_t *mv8;       // (R2, C2, 2): (row, col) in 1/8 pel
+  const uint8_t *skip32;    // (Rc, Cc)
+  const uint8_t *skip16;    // (R2, C2)
+  const int32_t *y_eob32, *y_eob16;    // (Rc, Cc), (R2, C2)
+  const int32_t *uv_eob16, *uv_eob8;   // (2, Rc, Cc), (2, R2, C2)
+  const int32_t *cul_y32, *cul_y16;    // entropy-context bytes of each txb
+  const int32_t *cul_u16, *cul_v16, *cul_u8, *cul_v8;
+  const int64_t *roff;      // element offset of each level-store region
+  int32_t *ops;             // out: (cap, 5)
+  int64_t Rc, Cc, mi_rows, mi_cols, nplanes, cap;
+  int64_t pctx_a32, pctx_l32, pctx_a16, pctx_l16;  // PARTITION_CTX_* values
+  int64_t blocks;           // out: blocks walked
+};
+
+}  // extern "C"
+
+namespace {
+
+// script registry (tpu_interframe.py's CDF and bundle order)
+enum { kCdfPart, kCdfSkip, kCdfIntraInter, kCdfSingleRef, kCdfNewmv,
+       kCdfZeromv, kCdfRefmv, kCdfDrl, kCdfJoint, kCdfComp0 };
+enum { kBndY32, kBndY16, kBndUv16, kBndUv8 };
+enum { kNearest = 13, kNear = 14, kGlobal = 15, kNew = 16 };
+constexpr int kRefCatLevel = 640;
+constexpr int kMaxRefMvStack = 8;
+constexpr int kMvBorder = 16 << 3;
+
+struct WalkMi {      // the coded block covering one mi (mi_grid_base)
+  int32_t mv[2];
+  uint8_t n4;        // block width (= height) in mi; 0 = not yet coded
+  uint8_t skip, is_inter, newmv;
+};
+
+struct RefMvs {
+  int32_t mv[kMaxRefMvStack][2];
+  int weight[kMaxRefMvStack];
+  int count;
+};
+
+struct WalkState {
+  const InterWalkParams *p;
+  int mi_rows, mi_cols, Cc, C2;
+  std::vector<WalkMi> mi;
+  std::vector<int32_t> above_part;
+  int32_t left_part[16];
+  std::vector<uint8_t> aent[3];
+  uint8_t lent[3][16];
+  long n;
+  int fault;         // 1: ops past cap; 2: a read of an uncoded mi
+
+  void op(int t, int a, int b, int c, int d) {
+    if (n >= p->cap) {
+      fault = 1;
+      return;
+    }
+    int32_t *o = p->ops + n * 5;
+    o[0] = t; o[1] = a; o[2] = b; o[3] = c; o[4] = d;
+    ++n;
+  }
+  const WalkMi &at(int r, int c) {
+    const WalkMi &m = mi[static_cast<long>(r) * mi_cols + c];
+    if (m.n4 == 0) fault = 2;
+    return m;
+  }
+};
+
+inline int clampi(int v, int lo, int hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+inline void add_ref_mv_candidate(const WalkMi &cand, int weight, RefMvs &s,
+                                 int &match, int &newmv) {
+  if (!cand.is_inter) return;
+  int i = 0;
+  while (i < s.count && !(s.mv[i][0] == cand.mv[0] &&
+                          s.mv[i][1] == cand.mv[1]))
+    ++i;
+  if (i < s.count) {
+    s.weight[i] += weight;
+  } else if (s.count < kMaxRefMvStack) {
+    s.mv[s.count][0] = cand.mv[0];
+    s.mv[s.count][1] = cand.mv[1];
+    s.weight[s.count] = weight;
+    ++s.count;
+  }
+  if (cand.newmv) ++newmv;
+  ++match;
+}
+
+// scan_row / scan_col of a square block of w mi; vertical picks the column
+void scan_line(WalkState &st, int mi_row, int mi_col, int w, int offset,
+               int max_offset, bool vertical, int &processed, RefMvs &s,
+               int &match, int &newmv) {
+  const int room = vertical ? st.mi_rows - mi_row : st.mi_cols - mi_col;
+  int end_mi = w < room ? w : room;
+  if (end_mi > 16) end_mi = 16;
+  int across = 0;
+  if (offset < -1 || offset > 1) {
+    across = 1;
+    if (((vertical ? mi_row : mi_col) & 1) && w < 2) across = 0;
+  }
+  const bool step16 = w >= 16;
+  for (int i = 0; i < end_mi;) {
+    const int r = vertical ? mi_row + across + i : mi_row + offset;
+    const int c = vertical ? mi_col + offset : mi_col + across + i;
+    if (r < 0 || c < 0 || r >= st.mi_rows || c >= st.mi_cols) {
+      st.fault = 2;
+      return;
+    }
+    const WalkMi &cand = st.at(r, c);
+    if (st.fault) return;
+    const int n4 = cand.n4;
+    int len = w < n4 ? w : n4;
+    if (step16) {
+      if (len < 4) len = 4;
+    } else if (offset < -1 || offset > 1) {
+      if (len < 2) len = 2;
+    }
+    int weight = 2;
+    if (w >= 2 && w <= n4) {
+      int inc = -max_offset + offset + 1;
+      if (inc > n4) inc = n4;
+      if (inc > weight) weight = inc;
+      processed = inc - offset - 1;
+    }
+    add_ref_mv_candidate(cand, len * weight, s, match, newmv);
+    i += len;
+  }
+}
+
+void scan_point(WalkState &st, int mi_row, int mi_col, int row_off,
+                int col_off, RefMvs &s, int &match, int &newmv) {
+  const int r = mi_row + row_off, c = mi_col + col_off;
+  if (r < 0 || c < 0 || r >= st.mi_rows || c >= st.mi_cols) return;
+  const WalkMi &cand = st.at(r, c);
+  if (st.fault) return;
+  add_ref_mv_candidate(cand, 4, s, match, newmv);
+}
+
+bool has_top_right(int mi_row, int mi_col, int bs) {
+  const int mask_row = mi_row & 15, mask_col = mi_col & 15;
+  if (bs > 16) return false;
+  bool has_tr = !((mask_row & bs) && (mask_col & bs));
+  for (int b = bs; b < 16; b <<= 1) {
+    if (!(mask_col & b)) break;
+    if ((mask_col & (2 * b)) && (mask_row & (2 * b))) {
+      has_tr = false;
+      break;
+    }
+  }
+  return has_tr;
+}
+
+// setup_ref_mv_list for LAST and a square block of w mi. Returns mode_ctx;
+// s holds the clamped, sorted stack, list the two reference MVs.
+int find_ref_mvs(WalkState &st, int mi_row, int mi_col, int w, RefMvs &s,
+                 int32_t list[2][2]) {
+  s.count = 0;
+  for (int i = 0; i < kMaxRefMvStack; ++i) s.weight[i] = 0;
+  const bool up = mi_row > 0, left = mi_col > 0;
+  const int max_row_offset = up ? clampi(-6, -mi_row, st.mi_rows - mi_row - 1)
+                                : 0;
+  const int max_col_offset = left ? clampi(-6, -mi_col,
+                                           st.mi_cols - mi_col - 1) : 0;
+  int processed_rows = 0, processed_cols = 0;
+  int row_match = 0, col_match = 0, newmv = 0, match;
+  if (max_row_offset <= -1) {
+    match = 0;
+    scan_line(st, mi_row, mi_col, w, -1, max_row_offset, false,
+              processed_rows, s, match, newmv);
+    row_match += match;
+  }
+  if (max_col_offset <= -1) {
+    match = 0;
+    scan_line(st, mi_row, mi_col, w, -1, max_col_offset, true,
+              processed_cols, s, match, newmv);
+    col_match += match;
+  }
+  if (has_top_right(mi_row, mi_col, w)) {
+    match = 0;
+    scan_point(st, mi_row, mi_col, -1, w, s, match, newmv);
+    row_match += match;
+  }
+  const int newmv_count = newmv;
+  const int nearest_match = (row_match > 0) + (col_match > 0);
+  const int nearest_count = s.count;
+  for (int i = 0; i < nearest_count; ++i) s.weight[i] += kRefCatLevel;
+
+  // the outer ring (its new-MV counts go nowhere)
+  match = 0;
+  scan_point(st, mi_row, mi_col, -1, -1, s, match, newmv);
+  row_match += match;
+  for (int idx = 2; idx <= 3; ++idx) {
+    const int off = -(idx << 1) + 1;
+    if (-off <= -max_row_offset && -off > processed_rows) {
+      match = 0;
+      scan_line(st, mi_row, mi_col, w, off, max_row_offset, false,
+                processed_rows, s, match, newmv);
+      row_match += match;
+    }
+    if (-off <= -max_col_offset && -off > processed_cols) {
+      match = 0;
+      scan_line(st, mi_row, mi_col, w, off, max_col_offset, true,
+                processed_cols, s, match, newmv);
+      col_match += match;
+    }
+  }
+  if (st.fault) return 0;
+
+  const int ref_match = (row_match > 0) + (col_match > 0);
+  int mode_ctx = 0;
+  if (nearest_match == 0) {
+    if (ref_match >= 1) mode_ctx |= 1;
+    if (ref_match == 1) mode_ctx |= 1 << 4;
+    else if (ref_match >= 2) mode_ctx |= 2 << 4;
+  } else if (nearest_match == 1) {
+    mode_ctx |= newmv_count > 0 ? 2 : 3;
+    if (ref_match == 1) mode_ctx |= 3 << 4;
+    else if (ref_match >= 2) mode_ctx |= 4 << 4;
+  } else {
+    mode_ctx |= newmv_count >= 1 ? 4 : 5;
+    mode_ctx |= 5 << 4;
+  }
+
+  // the weight sort, nearest and outer apart
+  auto sort_range = [&s](int lo, int hi) {
+    int len = hi;
+    while (len > lo) {
+      int nr_len = lo;
+      for (int i = lo + 1; i < len; ++i) {
+        if (s.weight[i - 1] < s.weight[i]) {
+          std::swap(s.mv[i - 1][0], s.mv[i][0]);
+          std::swap(s.mv[i - 1][1], s.mv[i][1]);
+          std::swap(s.weight[i - 1], s.weight[i]);
+          nr_len = i;
+        }
+      }
+      len = nr_len;
+    }
+  };
+  sort_range(0, nearest_count);
+  sort_range(nearest_count, s.count);
+
+  // fewer than two: the above row's and left column's MVs, unweighted
+  int mi_size = w;
+  if (mi_size > 16) mi_size = 16;
+  if (mi_size > st.mi_cols - mi_col) mi_size = st.mi_cols - mi_col;
+  if (mi_size > st.mi_rows - mi_row) mi_size = st.mi_rows - mi_row;
+  for (int pass = 0; pass < 2; ++pass) {
+    const bool col = pass == 1;
+    if ((col ? max_col_offset : max_row_offset) > -1) continue;
+    for (int idx = 0; idx < mi_size && s.count < 2;) {
+      const WalkMi &cand = col ? st.at(mi_row + idx, mi_col - 1)
+                               : st.at(mi_row - 1, mi_col + idx);
+      if (st.fault) return 0;
+      int k = 0;
+      while (k < s.count && !(s.mv[k][0] == cand.mv[0] &&
+                              s.mv[k][1] == cand.mv[1]))
+        ++k;
+      if (k == s.count) {
+        s.mv[s.count][0] = cand.mv[0];
+        s.mv[s.count][1] = cand.mv[1];
+        s.weight[s.count] = 2;
+        ++s.count;
+      }
+      idx += cand.n4;
+    }
+  }
+
+  // clamp_mv_ref
+  const int bpx8 = w * 4 * 8;
+  const int lo_row = -(mi_row * 32) - bpx8 - kMvBorder;
+  const int hi_row = (st.mi_rows - w - mi_row) * 32 + bpx8 + kMvBorder;
+  const int lo_col = -(mi_col * 32) - bpx8 - kMvBorder;
+  const int hi_col = (st.mi_cols - w - mi_col) * 32 + bpx8 + kMvBorder;
+  for (int i = 0; i < s.count; ++i) {
+    s.mv[i][0] = clampi(s.mv[i][0], lo_row, hi_row);
+    s.mv[i][1] = clampi(s.mv[i][1], lo_col, hi_col);
+  }
+  for (int i = 0; i < 2; ++i) {
+    list[i][0] = i < s.count ? s.mv[i][0] : 0;
+    list[i][1] = i < s.count ? s.mv[i][1] : 0;
+  }
+  return mode_ctx;
+}
+
+inline int drl_ctx(const RefMvs &s, int idx) {
+  const bool a = s.weight[idx] >= kRefCatLevel;
+  const bool b = s.weight[idx + 1] >= kRefCatLevel;
+  if (a && !b) return 1;
+  if (!a && !b) return 2;
+  return 0;
+}
+
+inline int lower_mv(int v) {   // lower_mv_precision without high precision
+  return (v & 1) ? v + (v > 0 ? -1 : 1) : v;
+}
+
+// encode_mv (av1/encoder/encodemv.c) of mv - ref, precision 1
+void mv_ops(WalkState &st, const int32_t mv[2], const int32_t ref[2]) {
+  const int diff[2] = { mv[0] - ref[0], mv[1] - ref[1] };
+  st.op(0, kCdfJoint, 0, 2 * (diff[0] != 0) + (diff[1] != 0), 4);
+  for (int comp = 0; comp < 2; ++comp) {
+    if (diff[comp] == 0) continue;
+    const int base = kCdfComp0 + comp * 8;
+    const int sign = diff[comp] < 0;
+    const int z = (sign ? -diff[comp] : diff[comp]) - 1;
+    int mv_class = 0;
+    for (int q = z >> 3; q > 1; q >>= 1) ++mv_class;
+    if (mv_class > 10) mv_class = 10;
+    const int offset = z - (mv_class == 0 ? 0 : 2 << (mv_class + 2));
+    const int d = offset >> 3, fr = (offset >> 1) & 3;
+    st.op(0, base + 0, 0, sign, 2);
+    st.op(0, base + 1, 0, mv_class, 11);
+    if (mv_class == 0) {
+      st.op(0, base + 2, 0, d, 2);
+      st.op(0, base + 4, d, fr, 4);
+    } else {
+      for (int i = 0; i < mv_class; ++i) st.op(0, base + 3, i, (d >> i) & 1, 2);
+      st.op(0, base + 5, 0, fr, 4);
+    }
+  }
+}
+
+inline void ent_update(uint8_t *a, uint8_t *l, int wu, int cul, int vis_w,
+                       int vis_h) {
+  std::memset(a, cul, vis_w);
+  std::memset(a + vis_w, 0, wu - vis_w);
+  std::memset(l, cul, vis_h);
+  std::memset(l + vis_h, 0, wu - vis_h);
+}
+
+inline int lv_index(const InterWalkParams &p, int region, long block, int n) {
+  return static_cast<int>((p.roff[region] + block * n) / n);
+}
+
+void walk_block(WalkState &st, int mi_row, int mi_col, int bs) {
+  const InterWalkParams &p = *st.p;
+  const int w = bs / 4;
+  const int r32 = mi_row / 8, c32 = mi_col / 8;
+  const int r16 = mi_row / 4, c16 = mi_col / 4;
+  const bool up = mi_row > 0, left = mi_col > 0;
+  const long b32 = static_cast<long>(r32) * st.Cc + c32;
+  const long b16 = static_cast<long>(r16) * st.C2 + c16;
+  const long blk = bs == 32 ? b32 : b16;
+  const int skip = bs == 32 ? p.skip32[b32] : p.skip16[b16];
+  const int32_t *m8 = p.mv8 + (bs == 32 ? 2 * r32 * st.C2 + 2 * c32 : b16) * 2;
+  const int32_t mv[2] = { m8[0], m8[1] };
+
+  RefMvs s;
+  int32_t list[2][2];
+  const int mode_ctx = find_ref_mvs(st, mi_row, mi_col, w, s, list);
+  if (st.fault) return;
+  const int32_t nearest[2] = { lower_mv(list[0][0]), lower_mv(list[0][1]) };
+  const int32_t near[2] = { lower_mv(list[1][0]), lower_mv(list[1][1]) };
+  int mode;
+  if (mv[0] == nearest[0] && mv[1] == nearest[1]) mode = kNearest;
+  else if (mv[0] == near[0] && mv[1] == near[1]) mode = kNear;
+  else if (mv[0] == 0 && mv[1] == 0) mode = kGlobal;
+  else mode = kNew;
+
+  // ---- syntax (decoder parse order) ----
+  const WalkMi *above = up ? &st.at(mi_row - 1, mi_col) : nullptr;
+  const WalkMi *lmb = left ? &st.at(mi_row, mi_col - 1) : nullptr;
+  if (st.fault) return;
+  st.op(0, kCdfSkip, (above ? above->skip : 0) + (lmb ? lmb->skip : 0), skip,
+        2);
+  int ctx = 0;
+  if (above && lmb) {
+    const bool ai = !above->is_inter, li = !lmb->is_inter;
+    ctx = (ai && li) ? 3 : (ai || li);
+  } else if (above || lmb) {
+    ctx = 2 * !(above ? above : lmb)->is_inter;
+  }
+  st.op(0, kCdfIntraInter, ctx, 1, 2);
+  // single_ref_p1, p3, p4 all vote LAST neighbours against none
+  const int last = (above && above->is_inter) + (lmb && lmb->is_inter);
+  const int rctx = last ? 2 : 1;
+  st.op(0, kCdfSingleRef, rctx * 6 + 0, 0, 2);
+  st.op(0, kCdfSingleRef, rctx * 6 + 2, 0, 2);
+  st.op(0, kCdfSingleRef, rctx * 6 + 3, 0, 2);
+  st.op(0, kCdfNewmv, mode_ctx & 7, mode != kNew, 2);
+  if (mode != kNew) {
+    st.op(0, kCdfZeromv, (mode_ctx >> 3) & 1, mode != kGlobal, 2);
+    if (mode != kGlobal)
+      st.op(0, kCdfRefmv, (mode_ctx >> 4) & 15, mode != kNearest, 2);
+  }
+  if (mode == kNew && s.count > 1) st.op(0, kCdfDrl, drl_ctx(s, 0), 0, 2);
+  if (mode == kNear && s.count > 2) st.op(0, kCdfDrl, drl_ctx(s, 1), 0, 2);
+  if (mode == kNew) mv_ops(st, mv, s.count <= 1 ? nearest : s.mv[0]);
+
+  // ---- store the block's mode info ----
+  const WalkMi cur = { { mv[0], mv[1] }, static_cast<uint8_t>(w),
+                       static_cast<uint8_t>(skip), 1,
+                       static_cast<uint8_t>(mode == kNew) };
+  const int r1 = mi_row + w < st.mi_rows ? mi_row + w : st.mi_rows;
+  const int c1 = mi_col + w < st.mi_cols ? mi_col + w : st.mi_cols;
+  for (int r = mi_row; r < r1; ++r)
+    for (int c = mi_col; c < c1; ++c)
+      st.mi[static_cast<long>(r) * st.mi_cols + c] = cur;
+
+  // ---- residual ----
+  const int wu = w, cwu = wu / 2;
+  const int acol = mi_col, lrow = mi_row & 15;
+  const int cacol = mi_col >> 1, clrow = (mi_row & 15) >> 1;
+  const int vis_w = wu < st.mi_cols - mi_col ? wu : st.mi_cols - mi_col;
+  const int vis_h = wu < st.mi_rows - mi_row ? wu : st.mi_rows - mi_row;
+  int cvw = (vis_w * 4 >> 1) >> 2, cvh = (vis_h * 4 >> 1) >> 2;
+  if (cvw > cwu) cvw = cwu;
+  if (cvh > cwu) cvh = cwu;
+  const bool chroma = p.nplanes > 1;
+  if (skip) {
+    ent_update(st.aent[0].data() + acol, st.lent[0] + lrow, wu, 0, wu, wu);
+    if (chroma)
+      for (int pl = 1; pl < 3; ++pl)
+        ent_update(st.aent[pl].data() + cacol, st.lent[pl] + clrow, cwu, 0,
+                   cwu, cwu);
+    return;
+  }
+  int dctx = dc_sign_ctx_from(st.aent[0].data() + acol, wu, st.lent[0] + lrow,
+                              wu);
+  int cul;
+  if (bs == 32) {
+    st.op(2, kBndY32 | (dctx << 16), lv_index(p, 0, blk, 1024), p.y_eob32[blk],
+          0);
+    cul = p.cul_y32[blk];
+  } else {
+    st.op(2, kBndY16 | (dctx << 16), lv_index(p, 1, blk, 256), p.y_eob16[blk],
+          0);
+    cul = p.cul_y16[blk];
+  }
+  ent_update(st.aent[0].data() + acol, st.lent[0] + lrow, wu, cul, vis_w,
+             vis_h);
+  if (!chroma) return;
+  const long n32 = static_cast<long>(st.Cc) * (p.Rc);
+  const long n16 = 4 * n32;
+  for (int pl = 1; pl < 3; ++pl) {
+    uint8_t *a = st.aent[pl].data() + cacol;
+    uint8_t *l = st.lent[pl] + clrow;
+    int any_a = 0, any_l = 0;
+    for (int k = 0; k < cwu; ++k) any_a |= a[k];
+    for (int k = 0; k < cwu; ++k) any_l |= l[k];
+    const int sctx = (any_a != 0) + (any_l != 0) + 7;
+    dctx = dc_sign_ctx_from(a, cwu, l, cwu);
+    if (bs == 32) {
+      st.op(2, kBndUv16 | (sctx << 8) | (dctx << 16),
+            lv_index(p, 1 + pl, blk, 256), p.uv_eob16[(pl - 1) * n32 + blk],
+            0);
+      cul = (pl == 1 ? p.cul_u16 : p.cul_v16)[blk];
+    } else {
+      st.op(2, kBndUv8 | (sctx << 8) | (dctx << 16),
+            lv_index(p, 3 + pl, blk, 64), p.uv_eob8[(pl - 1) * n16 + blk], 0);
+      cul = (pl == 1 ? p.cul_u8 : p.cul_v8)[blk];
+    }
+    ent_update(a, l, cwu, cul, cvw, cvh);
+  }
+}
+
+void walk_partition(WalkState &st, int mi_row, int mi_col, int bsize,
+                    long &blocks) {
+  const InterWalkParams &p = *st.p;
+  if (mi_row >= st.mi_rows || mi_col >= st.mi_cols || st.fault) return;
+  const int bsl = (bsize - 3) / 3;
+  const int mi_w = 2 << bsl;
+  const int hbs = mi_w / 2;
+  const bool has_rows = mi_row + hbs < st.mi_rows;
+  const bool has_cols = mi_col + hbs < st.mi_cols;
+  int partition;
+  if (bsize == 6) partition = PART_NONE;          // BLOCK_16X16
+  else if (bsize == 9)                            // BLOCK_32X32
+    partition = p.split32[(mi_row / 8) * st.Cc + mi_col / 8] ? PART_SPLIT
+                                                              : PART_NONE;
+  else partition = PART_SPLIT;                    // BLOCK_64X64
+  const int above = (st.above_part[mi_col] >> bsl) & 1;
+  const int lft = (st.left_part[mi_row & 15] >> bsl) & 1;
+  const int ctx = (lft * 2 + above) + bsl * 4;
+  if (has_rows && has_cols)
+    st.op(0, kCdfPart, ctx, partition, 10);
+  else if (has_rows || has_cols)
+    st.op(3, kCdfPart, ctx, partition == PART_SPLIT, !has_cols);
+  if (partition == PART_NONE) {
+    const bool is32 = bsize == 9;
+    walk_block(st, mi_row, mi_col, is32 ? 32 : 16);
+    ++blocks;
+    const int pa = static_cast<int>(is32 ? p.pctx_a32 : p.pctx_a16);
+    const int pl = static_cast<int>(is32 ? p.pctx_l32 : p.pctx_l16);
+    for (int i = 0; i < mi_w; ++i) st.above_part[mi_col + i] = pa;
+    for (int i = 0; i < mi_w; ++i) st.left_part[(mi_row + i) & 15] = pl;
+  } else {
+    const int sub = bsize - 3;
+    walk_partition(st, mi_row, mi_col, sub, blocks);
+    walk_partition(st, mi_row, mi_col + hbs, sub, blocks);
+    walk_partition(st, mi_row + hbs, mi_col, sub, blocks);
+    walk_partition(st, mi_row + hbs, mi_col + hbs, sub, blocks);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Returns the number of ops written, -1 when they would pass cap, -2 when
+// the walk would read a block not yet coded (a malformed plan).
+long ec_inter_script_walk(InterWalkParams *params) {
+  WalkState st;
+  st.p = params;
+  st.mi_rows = static_cast<int>(params->mi_rows);
+  st.mi_cols = static_cast<int>(params->mi_cols);
+  st.Cc = static_cast<int>(params->Cc);
+  st.C2 = 2 * st.Cc;
+  st.n = 0;
+  st.fault = 0;
+  const int ncols = (st.mi_cols + 15) / 16 * 16;
+  st.mi.assign(static_cast<long>(st.mi_rows) * st.mi_cols, WalkMi());
+  st.above_part.assign(ncols, 0);
+  for (int pl = 0; pl < 3; ++pl) st.aent[pl].assign(ncols, 0);
+  long blocks = 0;
+  for (int r0 = 0; r0 < st.mi_rows && !st.fault; r0 += 16) {
+    std::memset(st.left_part, 0, sizeof(st.left_part));
+    std::memset(st.lent, 0, sizeof(st.lent));
+    for (int c0 = 0; c0 < st.mi_cols; c0 += 16)
+      walk_partition(st, r0, c0, 12 /*BLOCK_64X64*/, blocks);
+  }
+  params->blocks = blocks;
+  if (st.fault) return -st.fault;
+  return st.n;
+}
+
+}  // extern "C"

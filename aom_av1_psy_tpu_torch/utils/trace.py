@@ -3,7 +3,9 @@
 ``span(name, **attrs)`` times a stage of the program. It always yields a
 ``Span`` whose ``s`` holds the stage's seconds once the block has left;
 with ``into=key`` the seconds are also added to ``key`` of the open
-frame's record. ``frame()`` opens that record: every ``encode()`` opens
+frame's record. ``stages()`` times consecutive spans that share their
+boundaries, one clock reading at each, so that they tile the block around
+them. ``frame()`` opens that record: every ``encode()`` opens
 one, advances the per-process frame id and reads its stage times and
 counts (``add``) from it afterwards.
 
@@ -63,24 +65,60 @@ class span:
         self.out = Span()
 
     def __enter__(self) -> Span:
+        self.begin()
+        return self.out
+
+    def __exit__(self, *exc) -> None:
+        self.end(time.perf_counter())
+
+    def begin(self, t: float | None = None, ns: int | None = None) -> None:
+        """Open the span; ``t`` / ``ns``: the ``perf_counter`` and
+        ``time_ns`` readings it starts at (read now where None)."""
         rec = None
         if profiling():
-            rec = [self.name, time.time_ns(), None,
+            rec = [self.name, time.time_ns() if ns is None else ns, None,
                    _open[-1] if _open else None, frame_id(), self.attrs]
             _records.append(rec)
         _open.append(rec)
         self.rec = rec
-        self.t0 = time.perf_counter()
-        return self.out
+        self.t0 = time.perf_counter() if t is None else t
 
-    def __exit__(self, *exc) -> None:
-        self.out.s = s = time.perf_counter() - self.t0
+    def end(self, t: float, ns: int | None = None) -> None:
+        """Close the span at the ``perf_counter`` reading ``t`` (and at
+        ``ns`` on the timeline, read now where None)."""
+        self.out.s = s = t - self.t0
         if self.rec is not None:
-            self.rec[2] = time.time_ns()
+            self.rec[2] = time.time_ns() if ns is None else ns
         _open.pop()
         if self.into is not None and _frames:
             vals = _frames[-1].values
             vals[self.into] = vals.get(self.into, 0.0) + s
+
+
+class stages:
+    """``with stages() as stage:`` times consecutive spans that share their
+    boundaries: ``stage(name, into=None, **attrs)`` closes the running one
+    and opens the next on the same clock readings (returning its ``Span``),
+    and the block's end closes the last. So the stages' seconds add up to
+    the block's, to the cost of its own entry and exit."""
+    __slots__ = ("cur",)
+
+    def __enter__(self):
+        self.cur = None
+        return self.stage
+
+    def stage(self, name: str, into: str | None = None, **attrs) -> Span:
+        t = time.perf_counter()
+        ns = time.time_ns() if profiling() else None
+        if self.cur is not None:
+            self.cur.end(t, ns)
+        self.cur = sp = span(name, into, **attrs)
+        sp.begin(t, ns)
+        return sp.out
+
+    def __exit__(self, *exc) -> None:
+        if self.cur is not None:
+            self.cur.end(time.perf_counter())
 
 
 class Frame:

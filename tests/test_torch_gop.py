@@ -136,7 +136,9 @@ def test_gop_96x64_q80_matches_jax(pan96):
     assert_same_frames(ej, et)
     assert set(et[1].timings) == {"plan_s", "pack_s", "script_s",
                                   "script_prep_s", "script_walk_s",
-                                  "script_code_s", "syncs", "gc_n", "gc_s"}
+                                  "script_code_s", "syncs", "gc_n", "gc_s",
+                                  "script_native", "script_blocks"}
+    assert et[1].timings["script_native"] == 1
     for field in ("newmv_cdf", "partition_cdf", "txb_skip_cdf"):
         np.testing.assert_array_equal(getattr(et[-1].saved_fc, field),
                                       getattr(ej[-1].saved_fc, field))

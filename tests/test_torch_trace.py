@@ -11,9 +11,12 @@ submit, fetch) add up to ``plan_s`` within 1 % on the partition, tiled
 and uniform-grid paths; an inter frame's record holds ``INTER_TIMINGS``,
 and on a small random-access chunk (the psy deployment's settings) the
 script's three stages (prep, walk, code) add up to ``script_s`` within
-2 % on every ARF and middle; ``gc_n`` / ``gc_s`` count the collections
-inside a frame (the innermost) and none outside every frame; a traced
-CPU run of the all-intra cell reports the new per-layer metrics.
+2 % on every ARF and middle, each of which the native walk scripted
+(``script_native`` 1) over the plan's blocks (``script_blocks``);
+``stages`` share their boundaries and nest under the enclosing span;
+``gc_n`` / ``gc_s`` count the collections inside a frame (the innermost)
+and none outside every frame; a traced CPU run of the all-intra cell
+reports the new per-layer metrics.
 
 On a CUDA card (``gpu``, skipped without one): a span around a launch and
 a synchronize contains the kernel's device interval; one 720p KEY frame
@@ -22,7 +25,8 @@ CUDA graph and none (3 in the frame, KC's) when it replays it; and the
 ``syncs`` of a frame that walks eagerly, of one that captures and of one
 that replays each equal the warnings of
 ``torch.cuda.set_sync_debug_mode("warn")`` over its encode, and so do the
-``syncs`` of a 720p ARF and of its middles.
+``syncs`` of a 720p ARF and of its middles, whose scripts the native
+walk built over their plans' blocks.
 Tolerance: exact, but the 1 % of the plan's split and the 2 % of the
 script's."""
 import os
@@ -43,6 +47,7 @@ from aom_av1_psy_tpu_torch.encoder.tpu_frame import (KEY_TIMINGS,
 from aom_av1_psy_tpu_torch.kernels import build
 from aom_av1_psy_tpu_torch.utils import trace
 from aom_av1_psy_tpu_torch.utils.testframes import make_frame, make_gop
+from test_torch_script_walk import plan_blocks
 from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -260,7 +265,39 @@ def test_script_stages_tile_script_s():
         assert parts <= t["script_s"] <= t["pack_s"], t
         assert t["script_s"] - parts <= 0.02 * t["script_s"], t
         assert t["syncs"] == 0 and t["gc_n"] >= 0 and t["gc_s"] >= 0
+        assert t["script_native"] == 1
+        assert t["script_blocks"] == plan_blocks(e.plan["split32"],
+                                                 e.mi_rows, e.mi_cols) > 0
     assert set(encs[0].timings) == set(KEY_TIMINGS)
+
+
+def test_stages_share_their_boundaries():
+    with _cpu_profile():
+        with trace.frame() as f:
+            with trace.span("outer", into="outer_s"):
+                with trace.stages() as stage:
+                    a = stage("a", into="a_s", k=1)
+                    sum(range(1000))
+                    b = stage("b", into="b_s")
+                    sum(range(1000))
+                    c = stage("c", into="c_s")
+                assert c.s is not None and c.s >= 0
+    recs = trace.records()
+    assert [r[0] for r in recs] == ["outer", "a", "b", "c"]
+    assert [r[3] for r in recs] == [None, 0, 0, 0]
+    assert recs[1][5] == {"k": 1}
+    assert recs[1][2] == recs[2][1] and recs[2][2] == recs[3][1]
+    assert recs[0][1] <= recs[1][1] and recs[3][2] <= recs[0][2]
+    v = f.values
+    assert (v["a_s"], v["b_s"], v["c_s"]) == (a.s, b.s, c.s)
+    assert a.s + b.s + c.s <= v["outer_s"]
+    # without a profiler: the seconds alone
+    with trace.frame() as g:
+        with trace.stages() as stage:
+            stage("x", into="x_s")
+        with trace.stages():
+            pass                              # no stage: nothing added
+    assert set(g.values) == {"x_s"} and len(trace.records()) == 4
 
 
 def test_gc_counts_collections_inside_a_frame_only():
@@ -359,8 +396,36 @@ def test_inter_readers():
                    "pack_s": 0.2, "script_s": 0.2}]
 
     for name in ("inter_script_walk_ms", "inter_script_code_ms",
-                 "inter_syncs_per_frame", "inter_gc_ms"):
+                 "inter_syncs_per_frame", "inter_gc_ms",
+                 "inter_walk_native_pct"):
         assert read(name, Parent) is None, name
+
+
+def test_inter_walk_native_reader():
+    from benchmark.harness import spec
+    read = spec.metric_reader("inter_walk_native_pct").read
+
+    class Run:
+        frames = [
+            {"type": "key", "traced": False, "plan_graph": 1},
+            {"type": "arf", "traced": True, "script_native": 0},
+            {"type": "arf", "traced": False, "script_native": 1},
+            {"type": "inter", "traced": False, "script_native": 1},
+            {"type": "inter", "traced": False, "script_native": 0},
+            {"type": "inter", "traced": False, "script_native": 1}]
+
+    assert read(Run) == 75.0
+
+    class Traced:                  # every inter frame in the traced chunk
+        frames = [{"type": "arf", "traced": True, "script_native": 1},
+                  {"type": "inter", "traced": True, "script_native": 0}]
+
+    assert read(Traced) == 50.0
+
+    class KeysOnly:                # no inter frame: nothing to read
+        frames = [{"type": "key", "traced": False, "plan_graph": 1}]
+
+    assert read(KeysOnly) is None
 
 
 def _ra_run(kernels):
@@ -561,3 +626,6 @@ def test_720p_inter_syncs_match_torch_sync_debug_mode(dev, monkeypatch):
     for e in inter:
         assert e.timings["syncs"] == len(warned[id(e)]) > 0, \
             (e.show, e.timings["syncs"], warned[id(e)])
+        assert e.timings["script_native"] == 1
+        assert e.timings["script_blocks"] == plan_blocks(
+            e.plan["split32"], e.mi_rows, e.mi_cols) > 0

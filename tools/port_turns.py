@@ -647,8 +647,10 @@ TIF.apply_cdef_refs = timed("cdef", TIF.apply_cdef_refs)
 TIF.native_run_script = timed("native_run_script", TIF.native_run_script)
 HCD.find_dir_blocks = timed("find_dir", HCD.find_dir_blocks)
 for m in ("_lpf_device", "_pack_script", "_mv_ops"):
-    setattr(GpuInterFrameEncoder, m,
-            timed(m, getattr(GpuInterFrameEncoder, m)))
+    # ``_mv_ops`` is a module function where the walk is native (and then
+    # off the encoder's path: it reads 0)
+    owner = GpuInterFrameEncoder if hasattr(GpuInterFrameEncoder, m) else TIF
+    setattr(owner, m, timed(m, getattr(owner, m)))
 MC.KD.reset()
 plans, packs, walls = [], [], []
 for _ in range(2):
