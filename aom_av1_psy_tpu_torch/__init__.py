@@ -7,7 +7,10 @@ search, ``tune_vmaf``) and the GOP encoders of
 star group (``encode_video_arf``) and the rate-controlled CBR and RC GOPs
 (``encode_video_cbr``, ``encode_video_rc``), with the temporal filter of
 the KEY frame and of each ARF on the device
-(``encoder/temporal_filter.py``).
+(``encoder/temporal_filter.py``). The device plans
+(``encoder/tpu_intra.py``, ``encoder/tpu_inter.py``) take their host
+inputs, their upload and their one-copy fetch from
+``encoder/plan_inputs.py``, which has no counterpart in the reference.
 
 The JAX package stays the reference; this package mirrors its module paths
 (``encoder/tpu_intra.py``, ``encoder/tpu_intra_dir.py``,
@@ -28,8 +31,10 @@ Device work runs as plain torch ops plus eighteen hand-written CUDA
 kernels (``csrc/``), each beside a plain PyTorch version of the same
 function:
 
-- KA ``intra_pred_sse`` (``ops/intra_pred.py``): all intra candidates of a
-  block (edge buffer, plain + directional predictions) and their SSE;
+- KA ``intra_pick`` (``ops/intra_pred.py``): a wavefront step's pick:
+  each block's edges read from the recon buffer, every plain and
+  directional candidate predicted and priced, the RD argmin's prediction
+  written;
 - KB ``txq_recon_skip`` (``ops/txq.py``): forward transform, quantize,
   dequantize, inverse transform + recon and the skip-RD decision (or, as
   ``txq_recon``, no skip decision), 4x4 to 32x32; ``TxqStep``, the

@@ -52,32 +52,6 @@ def plane(arr, device) -> torch.Tensor:
     return to_device(a, device)
 
 
-def _tensor(v, device):
-    a = np.asarray(v)
-    if a.dtype == np.bool_ or a.dtype == np.float32:
-        return to_device(a, device)
-    if np.issubdtype(a.dtype, np.integer):
-        return to_device(a.astype(np.int32), device)
-    raise TypeError(f"unexpected table dtype {a.dtype}")
-
-
-def inputs_from_numpy(d: dict, device) -> dict:
-    """Plan inputs (``encoder.tpu_intra.part_inputs``: cost tables, rate
-    tables, position masks, lambda grids, forced/no_split masks) as
-    tensors on ``device``; Python scalars pass through unchanged."""
-    out = {}
-    for k, v in d.items():
-        if isinstance(v, (int, float)):
-            out[k] = v
-        elif isinstance(v, dict):
-            out[k] = inputs_from_numpy(v, device)
-        elif isinstance(v, tuple):
-            out[k] = tuple(_tensor(x, device) for x in v)
-        else:
-            out[k] = _tensor(v, device)
-    return out
-
-
 def planes_from_jax(arrs: dict, device) -> dict:
     """The JAX encoder's plan dict, with ``recon_dev`` and
     ``ref_planes_dev`` given as numpy (``np.asarray`` of the jax arrays),

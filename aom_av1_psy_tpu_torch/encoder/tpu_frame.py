@@ -67,6 +67,24 @@ KEY_TIMINGS = ("plan_s", "plan_inputs_s", "plan_submit_s", "plan_fetch_s",
                "gc_n", "gc_s")
 
 
+def lpf_search(fh: FrameHeader, recs, srcs, split16, *, w: int, h: int,
+               nplanes: int, device) -> tuple:
+    """The device loop-filter search of a KEY or an inter frame (kernel
+    KC): the ladder around ``fh``'s first guess, a level per plane into
+    ``fh.lf``. Returns the filtered planes."""
+    g = fh.lf.filter_level[0]
+    cands = convert.to_device(np.array(
+        [0, g // 2, max(g - 2, 0), g, min(g + 2, 63), min(g * 2, 63)],
+        np.int32), device)
+    levels, outs = DT.lpf_pick_and_filter(tuple(recs), srcs, split16, cands,
+                                          w=w, h=h, nplanes=nplanes)
+    lv = [int(x) for x in convert.to_host(levels)]
+    fh.lf.filter_level = (lv[0], lv[0])
+    fh.lf.filter_level_u = lv[1]
+    fh.lf.filter_level_v = lv[2]
+    return outs
+
+
 def _pad_plane(src: np.ndarray, h: int, w: int) -> np.ndarray:
     """Edge-replicate src up to (h, w), int32."""
     out = np.empty((h, w), np.int32)
@@ -535,17 +553,8 @@ class GpuFrameEncoder:
             recs = self._recon_dev_frame()
             w, h = self.mi_cols * 4, self.mi_rows * 4
             if self.cfg.search_lpf:
-                g = fh.lf.filter_level[0]
-                cands = convert.to_device(
-                    np.array([0, g // 2, max(g - 2, 0), g, min(g + 2, 63),
-                              min(g * 2, 63)], np.int32), dev)
-                levels, outs = DT.lpf_pick_and_filter(
-                    tuple(recs), self.device_sources(), split16, cands, w=w,
-                    h=h, nplanes=self.nplanes)
-                lv = [int(x) for x in convert.to_host(levels)]
-                fh.lf.filter_level = (lv[0], lv[0])
-                fh.lf.filter_level_u = lv[1]
-                fh.lf.filter_level_v = lv[2]
+                outs = lpf_search(fh, recs, self.device_sources(), split16,
+                                  w=w, h=h, nplanes=self.nplanes, device=dev)
             else:
                 lv = [fh.lf.filter_level[0], fh.lf.filter_level_u,
                       fh.lf.filter_level_v]

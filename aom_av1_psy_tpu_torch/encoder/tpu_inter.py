@@ -23,9 +23,11 @@ Exactness notes (JAX on the CPU is the oracle):
   float32 values in XLA's row-major order;
 - RD lines ``2048 * sse + lam * rate`` are separate float32 ops (no FMA).
 
-The host pieces (``SEARCH_RAD``, ``RATE_ZEROMV``, ``_edge_grids``; the
-forced / no_split masks are ``tpu_intra.edge_cell_masks``) are carried over
-from the reference; the port imports nothing of it.
+The host pieces (``SEARCH_RAD``, ``RATE_ZEROMV``, ``_edge_grids``) are
+carried over from the reference; the port imports nothing of it. The
+plan's other inputs (quantizers, rate tables, lambda grids, the forced /
+no_split masks), their upload and the one-copy fetch are
+``encoder/plan_inputs``', as the intra plans' are.
 """
 from __future__ import annotations
 
@@ -34,17 +36,15 @@ import functools
 import numpy as np
 import torch
 
-from .. import convert
 from ..ec.context import FrameContext
-from ..normative import tables
 from ..ops import convolve as CONV
 from ..device import resolve_device
 from ..ops import fullpel as FP
 from ..ops import mc as MC
 from ..ops import txq as TQ
+from . import plan_inputs as PI
 from .mv_rate_proxy import MV_RATE_PROXY, S_MAX
-from .tpu_intra import (BS_TO_TX, _fetch, _pack16, _rate_tables, _scan,
-                        edge_cell_masks, plan_part_supported)
+from .tpu_intra import BS_TO_TX
 
 SEARCH_RAD = FP.SEARCH_RAD     # full-pel +/- range, px
 AOM_INTERP_EXTEND = 4
@@ -181,8 +181,8 @@ def _luma_inter(src, ref, dc_q, ac_q, rd16, rd32, forced, no_split,
     (split (R,C), mv8 (2R,2C,2), lv32, e32, lv16, e16, recon, interp_sel,
     proxy-overflow flag)."""
     dev = src.device
-    scan32 = _scan(BS_TO_TX[32], str(dev))
-    scan16 = _scan(BS_TO_TX[16], str(dev))
+    scan32 = PI.scan_order(BS_TO_TX[32], str(dev))
+    scan16 = PI.scan_order(BS_TO_TX[16], str(dev))
     R2, C2 = 2 * R, 2 * C
     B = R2 * C2
     proxy = _RateProxy(dev)
@@ -316,8 +316,8 @@ def _chroma_inter(src_u, src_v, ref_u, ref_v, dc_q, ac_q, rd16, rd32,
     cells, 8px for split subs, same MVs. Returns per-plane levels/eobs at
     both granularities + recon (2, H, W)."""
     dev = src_u.device
-    scan16 = _scan(BS_TO_TX[16], str(dev))
-    scan8 = _scan(BS_TO_TX[8], str(dev))
+    scan16 = PI.scan_order(BS_TO_TX[16], str(dev))
+    scan8 = PI.scan_order(BS_TO_TX[8], str(dev))
     R2, C2 = 2 * R, 2 * C
     B8, Bc = R2 * C2, R * C
     gy8, gx8 = _origins(B8, C2, 8, str(dev))
@@ -360,31 +360,26 @@ def plan_inter_frame(src_planes, ref_planes, q, rdmult, mi_rows, mi_cols,
     symbol-script pack (the reference's keys and dtypes); ``recon_dev``
     holds the recon planes on ``device``."""
     dev = resolve_device(device)
-    assert plan_part_supported(mi_rows, mi_cols)
-    # every upload through ``convert.to_device``: each counts in the
-    # frame's ``syncs``
-    t = lambda a: convert.to_device(a, dev)
-    rt = {k: tuple(t(x) for x in v)
-          for k, v in _rate_tables(FrameContext(q)).items()}
+    assert PI.plan_part_supported(mi_rows, mi_cols)
     y = src_planes[0]
     R, C = y.shape[0] // 32, y.shape[1] // 32
-    R2, C2 = 2 * R, 2 * C
-    dc_q, ac_q = tables.dc_quant(q), tables.ac_quant(q)
-
-    rd16 = np.asarray(rdmult, np.float32)
-    if rd16.ndim == 0:
-        rd16 = np.full((R2, C2), float(rdmult), np.float32)
-    rd32 = np.exp(np.log(rd16).reshape(R, 2, C, 2).mean((1, 3))) \
-        .astype(np.float32)
-    forced, no_split = edge_cell_masks(R, C, mi_rows, mi_cols)
-    grids = [tuple(t(x) for x in _edge_grids(R2, C2, mi_rows, mi_cols, bs, ss))
-             for bs, ss in ((16, 0), (32, 0), (16, 1), (32, 1))]
+    dc_q, ac_q = PI.quantizers(q)
+    rd16, rd32 = PI.lambda_grids(rdmult, R, C)
+    forced, no_split = PI.edge_cell_masks(R, C, mi_rows, mi_cols)
+    # every upload counts in the frame's ``syncs``; the chroma planes go
+    # up after the luma half is queued
+    t = PI.upload({
+        "rt": PI.rate_tables(FrameContext(q)),
+        "grids": [_edge_grids(2 * R, 2 * C, mi_rows, mi_cols, bs, ss)
+                  for bs, ss in ((16, 0), (32, 0), (16, 1), (32, 1))],
+        "rd16": rd16, "rd32": rd32, "y": y, "forced": forced,
+        "no_split": no_split}, dev)
+    rt, grids = t["rt"], t["grids"]
     all_kernels = _all_kernels(str(dev))
-    rd16_t, rd32_t = t(rd16), t(rd32)
 
     split, mv8, lv32, e32, lv16, e16, yrec, interp_sel, over = _luma_inter(
-        t(y), ref_planes[0], dc_q, ac_q, rd16_t, rd32_t, t(forced),
-        t(no_split), all_kernels, grids[0], grids[1], rt["y32"], rt["y16"],
+        t["y"], ref_planes[0], dc_q, ac_q, t["rd16"], t["rd32"], t["forced"],
+        t["no_split"], all_kernels, grids[0], grids[1], rt["y32"], rt["y16"],
         R=R, C=C, crop_h=crop_h, crop_w=crop_w)
     named = {"split32": split, "mv8": mv8, "y_levels32": lv32,
              "y_levels16": lv16, "y_eob32": e32, "y_eob16": e16,
@@ -392,15 +387,15 @@ def plan_inter_frame(src_planes, ref_planes, q, rdmult, mi_rows, mi_cols,
     recon_dev = [yrec]
     if len(src_planes) > 1:
         uv = _chroma_inter(
-            t(src_planes[1]), t(src_planes[2]), ref_planes[1], ref_planes[2],
-            dc_q, ac_q, rd16_t, rd32_t, split, mv8,
+            *PI.upload(src_planes[1:3], dev), ref_planes[1], ref_planes[2],
+            dc_q, ac_q, t["rd16"], t["rd32"], split, mv8,
             _pick(all_kernels, interp_sel), grids[2], grids[3], rt["uv16"],
             rt["uv8"], R=R, C=C, crop_h=(crop_h + 1) >> 1,
             crop_w=(crop_w + 1) >> 1)
         named.update(zip(("uv_levels16", "uv_eob16", "uv_levels8",
                           "uv_eob8"), uv[:4]))
         recon_dev += [uv[4][0], uv[4][1]]
-    host = _fetch(named, _pack16(named))   # the plan's one device->host copy
+    host = PI.fetch(named, PI.pack16(named))   # the plan's one copy
     if host.pop("proxy_over"):
         raise RuntimeError(f"MV-rate proxy index past S_MAX={S_MAX}")
     plan = {"inter": True, "interp_filter": int(host.pop("interp_filter")),

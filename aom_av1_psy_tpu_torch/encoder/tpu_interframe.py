@@ -60,11 +60,10 @@ from ..utils import trace
 from ..utils.frame import Frame
 from .. import convert
 from ..device import resolve_device
-from ..ops import deblock_torch as DT
 from . import temporal_filter as TF
 from . import tpu_inter, tune_vmaf
 from .tpu_frame import (GpuFrameEncoder, _pad_plane, apply_cdef_refs,
-                        cdef_fixed_strengths)
+                        cdef_fixed_strengths, lpf_search)
 
 MV_CLASSES = 11
 CLASS0_BITS = 1
@@ -302,20 +301,10 @@ class GpuInterFrameEncoder:
         dev = self.device
         sp = self.plan["split32"].astype(bool)
         split16 = convert.to_device(np.repeat(np.repeat(sp, 2, 0), 2, 1), dev)
-        w, h = self.mi_cols * 4, self.mi_rows * 4
-        g = fh.lf.filter_level[0]
-        cands = convert.to_device(
-            np.array([0, g // 2, max(g - 2, 0), g, min(g + 2, 63),
-                      min(g * 2, 63)], np.int32), dev)
-        recs = tuple(self.plan["recon_dev"][: self.nplanes])
-        levels, outs = DT.lpf_pick_and_filter(
-            recs, self.device_sources(), split16, cands, w=w, h=h,
-            nplanes=self.nplanes)
-        lv = [int(x) for x in convert.to_host(levels)]
-        fh.lf.filter_level = (lv[0], lv[0])
-        fh.lf.filter_level_u = lv[1]
-        fh.lf.filter_level_v = lv[2]
-        self.ref_planes_out = list(outs)
+        self.ref_planes_out = list(lpf_search(
+            fh, self.plan["recon_dev"][: self.nplanes], self.device_sources(),
+            split16, w=self.mi_cols * 4, h=self.mi_rows * 4,
+            nplanes=self.nplanes, device=dev))
 
     # ------------------------------------------------------------------
     def _pack_script(self, plan, fc, fh) -> bytes:
@@ -782,6 +771,57 @@ def displayed_encoders(encs):
     return out
 
 
+class _Chain:
+    """A GOP's frames on one reference chain, with their packets and
+    encoders: the KEY's ``seq``, the last frame's ``_ref_chain_planes``
+    and its ``saved_fc`` (``prev_fc``; None without ``forward_cdf``)."""
+
+    def __init__(self, frames, forward_cdf: bool, device):
+        self.w0, self.h0 = frames[0].width, frames[0].height
+        self.forward_cdf = forward_cdf
+        self.device = device
+        self.seq = self.ref_planes = self.prev_fc = None
+        self.packets, self.encs = [], []
+
+    def step(self, frame, cfg: EncoderConfig, key: bool,
+             include_seq: bool = False):
+        """Encode ``frame`` at ``cfg`` as a KEY or an inter frame on the
+        chain; returns its encoder (its packet is ``packets[-1]``)."""
+        if key:
+            enc = GpuFrameEncoder(frame, cfg, device=self.device)
+            self.packets.append(enc.encode(include_seq=include_seq))
+            self.seq = enc.seq
+        else:
+            enc = GpuInterFrameEncoder(frame, cfg, self.seq, self.ref_planes,
+                                       self.w0, self.h0,
+                                       prev_fc=self.prev_fc,
+                                       device=self.device)
+            self.packets.append(enc.encode())
+        self.encs.append(enc)
+        self.ref_planes = _ref_chain_planes(enc)
+        self.prev_fc = enc.saved_fc if self.forward_cdf else None
+        return enc
+
+    def key(self, frames, i: int, cfg: EncoderConfig, filtered: bool):
+        """``step`` of KEY frame ``frames[i]``, temporally filtered where
+        ``filtered`` (temporal_filter.c:833-841), its seconds as ``tf_s``."""
+        frame, tf_s = frames[i], None
+        if filtered:
+            with trace.span("tf") as tf_sp:
+                frame = TF.filter_key_frame(frames, i, cfg.base_q_idx,
+                                            device=self.device)
+            tf_s = tf_sp.s
+        enc = self.step(frame, cfg, key=True, include_seq=i == 0)
+        enc.tf_s = tf_s
+        return enc
+
+    def write(self, path: str | None) -> None:
+        """The chain's packets as an IVF file at ``path`` (None: none)."""
+        if path is not None:
+            from ..bitstream.containers import write_ivf
+            write_ivf(path, self.packets, self.w0, self.h0)
+
+
 def encode_video(frames, cfg: EncoderConfig, path: str | None = None,
                  key_interval: int = 0, forward_cdf: bool = True,
                  kf_q_offset: int = 60, tf_key: bool = True,
@@ -797,42 +837,19 @@ def encode_video(frames, cfg: EncoderConfig, path: str | None = None,
     reference chain carries it). Returns (packets, encs); a KEY encoder
     carries the filter's host-clock seconds as ``tf_s`` (None when
     unfiltered)."""
-    from ..bitstream.containers import write_ivf
-    packets = []
-    encs = []
-    ref_planes = None
-    seq = None
-    prev_fc = None
+    chain = _Chain(frames, forward_cdf, device)
     if cdef and not cfg.search_cdef:
         cfg = dataclasses.replace(cfg, cdef_fixed=True)
     kf_cfg = dataclasses.replace(
         cfg, base_q_idx=max(8, cfg.base_q_idx - kf_q_offset)) \
         if kf_q_offset else cfg
     for i, frame in enumerate(frames):
-        is_key = i == 0 or (key_interval > 0 and i % key_interval == 0)
-        if is_key:
-            tf_s = None
-            if tf_key and len(frames) > 1:
-                # multi-frame KEY denoise (temporal_filter.c:833-841)
-                with trace.span("tf") as tf_sp:
-                    frame = TF.filter_key_frame(frames, i, kf_cfg.base_q_idx,
-                                                device=device)
-                tf_s = tf_sp.s
-            enc = GpuFrameEncoder(frame, kf_cfg, device=device)
-            enc.tf_s = tf_s
-            packets.append(enc.encode(include_seq=(i == 0)))
-            seq = enc.seq
+        if i == 0 or (key_interval > 0 and i % key_interval == 0):
+            chain.key(frames, i, kf_cfg, tf_key and len(frames) > 1)
         else:
-            enc = GpuInterFrameEncoder(frame, cfg, seq, ref_planes,
-                                       frames[0].width, frames[0].height,
-                                       prev_fc=prev_fc, device=device)
-            packets.append(enc.encode())
-        encs.append(enc)
-        ref_planes = _ref_chain_planes(enc)
-        prev_fc = enc.saved_fc if forward_cdf else None
-    if path is not None:
-        write_ivf(path, packets, frames[0].width, frames[0].height)
-    return packets, encs
+            chain.step(frame, cfg, key=False)
+    chain.write(path)
+    return chain.packets, chain.encs
 
 
 def encode_video_arf(frames, cfg: EncoderConfig, path: str | None = None,
@@ -853,34 +870,23 @@ def encode_video_arf(frames, cfg: EncoderConfig, path: str | None = None,
     show_existing packets); the KEY and ARF encoders carry the filter's
     host-clock seconds as ``tf_s`` (None when unfiltered).
     """
-    from ..bitstream.containers import write_ivf
-
     T = len(frames)
+    if not cfg.search_cdef:
+        cfg = dataclasses.replace(cfg, cdef_fixed=True)
     kf_cfg = dataclasses.replace(
         cfg, base_q_idx=max(8, cfg.base_q_idx - kf_q_offset))
     arf_cfg = dataclasses.replace(
         cfg, base_q_idx=max(8, cfg.base_q_idx - arf_q_offset))
-    packets, encs = [], []
+    chain = _Chain(frames, forward_cdf, device)
+    packets, encs = chain.packets, chain.encs
 
-    # KEY
-    if not cfg.search_cdef:
-        cfg = dataclasses.replace(cfg, cdef_fixed=True)
-        kf_cfg = dataclasses.replace(kf_cfg, cdef_fixed=True)
-        arf_cfg = dataclasses.replace(arf_cfg, cdef_fixed=True)
-    with trace.span("tf") as tf_sp:
-        key_src = TF.filter_key_frame(frames, 0, kf_cfg.base_q_idx,
-                                      device=device) if T > 1 else frames[0]
-    tf_s = tf_sp.s if T > 1 else None
-    key = GpuFrameEncoder(key_src, kf_cfg, device=device)
-    key.tf_s = tf_s
-    packets.append(key.encode(include_seq=True))
-    encs.append(key)
-    seq = key.seq
+    key = chain.key(frames, 0, kf_cfg, T > 1)
+    seq = chain.seq
     cur_slot = 0                       # slot holding the last DISPLAYED recon
-    slot_planes = {0: _ref_chain_planes(key), 1: _ref_chain_planes(key)}
+    slot_planes = {0: chain.ref_planes, 1: chain.ref_planes}
     slot_fc = {0: key.saved_fc, 1: key.saved_fc}
 
-    w0, h0 = frames[0].width, frames[0].height
+    w0, h0 = chain.w0, chain.h0
     s_idx = 1
     while s_idx < T:
         e_idx = min(s_idx + group, T)
@@ -942,8 +948,7 @@ def encode_video_arf(frames, cfg: EncoderConfig, path: str | None = None,
 
         cur_slot = arf_slot
         s_idx = e_idx
-    if path is not None:
-        write_ivf(path, packets, w0, h0)
+    chain.write(path)
     return packets, encs
 
 
@@ -970,6 +975,37 @@ def _qindex_for_qstep(qstep: float, bd: int = 8) -> int:
     return lo
 
 
+class _RateModel:
+    """The online rate model of the CBR and RC drivers: a local power law
+    ``bits ~ c * qstep**-beta`` (the family behind av1_rc_bits_per_mb,
+    av1/encoder/ratectrl.c:1741) fitted per frame type from coded sizes,
+    over the last two (log qstep, log bits) observations."""
+
+    def __init__(self):
+        self.obs = {}         # frame type -> last two (log qstep, log bits)
+
+    def want_q(self, ftype: str, tgt: float) -> int | None:
+        """The qindex whose AC step meets ``tgt`` bits on the model of
+        ``ftype``; None before its first observation. The elasticity
+        ``beta`` is the secant through the two observations, clipped to
+        [0.4, 3.0] (1.2 with one, or two at one qstep)."""
+        pts = self.obs.get(ftype)
+        if not pts:
+            return None
+        lq1, lb1 = pts[-1]
+        beta = 1.2
+        if len(pts) == 2 and abs(pts[0][0] - lq1) > 1e-3:
+            beta = float(np.clip((pts[0][1] - lb1) / (lq1 - pts[0][0]),
+                                 0.4, 3.0))
+        lqw = lq1 + (lb1 - np.log(max(tgt, 1.0))) / beta
+        return _qindex_for_qstep(float(np.exp(lqw)))
+
+    def observe(self, ftype: str, q: int, bits: int) -> None:
+        """Add a frame of ``ftype`` coded at qindex ``q`` in ``bits``."""
+        pt = (float(np.log(tables.ac_quant(q))), float(np.log(max(bits, 1))))
+        self.obs[ftype] = (self.obs.get(ftype, []) + [pt])[-2:]
+
+
 def encode_video_cbr(frames, target_bps: float, fps: float = 30.0,
                      buffer_ms: int = 1000, initial_ms: int = 500,
                      optimal_pct: int = 60, start_q: int = 120,
@@ -987,29 +1023,13 @@ def encode_video_cbr(frames, target_bps: float, fps: float = 30.0,
     follows the same online power-law rate model as ``encode_video_rc``,
     with per-frame q clamps. Returns (packets, encs, qs, buffer_trace).
     """
-    from ..bitstream.containers import write_ivf
     avg_bits = target_bps / fps
     buffer_sz = target_bps * buffer_ms / 1000.0
     optimal = buffer_sz * optimal_pct / 100.0
     level = target_bps * initial_ms / 1000.0
-    obs = {}
-    packets, encs, qs, trace = [], [], [], []
-
-    def want_q(ftype, tgt):
-        pts = obs.get(ftype)
-        if not pts:
-            return None
-        lq1, lb1 = pts[-1]
-        beta = 1.2
-        if len(pts) == 2 and abs(pts[0][0] - lq1) > 1e-3:
-            beta = float(np.clip((pts[0][1] - lb1) / (lq1 - pts[0][0]),
-                                 0.4, 3.0))
-        lqw = lq1 + (lb1 - np.log(max(tgt, 1.0))) / beta
-        return _qindex_for_qstep(float(np.exp(lqw)))
-
-    ref_planes = None
-    seq = None
-    prev_fc = None
+    model = _RateModel()
+    chain = _Chain(frames, True, device)
+    qs, buffer_trace = [], []
     q = int(np.clip(start_q, min_q, max_q))
     for i, frame in enumerate(frames):
         is_key = i == 0
@@ -1021,38 +1041,23 @@ def encode_video_cbr(frames, target_bps: float, fps: float = 30.0,
         tgt = max(avg_bits * 0.25, avg_bits + correction)
         if is_key:
             tgt = min(4.0 * avg_bits, buffer_sz * 0.5)
-        want = want_q(ftype, tgt)
+        want = model.want_q(ftype, tgt)
         if want is None:
             want = max(8, q - kf_q_offset) if is_key else q
         step = int(np.clip(want - q, -max_step, max_step))
         q_frame = int(np.clip(q + step, min_q, max_q))
         if not is_key:
             q = q_frame
-        cfg_i = EncoderConfig(base_q_idx=q_frame, cdef_fixed=True)
-        if is_key:
-            enc = GpuFrameEncoder(frame, cfg_i, device=device)
-            pkt = enc.encode(include_seq=(i == 0))
-            seq = enc.seq
-        else:
-            enc = GpuInterFrameEncoder(frame, cfg_i, seq, ref_planes,
-                                       frames[0].width, frames[0].height,
-                                       prev_fc=prev_fc, device=device)
-            pkt = enc.encode()
-        bits = len(pkt) * 8
+        chain.step(frame, EncoderConfig(base_q_idx=q_frame, cdef_fixed=True),
+                   key=is_key, include_seq=i == 0)
+        bits = len(chain.packets[-1]) * 8
         # leaky bucket: fill at the channel rate, drain by coded bits
         level = float(np.clip(level + avg_bits - bits, 0.0, buffer_sz))
-        pt = (float(np.log(tables.ac_quant(q_frame))),
-              float(np.log(max(bits, 1))))
-        obs[ftype] = (obs.get(ftype, []) + [pt])[-2:]
-        packets.append(pkt)
-        encs.append(enc)
+        model.observe(ftype, q_frame, bits)
         qs.append(q_frame)
-        trace.append(level)
-        ref_planes = _ref_chain_planes(enc)
-        prev_fc = enc.saved_fc
-    if path is not None:
-        write_ivf(path, packets, frames[0].width, frames[0].height)
-    return packets, encs, qs, trace
+        buffer_trace.append(level)
+    chain.write(path)
+    return chain.packets, chain.encs, qs, buffer_trace
 
 
 def encode_video_rc(frames, target_bps: float, fps: float = 30.0,
@@ -1062,35 +1067,18 @@ def encode_video_rc(frames, target_bps: float, fps: float = 30.0,
                     device="cuda"):
     """One-pass target-bitrate GOP encode (``encode_video_tpu_rc``).
 
-    A local power-law rate model ``bits ~ c * qstep**-beta`` (the family
-    behind av1_rc_bits_per_mb, av1/encoder/ratectrl.c:1741) is fitted
-    online per frame type from coded sizes: the elasticity ``beta`` comes
-    from a secant through the last two (log qstep, log bits) observations.
-    The next frame's qindex is the one whose AC step meets its share of the
-    remaining budget; per-frame q moves are clamped to ``max_step``. CDF
-    forwarding stays on. Returns (packets, encs, qs).
+    A local power-law rate model (``_RateModel``) is fitted online per
+    frame type from coded sizes. The next frame's qindex is the one whose
+    AC step meets its share of the remaining budget; per-frame q moves are
+    clamped to ``max_step``. CDF forwarding stays on. Returns (packets,
+    encs, qs).
     """
-    from ..bitstream.containers import write_ivf
     n = len(frames)
     budget = target_bps * n / fps
     spent = 0.0
-    obs = {}              # frame-type -> last two (log qstep, log bits)
-    packets, encs, qs = [], [], []
-
-    def _want_q(ftype, tgt, cur_q):
-        pts = obs.get(ftype)
-        if not pts:
-            return None
-        lq1, lb1 = pts[-1]
-        beta = 1.2
-        if len(pts) == 2 and abs(pts[0][0] - lq1) > 1e-3:
-            beta = (pts[0][1] - lb1) / (lq1 - pts[0][0])
-            beta = float(np.clip(beta, 0.4, 3.0))
-        lqw = lq1 + (lb1 - np.log(tgt)) / beta
-        return _qindex_for_qstep(float(np.exp(lqw)))
-    ref_planes = None
-    seq = None
-    prev_fc = None
+    model = _RateModel()
+    chain = _Chain(frames, True, device)
+    qs = []
     q = int(np.clip(start_q, min_q, max_q))
     # KEY frames are budgeted at kf_boost x the per-frame average
     # (gop-level allocation, av1/encoder/pass2_strategy.c's kf share)
@@ -1105,30 +1093,16 @@ def encode_video_rc(frames, target_bps: float, fps: float = 30.0,
             for j in range(i, n))
         tgt = max(64.0, (budget - spent) * weight / frames_left_w)
         # no same-type observation yet -> hold q
-        want = _want_q(ftype, tgt, q)
+        want = model.want_q(ftype, tgt)
         if want is None:
             want = q
         step = int(np.clip(want - q, -max_step, max_step))
         q = int(np.clip(q + step, min_q, max_q))
-        cfg_i = EncoderConfig(base_q_idx=q, cdef_fixed=True)
-        if is_key:
-            enc = GpuFrameEncoder(frame, cfg_i, device=device)
-            pkt = enc.encode(include_seq=(i == 0))
-            seq = enc.seq
-        else:
-            enc = GpuInterFrameEncoder(frame, cfg_i, seq, ref_planes,
-                                       frames[0].width, frames[0].height,
-                                       prev_fc=prev_fc, device=device)
-            pkt = enc.encode()
-        bits = len(pkt) * 8
+        chain.step(frame, EncoderConfig(base_q_idx=q, cdef_fixed=True),
+                   key=is_key, include_seq=i == 0)
+        bits = len(chain.packets[-1]) * 8
         spent += bits
-        pt = (float(np.log(tables.ac_quant(q))), float(np.log(max(bits, 1))))
-        obs[ftype] = (obs.get(ftype, []) + [pt])[-2:]
-        packets.append(pkt)
-        encs.append(enc)
+        model.observe(ftype, q, bits)
         qs.append(q)
-        ref_planes = _ref_chain_planes(enc)
-        prev_fc = enc.saved_fc
-    if path is not None:
-        write_ivf(path, packets, frames[0].width, frames[0].height)
-    return packets, encs, qs
+    chain.write(path)
+    return chain.packets, chain.encs, qs

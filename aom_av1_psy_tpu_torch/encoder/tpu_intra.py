@@ -33,12 +33,14 @@ live in its own memory and are overwritten by its next replay, so the
 fetch copies all it returns (host arrays and ``recon_dev`` planes of their
 own). CPU tensors and the uniform grid always run eagerly.
 
-The building blocks keep the reference's names: ``_predict_all_modes`` is
-KA's plain half (``ops/intra_pred.py``); ``_quantize``, ``_dequantize``,
-``_coeff_rate_est`` and ``_skip_rd`` are KB's (``ops/txq.py``). The host
-cost tables (``_plan_cost_tables*``, ``_rate_tables``,
-``_part_rate_scalars``, ``plan_part_supported``) are carried over from the
-reference; the port imports nothing of it.
+The plans' host inputs, their upload and the one-copy fetch are
+``encoder/plan_inputs``' (the KEY plan's in two parts: ``shared_inputs``
+once a frame, ``slab_inputs`` for the slabs of one card). The building
+blocks keep the reference's names: ``_predict_all_modes`` is KA's plain
+half (``ops/intra_pred.py``); ``_quantize``, ``_dequantize``,
+``_coeff_rate_est`` and ``_skip_rd`` are KB's (``ops/txq.py``); the host
+tables ``_plan_cost_tables*``, ``_rate_tables``, ``_part_rate_scalars``,
+``_scan`` and ``plan_part_supported`` are ``plan_inputs``'.
 """
 from __future__ import annotations
 
@@ -48,18 +50,21 @@ import functools
 import numpy as np
 import torch
 
-from ..normative import tables
 from ..normative.enums import TxSize
 from .. import convert
-from ..device import on_device
+from ..device import on_device, resolve_device
 from ..kernels.build import launches_total
 from ..ops import intra_pred as IP
 from ..ops import txq as TQ
 from ..utils import trace
+from . import plan_inputs as PI
 from . import tpu_intra_dir as DIR
+from .plan_inputs import (PLAN_MODES, plan_part_supported,  # noqa: F401
+                          part_rate_scalars as _part_rate_scalars,
+                          plan_cost_tables as _plan_cost_tables,
+                          plan_cost_tables2 as _plan_cost_tables2,
+                          rate_tables as _rate_tables, scan_order as _scan)
 
-# plan mode set: no top-right/bottom-left extensions, no edge filtering
-PLAN_MODES = (0, 1, 2, 9, 10, 11, 12)  # DC V H SMOOTH SMOOTH_V SMOOTH_H PAETH
 BS_TO_TX = {4: int(TxSize.TX_4X4), 8: int(TxSize.TX_8X8),
             16: int(TxSize.TX_16X16), 32: int(TxSize.TX_32X32)}
 _QUADS = ((0, 0), (0, 1), (1, 0), (1, 1))
@@ -84,171 +89,6 @@ def _tq_recon_uv(src, pred, dc_q, ac_q, tx_size, scan, uv_mode):
     assert BS_TO_TX[src.shape[-1]] == tx_size
     va, ha = _uv_adst(uv_mode)
     return TQ.tq_recon(src, pred, dc_q, ac_q, scan, va, ha)
-
-
-@functools.cache
-def _scan(tx_size: int, device: str):
-    return convert.to_device(tables.scan_table(tx_size, 0).astype(np.int32),
-                             device)
-
-
-# ----------------------------------------------------------------------
-# host-side cost tables (carried over from the reference)
-# ----------------------------------------------------------------------
-def _plan_cost_tables(fc):
-    from ..ec.costs import cdf_cost_table
-    m = len(PLAN_MODES)
-    kf = np.zeros((5, 5, m), np.int32)
-    for a in range(5):
-        for l in range(5):
-            t = cdf_cost_table(fc.kf_y_cdf[a][l], 13)
-            kf[a, l] = t[list(PLAN_MODES)]
-    # angle_delta symbol 3 (delta 0) for directional modes V(1)/H(2)
-    angle = np.zeros(m, np.int32)
-    for i, mode in enumerate(PLAN_MODES):
-        if mode in (1, 2):
-            angle[i] = cdf_cost_table(fc.angle_delta_cdf[mode - 1], 7)[3]
-    uv = np.zeros((13, m), np.int32)
-    for ym in range(13):
-        t = cdf_cost_table(fc.uv_mode_cdf[1][ym], 14)
-        uv[ym] = t[list(PLAN_MODES)]
-        for i, mode in enumerate(PLAN_MODES):
-            if mode in (1, 2):
-                uv[ym, i] += angle[i]
-    return kf, angle, uv
-
-
-def _plan_cost_tables2(fc):
-    """kf (5, 5, K) luma mode cost per neighbour ctx, angle (K,) the
-    angle-delta symbol cost (0 for non-directional), uv (13, 7)."""
-    from ..ec.costs import cdf_cost_table
-    cands = DIR.candidates()
-    K = len(cands)
-    modes = [m for m, _, _ in cands]
-    kf = np.zeros((5, 5, K), np.int32)
-    for a in range(5):
-        for l in range(5):
-            t = cdf_cost_table(fc.kf_y_cdf[a][l], 13)
-            kf[a, l] = t[modes]
-    angle = np.zeros(K, np.int32)
-    for i, (mode, delta, _c) in enumerate(cands):
-        if 1 <= mode <= 8:
-            angle[i] = cdf_cost_table(fc.angle_delta_cdf[mode - 1],
-                                      7)[delta + 3]
-    _kf7, _a7, uv = _plan_cost_tables(fc)
-    return kf, angle, uv
-
-
-def _rate_tables(fc):
-    """Coefficient-rate tables per (tx size, plane) as numpy pairs
-    (ec/costs.coeff_rate_tables). The level costs must be half-integers:
-    the device sums them exactly in half units."""
-    from ..ec.costs import coeff_rate_tables
-
-    def pair(tx, pl):
-        lvl, eob = coeff_rate_tables(fc, tx, pl)
-        if not np.array_equal(lvl * 2, np.round(lvl * 2)):
-            raise ValueError("coefficient level costs must be half-integers")
-        return lvl, eob
-
-    return {"y32": pair(int(TxSize.TX_32X32), 0),
-            "y16": pair(int(TxSize.TX_16X16), 0),
-            "uv16": pair(int(TxSize.TX_16X16), 1),
-            "uv8": pair(int(TxSize.TX_8X8), 1)}
-
-
-def _part_rate_scalars(fc):
-    """Default-CDF costs of PARTITION_NONE / PARTITION_SPLIT at the
-    32x32 bsize (ctx: bsl=2, no-split neighbours) — decision-only."""
-    from ..ec.costs import cdf_cost_table
-    t = cdf_cost_table(fc.partition_cdf[8], 10)
-    return float(t[0]), float(t[3])
-
-
-def plan_part_supported(mi_rows: int, mi_cols: int) -> bool:
-    """True when every frame-edge cell has a square-leaf coding (a cell
-    that the decoder implies SPLIT must not contain partial 16s)."""
-    return mi_rows % 8 != 2 and mi_cols % 8 != 2
-
-
-def edge_cell_masks(R: int, C: int, mi_rows: int, mi_cols: int):
-    """(forced, no_split) (R, C) bool masks of the 32-px cells: splits the
-    decoder implies at the frame edge (has_rows/has_cols false), and cells
-    that must NOT split because a visited 16 sub-block would be partial
-    (no square leaf available there). Shared by the intra and inter
-    plans, as in the reference."""
-    rr = 8 * np.arange(R)[:, None]
-    cc = 8 * np.arange(C)[None, :]
-    forced = ((rr + 4 >= mi_rows) | (cc + 4 >= mi_cols))
-    no_split = np.zeros((R, C), bool)
-    for qr in (0, 1):
-        for qc in (0, 1):
-            sr, sc = rr + 4 * qr, cc + 4 * qc
-            visited = (sr < mi_rows) & (sc < mi_cols)
-            partial = visited & ((sr + 2 >= mi_rows) | (sc + 2 >= mi_cols))
-            no_split |= partial
-    assert not (forced & no_split).any(), "unsupported mi dims for part2"
-    return forced, no_split
-
-
-def shared_inputs(R: int, C: int, q: int, fc) -> dict:
-    """The host inputs of the two-level plan that every tile shares: the
-    quantizers, mode cost tables, coefficient-rate tables and partition
-    rates."""
-    kf_cost, angle_cost, uv_cost = _plan_cost_tables2(fc)
-    pr_none, pr_split = _part_rate_scalars(fc)
-    return {"R": R, "C": C, "dc_q": tables.dc_quant(q),
-            "ac_q": tables.ac_quant(q), "kf_cost": kf_cost,
-            "angle_cost": angle_cost, "uv_cost": uv_cost,
-            "pr_none": pr_none, "pr_split": pr_split,
-            "rt": _rate_tables(fc)}
-
-
-def tile_inputs(R: int, C: int, rdmult, mi_rows: int, mi_cols: int,
-                tile_mi_w: int | None = None,
-                vis_mi_w: int | None = None) -> dict:
-    """The host inputs of the two-level plan that belong to one tile slab:
-    the 16/32 lambda grids, the candidate position masks (bounded by the
-    tile's actual mi width ``tile_mi_w`` and its visible mi width
-    ``vis_mi_w``, both ``mi_cols`` by default) and the forced / no_split
-    edge-cell masks (``mi_cols`` is the slab's effective mi width)."""
-    masks = DIR.position_masks(
-        mi_rows, tile_mi_w if tile_mi_w is not None else mi_cols,
-        vis_mi_w if vis_mi_w is not None else mi_cols, R, C)
-    rd16 = np.asarray(rdmult, np.float32)
-    if rd16.ndim == 0:
-        rd16 = np.full((2 * R, 2 * C), float(rdmult), np.float32)
-    assert rd16.shape == (2 * R, 2 * C), (rd16.shape, R, C)
-    # 32-lambda: geometric mean of the four covered 16 lambdas
-    rd32 = np.exp(np.log(rd16).reshape(R, 2, C, 2).mean((1, 3))) \
-        .astype(np.float32)
-    forced, no_split = edge_cell_masks(R, C, mi_rows, mi_cols)
-    return {"rd16": rd16, "rd32": rd32, "forced": forced,
-            "no_split": no_split, "masks": masks}
-
-
-def part_inputs(R: int, C: int, q: int, fc, rdmult, mi_rows: int,
-                mi_cols: int, tile_mi_w: int | None = None,
-                vis_mi_w: int | None = None) -> dict:
-    """Host-side inputs of the two-level plan as numpy, built exactly as the
-    reference's ``plan_frame_part`` builds them before its device calls:
-    cost and rate tables, candidate position masks, the 16/32 lambda grids
-    and the forced / no_split edge-cell masks."""
-    return {**shared_inputs(R, C, q, fc),
-            **tile_inputs(R, C, rdmult, mi_rows, mi_cols, tile_mi_w,
-                          vis_mi_w)}
-
-
-def stack_tiles(shared: dict, tiles: list) -> dict:
-    """One input dict for T equal tile slabs: each ``tile_inputs`` array
-    (lambda grids, edge-cell and position masks) gains a leading tile
-    axis; the ``shared_inputs`` pass through."""
-    out = dict(shared)
-    for k in ("rd16", "rd32", "forced", "no_split"):
-        out[k] = np.stack([d[k] for d in tiles])
-    out["masks"] = {k: np.stack([d["masks"][k] for d in tiles])
-                    for k in tiles[0]["masks"]}
-    return out
 
 
 # ----------------------------------------------------------------------
@@ -309,7 +149,7 @@ def _luma_wavefront_part(src, t: dict):
     writes the chosen recon and mode context back).
 
     src: (T, R*32, C*32) int32 on the device; ``t`` the plan inputs as
-    tensors (``convert.inputs_from_numpy`` of ``stack_tiles``). Returns
+    tensors (``plan_inputs.upload`` of ``slab_inputs``). Returns
     (split (T,R,C), m32 (AV1 mode), d32 (angle delta), lv32, eob32, m16,
     d16, lv16, eob16, recon (T, R*32, C*32))."""
     R, C = t["R"], t["C"]
@@ -440,7 +280,8 @@ def _wavefronts(srcs: list, t: dict):
     """Queue the luma wavefront and, with chroma planes, the chroma one
     over the T slabs of ``srcs`` ((y,) or (y, u, v), each (T, H, W)).
     Returns (named plan maps, recon planes (T, H, W) each, the maps
-    packed by ``_pack16``), views of the tensors the wavefronts write."""
+    packed by ``plan_inputs.pack16``), views of the tensors the
+    wavefronts write."""
     luma = _luma_wavefront_part(srcs[0], t)
     named = dict(zip(_LUMA_KEYS, luma[:9]))
     recons = [luma[9]]
@@ -450,28 +291,7 @@ def _wavefronts(srcs: list, t: dict):
                                         named["y_mode16"])
         named.update(zip(_CHROMA_KEYS, chroma[:6]))
         recons += [chroma[6][0], chroma[6][1]]
-    return named, recons, _pack16(named)
-
-
-def _pack16(named: dict) -> torch.Tensor:
-    """Every plan array as one flat int16 tensor: all values fit int16
-    (levels are clipped to +/-32767, the reference's ``_shrink_levels``
-    downcast)."""
-    return torch.cat([v.reshape(-1).to(torch.int16) for v in named.values()])
-
-
-def _fetch(named: dict, flat: torch.Tensor) -> dict:
-    """Every plan array to the host in ONE device->host copy of
-    ``flat``, ``_pack16(named)``."""
-    host = convert.to_host(flat)
-    out, off = {}, 0
-    for k, v in named.items():
-        n = v.numel()
-        out[k] = host[off:off + n].reshape(tuple(v.shape)).astype(np.int32)
-        off += n
-    if "split32" in out:
-        out["split32"] = out["split32"].astype(np.uint8)
-    return out
+    return named, recons, PI.pack16(named)
 
 
 # ----------------------------------------------------------------------
@@ -532,9 +352,9 @@ class PlanGraph:
     besides its inputs (``_diagonals_on``, ``_scan``, KB's programs, KA's
     table), so the second finds nothing left to upload. The second clones
     its inputs into the static tensors ``srcs`` and ``t``, captures both
-    wavefronts and ``_pack16`` over them as one CUDA graph and replays it;
-    every later plan copies its inputs into ``srcs`` and ``t`` and
-    replays. The plan maps, the scratch and each step's pick and
+    wavefronts and ``plan_inputs.pack16`` over them as one CUDA graph and
+    replays it; every later plan copies its inputs into ``srcs`` and ``t``
+    and replays. The plan maps, the scratch and each step's pick and
     prediction are allocated inside the capture, in the graph's memory
     pool, and zeroed by the graph on every replay; ``named``, ``recons``
     and ``flat`` view them and hold the latest replay's plan until the
@@ -620,9 +440,10 @@ def _plan_graph(srcs: list, t: dict) -> PlanGraph | None:
 def start_tiles_part(slabs: list, shared: dict, mi_rows: int,
                      device) -> dict:
     """First half of :func:`plan_tiles_part`: under ``device`` (the current
-    device while it runs), upload the stacked inputs of the T slabs
-    (``shared``: the frame's ``shared_inputs``, made once for every part)
-    and queue the luma and chroma wavefronts. It waits for nothing on the
+    device while it runs), upload the T slabs' planes and inputs
+    (``plan_inputs.slab_inputs`` of ``shared``, the frame's
+    ``plan_inputs.shared_inputs``) and queue the luma and chroma
+    wavefronts. It waits for nothing on the
     device: the inputs go up before the first kernel is queued, so the
     host can go on to another card while this one computes. Returns the
     plan's device tensors for :func:`fetch_tiles_part`.
@@ -642,15 +463,10 @@ def start_tiles_part(slabs: list, shared: dict, mi_rows: int,
     R, C = shared["R"], shared["C"]
     with on_device(device):
         with trace.span("plan.inputs", into="plan_inputs_s"):
-            t = stack_tiles(shared, [
-                tile_inputs(R, C, s["rd"], mi_rows, s["mi_cols_eff"],
-                            s.get("tile_mi_w"), s.get("vis_mi_w"))
-                for s in slabs])
-            t = convert.inputs_from_numpy(t, device)
-            srcs = [convert.to_device(np.stack([np.asarray(s[p], np.int32)
-                                                for s in slabs]), device)
-                    for p in (("y", "u", "v") if "u" in slabs[0]
-                              else ("y",))]
+            t = PI.upload(PI.slab_inputs(shared, slabs, mi_rows), device)
+            planes = ("y", "u", "v") if "u" in slabs[0] else ("y",)
+            srcs = PI.upload([np.stack([s[p] for s in slabs])
+                              for p in planes], device)
             # the walk's indices too go up before the first kernel is queued
             _diagonals_on(R, C, len(slabs), str(srcs[0].device))
             pg = _plan_graph(srcs, t)
@@ -676,7 +492,7 @@ def fetch_tiles_part(started: dict) -> list:
     ``recon_dev`` plane (a contiguous clone) alias none of the
     wavefronts' tensors, which a graph's next replay overwrites."""
     with trace.span("plan.fetch", into="plan_fetch_s"):
-        host = _fetch(started["named"], started["flat"])
+        host = PI.fetch(started["named"], started["flat"])
         own = torch.contiguous_format
         plans = [{"part": True, **{k: v[i] for k, v in host.items()},
                   "recon_dev": [r[i].clone(memory_format=own)
@@ -694,20 +510,12 @@ def plan_tiles_part(slabs: list, q: int, fc, mi_rows: int, device):
     int32 numpy planes of one shape, an ``rd`` lambda (scalar or (2R, 2C)
     grid), ``mi_cols_eff`` (the slab's effective mi width for the edge-cell
     masks) and ``tile_mi_w`` / ``vis_mi_w`` (None: ``mi_cols_eff``).
-    ``start_tiles_part`` is the only place that stacks the plan inputs of
-    the slabs. Returns T plan dicts (the reference's keys and dtypes;
-    ``recon_dev`` on ``device``) from one device->host copy:
-    :func:`start_tiles_part`, then :func:`fetch_tiles_part`."""
+    Returns T plan dicts (the reference's keys and dtypes; ``recon_dev``
+    on ``device``) from one device->host copy: the frame's
+    ``plan_inputs.shared_inputs``, :func:`start_tiles_part`, then
+    :func:`fetch_tiles_part`."""
     return fetch_tiles_part(start_tiles_part(
-        slabs, slab_shared_inputs(slabs, q, fc), mi_rows, device))
-
-
-def slab_shared_inputs(slabs: list, q: int, fc) -> dict:
-    """``shared_inputs`` of the slabs' (R, C) cell grid (a ``plan.inputs``
-    span)."""
-    with trace.span("plan.inputs", into="plan_inputs_s"):
-        h, w = np.shape(slabs[0]["y"])
-        return shared_inputs(h // 32, w // 32, q, fc)
+        slabs, PI.shared_inputs(slabs, q, fc), mi_rows, device))
 
 
 def plan_frame_part(src_planes, q, fc, rdmult, mi_rows, mi_cols,
@@ -722,7 +530,6 @@ def plan_frame_part(src_planes, q, fc, rdmult, mi_rows, mi_cols,
     dict consumed by the native part2 pack (the reference's keys and
     dtypes); ``recon_dev`` holds the recon planes as tensors on
     ``device``."""
-    from ..device import resolve_device
     dev = resolve_device(device)
     slab = {"rd": rdmult, "mi_cols_eff": mi_cols, "tile_mi_w": tile_mi_w,
             "vis_mi_w": vis_mi_w, **dict(zip("yuv", src_planes))}
@@ -804,22 +611,16 @@ def plan_frame(src_planes, q, bs, fc, rdmult, fetch_recon=False,
     dtypes) from one device->host copy; ``recon_dev`` holds the recon
     planes on ``device``. Spans and counts as the partition plan's
     (:func:`start_tiles_part`, :func:`fetch_tiles_part`)."""
-    from ..device import resolve_device
     dev = resolve_device(device)
     with trace.span("plan.inputs", into="plan_inputs_s"):
-        kf_cost, angle_cost, uv_cost = _plan_cost_tables(fc)
+        kf_cost, angle_cost, uv_cost = PI.plan_cost_tables(fc)
         y = src_planes[0]
         R, C = y.shape[0] // bs, y.shape[1] // bs
-        dc_q, ac_q = tables.dc_quant(q), tables.ac_quant(q)
-        rdgrid = np.asarray(rdmult, np.float32)
-        if rdgrid.ndim == 0:
-            rdgrid = np.full((R, C), float(rdmult), np.float32)
-        assert rdgrid.shape == (R, C), (rdgrid.shape, R, C)
-        rdgrid = convert.to_device(rdgrid, dev)
-        t = lambda a: convert.to_device(np.asarray(a, np.int32), dev)
-        ins = [t(a) for a in (y, kf_cost, angle_cost)]
+        dc_q, ac_q = PI.quantizers(q)
+        ins = [PI.lambda_grid(rdmult, R, C), y, kf_cost, angle_cost]
         if len(src_planes) > 1:
-            ins += [t(a) for a in (src_planes[1], src_planes[2], uv_cost)]
+            ins += [src_planes[1], src_planes[2], uv_cost]
+        rdgrid, *ins = PI.upload(ins, dev)
         _diagonals_on(R, C, 1, str(dev))
     n0 = launches_total()
     with trace.span("plan.submit", into="plan_submit_s"):
@@ -834,7 +635,7 @@ def plan_frame(src_planes, q, bs, fc, rdmult, fetch_recon=False,
             recon_dev += [uvrec[0].contiguous(), uvrec[1].contiguous()]
     trace.add("plan_launches", launches_total() - n0)
     with trace.span("plan.fetch", into="plan_fetch_s"):
-        plan = {"bs": bs, **_fetch(named, _pack16(named)),
+        plan = {"bs": bs, **PI.fetch(named, PI.pack16(named)),
                 "recon_dev": recon_dev}
     if fetch_recon:
         plan["recon"] = [convert.to_host(r) for r in recon_dev]

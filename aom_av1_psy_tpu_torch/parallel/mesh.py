@@ -32,11 +32,11 @@ import torch
 
 from ..ec.context import FrameContext
 from ..device import on_device, resolve_device
+from ..encoder import plan_inputs as PI
 from ..encoder import tpu_intra as TI
 from ..normative import tables
 from ..ops import analyze as A
 from ..ops.txfm import SQUARE_TX
-from ..utils import trace
 
 
 class Mesh:
@@ -177,7 +177,8 @@ def tile_plans_sharded(mesh: Mesh, slabs: list, q: int, mi_rows: int):
     unless the mesh has one device per slab).
 
     slabs: the per-tile dicts that ``tpu_intra.plan_tiles_part`` takes.
-    The host tables are made once; each card gets its slab and its
+    The frame's shared inputs are made once
+    (``plan_inputs.shared_inputs``); each card gets its slab and its
     wavefronts (``start_tiles_part``, with the card current); only then is
     each card's plan fetched, in one device->host copy per card. Returns
     T plan dicts (the reference's keys and dtypes; ``recon_dev`` on the
@@ -185,9 +186,7 @@ def tile_plans_sharded(mesh: Mesh, slabs: list, q: int, mi_rows: int):
     if len(mesh) != len(slabs):
         raise ValueError(f"a mesh of {len(mesh)} devices for {len(slabs)} "
                          "tile slabs")
-    with trace.span("plan.inputs", into="plan_inputs_s"):
-        fc = FrameContext(q)
-    shared = TI.slab_shared_inputs(slabs, q, fc)
+    shared = PI.shared_inputs(slabs, q, FrameContext(q))
     started = [TI.start_tiles_part([sl], shared, mi_rows, dev)
               for sl, dev in zip(slabs, mesh.devices)]
     return [TI.fetch_tiles_part(x)[0] for x in started]
@@ -200,6 +199,5 @@ def tile_plans_batched(slabs: list, q: int, mi_rows: int, device="cuda"):
     (planes, ``rd`` lambda grid, ``mi_cols_eff``, ``tile_mi_w``,
     ``vis_mi_w``). Returns a list of per-tile plan dicts (the reference's
     keys and dtypes; ``recon_dev`` on ``device``)."""
-    with trace.span("plan.inputs", into="plan_inputs_s"):
-        fc = FrameContext(q)
-    return TI.plan_tiles_part(slabs, q, fc, mi_rows, resolve_device(device))
+    return TI.plan_tiles_part(slabs, q, FrameContext(q), mi_rows,
+                              resolve_device(device))

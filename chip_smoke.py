@@ -581,6 +581,7 @@ def _step_sites(uniform=False):
     bs 8 and the chroma bs 4 pairs (2 x 135 blocks), no skip decision."""
     import numpy as np
     import torch
+    from aom_av1_psy_tpu_torch.encoder import plan_inputs as PI
     from aom_av1_psy_tpu_torch.encoder import tpu_intra as TI
     from aom_av1_psy_tpu_torch.encoder.tpu_frame import FrameContext, tables
     from aom_av1_psy_tpu_torch.ops import txq as TQ
@@ -613,7 +614,7 @@ def _step_sites(uniform=False):
     dc_q, ac_q = tables.dc_quant(100), tables.ac_quant(100)
     rt = TI._rate_tables(FrameContext(100))
     pr_none, pr_split = TI._part_rate_scalars(FrameContext(100))
-    forced, no_split = TI.edge_cell_masks(R, C, 270, 480)
+    forced, no_split = PI.edge_cell_masks(R, C, 270, 480)
 
     def lam(*shape):
         return rng.uniform(5e3, 6e4, shape).astype(np.float32)

@@ -22,6 +22,7 @@ import torch
 
 from aom_av1_psy_tpu_torch import convert
 from aom_av1_psy_tpu_torch.ec.context import FrameContext
+from aom_av1_psy_tpu_torch.encoder import plan_inputs as PI
 from aom_av1_psy_tpu_torch.encoder import tpu_intra as TTI
 from aom_av1_psy_tpu_torch.encoder.frame import EncoderConfig
 from aom_av1_psy_tpu_torch.encoder.tpu_frame import GpuFrameEncoder
@@ -235,16 +236,15 @@ def test_wavefront_loop_never_waits_for_the_device(dev):
     rng = np.random.default_rng(0)
     counts = []
     for R, C in ((2, 3), (5, 6)):
-        d = TTI.part_inputs(R, C, 100, FrameContext(100), 30000.0, 8 * R,
-                            8 * C)
         y = rng.integers(0, 256, (32 * R, 32 * C)).astype(np.int32)
         uv = [rng.integers(0, 256, (16 * R, 16 * C)).astype(np.int32)
               for _ in range(2)]
-
-        d = TTI.stack_tiles(d, [d])
+        slabs = [{"y": y, "rd": 30000.0, "mi_cols_eff": 8 * C}]
+        d = PI.slab_inputs(PI.shared_inputs(slabs, 100, FrameContext(100)),
+                           slabs, 8 * R)
 
         def run():
-            t = convert.inputs_from_numpy(d, dev)
+            t = PI.upload(d, dev)
             out = TTI._luma_wavefront_part(convert.plane(y, dev)[None], t)
             TTI._chroma_wavefront_part(convert.plane(uv[0], dev)[None],
                                        convert.plane(uv[1], dev)[None], t,

@@ -16,8 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from aom_av1_psy_tpu_torch import convert
 from aom_av1_psy_tpu_torch.ec.context import FrameContext
+from aom_av1_psy_tpu_torch.encoder import plan_inputs as PI
 from aom_av1_psy_tpu_torch.encoder import tpu_intra as TI
 from aom_av1_psy_tpu_torch.encoder.frame import EncoderConfig
 from aom_av1_psy_tpu_torch.encoder.tpu_frame import GpuFrameEncoder
@@ -29,12 +29,11 @@ from torch_threads import one_torch_thread  # noqa: F401
 def _inputs(w=128, h=64, q=110, tiles=1, chroma=True, rd=300.0, seed=7):
     """(srcs, t) of a plan as ``start_tiles_part`` makes them, on the
     CPU."""
-    R, C = h // 32, w // 32 // tiles
     rng = np.random.default_rng(seed)
-    shared = TI.shared_inputs(R, C, q, FrameContext(q))
-    one = TI.tile_inputs(R, C, rd, h // 4, w // 4 // tiles)
-    t = convert.inputs_from_numpy(TI.stack_tiles(shared, [one] * tiles),
-                                  "cpu")
+    slabs = [{"y": np.zeros((h, w // tiles), np.int32), "rd": rd,
+              "mi_cols_eff": w // 4 // tiles}] * tiles
+    t = PI.upload(PI.slab_inputs(PI.shared_inputs(slabs, q, FrameContext(q)),
+                                 slabs, h // 4), "cpu")
     shapes = [(tiles, h, w // tiles)]
     if chroma:
         shapes += [(tiles, h // 2, w // tiles // 2)] * 2
@@ -165,7 +164,7 @@ def test_fetch_returns_no_view_of_the_wavefronts():
                           EncoderConfig(base_q_idx=110, tile_cols_log2=1),
                           device="cpu")
     slabs = enc._tile_slabs()
-    shared = TI.slab_shared_inputs(slabs, 110, FrameContext(110))
+    shared = PI.shared_inputs(slabs, 110, FrameContext(110))
     with trace.frame() as rec:
         started = TI.start_tiles_part(slabs, shared, enc.mi_rows, "cpu")
         plans = TI.fetch_tiles_part(started)

@@ -10,7 +10,9 @@ per stage); every module of the reference has a same-named counterpart in
 the port (``ops/cdef_jax.py`` and ``ops/deblock_jax.py``: ``*_torch.py``),
 and every public top-level function or class of a reference module has
 one in its counterpart, of the same name or of the name the rename table
-gives with its reason; the port's test content
+gives with its reason; the inter plan takes no private name of the intra
+plan (their shared inputs live in ``encoder/plan_inputs.py``); the port's
+test content
 equals ``bench``'s; its own range coder build lives beside the reference's
 in one process; and ``convert`` carries the reference's objects into the
 port's classes.
@@ -301,6 +303,28 @@ def test_every_rename_names_a_reference_name(key):
     assert name in _public_defs(os.path.join(REPO, "aom_av1_psy_tpu",
                                              module))
     assert _NAME_RENAMES[key][2]
+
+
+def test_inter_plan_takes_no_private_name_of_the_intra_plan():
+    """``encoder/tpu_inter.py`` takes the plans' shared inputs and their
+    fetch from ``encoder/plan_inputs.py``: it imports no ``_``-prefixed
+    name from ``encoder/tpu_intra.py`` and reads none off that module."""
+    path = os.path.join(PORT, "encoder", "tpu_inter.py")
+    tree = ast.parse(open(path).read(), path)
+    aliases, bad = set(), []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom):
+            if (node.module or "").split(".")[-1] == "tpu_intra":
+                bad += [a.name for a in node.names if a.name.startswith("_")]
+            aliases |= {a.asname or a.name for a in node.names
+                        if a.name == "tpu_intra"}
+        elif isinstance(node, ast.Import):
+            aliases |= {a.asname for a in node.names
+                        if a.name.endswith(".tpu_intra") and a.asname}
+    bad += [n.attr for n in ast.walk(tree)
+            if isinstance(n, ast.Attribute) and isinstance(n.value, ast.Name)
+            and n.value.id in aliases and n.attr.startswith("_")]
+    assert not bad, f"tpu_inter takes {bad} from tpu_intra"
 
 
 @pytest.fixture(scope="module")

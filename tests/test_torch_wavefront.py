@@ -17,6 +17,7 @@ from aom_av1_psy_tpu.encoder.frame import EncoderConfig
 from aom_av1_psy_tpu.encoder.tpu_frame import TpuFrameEncoder
 from aom_av1_psy_tpu_torch import convert
 from aom_av1_psy_tpu_torch.ec.context import FrameContext as TFC
+from aom_av1_psy_tpu_torch.encoder import plan_inputs as PI
 from aom_av1_psy_tpu_torch.encoder import tpu_intra as TTI
 from aom_av1_psy_tpu_torch.encoder.tpu_frame import GpuFrameEncoder
 from test_tpu_encoder import make_frame
@@ -88,32 +89,58 @@ def test_plan_96x64_tune_psy_grid():
 
 def test_plan_176x144_q200_forced_edges(case_176x144):
     pj, pt, enc = case_176x144
-    d = TTI.part_inputs(enc.R // 2, enc.C // 2, 200, TFC(200),
-                        enc.rdmult, enc.mi_rows, enc.mi_cols)
-    assert d["forced"].any(), "edge cells must be decoder-forced splits"
-    assert pt["split32"][d["forced"]].all()
+    forced, _ = PI.edge_cell_masks(enc.R // 2, enc.C // 2, enc.mi_rows,
+                                   enc.mi_cols)
+    assert forced.any(), "edge cells must be decoder-forced splits"
+    assert pt["split32"][forced].all()
     assert_plans_equal(pj, pt)
 
 
-@pytest.mark.parametrize("q", [60, 200])
-def test_part_inputs_carried_over(q):
-    """The host tables the port carries over equal the reference's, and
-    convert.inputs_from_numpy moves them without change."""
+@pytest.mark.parametrize("q,rd", [pytest.param(60, 30000.0, id="60"),
+                                  pytest.param(200, 30000.0, id="200"),
+                                  pytest.param(110, "grid", id="110-grid")])
+def test_part_inputs_carried_over(q, rd):
+    """The host tables the port carries over equal the reference's, the
+    lambda grids are the reference's (a scalar, or a non-uniform 16-px
+    grid and its 32-px geometric mean), and plan_inputs.upload moves them
+    without change."""
     fc = FrameContext(q)
     R, C, mi_rows, mi_cols = 5, 6, 36, 44
-    d = TTI.part_inputs(R, C, q, convert.from_jax(fc), 30000.0, mi_rows,
-                        mi_cols)
+    if rd == "grid":
+        rd = np.random.default_rng(q).uniform(
+            2e4, 6e4, (2 * R, 2 * C)).astype(np.float32)
+    slab = {"y": np.zeros((32 * R, 32 * C), np.int32), "rd": rd,
+            "mi_cols_eff": mi_cols}
+    d = PI.slab_inputs(PI.shared_inputs([slab], q, convert.from_jax(fc)),
+                       [slab], mi_rows)
+    assert (d["R"], d["C"]) == (R, C)
     for got, want in zip((d["kf_cost"], d["angle_cost"], d["uv_cost"]),
                          JTI._plan_cost_tables2(fc)):
         np.testing.assert_array_equal(got, want)
+    for got, want in zip(PI.plan_cost_tables(convert.from_jax(fc)),
+                         JTI._plan_cost_tables(fc)):
+        assert got.dtype == np.int32
+        np.testing.assert_array_equal(got, want)
     for k, v in JDIR.position_masks(mi_rows, mi_cols, mi_cols, R,
                                     C).items():
-        np.testing.assert_array_equal(d["masks"][k], v, err_msg=k)
+        np.testing.assert_array_equal(d["masks"][k][0], v, err_msg=k)
     for k, (lvl, eob) in JTI._rate_tables(fc).items():
         np.testing.assert_array_equal(d["rt"][k][0], np.asarray(lvl))
         np.testing.assert_array_equal(d["rt"][k][1], np.asarray(eob))
     assert (d["pr_none"], d["pr_split"]) == JTI._part_rate_scalars(fc)
-    t = convert.inputs_from_numpy(d, "cpu")
+    # the lambdas as the reference's plan_frame_part makes them
+    rd16 = np.asarray(rd, np.float32)
+    if rd16.ndim == 0:
+        rd16 = np.full((2 * R, 2 * C), float(rd), np.float32)
+    rd32 = np.exp(np.log(rd16).reshape(R, 2, C, 2).mean((1, 3))) \
+        .astype(np.float32)
+    got16, got32 = PI.lambda_grids(rd, R, C)
+    assert got16.dtype == got32.dtype == np.float32
+    np.testing.assert_array_equal(got16, rd16)
+    np.testing.assert_array_equal(got32, rd32)
+    np.testing.assert_array_equal(d["rd16"], rd16[None])
+    np.testing.assert_array_equal(d["rd32"], rd32[None])
+    t = PI.upload(d, "cpu")
     for k in ("kf_cost", "rd16", "rd32", "forced", "no_split"):
         np.testing.assert_array_equal(t[k].numpy(), d[k], err_msg=k)
     np.testing.assert_array_equal(t["masks"]["trreal_16"].numpy(),

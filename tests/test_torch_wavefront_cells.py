@@ -4,7 +4,7 @@ and a 128x88 frame whose bottom cells must NOT split (a visited 16 would be
 partial). Tolerance: exact equality."""
 import pytest
 
-from aom_av1_psy_tpu_torch.ec.context import FrameContext
+from aom_av1_psy_tpu_torch.encoder import plan_inputs as PI
 from aom_av1_psy_tpu_torch.encoder import tpu_intra as TTI
 from test_torch_wavefront import assert_plans_equal, plans
 from torch_threads import one_torch_thread  # noqa: F401
@@ -17,10 +17,10 @@ def test_plan_128x128_q100_bs32():
 
 def test_plan_128x88_q80_no_split_edges():
     pj, pt, enc = plans(128, 88, 80, 6)
-    d = TTI.part_inputs(enc.R // 2, enc.C // 2, 80, FrameContext(80),
-                        enc.rdmult, enc.mi_rows, enc.mi_cols)
-    assert d["no_split"].any(), "bottom cells must be no-split cells"
-    assert not pt["split32"][d["no_split"]].any()
+    _, no_split = PI.edge_cell_masks(enc.R // 2, enc.C // 2, enc.mi_rows,
+                                     enc.mi_cols)
+    assert no_split.any(), "bottom cells must be no-split cells"
+    assert not pt["split32"][no_split].any()
     assert_plans_equal(pj, pt)
 
 
